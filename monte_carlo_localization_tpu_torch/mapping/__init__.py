@@ -1,0 +1,19 @@
+from monte_carlo_localization_tpu_torch.mapping.edt import (
+    clearance_field,
+    euclidean_distance_transform,
+)
+from monte_carlo_localization_tpu_torch.mapping.grid_map import (
+    GridMap,
+    load_map,
+    map_from_occupancy,
+    occupancy_from_image,
+)
+
+__all__ = [
+    "GridMap",
+    "load_map",
+    "map_from_occupancy",
+    "occupancy_from_image",
+    "clearance_field",
+    "euclidean_distance_transform",
+]
