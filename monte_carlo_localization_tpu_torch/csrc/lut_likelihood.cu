@@ -28,57 +28,22 @@
 // and a warp-shuffle sum. A block of 8 warps stages min(obs, m) and the
 // beam offsets in shared memory once.
 //
-// Numerics follow the TPU kernel in float32: the Abramowitz & Stegun
-// 7.1.26 erf (pallas_lut.py:62-74), IEEE division (build without
-// --use_fast_math), constants folded from double on the host. Only the
-// beam sum is wider: it accumulates in double (see below).
+// Numerics follow the TPU kernel in float32, through the beam model that
+// beam_model.cuh shares with mega_step.cu. Only the beam sum is wider: it
+// accumulates in double.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "beam_model.cuh"
+
 namespace {
 
-constexpr int kWarp = 32;
+using mcl::kWarp;
+using mcl::Params;
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = kWarp * kWarpsPerBlock;
-
-// Layout of the host float array ``consts`` (LUTQuery._consts in
-// ops/lut_query.py).
-struct Params {
-  float res, ox, oy, bin_scale, m;
-  float gauss_coef, inv2s2, short2, z_short, z_max, z_rand, z_hit;
-  float rand_term, sq2, inv_squash;
-};
-constexpr int kNumConsts = 15;
-
-__device__ __forceinline__ float erf_as(float x) {
-  const float sign = x < 0.0f ? -1.0f : 1.0f;
-  const float ax = fabsf(x);
-  const float t = 1.0f / (1.0f + 0.3275911f * ax);
-  const float poly =
-      t * (0.254829592f +
-           t * (-0.284496736f +
-                t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
-  return sign * (1.0f - poly * expf(-ax * ax));
-}
-
-// pallas_lut.py beam_model (:400-418) for one beam; obs is already clipped.
-__device__ __forceinline__ float beam_logp(float d, float obs,
-                                           const Params& p) {
-  d = fminf(d, p.m);
-  const float z = obs - d;
-  float prob = p.gauss_coef * expf(-(z * z) * p.inv2s2);
-  if (obs < d) prob += p.short2 * (d - obs) / fmaxf(d, 1.0f);
-  if (obs >= p.m) prob += p.z_max;
-  if (obs < p.m) prob += p.rand_term;
-  const float gauss_sum = 0.5f * (erf_as((p.m - d + 0.5f) / p.sq2) -
-                                  erf_as((-d - 0.5f) / p.sq2));
-  const float norm = p.z_hit * gauss_sum +
-                     (d > 0.0f ? p.z_short * (d + 1.0f) : 0.0f) + p.z_max +
-                     p.z_rand;
-  return logf(fmaxf(prob, 1e-35f)) - logf(norm);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -119,18 +84,8 @@ __global__ void __launch_bounds__(kThreads)
   if (b0 < 0) b0 += t_bins;
   const T* window = lut + row * row_stride + b0;
 
-  // the beam sum accumulates in double: the float32 result is then the
-  // rounded sum of the float32 terms whatever the summation order, so
-  // the kernel and its plain version agree to ~1 ulp at 1080 beams
-  double acc = 0.0;
-  for (int j = lane; j < r; j += kWarp) {
-    acc += beam_logp(static_cast<float>(window[s_off[j]]), s_obs[j], p);
-  }
-#pragma unroll
-  for (int off = kWarp / 2; off > 0; off >>= 1) {
-    acc += __shfl_down_sync(0xffffffffu, acc, off);
-  }
-  if (lane == 0) out[i] = p.inv_squash * static_cast<float>(acc);
+  const float logw = mcl::warp_window_logp(window, s_obs, s_off, r, lane, p);
+  if (lane == 0) out[i] = logw;
 }
 
 template <typename T>
@@ -139,11 +94,7 @@ int launch(const T* lut, int64_t row_stride, const int32_t* row_map,
            const int32_t* offsets, int r, int base, int t_bins, int height,
            int width, const float* consts, float* out, void* stream) {
   if (n <= 0) return 0;
-  Params p;
-  static_assert(sizeof(Params) == kNumConsts * sizeof(float),
-                "Params must be kNumConsts packed floats");
-  float* fields = reinterpret_cast<float*>(&p);
-  for (int c = 0; c < kNumConsts; ++c) fields[c] = consts[c];
+  const Params p = mcl::params_from(consts);
   const int64_t blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
   const size_t smem = static_cast<size_t>(r) * (sizeof(float) + sizeof(int32_t));
   lut_loglik_kernel<T><<<static_cast<unsigned>(blocks), kThreads, smem,

@@ -5,6 +5,7 @@ from monte_carlo_localization_tpu_torch.filter.core import (
     expected_pose,
     mcl_step,
 )
+from monte_carlo_localization_tpu_torch.filter.mega import MegaStepper, mega_supported
 from monte_carlo_localization_tpu_torch.filter.init import (
     initialize_global,
     initialize_pose,
@@ -16,6 +17,8 @@ __all__ = [
     "build_lut_likelihood",
     "expected_pose",
     "mcl_step",
+    "MegaStepper",
+    "mega_supported",
     "initialize_global",
     "initialize_pose",
 ]

@@ -32,6 +32,7 @@ from monte_carlo_localization_tpu_torch.ops.lut_query import (
     suggest_theta_bins,
 )
 from monte_carlo_localization_tpu_torch.ops.resample import resample_indices
+from monte_carlo_localization_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
 @dataclass(frozen=True)
@@ -59,10 +60,12 @@ class MCLState:
 
     @classmethod
     def from_numpy(
-        cls, particles, log_weights, seed: int, device: torch.device | str = "cpu"
+        cls, particles, log_weights, seed: int,
+        device: torch.device | str = DEFAULT_DEVICE,
     ) -> "MCLState":
         """A state from host arrays (e.g. the JAX filter's particles and
         log weights) with a fresh generator seeded by ``seed``."""
+        device = resolve_device(device)
         gen = torch.Generator(device=device)
         gen.manual_seed(int(seed))
         return cls(
@@ -139,13 +142,34 @@ def _reject_unported(cfg: MCLConfig) -> None:
         "pallas_subbin (kernel K3)": cfg.pallas_subbin,
         "pallas_dedup_slots (kernels K4/K5)": cfg.pallas_dedup_slots > 0,
         "pallas_dedup_matmul (kernel K5)": cfg.pallas_dedup_matmul,
-        "pallas_mega (kernel K6)": cfg.pallas_mega,
     }
     on = [name for name, set_ in unported.items() if set_]
     if on:
         raise NotImplementedError(
             f"{', '.join(on)} not ported to PyTorch yet; see ROADMAP.md"
         )
+
+
+def lut_query_kwargs(grid_map: GridMap, cfg: MCLConfig) -> dict:
+    """The map and beam-model arguments of :class:`LUTQuery` (and of
+    ``MegaStep``) for a map with its kernel LUT attached."""
+    return dict(
+        height=grid_map.height,
+        width=grid_map.width,
+        resolution=grid_map.resolution,
+        origin_x=grid_map.origin_x,
+        origin_y=grid_map.origin_y,
+        max_range_px=grid_map.max_range_px,
+        row_stride=grid_map.row_stride,
+        z_hit=cfg.z_hit,
+        z_short=cfg.z_short,
+        z_max=cfg.z_max,
+        z_rand=cfg.z_rand,
+        sigma_hit=cfg.sigma_hit,
+        inv_squash=cfg.inv_squash_factor,
+        lut_dtype=lut_dtype(grid_map.max_range_px),
+        device=grid_map.device,
+    )
 
 
 def build_lut_likelihood(
@@ -160,31 +184,17 @@ def build_lut_likelihood(
     t = suggest_theta_bins(beams)
     stride = required_row_stride(t, beams, itemsize=dtype.itemsize)
     grid_map = grid_map.with_kernel_lut(t, stride, dtype.itemsize)
-    query = LUTQuery(
-        grid_map.lut_theta_bins,
-        beams,
-        height=grid_map.height,
-        width=grid_map.width,
-        resolution=grid_map.resolution,
-        origin_x=grid_map.origin_x,
-        origin_y=grid_map.origin_y,
-        max_range_px=grid_map.max_range_px,
-        row_stride=grid_map.row_stride,
-        z_hit=cfg.z_hit,
-        z_short=cfg.z_short,
-        z_max=cfg.z_max,
-        z_rand=cfg.z_rand,
-        sigma_hit=cfg.sigma_hit,
-        inv_squash=cfg.inv_squash_factor,
-        lut_dtype=dtype,
-        device=grid_map.device,
-    )
+    query = LUTQuery(grid_map.lut_theta_bins, beams, **lut_query_kwargs(grid_map, cfg))
     return grid_map, query
 
 
 class ParticleFilter:
     """Single-filter facade: owns the map, config, sensor model and the
     fused likelihood. Everything lives on ``device`` (default: the map's).
+
+    With ``config.pallas_mega`` (dense-LUT maps only) ``step_many`` runs
+    each correction as one launch of the mega step (``filter/mega.py``);
+    ``step`` stays the classic correction.
     """
 
     def __init__(
@@ -219,6 +229,7 @@ class ParticleFilter:
         )
         self.beam_angles: torch.Tensor | None = None
         self.likelihood: LUTQuery | None = None
+        self.mega = None  # a MegaStepper once beams are set, with pallas_mega
         if beam_angles is not None:
             self.set_beam_angles(beam_angles)
 
@@ -229,6 +240,21 @@ class ParticleFilter:
         self.grid_map, self.likelihood = build_lut_likelihood(
             self.grid_map, beams, self.config
         )
+        if self.config.pallas_mega:
+            from monte_carlo_localization_tpu_torch.filter.mega import (
+                MegaStepper,
+                mega_supported,
+            )
+
+            if not mega_supported(self.grid_map, self.config):
+                raise ValueError(
+                    "pallas_mega needs a dense-LUT single map on the "
+                    "analytic/systematic path (the compact LUT's row_map "
+                    "gather cannot live in-kernel — see ops/pallas_mega.py)"
+                )
+            self.mega = MegaStepper(
+                self.grid_map, beams, self.config, self.config.max_particles, self.sensor
+            )
         self.beam_angles = torch.as_tensor(beams, device=self.device)
 
     def _generator(self, seed: int | None) -> torch.Generator:
@@ -291,7 +317,8 @@ class ParticleFilter:
     ) -> tuple[MCLState, torch.Tensor]:
         """K sequential corrections with no host synchronization between
         them: ``actions`` (K, 3), ``observed_m`` (K, R). Optional draws:
-        ``u0`` (K,) and ``noise`` (K, N, 3). Returns (state, poses (K, 3))."""
+        ``u0`` (K,) and ``noise`` (K, N, 3). Returns (state, poses (K, 3)).
+        With ``pallas_mega`` each correction is one mega-step launch."""
         self._require_beams()
         actions = torch.as_tensor(actions, dtype=torch.float32, device=self.device)
         obs_px = self._obs_px(observed_m)
@@ -308,6 +335,8 @@ class ParticleFilter:
                 raise ValueError(
                     f"noise shape {tuple(noise.shape)} != ({k}, {state.num_particles}, 3)"
                 )
+        if self.mega is not None:
+            return self.mega.step_many(state, actions, observed_m, u0=u0, noise=noise)
         poses = []
         for i in range(k):
             state, pose = self._step(

@@ -9,6 +9,7 @@ import math
 import torch
 
 from monte_carlo_localization_tpu_torch.mapping.grid_map import GridMap
+from monte_carlo_localization_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from monte_carlo_localization_tpu_torch.utils.geometry import normalize_angle
 
 
@@ -40,9 +41,10 @@ def initialize_pose(
     sigma_xy: float = 0.5,
     sigma_theta: float = 0.4,
     dtype=torch.float32,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = DEFAULT_DEVICE,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Gaussian cloud around a seed pose. Returns (particles, log_weights)."""
+    device = resolve_device(device)
     pose = torch.as_tensor(pose, dtype=dtype, device=device)
     noise = torch.randn(
         (num_particles, 3), generator=generator, dtype=dtype, device=device

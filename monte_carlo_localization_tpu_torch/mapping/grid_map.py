@@ -6,8 +6,8 @@ Semantics kept from the reference ROS map_server path: occupancy values
 initialization) is ``occupancy == 0``; rays stop at ``occupancy > 50``;
 the origin yaw is stored but ignored by grid <-> world transforms.
 
-A :class:`GridMap` holds its arrays as tensors on one device, chosen
-explicitly by the ``device`` argument of its constructors. Map and LUT
+A :class:`GridMap` holds its arrays as tensors on one device, chosen by
+the ``device`` argument of its constructors (default: the card). Map and LUT
 preprocessing runs on the host (numpy, native C++) and is uploaded once.
 """
 
@@ -24,6 +24,7 @@ import torch
 import yaml
 
 from monte_carlo_localization_tpu_torch.mapping.edt import clearance_field
+from monte_carlo_localization_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 OCC_FREE = 0
 OCC_OCCUPIED = 100
@@ -120,12 +121,13 @@ class GridMap:
         lut_row_map: np.ndarray | None = None,
         lut_theta_bins: int = 0,
         lut_row_stride: int = 0,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = DEFAULT_DEVICE,
     ) -> "GridMap":
         """A map from host arrays, e.g. the JAX package's ``GridMap``
         fields converted with ``np.asarray``, so both packages can run on
         one LUT buffer. ``range_lut`` is flattened to the (rows *
         row_stride,) layout."""
+        device = resolve_device(device)
         occupancy = np.asarray(occupancy, np.int8)
         if range_lut is not None:
             range_lut = np.asarray(range_lut).reshape(-1)
@@ -279,9 +281,10 @@ def map_from_occupancy(
     origin: tuple[float, float, float] = (0.0, 0.0, 0.0),
     max_range_meters: float = 12.0,
     name: str = "",
-    device: torch.device | str = "cpu",
+    device: torch.device | str = DEFAULT_DEVICE,
 ) -> GridMap:
     """A GridMap on ``device`` from a raw int8 occupancy array."""
+    device = resolve_device(device)
     occupancy = np.asarray(occupancy, dtype=np.int8)
     max_range_px = int(max_range_meters / resolution)
     clearance = clearance_field(occupancy > OCC_THRESHOLD, max_range_px)
@@ -315,10 +318,11 @@ def _read_image(path: Path) -> np.ndarray:
 def load_map(
     yaml_path: str | Path,
     max_range_meters: float = 12.0,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = DEFAULT_DEVICE,
 ) -> GridMap:
     """Load a ROS-style map YAML + image pair (image, resolution, origin
     [x, y, yaw], negate, occupied_thresh, free_thresh) onto ``device``."""
+    device = resolve_device(device)
     yaml_path = Path(yaml_path)
     with open(yaml_path) as f:
         meta: dict[str, Any] = yaml.safe_load(f)

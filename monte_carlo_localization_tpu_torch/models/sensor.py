@@ -15,6 +15,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from monte_carlo_localization_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+
 _LOG_TINY = 1e-35  # guards log(0) for impossible table entries
 
 
@@ -72,8 +74,9 @@ class SensorModel:
         z_rand: float = 0.12,
         sigma_hit: float = 8.0,
         squash_factor: float = 2.2,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = DEFAULT_DEVICE,
     ) -> "SensorModel":
+        device = resolve_device(device)
         table = build_sensor_table(max_range_px, z_hit, z_short, z_max, z_rand, sigma_hit)
         return cls(
             log_table=torch.from_numpy(np.log(np.maximum(table, _LOG_TINY))).to(device),

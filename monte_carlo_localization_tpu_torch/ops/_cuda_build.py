@@ -1,13 +1,15 @@
-"""Build and load the port's CUDA kernels: nvcc into a shared library with
+"""Build and load the port's CUDA kernels: nvcc into shared libraries with
 a plain C interface, loaded with ctypes.
 
-``csrc/lut_likelihood.cu`` is compiled for Hopper (``sm_90a``) at first
-use into this package's ``_build/`` directory, keyed by a hash of the
-source and the flags, so a checkout builds it once (a few seconds; a
-build against PyTorch's headers would take minutes). No
-``--use_fast_math``: the kernel's parity with its plain PyTorch version
-relies on IEEE division, ``expf`` and ``logf``. Nothing here runs at
-import time; a machine without nvcc fails only when a kernel is launched.
+Every ``csrc/*.cu`` is compiled for Hopper (``sm_90a``) at first use into
+its own ``.so`` in this package's ``_build/`` directory, one nvcc process
+per source, all started together. The libraries are keyed by one hash of
+every source, every ``csrc/*.cuh`` header and the flags, so a checkout
+builds them once (seconds; a build against PyTorch's headers would take
+minutes). No ``--use_fast_math``: the kernels' parity with their plain
+PyTorch versions relies on IEEE division, ``expf`` and ``logf``. Nothing
+here runs at import time; a machine without nvcc fails only when a kernel
+is launched.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from dataclasses import dataclass
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
-LUT_LIKELIHOOD_SRC = _PKG / "csrc" / "lut_likelihood.cu"
+CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -33,12 +35,16 @@ NVCC_FLAGS = (
 
 @dataclass(frozen=True)
 class BuiltLibrary:
-    """A loaded kernel library and how it was obtained."""
+    """The loaded kernel libraries, by source stem, and how they were
+    obtained."""
 
-    lib: ctypes.CDLL
-    path: Path
-    seconds: float  # nvcc wall time; 0.0 when the .so was already built
-    log: str  # nvcc/ptxas output (registers, shared memory, spills)
+    libs: dict[str, ctypes.CDLL]
+    paths: dict[str, Path]
+    seconds: float  # wall time of the parallel nvcc runs; 0.0 when built
+    log: str  # nvcc/ptxas output per source (registers, shared memory, spills)
+
+    def error_string(self, code: int) -> str:
+        return self.libs["lut_likelihood"].mcl_cuda_error_string(code).decode()
 
 
 _LOCK = threading.Lock()
@@ -63,53 +69,84 @@ def nvcc_path() -> str:
     )
 
 
-def _compile(src: Path, so_path: Path) -> str:
-    tmp = so_path.with_suffix(f".{os.getpid()}-{os.urandom(4).hex()}.so.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+def _compile_all(jobs: list[tuple[Path, Path]]) -> str:
+    """Compile each (source, .so) pair with its own nvcc, all at once.
+    Returns the compilers' output, one section per source."""
+    nvcc = nvcc_path()
+    running = []
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) on {src.name}:\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, so_path)
+        for src, so_path in jobs:
+            tmp = so_path.with_suffix(f".{os.getpid()}-{os.urandom(4).hex()}.so.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            running.append((src, so_path, tmp, proc))
+        logs = []
+        for src, so_path, tmp, proc in running:
+            out, _ = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}) on {src.name}:\n{out}")
+            os.replace(tmp, so_path)
+            logs.append(f"== {src.name}\n{out}")
+        return "".join(logs)
     finally:
-        tmp.unlink(missing_ok=True)
-    return proc.stdout + proc.stderr
+        for _, _, tmp, proc in running:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            tmp.unlink(missing_ok=True)
 
 
-def _bind(lib: ctypes.CDLL) -> None:
+def _bind(libs: dict[str, ctypes.CDLL]) -> None:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lut = libs["lut_likelihood"]
     for name in ("mcl_lut_loglik_u8", "mcl_lut_loglik_u16"):
-        fn = getattr(lib, name)
+        fn = getattr(lut, name)
         fn.restype = i32
         # lut, row_stride, row_map, particles, n, obs_px, offsets, r, base,
         # t_bins, height, width, consts, out, stream
         fn.argtypes = [p, i64, p, p, i64, p, p, i32, i32, i32, i32, i32, p, p, p]
-    lib.mcl_cuda_error_string.restype = ctypes.c_char_p
-    lib.mcl_cuda_error_string.argtypes = [i32]
+    lut.mcl_cuda_error_string.restype = ctypes.c_char_p
+    lut.mcl_cuda_error_string.argtypes = [i32]
+
+    mega = libs["mega_step"]
+    for name in ("mcl_mega_step_u8", "mcl_mega_step_u16"):
+        fn = getattr(mega, name)
+        fn.restype = i32
+        # lut, row_stride, particles, log_weights, noise, n, obs, offsets,
+        # r, base, t_bins, height, width, consts, scalars, out_particles,
+        # out_log_weights, out_sums, workspace, grid, phases, stream
+        fn.argtypes = [p, i64, p, p, p, i64, p, p, i32, i32, i32, i32, i32,
+                       p, p, p, p, p, p, i32, i32, p]
+    for name in ("mcl_mega_grid_size_u8", "mcl_mega_grid_size_u16"):
+        fn = getattr(mega, name)
+        fn.restype = i32
+        fn.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
+    mega.mcl_mega_workspace_bytes.restype = i64
+    mega.mcl_mega_workspace_bytes.argtypes = [i64, i32]
 
 
 def load_library() -> BuiltLibrary:
-    """The kernel library, built from the checkout's source if needed.
-    Raises when nvcc is missing or the build fails."""
+    """The kernel libraries, built from the checkout's sources if needed.
+    Raises when nvcc is missing or a build fails."""
     global _LOADED
     with _LOCK:
         if _LOADED is not None:
             return _LOADED
-        src = LUT_LIKELIHOOD_SRC
-        tag = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
+        sources = sorted(CSRC.glob("*.cu"))
+        hashed = sources + sorted(CSRC.glob("*.cuh"))
+        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for f in hashed:
+            digest.update(f.name.encode() + b"\0" + f.read_bytes())
+        tag = digest.hexdigest()[:16]
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        so_path = _BUILD_DIR / f"lut_likelihood_{tag}.so"
+        paths = {src.stem: _BUILD_DIR / f"{src.stem}_{tag}.so" for src in sources}
+        jobs = [(src, paths[src.stem]) for src in sources if not paths[src.stem].exists()]
         seconds, log = 0.0, ""
-        if not so_path.exists():
+        if jobs:
             t0 = time.perf_counter()
-            log = _compile(src, so_path)
+            log = _compile_all(jobs)
             seconds = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(so_path))
-        _bind(lib)
-        _LOADED = BuiltLibrary(lib, so_path, seconds, log)
+        libs = {stem: ctypes.CDLL(str(path)) for stem, path in paths.items()}
+        _bind(libs)
+        _LOADED = BuiltLibrary(libs, paths, seconds, log)
         return _LOADED

@@ -22,6 +22,8 @@ import math
 import numpy as np
 import torch
 
+from monte_carlo_localization_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+
 LANE = 128
 SUB = 512  # bytes of one TPU DMA subrow; fixes the LUT's row padding
 LOG_TINY = 1e-35
@@ -140,7 +142,7 @@ class LUTQuery:
         sigma_hit: float,
         inv_squash: float,
         lut_dtype=np.uint8,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = DEFAULT_DEVICE,
     ):
         beam_angles = np.asarray(beam_angles)
         r = len(beam_angles)
@@ -163,7 +165,7 @@ class LUTQuery:
             raise ValueError(
                 f"row_stride must be a multiple of {entries_per_subrow(itemsize)}"
             )
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.num_beams = r
         self.t_bins = int(t_bins)
         self.base = int(base)
@@ -239,10 +241,8 @@ class LUTQuery:
             raise ValueError("dense LUT has fewer rows than the map has cells")
 
         built = load_library()
-        fn = (
-            built.lib.mcl_lut_loglik_u8 if want_dtype == torch.uint8
-            else built.lib.mcl_lut_loglik_u16
-        )
+        lib = built.libs["lut_likelihood"]
+        fn = lib.mcl_lut_loglik_u8 if want_dtype == torch.uint8 else lib.mcl_lut_loglik_u16
         n = particles.shape[0]
         out = torch.empty(n, dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
@@ -256,8 +256,9 @@ class LUTQuery:
                 ctypes.addressof(self._consts), out.data_ptr(), stream,
             )
         if err != 0:
-            msg = built.lib.mcl_cuda_error_string(err).decode()
-            raise RuntimeError(f"lut_likelihood launch failed: CUDA error {err} ({msg})")
+            raise RuntimeError(
+                f"lut_likelihood launch failed: CUDA error {err} ({built.error_string(err)})"
+            )
         self.launch_count += 1
         return out
 

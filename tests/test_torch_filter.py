@@ -49,7 +49,7 @@ def small_map():
     occ = np.asarray(
         random_obstacle_world(height=72, width=96, num_obstacles=4, seed=5).occupancy
     )
-    return map_from_occupancy(occ, resolution=0.05, origin=(-1.0, 0.5, 0.0))
+    return map_from_occupancy(occ, resolution=0.05, origin=(-1.0, 0.5, 0.0), device="cpu")
 
 
 def _carry_map(jm) -> GridMap:
@@ -62,6 +62,7 @@ def _carry_map(jm) -> GridMap:
         range_lut=np.asarray(jm.range_lut),
         lut_row_map=None if jm.lut_row_map is None else np.asarray(jm.lut_row_map),
         lut_theta_bins=jm.lut_theta_bins, lut_row_stride=jm.lut_row_stride,
+        device="cpu",
     )
 
 
@@ -79,7 +80,8 @@ def test_slice_matches_jax_filter_on_its_draws(clutter_map, beams60, make_scan):
     truth = np.array([10.0, 10.0, 0.5], np.float32)
     rng = np.random.default_rng(0)
     js = jpf.init_pose(truth + np.float32([0.1, -0.1, 0.05]), seed=1)
-    ts = MCLState.from_numpy(np.asarray(js.particles), np.asarray(js.log_weights), seed=0)
+    ts = MCLState.from_numpy(np.asarray(js.particles), np.asarray(js.log_weights), seed=0,
+                             device="cpu")
     for i in range(steps):
         action = np.float32([0.05, 0.0, 0.02]) * (i + 1)
         scan = make_scan(clutter_map, truth, beams60) + rng.normal(0, 0.02, 60).astype(np.float32)
@@ -121,8 +123,8 @@ def test_unported_options_raise(small_map, method):
     gm = small_map
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ParticleFilter(gm, MCLConfig(raycast_method=method))
-    with pytest.raises(NotImplementedError, match="K6"):
-        ParticleFilter(gm, MCLConfig(pallas_mega=True))
+    with pytest.raises(NotImplementedError, match="K3"):
+        ParticleFilter(gm, MCLConfig(pallas_subbin=True))
 
 
 def test_init_global_samples_free_space(small_map):
@@ -144,7 +146,7 @@ def test_replay_chained_tracks_config1_trace(tmp_path):
     short["scan_t"], short["scan_ranges"] = short["scan_t"][keep], short["scan_ranges"][keep]
     path = tmp_path / "short.npz"
     np.savez(path, **short)
-    pf = ParticleFilter(load_map(REPO / "maps" / "map_1753950572.yaml"),
+    pf = ParticleFilter(load_map(REPO / "maps" / "map_1753950572.yaml", device="cpu"),
                         MCLConfig(max_particles=300, angle_step=18))
     res = replay_chained(pf, path, chunk=16)
     assert res.corrections == 48 and res.poses.shape == (48, 3)
@@ -157,7 +159,9 @@ def test_package_imports_without_jax():
     code = (
         "import sys, monte_carlo_localization_tpu_torch as m\n"
         "import monte_carlo_localization_tpu_torch.runtime, "
-        "monte_carlo_localization_tpu_torch.ops._cuda_build\n"
+        "monte_carlo_localization_tpu_torch.ops._cuda_build, "
+        "monte_carlo_localization_tpu_torch.ops.mega_step, "
+        "monte_carlo_localization_tpu_torch.filter.mega\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k.startswith('monte_carlo_localization_tpu.')"
         " or k == 'monte_carlo_localization_tpu')\n"

@@ -67,7 +67,7 @@ def _queries(beams, n, max_range_px):
         inv_squash=INV_SQUASH, lut_dtype=dtype,
     )
     jq, _ = jlut.build_lut_query_fn(t, beams, n, block=8, interpret=True, **kw)
-    tq = tlut.LUTQuery(t, beams, **kw)
+    tq = tlut.LUTQuery(t, beams, **kw, device="cpu")
     return jq, tq, t, stride
 
 
@@ -124,6 +124,7 @@ def test_unsupported_geometry_raises():
         height=H, width=W, resolution=RES, origin_x=OX, origin_y=OY,
         max_range_px=120, row_stride=4096, z_hit=Z_HIT, z_short=Z_SHORT,
         z_max=Z_MAX, z_rand=Z_RAND, sigma_hit=SIGMA, inv_squash=INV_SQUASH,
+        device="cpu",
     )
     repeated = np.concatenate([BEAMS_60[:11], BEAMS_60[10:]])  # beam 10 twice
     with pytest.raises(ValueError, match="one LUT entry"):

@@ -39,12 +39,12 @@ def _maps(max_range_meters, resolution=0.05):
     )
     kw = dict(resolution=resolution, origin=(-1.25, 0.5, 0.0),
               max_range_meters=max_range_meters)
-    return j_map_from_occupancy(occ, **kw), map_from_occupancy(occ, **kw)
+    return j_map_from_occupancy(occ, **kw), map_from_occupancy(occ, **kw, device="cpu")
 
 
 def test_load_map_matches():
     path = REPO / "maps" / "map_1753950572.yaml"
-    jm, tm = j_load_map(path), load_map(path)
+    jm, tm = j_load_map(path), load_map(path, device="cpu")
     assert tm.device == torch.device("cpu")
     for name in ("occupancy", "occupied", "permissible", "clearance", "free_cells"):
         np.testing.assert_array_equal(getattr(tm, name).numpy(), np.asarray(getattr(jm, name)))
@@ -107,7 +107,7 @@ def test_from_numpy_carries_the_jax_map():
         origin_x=float(jm.origin_x), origin_y=float(jm.origin_y),
         resolution=jm.resolution, max_range_px=jm.max_range_px,
         range_lut=np.asarray(jm.range_lut), lut_theta_bins=jm.lut_theta_bins,
-        lut_row_stride=jm.lut_row_stride,
+        lut_row_stride=jm.lut_row_stride, device="cpu",
     )
     assert tm.with_range_lut(90, row_stride=1024) is tm  # attached LUT reused
     np.testing.assert_array_equal(tm.permissible.numpy(), np.asarray(jm.permissible))
@@ -117,5 +117,5 @@ def test_from_numpy_carries_the_jax_map():
             num_free=1, clearance=np.asarray(jm.clearance), origin_x=0.0,
             origin_y=0.0, resolution=0.05, max_range_px=18,
             range_lut=np.zeros(1000, np.uint8), lut_theta_bins=90,
-            lut_row_stride=1024,
+            lut_row_stride=1024, device="cpu",
         )

@@ -48,7 +48,7 @@ def test_to_pixel_index_matches_exactly():
     ranges[:6] = [np.nan, np.inf, -np.inf, 0.0, 0.025, 12.0 + 0.025]
     ranges[6:10] = (np.arange(4) + 0.5) * 0.05  # exact half pixels
     want = np.asarray(JSensorModel.create(**SENSOR_KW).to_pixel_index(jnp.asarray(ranges)))
-    got = SensorModel.create(**SENSOR_KW).to_pixel_index(torch.from_numpy(ranges))
+    got = SensorModel.create(**SENSOR_KW, device="cpu").to_pixel_index(torch.from_numpy(ranges))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
 
@@ -57,7 +57,7 @@ def test_log_prob_analytic_and_table_match():
     rng = np.random.default_rng(1)
     r = rng.integers(0, 241, (64, 60)).astype(np.float32)
     d = rng.integers(0, 241, (64, 60)).astype(np.float32)
-    js, ts = JSensorModel.create(**SENSOR_KW), SensorModel.create(**SENSOR_KW)
+    js, ts = JSensorModel.create(**SENSOR_KW), SensorModel.create(**SENSOR_KW, device="cpu")
     want = np.asarray(js.log_prob_analytic(jnp.asarray(r), jnp.asarray(d)))
     got = ts.log_prob_analytic(torch.from_numpy(r), torch.from_numpy(d)).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
