@@ -6,14 +6,19 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``csrc/`` (one nvcc per source,
-in parallel), holds each against its plain PyTorch version on the card,
-replays the config #1 golden trace through ``ParticleFilter`` on the
-classic step and on the mega step (``pallas_mega``), drives the mega step
-at 4000 x 1080 on the same map, and drives the 4000-particle x 1080-beam
-Spielberg headline shape. Each phase prints one JSON line with its own
-seconds; any failure raises and exits non-zero. The last two lines are
-the kernel report and ``{"ok": true, "device": {...}}``. It imports
-nothing of JAX and needs no network.
+in parallel), holds each against its plain PyTorch version on the card
+(the LUT likelihood with and without the sub-bin lerp, the unique-window
+kernel at 100k particles, the mega step), replays the config #1 golden
+trace through ``ParticleFilter`` on the classic step and on the mega step
+(``pallas_mega``), drives the mega step at 4000 x 1080 on the same map,
+replays the config #4 golden trace on basement_fixed (compact LUT, built
+here) with and without ``pallas_subbin``, runs config #4 global
+localization at 100k particles with and without the unique-window kernel
+(``pallas_dedup_slots``, once with ``pallas_dedup_matmul``), and drives
+the 4000-particle x 1080-beam Spielberg headline shape. Each phase prints
+one JSON line with its own seconds; any failure raises and exits
+non-zero. The last two lines are the kernel report and ``{"ok": true,
+"device": {...}}``. It imports nothing of JAX and needs no network.
 
 Kernel times are device times from ``torch.profiler`` (``device_ms``);
 ``wrapper_ms`` times back-to-back Python calls of a wrapper with CUDA
@@ -35,7 +40,24 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 KERNEL_TOL = 1e-3  # float32, same expressions; FMA contraction and sum order differ
 CONFIG1_RMSE_MAX = 0.075  # m, ~1.5x the 0.0486 m the JAX engine records (BENCHES.md)
+# The config #4 trace ends in a long corridor where the filter slides
+# along the axis by chance: one replay's xy RMSE moves with the seed
+# (0.069-0.185 m over 5 seeds on the H100, 4000 particles). So the gate
+# holds the median of five replay seeds at 1.5x the 0.0740 m the JAX
+# engine records for one run (BENCHES.md); the exact-DDA CPU reference
+# harness scores 0.1164 m on this trace.
+CONFIG4_RMSE_MAX = 0.111  # m
+CONFIG4_JAX_RMSE = 0.0740  # m, TPU v5e, one seed (BENCHES.md)
+CONFIG4_SEEDS = (0, 1, 2, 3, 4)
 N_PARTICLES = 4000
+CONFIG4_PARTICLES = 100_000  # BASELINE.json config #4
+DEDUP_SLOTS = 16
+CONVERGE_TRIALS = 5  # bench.py bench_convergence
+# share of dedup blocks with more than S windows once a trial is within
+# 0.5 m: not 0, since the motion noise (0.05 m, 0.25 rad a step) leaves
+# sparse tails whose windows crowd a block or two of 625 (the CPU
+# rehearsal at 100k particles gave 0 and 1 of 625)
+CONVERGED_OVERFLOW_MAX = 0.01
 MEGA_ROW_TOL = 1e-5  # proposal rows compared within this
 MEGA_ROWS_MIN = 0.99  # share of rows that must agree (knife-edge ancestors)
 MEGA_SUMS_RTOL = 1e-4
@@ -46,6 +68,7 @@ F64_OPS_PER_S = 34e12
 # beam_logp + two erf_as (each add, multiply, compare, select, division
 # and transcendental as one); the beam sum adds one double add per term
 OPS_PER_BEAM = 80
+OPS_PER_LERP = 3  # the sub-bin lerp: subtract, multiply, add
 OPS_PER_PARTICLE_K1 = 12  # address: 2 sub, 2 div, casts, compares, rint, fix-ups
 OPS_PER_PARTICLE_K6 = 60  # + motion (sin/cos, chord, noise, wrap) and moments
 
@@ -188,11 +211,30 @@ def bound(bytes_moved: float, f32_ops: float, f64_ops: float) -> dict:
                 bytes=bytes_moved, f32_ops=f32_ops, f64_ops=f64_ops)
 
 
-def lut_bound(n: int, n_on: int, r: int, itemsize: int, row_map: bool) -> dict:
-    """K1/K2: particles in, log weights out, obs + offsets, one LUT entry
-    per beam of each on-map particle (and its row_map entry)."""
-    b = 12 * n + 4 * n + 8 * r + n_on * (r * itemsize + (4 if row_map else 0))
-    return bound(b, n * OPS_PER_PARTICLE_K1 + n_on * r * OPS_PER_BEAM, n_on * r)
+def lut_bound(n: int, n_on: int, r: int, itemsize: int, row_map: bool,
+              windows: int | None = None, subbin: bool = False) -> dict:
+    """K1-K5: particles in, log weights out, obs + offsets, the LUT
+    entries of each distinct on-map window (``windows``, default one per
+    on-map particle; the entry and its +1 neighbour with the sub-bin lerp)
+    and each on-map particle's row_map entry; the beam model per beam of
+    each on-map particle."""
+    windows = n_on if windows is None else windows
+    entries = windows * r * (2 if subbin else 1)
+    b = 12 * n + 4 * n + 8 * r + entries * itemsize + n_on * (4 if row_map else 0)
+    ops_beam = OPS_PER_BEAM + (OPS_PER_LERP if subbin else 0)
+    return bound(b, n * OPS_PER_PARTICLE_K1 + n_on * r * ops_beam, n_on * r)
+
+
+def distinct_windows(q, particles, row_map) -> int:
+    """Distinct on-map (row, start bin) windows of a cloud: the LUT reads
+    its data needs."""
+    import torch
+
+    from monte_carlo_localization_tpu_torch.ops.lut_query import window_start
+
+    row, b0, _, oob = window_start(q, particles, row_map)
+    start = row * q.row_stride + b0.to(torch.int64)
+    return int(torch.unique(start[~oob]).numel())
 
 
 def mega_bound(n: int, n_on: int, r: int, itemsize: int) -> dict:
@@ -204,9 +246,32 @@ def mega_bound(n: int, n_on: int, r: int, itemsize: int) -> dict:
     return bound(b, n * (OPS_PER_PARTICLE_K6 + 2 * math.ceil(math.log2(n))) + n_on * r * OPS_PER_BEAM, f64)
 
 
-def synthetic_case(rng, beams, max_range_px, compact, n, device):
+def probe_bounds() -> dict:
+    """Bounds of the TPU feasibility probes of tools/mega_probe.py (not
+    ported yet), from their shapes: f32 arrays in and out, and the
+    operations of the function each probe computes (a resample inversion
+    of 4096 weights is a cumsum plus a binary search per slot, not the
+    TPU's one-hot matmul)."""
+    n = 32 * 128  # the mega probes' particle count
+    inversion_ops = n + n * math.ceil(math.log2(n)) + 3 * n + 10 * n
+    mega_bytes = 4 * (n + 3 * n + 128 * 128 + 32 * 32 + 3 * n + n)
+    shapes = {  # probe: (bytes in + out, float32 operations)
+        "probe_smem": (4 * (16 + 16 * 128 + 16 * 128), 16),
+        "probe_rng": (4 * 4 * 32 * 128, 12 * 4 * 32 * 128),
+        "probe_cumsum": (4 * 2 * 32 * 128, 32 * 128),
+        "probe_scratch": (4 * 8 * 128, 8 * 128),
+        "probe_mega_ops": (mega_bytes, inversion_ops),
+        "probe_smem_roundtrip": (4 * 2 * 256, 256),
+        "probe_mega_parts": (mega_bytes, inversion_ops),
+        "probe_mega_bisect": (mega_bytes, inversion_ops),
+    }
+    return {k: bound(b, ops, 0) for k, (b, ops) in shapes.items()}
+
+
+def synthetic_case(rng, beams, max_range_px, compact, n, device, **opts):
     """A random wraparound-padded LUT on a 64 x 80 map, particles of
-    which some lie off the map, and a scan."""
+    which some lie off the map (two at headings of -2pi and 2pi), and a
+    scan. ``opts`` go to the LUTQuery."""
     import torch
 
     from monte_carlo_localization_tpu_torch.ops.lut_query import (
@@ -223,7 +288,7 @@ def synthetic_case(rng, beams, max_range_px, compact, n, device):
         t, beams, height=h, width=w, resolution=res, origin_x=ox, origin_y=oy,
         max_range_px=max_range_px, row_stride=stride, z_hit=0.8, z_short=0.01,
         z_max=0.07, z_rand=0.12, sigma_hit=8.0, inv_squash=1 / 2.2,
-        lut_dtype=dtype, device=device,
+        lut_dtype=dtype, device=device, **opts,
     )
     n_rows = h * w // 3 + 1 if compact else h * w
     base = rng.integers(0, max_range_px + 1, (n_rows, t)).astype(dtype)
@@ -232,6 +297,7 @@ def synthetic_case(rng, beams, max_range_px, compact, n, device):
     x = rng.uniform(ox - 0.3, ox + w * res + 0.3, n)
     y = rng.uniform(oy - 0.3, oy + h * res + 0.3, n)
     theta = rng.uniform(-2 * math.pi, 2 * math.pi, n)
+    theta[:2] = -2 * math.pi, 2 * math.pi
     parts = np.stack([x, y, theta], 1).astype(np.float32)
     obs = rng.uniform(0, max_range_px * 1.1, len(beams)).astype(np.float32)
 
@@ -248,36 +314,164 @@ def phase_kernel_vs_plain(device) -> dict:
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
-    cases, times = [], {}
-    for num_beams in (60, 1080):
-        beams = headline_beams(num_beams)
-        for max_range_px in (200, 400):
-            for compact in (False, True):
-                q, lut, parts, obs, row_map = synthetic_case(
-                    rng, beams, max_range_px, compact, N_PARTICLES, device
-                )
-                got = q.launch(lut, parts, obs, row_map)
-                torch.cuda.synchronize()
-                want = lut_log_weights_reference(q, lut, parts, obs, row_map)
-                torch.cuda.synchronize()
-                oob = int((want == -1e4).sum())
-                err = float((got - want).abs().max())
-                check(bool(((got == -1e4) == (want == -1e4)).all()), "off-map particles differ")
-                check(0 < oob < N_PARTICLES, "case needs particles on and off the map")
-                check(err <= KERNEL_TOL, f"kernel vs plain {err} > {KERNEL_TOL} "
-                      f"({num_beams} beams, {max_range_px} px, compact={compact})")
-                cases.append(dict(beams=num_beams, lut="u8" if max_range_px <= 254 else "u16",
-                                  row_map=compact, off_map=oob, max_abs_err=err))
-                if max_range_px == 200 and not compact:
-                    times[f"{N_PARTICLES}x{num_beams}"] = dict(
-                        **dict(zip(("device_ms", "time_source"), device_ms(
-                            lambda: q.launch(lut, parts, obs, row_map), "lut_loglik_kernel").values())),
-                        wrapper_ms=cuda_ms(lambda: q.launch(lut, parts, obs, row_map)),
-                        plain_ms=cuda_ms(lambda: lut_log_weights_reference(q, lut, parts, obs, row_map)),
-                        **lut_bound(N_PARTICLES, N_PARTICLES - oob, num_beams, 1, False),
+    cases, times = {"K1": [], "K3": []}, {"K1": {}, "K3": {}}
+    for kernel, subbin in (("K1", False), ("K3", True)):
+        for num_beams in (60, 1080):
+            beams = headline_beams(num_beams)
+            for max_range_px in (200, 400):
+                for compact in (False, True):
+                    q, lut, parts, obs, row_map = synthetic_case(
+                        rng, beams, max_range_px, compact, N_PARTICLES, device, subbin=subbin
                     )
+                    got = q.launch(lut, parts, obs, row_map)
+                    torch.cuda.synchronize()
+                    want = lut_log_weights_reference(q, lut, parts, obs, row_map)
+                    torch.cuda.synchronize()
+                    oob = int((want == -1e4).sum())
+                    err = float((got - want).abs().max())
+                    what = f"{kernel}, {num_beams} beams, {max_range_px} px, compact={compact}"
+                    check(bool(((got == -1e4) == (want == -1e4)).all()), f"{what}: off-map particles differ")
+                    check(0 < oob < N_PARTICLES, f"{what}: case needs particles on and off the map")
+                    check(err <= KERNEL_TOL, f"{what}: kernel vs plain {err} > {KERNEL_TOL}")
+                    cases[kernel].append(dict(beams=num_beams, lut="u8" if max_range_px <= 254 else "u16",
+                                              row_map=compact, off_map=oob, max_abs_err=err))
+                    if max_range_px == 200 and not compact:
+                        times[kernel][f"{N_PARTICLES}x{num_beams}"] = dict(
+                            **dict(zip(("device_ms", "time_source"), device_ms(
+                                lambda: q.launch(lut, parts, obs, row_map), "lut_loglik_kernel").values())),
+                            wrapper_ms=cuda_ms(lambda: q.launch(lut, parts, obs, row_map)),
+                            plain_ms=cuda_ms(lambda: lut_log_weights_reference(q, lut, parts, obs, row_map)),
+                            **lut_bound(N_PARTICLES, N_PARTICLES - oob, num_beams, 1, False,
+                                        subbin=subbin),
+                        )
     emit("kernel_vs_plain", t0, tol=KERNEL_TOL, cases=cases, synthetic_lut_times=times)
-    return times
+    return dict(times=times, max_abs_err={k: max(c["max_abs_err"] for c in v) for k, v in cases.items()})
+
+
+def dedup_cloud(rng, kind: str, n: int, h: int, w: int, res: float, ox: float, oy: float):
+    """converged: copies of five poses; uniform: every particle its own
+    pose over the map; mixed: 70% converged, the rest uniform, 3% of all
+    off the map."""
+    poses = np.stack([rng.uniform(ox + 0.2 * w * res, ox + 0.8 * w * res, 5),
+                      rng.uniform(oy + 0.2 * h * res, oy + 0.8 * h * res, 5),
+                      rng.uniform(-math.pi, math.pi, 5)], 1)
+    conv = poses[rng.integers(0, 5, n)]
+    uni = np.stack([rng.uniform(ox, ox + w * res, n), rng.uniform(oy, oy + h * res, n),
+                    rng.uniform(-2 * math.pi, 2 * math.pi, n)], 1)
+    if kind == "converged":
+        parts = conv
+    elif kind == "uniform":
+        parts = uni
+    else:
+        pick = rng.uniform(size=n)
+        parts = np.where((pick < 0.7)[:, None], conv, uni)
+        parts[pick > 0.97, 0] = ox - 1.0
+    return parts.astype(np.float32)
+
+
+def dedup_compare(q, lut, parts, obs, row_map, what: str) -> dict:
+    """The unique-window kernel against the LUT kernel (bit for bit) and
+    against its plain version, on one cloud; raises on a gate."""
+    import torch
+
+    from monte_carlo_localization_tpu_torch.ops.lut_query import lut_dedup_reference
+
+    got = q.launch_dedup(lut, parts, obs, row_map)
+    k1 = q.launch(lut, parts, obs, row_map)
+    torch.cuda.synchronize()
+    plain, overflow = lut_dedup_reference(q, lut, parts, obs, row_map, slots=q.launched_slots)
+    torch.cuda.synchronize()
+    err = float((got - plain).abs().max())
+    check(torch.equal(got, k1), f"{what}: lut_dedup differs from lut_likelihood")
+    check(bool(((got == -1e4) == (plain == -1e4)).all()), f"{what}: off-map particles differ")
+    check(err <= KERNEL_TOL, f"{what}: dedup kernel vs plain {err} > {KERNEL_TOL}")
+    check(int(q.last_overflow) == int(overflow),
+          f"{what}: kernel counts {int(q.last_overflow)} overflowed blocks, plain {int(overflow)}")
+    return dict(max_abs_err=err, overflowed_blocks=int(overflow),
+                blocks=-(-parts.shape[0] // q.block), slots=q.launched_slots,
+                off_map=int((plain == -1e4).sum()))
+
+
+def dedup_times(q, lut, parts, obs, row_map, n_on: int) -> dict:
+    """Device times of the unique-window kernel, of the LUT kernel on the
+    same cloud and of the host-side plan (sort, ranks, slot table) per
+    call; wrapper and plain times; the bound."""
+    from monte_carlo_localization_tpu_torch.ops.lut_query import dedup_plan, lut_dedup_reference
+
+    dev = device_ms(lambda: q.launch_dedup(lut, parts, obs, row_map), "lut_dedup_kernel")
+    k1 = device_ms(lambda: q.launch(lut, parts, obs, row_map), "lut_loglik_kernel")
+    plan_rows, _ = profile_run(lambda: dedup_plan(q, parts, row_map, q.launched_slots), 10)
+    return dict(
+        device_ms=dev["ms"], time_source=dev["source"], k1_device_ms=k1["ms"],
+        plan_device_ms=sum(us for us, _ in plan_rows.values()) / 1e3 / 10,
+        plan_device_kernels=sum(n for _, n in plan_rows.values()) / 10,
+        wrapper_ms=cuda_ms(lambda: q.launch_dedup(lut, parts, obs, row_map)),
+        k1_wrapper_ms=cuda_ms(lambda: q.launch(lut, parts, obs, row_map)),
+        plain_ms=cuda_ms(lambda: lut_dedup_reference(q, lut, parts, obs, row_map), iters=10),
+        **lut_bound(parts.shape[0], n_on, q.num_beams, q.lut_dtype.itemsize, row_map is not None,
+                    windows=distinct_windows(q, parts, row_map), subbin=q.subbin),
+    )
+
+
+def phase_dedup_vs_plain(device) -> dict:
+    """K4/K5 at 100k particles on a random 200 x 200 LUT: converged,
+    uniform and mixed clouds, with the sub-bin lerp, u16 and a row map,
+    and 1080 beams (u16 windows past the 48 KB shared-memory default)."""
+    import torch
+
+    from monte_carlo_localization_tpu_torch.ops.lut_query import (
+        LUTQuery,
+        required_row_stride,
+        suggest_theta_bins,
+    )
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(4)
+    h, w, res, ox, oy = 200, 200, 0.05, -1.0, 0.5
+    n = CONFIG4_PARTICLES
+    cases, times = [], {}
+    for num_beams, max_range_px, compact, subbin, kinds in (
+        (60, 200, False, False, ("converged", "uniform", "mixed")),
+        (60, 200, False, True, ("converged", "mixed")),
+        (60, 400, True, False, ("mixed",)),
+        (1080, 400, False, True, ("mixed",)),
+    ):
+        beams = headline_beams(num_beams)
+        dtype = np.uint8 if max_range_px <= 254 else np.uint16
+        t = suggest_theta_bins(beams)
+        stride = required_row_stride(t, beams, np.dtype(dtype).itemsize)
+        q = LUTQuery(
+            t, beams, height=h, width=w, resolution=res, origin_x=ox, origin_y=oy,
+            max_range_px=max_range_px, row_stride=stride, z_hit=0.8, z_short=0.01,
+            z_max=0.07, z_rand=0.12, sigma_hit=8.0, inv_squash=1 / 2.2, lut_dtype=dtype,
+            subbin=subbin, dedup_slots=DEDUP_SLOTS, block=160, device=device,
+        )
+        n_rows = h * w // 3 + 1 if compact else h * w
+        base = rng.integers(0, max_range_px + 1, (n_rows, t)).astype(dtype)
+        lut = torch.from_numpy(np.tile(base, (1, -(-stride // t)))[:, :stride].reshape(-1)).to(device)
+        del base
+        row_map = (torch.from_numpy(rng.integers(0, n_rows, h * w).astype(np.int32)).to(device)
+                   if compact else None)
+        obs = torch.from_numpy(rng.uniform(0, max_range_px * 1.1, num_beams).astype(np.float32)).to(device)
+        for kind in kinds:
+            parts = torch.from_numpy(dedup_cloud(rng, kind, n, h, w, res, ox, oy)).to(device)
+            what = f"dedup {kind}, {num_beams} beams, {dtype.__name__}, compact={compact}, subbin={subbin}"
+            res_c = dedup_compare(q, lut, parts, obs, row_map, what)
+            if kind == "converged":
+                check(res_c["overflowed_blocks"] == 0, f"{what}: {res_c['overflowed_blocks']} blocks overflowed")
+            if kind == "uniform":
+                check(res_c["overflowed_blocks"] == res_c["blocks"], f"{what}: not every block overflowed")
+            if kind == "mixed":
+                check(0 < res_c["off_map"] < n, f"{what}: case needs particles on and off the map")
+            cases.append(dict(beams=num_beams, lut=dtype.__name__, row_map=compact, subbin=subbin,
+                              cloud=kind, window_bytes=q.info["window_bytes"], **res_c))
+            if num_beams == 60 and not compact and kind in ("converged", "uniform") and not subbin:
+                times[f"{n}x60 {kind}"] = dedup_times(q, lut, parts, obs, row_map, n - res_c["off_map"])
+        del lut, row_map, parts
+        torch.cuda.empty_cache()
+    emit("dedup_vs_plain", t0, tol=KERNEL_TOL, slots=DEDUP_SLOTS, block=160, cases=cases,
+         synthetic_lut_times=times)
+    return dict(max_abs_err=max(c["max_abs_err"] for c in cases), times=times)
 
 
 def phase_config1(device) -> dict:
@@ -646,6 +840,204 @@ def phase_mega_full_window(device) -> dict:
     return dict(rates=rates)
 
 
+def phase_config4_replay(device):
+    """The config #4 golden trace on basement_fixed through the compact
+    LUT, 4000 particles x 60 beams, with the defaults (K2) and with
+    ``pallas_subbin`` (K3), each from the replay seeds CONFIG4_SEEDS.
+    Returns (kernel report, the map with its LUT, the trace's 60
+    beams)."""
+    import torch
+
+    from monte_carlo_localization_tpu_torch import MCLConfig, ParticleFilter, load_map
+    from monte_carlo_localization_tpu_torch.ops.lut_query import lut_log_weights_reference
+    from monte_carlo_localization_tpu_torch.runtime import replay_chained
+
+    t0 = time.perf_counter()
+    trace = REPO / "traces" / "config4_basement_fixed.npz"
+    gm = load_map(REPO / "maps" / "basement_fixed.map.yaml", device=device)
+    cfg = MCLConfig(max_particles=N_PARTICLES, angle_step=18)
+    pf = ParticleFilter(gm, cfg)
+    tr, actions, scans = trace_inputs(pf, trace)
+    beams = tr["beam_angles"][:: cfg.angle_step]
+    t1 = time.perf_counter()
+    pf.set_beam_angles(beams)  # builds the compact LUT on the host, uploads it
+    torch.cuda.synchronize()
+    t_lut = time.perf_counter() - t1
+    gm = pf.grid_map
+    check(gm.lut_row_map is not None, "basement_fixed should take the row-compacted LUT")
+    pf_sub = ParticleFilter(gm, cfg.replace(pallas_subbin=True))
+    pf_sub.set_beam_angles(beams)
+    check(pf_sub.grid_map.range_lut is gm.range_lut, "the subbin filter should share the LUT")
+    runs = {}
+    for name, f in (("default", pf), ("subbin", pf_sub)):
+        f.likelihood.launch_count = 0
+        reps = [replay_chained(f, trace, chunk=64, seed=seed) for seed in CONFIG4_SEEDS]
+        launches = f.likelihood.launch_count
+        for res in reps:
+            check(np.isfinite(res.poses).all(), f"config #4 {name} replay gave non-finite poses")
+        corrections = sum(res.corrections for res in reps)
+        check(launches == corrections == 500 * len(CONFIG4_SEEDS),
+              f"config #4 {name}: {launches} kernel launches for {corrections} corrections")
+        median = float(np.median([res.rmse_xy for res in reps]))
+        check(median <= CONFIG4_RMSE_MAX,
+              f"config #4 {name} replay median RMSE {median} m > {CONFIG4_RMSE_MAX}")
+        truth = np.stack([np.interp(reps[0].times, tr["truth_t"], tr["truth_pose"][:, i])
+                          for i in range(2)], 1)
+        errs = np.concatenate([np.hypot(*(res.poses[:, :2] - truth).T) for res in reps])
+        runs[name] = dict(launches=launches, median_rmse_xy_m=median,
+                          jax_engine_rmse_xy_m=CONFIG4_JAX_RMSE,
+                          per_scan_err_m_quantiles={q: float(np.quantile(errs, q))
+                                                    for q in (0.5, 0.9, 0.99)},
+                          rmse_xy_m=[res.rmse_xy for res in reps],
+                          rmse_theta_rad=[res.rmse_theta for res in reps],
+                          chained_updates_per_s=[res.updates_per_sec for res in reps])
+
+    # K3 against its plain version on the real LUT, at this path's shape
+    q, lut, row_map = pf_sub.likelihood, gm.range_lut, gm.lut_row_map
+    state = pf_sub.init_pose(tr["truth_pose"][0], seed=2)
+    state, _ = pf_sub.step_many(state, actions[:8], scans[:8])
+    obs = pf_sub.sensor.to_pixel_index(torch.as_tensor(scans[8], device=device)).float()
+    parts = state.particles.contiguous()
+    got = q.launch(lut, parts, obs, row_map)
+    want = lut_log_weights_reference(q, lut, parts, obs, row_map)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(err <= KERNEL_TOL, f"K3 vs plain on the basement LUT: {err} > {KERNEL_TOL}")
+    n_on = int((want != -1e4).sum())
+    dev = device_ms(lambda: q.launch(lut, parts, obs, row_map), "lut_loglik_kernel")
+    k3 = dict(launches=runs["subbin"]["launches"], max_abs_err=err, ms=dev["ms"],
+              time_source=dev["source"],
+              wrapper_ms=cuda_ms(lambda: q.launch(lut, parts, obs, row_map)),
+              plain_ms=cuda_ms(lambda: lut_log_weights_reference(q, lut, parts, obs, row_map)),
+              **lut_bound(N_PARTICLES, n_on, q.num_beams, 1, True,
+                          windows=distinct_windows(q, parts, row_map), subbin=True))
+    s0 = pf.init_pose(tr["truth_pose"][0], seed=3)
+    prof = {name: chain_profile(lambda f=f: f.step_many(s0, actions[:20], scans[:20]), 20)
+            for name, f in (("default", pf), ("subbin", pf_sub))}
+    emit("config4_replay", t0, map="basement_fixed", particles=N_PARTICLES, beams=len(beams),
+         lut="compact " + str(lut.dtype), lut_rows=lut.numel() // gm.row_stride,
+         row_stride=gm.row_stride, lut_bytes=lut.numel() * lut.element_size(),
+         lut_build_and_upload_s=t_lut, corrections_per_replay=500, seeds=list(CONFIG4_SEEDS),
+         runs=runs, k3_on_basement=k3,
+         profile_20_steps=prof)
+    del pf, pf_sub, state, parts
+    torch.cuda.empty_cache()
+    return dict(k1_launches=runs["default"]["launches"], k3=k3), gm, beams
+
+
+def converge_truths(gm) -> list[np.ndarray]:
+    """The trial poses of bench.py bench_convergence: free cell centres
+    drawn by default_rng(0), headings uniform."""
+    rng = np.random.default_rng(0)
+    free = gm.free_cells[: gm.num_free].cpu().numpy()
+    truths = []
+    for _ in range(CONVERGE_TRIALS):
+        row, col = free[rng.integers(len(free))]
+        truths.append(np.array([(col + 0.5) * gm.resolution + gm.origin_x,
+                                (row + 0.5) * gm.resolution + gm.origin_y,
+                                rng.uniform(-np.pi, np.pi)], np.float32))
+    return truths
+
+
+def phase_config4_converge(device, gm, beams) -> dict:
+    """Config #4: 100k particles seeded over basement_fixed, chained
+    corrections in chunks of 5 until within 0.5 m (at most 80), 5 trials,
+    each with the unique-window kernel (K4) and without it (K2), the
+    first also with ``pallas_dedup_matmul`` (K5). The trial seeds are
+    shared, so the runs must agree bit for bit."""
+    import torch
+
+    from monte_carlo_localization_tpu_torch import MCLConfig, ParticleFilter
+    from monte_carlo_localization_tpu_torch.ops.raycast import cast_rays_sphere
+    from monte_carlo_localization_tpu_torch.runtime import converge_global
+
+    t0 = time.perf_counter()
+    n = CONFIG4_PARTICLES
+    filters = {}
+    for name, opts in (("plain_K2", {}), ("dedup_K4", dict(pallas_dedup_slots=DEDUP_SLOTS)),
+                       ("dedup_matmul_K5", dict(pallas_dedup_slots=DEDUP_SLOTS, pallas_dedup_matmul=True))):
+        f = ParticleFilter(gm, MCLConfig(max_particles=n, **opts))
+        f.set_beam_angles(beams)
+        filters[name] = f
+    check(filters["dedup_K4"].likelihood.dedup_slots == DEDUP_SLOTS, "dedup filter without slots")
+    check(filters["dedup_matmul_K5"].likelihood.dedup_matmul, "K5 filter without dedup_matmul")
+    beams_t = torch.as_tensor(beams, dtype=torch.float32, device=device)
+
+    def scan_at(pose):
+        q = torch.stack([torch.full_like(beams_t, float(pose[0])),
+                         torch.full_like(beams_t, float(pose[1])), float(pose[2]) + beams_t], 1)
+        return cast_rays_sphere(gm, q, num_iters=64).cpu().numpy()
+
+    truths = converge_truths(gm)
+    scans = [scan_at(p) for p in truths]
+    for f in filters.values():  # pay first launches outside every trial's timer
+        converge_global(f, scans[0], truths[0], seed=99, max_updates=5)
+    torch.cuda.synchronize()
+    for f in filters.values():
+        f.likelihood.launch_count = f.likelihood.dedup_launch_count = 0
+    trials = []
+    runs = {name: [] for name in filters}
+    for i, (truth, scan) in enumerate(zip(truths, scans)):
+        order = ("dedup_K4", "plain_K2") + (("dedup_matmul_K5",) if i == 0 else ())
+        got = {name: converge_global(filters[name], scan, truth, seed=100 + i) for name in order}
+        ref = got["plain_K2"].poses
+        for name, r in got.items():
+            check(np.array_equal(r.poses, ref),
+                  f"trial {i}: {name} poses differ from the run without dedup")
+            runs[name].append(r)
+        d = got["dedup_K4"]
+        if d.updates is not None:
+            check(d.overflow_share[-1] <= CONVERGED_OVERFLOW_MAX,
+                  f"trial {i}: {d.overflow_share[-1]} of blocks overflowed after convergence")
+        trials.append(dict(truth=truth.tolist(), updates=d.updates, err_m=d.err_m,
+                           seconds={k: r.seconds for k, r in got.items()},
+                           updates_per_s={k: r.poses.shape[0] / r.seconds for k, r in got.items()},
+                           overflow_share_per_chunk=list(d.overflow_share)))
+    launches = {name: (f.likelihood.dedup_launch_count if f.likelihood.dedup_slots else
+                       f.likelihood.launch_count) for name, f in filters.items()}
+    for name, f in filters.items():
+        check(launches[name] > 0, f"{name}: its kernel was never launched")
+        if f.likelihood.dedup_slots:
+            check(f.likelihood.launch_count == 0, f"{name} launched the LUT kernel")
+    ok = [t for t in trials if t["updates"] is not None]
+    check(len(ok) >= 1, "no config #4 trial converged")
+
+    def summary(name):
+        done = [r for r in runs[name] if r.updates is not None]
+        return dict(
+            median_updates=float(np.median([r.updates for r in done])) if done else None,
+            median_seconds=float(np.median([r.seconds for r in done])) if done else None,
+            chained_updates_per_s=[r.poses.shape[0] / r.seconds for r in runs[name]],
+        )
+
+    # the kernels on a cloud of this path: the last converged dedup trial's
+    kernels = {}
+    last = max(i for i, r in enumerate(runs["dedup_K4"]) if r.updates is not None)
+    obs = filters["dedup_K4"].sensor.to_pixel_index(torch.as_tensor(scans[last], device=device)).float()
+    for name in ("dedup_K4", "dedup_matmul_K5"):
+        q = filters[name].likelihood
+        r = runs["dedup_K4"][last]
+        parts = r.state.particles.contiguous()
+        cmp = dedup_compare(q, gm.range_lut, parts, obs, gm.lut_row_map, f"config #4 {name}")
+        n_on = n - cmp["off_map"]
+        kernels[name] = dict(launches=launches[name], **cmp,
+                             **dedup_times(q, gm.range_lut, parts, obs, gm.lut_row_map, n_on))
+    # kernels per correction and idle share at 100k, 10 chained steps from a
+    # uniform seed against the first trial's scan
+    s0 = filters["plain_K2"].init_global(seed=7)
+    zeros, tiled = np.zeros((10, 3), np.float32), np.tile(scans[0], (10, 1))
+    prof = {name: chain_profile(lambda f=filters[name]: f.step_many(s0, zeros, tiled), 10)
+            for name in ("plain_K2", "dedup_K4")}
+    emit("config4_converge", t0, map="basement_fixed", particles=n, beams=len(beams),
+         slots=DEDUP_SLOTS, block=filters["dedup_K4"].likelihood.block, trials=trials,
+         success_rate=len(ok) / len(trials), launches=launches,
+         summary={name: summary(name) for name in runs}, kernels_on_converged_cloud=kernels,
+         profile_10_steps=prof)
+    del filters, runs
+    torch.cuda.empty_cache()
+    return kernels
+
+
 def main() -> int:
     import torch
 
@@ -653,7 +1045,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
     csrc = REPO / "monte_carlo_localization_tpu_torch" / "csrc"
-    if not all((csrc / f).exists() for f in ("lut_likelihood.cu", "mega_step.cu", "beam_model.cuh")):
+    if not all((csrc / f).exists() for f in ("lut_likelihood.cu", "lut_dedup.cu", "mega_step.cu",
+                                             "beam_model.cuh")):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
@@ -675,7 +1068,7 @@ def main() -> int:
     t0 = time.perf_counter()
     built = load_library()
     check(native.available(), "the native C++ LUT builder did not build (g++ with OpenMP)")
-    check(set(built.libs) == {"lut_likelihood", "mega_step"}, f"built {sorted(built.libs)}")
+    check(set(built.libs) == {"lut_likelihood", "lut_dedup", "mega_step"}, f"built {sorted(built.libs)}")
     keep = ("== ", "Compiling entry", "registers", "smem", "spill")
     ptxas = [ln.strip() for ln in built.log.splitlines() if any(k in ln for k in keep)]
     grids = {}
@@ -685,31 +1078,62 @@ def main() -> int:
             grids[f"{num_beams} beams {'u8' if max_range_px <= 254 else 'u16'}"] = step.grid_blocks()
     emit("build", t0, nvcc_s=built.seconds,
          so={k: str(v.relative_to(REPO)) for k, v in built.paths.items()}, ptxas=ptxas,
-         mega_grid_blocks=grids, sms=torch.cuda.get_device_properties(0).multi_processor_count)
+         mega_grid_blocks=grids, sms=torch.cuda.get_device_properties(0).multi_processor_count,
+         probe_bounds=probe_bounds())
 
-    kernel_times = phase_kernel_vs_plain(device)
+    lut_plain = phase_kernel_vs_plain(device)
+    dedup_plain = phase_dedup_vs_plain(device)
     mega_plain = phase_mega_vs_plain(device)
     config1 = phase_config1(device)
     mega1 = phase_config1_mega(device, config1["rate"])
     phase_mega_full_window(device)
+    config4, gm4, beams4 = phase_config4_replay(device)
+    conv = phase_config4_converge(device, gm4, beams4)
+    del gm4
+    torch.cuda.empty_cache()
     head = phase_headline(device)
+    keys = ("launches", "max_abs_err", "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")
+    k3 = config4["k3"]
+    dedup_entries = []
+    for name, replaces in (("dedup_K4", "monte_carlo_localization_tpu/ops/pallas_lut.py:584"),
+                           ("dedup_matmul_K5", "monte_carlo_localization_tpu/ops/pallas_lut.py:523")):
+        c = conv[name]
+        dedup_entries.append({
+            "name": "lut_dedup" if name == "dedup_K4" else "lut_dedup (dedup_matmul)",
+            "route": "cuda",
+            "source": "monte_carlo_localization_tpu_torch/csrc/lut_dedup.cu",
+            "replaces": replaces,
+            "launches": c["launches"],
+            "max_abs_err": max(c["max_abs_err"], dedup_plain["max_abs_err"]),
+            "ms": c["device_ms"], "wrapper_ms": c["wrapper_ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": None,
+            "k1_ms_same_cloud": c["k1_device_ms"], "plan_ms": c["plan_device_ms"],
+            "overflowed_blocks": c["overflowed_blocks"],
+            "synthetic_times": dedup_plain["times"] if name == "dedup_K4" else None,
+        })
     print(json.dumps({"kernels": [
         {
             "name": "lut_likelihood",
             "route": "cuda",
             "source": "monte_carlo_localization_tpu_torch/csrc/lut_likelihood.cu",
             "replaces": "monte_carlo_localization_tpu/ops/pallas_lut.py:450",
-            "launches": head["launches"],
-            "max_abs_err": head["max_abs_err"],
-            "ms": head["ms"],
-            "wrapper_ms": head["wrapper_ms"],
-            "plain_ms": head["plain_ms"],
-            "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"],
+            **{k: head[k] for k in keys},
             "library_ms": None,
             "config1_launches": config1["launches"],
-            "synthetic_times": kernel_times,
+            "config4_launches": config4["k1_launches"],
+            "synthetic_times": lut_plain["times"]["K1"],
         },
+        {
+            "name": "lut_likelihood (subbin)",
+            "route": "cuda",
+            "source": "monte_carlo_localization_tpu_torch/csrc/lut_likelihood.cu",
+            "replaces": "monte_carlo_localization_tpu/ops/pallas_lut.py:499",
+            **{k: k3[k] for k in keys},
+            "max_abs_err": max(k3["max_abs_err"], lut_plain["max_abs_err"]["K3"]),
+            "library_ms": None,
+            "synthetic_times": lut_plain["times"]["K3"],
+        },
+        *dedup_entries,
         {
             "name": "mega_step",
             "route": "cuda",

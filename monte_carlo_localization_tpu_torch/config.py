@@ -87,8 +87,12 @@ class MCLConfig:
     sphere_march_iters: int = 48
     lut_theta_bins: int = 1440
     sensor_model_mode: str = "analytic"  # "analytic" | "table"
-    # TPU kernel options of the JAX package; the port accepts only their
-    # defaults until the kernels behind them are ported (ROADMAP.md).
+    # TPU kernel options of the JAX package, served by the port's CUDA
+    # kernels: pallas_block is the unique-window kernel's particles per
+    # block (0: filter/core.py DEDUP_BLOCK); pallas_dedup_slots S > 0 turns
+    # that kernel on (0 and -1 are off); pallas_dedup_matmul runs the same
+    # kernel and needs S in 1..128; pallas_subbin is the sub-bin heading
+    # lerp; pallas_mega the one-launch step (filter/mega.py).
     pallas_block: int = 0
     pallas_dedup_slots: int = 0
     pallas_dedup_matmul: bool = False

@@ -1,7 +1,8 @@
-// The analytic beam model and the per-particle beam sum, shared by the
-// LUT-likelihood kernel (lut_likelihood.cu, TPU kernels K1/K2) and the
-// mega step (mega_step.cu, TPU kernel K6), so both evaluate one copy of
-// the math.
+// The analytic beam model, the per-particle beam sum and the window
+// address math, shared by the LUT-likelihood kernel (lut_likelihood.cu,
+// TPU kernels K1/K2/K3), the unique-window kernel (lut_dedup.cu, TPU
+// kernels K4/K5) and the mega step (mega_step.cu, TPU kernel K6), so all
+// evaluate one copy of the math.
 //
 // It is the TPU kernels' beam model: monte_carlo_localization_tpu/ops/
 // pallas_lut.py beam_model (:400-418) with its Abramowitz & Stegun
@@ -56,20 +57,39 @@ __device__ __forceinline__ float beam_logp(float d, float obs,
   return logf(fmaxf(prob, 1e-35f)) - logf(norm);
 }
 
+// The expected range of one beam: the window entry at ``off``, or with
+// the sub-bin lerp (TPU kernel K3, pallas_lut.py lerp_bins :394-398) its
+// interpolation toward the +1 bin by the heading's fractional bin,
+// x0 + frac * (x1 - x0) in round-to-nearest steps so nothing is fused into
+// an FMA. off + 1 needs no wrap modulo T: the guard bin of
+// window_entries and the row's wraparound padding put bin T at bin 0's
+// place.
+template <bool kSubbin, typename T>
+__device__ __forceinline__ float window_range(const T* window, int off,
+                                              float frac) {
+  const float x0 = static_cast<float>(window[off]);
+  if (!kSubbin) return x0;
+  const float x1 = static_cast<float>(window[off + 1]);
+  return __fadd_rn(x0, __fmul_rn(frac, __fsub_rn(x1, x0)));
+}
+
 // inv_squash * sum_j log p(obs_j | window[off_j]) for one particle,
-// computed by one whole warp: lane l takes beams l, l+32, ... Every lane
-// returns lane 0's sum (the butterfly leaves each lane its own rounding
-// order), so the warp stays uniform. The beam sum accumulates in double,
-// so the float32
-// result is the rounded sum of the float32 terms whatever the summation
-// order, and the kernels agree with their plain versions to ~1 ulp.
-template <typename T>
+// computed by one whole warp: lane l takes beams l, l+32, ... ``window``
+// may point into global or shared memory (the dedup kernel's staged
+// windows go through this same code, which keeps it bit-equal to K1).
+// Every lane returns lane 0's sum (the butterfly leaves each lane its own
+// rounding order), so the warp stays uniform. The beam sum accumulates in
+// double, so the float32 result is the rounded sum of the float32 terms
+// whatever the summation order, and the kernels agree with their plain
+// versions to ~1 ulp.
+template <typename T, bool kSubbin = false>
 __device__ __forceinline__ float warp_window_logp(
-    const T* __restrict__ window, const float* s_obs, const int32_t* s_off,
-    int r, int lane, const Params& p) {
+    const T* window, const float* s_obs, const int32_t* s_off, int r,
+    int lane, const Params& p, float frac = 0.0f) {
   double acc = 0.0;
   for (int j = lane; j < r; j += kWarp) {
-    acc += beam_logp(static_cast<float>(window[s_off[j]]), s_obs[j], p);
+    acc += beam_logp(window_range<kSubbin>(window, s_off[j], frac), s_obs[j],
+                     p);
   }
 #pragma unroll
   for (int off = kWarp / 2; off > 0; off >>= 1) {
@@ -77,6 +97,45 @@ __device__ __forceinline__ float warp_window_logp(
   }
   acc = __shfl_sync(0xffffffffu, acc, 0);
   return p.inv_squash * static_cast<float>(acc);
+}
+
+// Where one particle's window starts (pallas_lut.py query :873-900), the
+// address math of the LUT kernels (lut_likelihood.cu, lut_dedup.cu):
+//   cell = (int)((y - oy) / res) * W + (int)((x - ox) / res)  (truncating)
+//   row  = row_map ? row_map[cell] : cell
+//   b0   = (rint(theta * T / 2pi) + base) mod T                (half to even)
+// or, with the sub-bin lerp, b0 from floor(theta * T / 2pi) and frac its
+// fractional part. Returns false for a particle outside the map.
+struct Window {
+  int64_t row;
+  int b0;
+  float frac;
+};
+
+template <bool kSubbin>
+__device__ __forceinline__ bool particle_window(
+    float x, float y, float theta, const int32_t* __restrict__ row_map,
+    int base, int t_bins, int height, int width, const Params& p,
+    Window* w) {
+  const int gx = static_cast<int>((x - p.ox) / p.res);
+  const int gy = static_cast<int>((y - p.oy) / p.res);
+  if (gx < 0 || gx >= width || gy < 0 || gy >= height) return false;
+  const int64_t cell = static_cast<int64_t>(gy) * width + gx;
+  w->row = row_map ? static_cast<int64_t>(row_map[cell]) : cell;
+  int b0;
+  if (kSubbin) {
+    const float bpos = __fmul_rn(theta, p.bin_scale);
+    const float bf = floorf(bpos);
+    w->frac = __fsub_rn(bpos, bf);
+    b0 = static_cast<int>(bf);
+  } else {
+    b0 = static_cast<int>(rintf(theta * p.bin_scale));
+    w->frac = 0.0f;
+  }
+  b0 = (b0 + base) % t_bins;  // truncating remainder, then fixed up
+  if (b0 < 0) b0 += t_bins;
+  w->b0 = b0;
+  return true;
 }
 
 // Unpack the host's float array into Params.

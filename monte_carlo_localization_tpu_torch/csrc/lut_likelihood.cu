@@ -2,10 +2,16 @@
 // per particle, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel monte_carlo_localization_tpu/ops/pallas_lut.py
-// build_lut_query_fn -> kernel (:450) in both of its forms: K1, the
-// full-window reduce (block_logp, :420), and K2, the compact-beam form
-// (block_logp_compact, :434). The two differ only in the order of the
-// beam sum, so one kernel serves both beam counts.
+// build_lut_query_fn -> kernel (:450) in all three of its forms: K1, the
+// full-window reduce (block_logp, :420); K2, the compact-beam form
+// (block_logp_compact, :434), which differs only in the order of the
+// beam sum, so one kernel serves both beam counts; and K3, the sub-bin
+// heading lerp (subbin, next_bin/lerp_bins :383-398, used at :499-500),
+// a template flag: the window starts at floor(theta * T / 2pi) and each
+// beam lerps toward its +1 bin by the fractional bin (beam_model.cuh
+// window_range). The lerp reads one more LUT entry per beam from the
+// same row, so K3's bound is K1's plus a subtract, multiply and add per
+// beam.
 //
 // What it computes is query(lut_flat, particles, obs_px, row_map) of
 // pallas_lut.py:835-949 for one map:
@@ -13,6 +19,7 @@
 //   row   = row_map ? row_map[cell] : cell
 //   b0    = (rint(theta * T / 2pi) + base) mod T                (half to even)
 //   d_j   = lut[row * row_stride + b0 + off_j],  off_j = k*j + e_j
+//   (subbin: b0 from floor, d_j lerped toward lut[... + off_j + 1])
 //   out   = inv_squash * sum_j log p(min(obs_j, m) | min(d_j, m))
 // and -1e4 for a particle outside the map. Rows carry angle-wraparound
 // padding, so every beam index stays inside its row: no modulo per beam.
@@ -45,7 +52,7 @@ using mcl::Params;
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = kWarp * kWarpsPerBlock;
 
-template <typename T>
+template <typename T, bool kSubbin>
 __global__ void __launch_bounds__(kThreads)
     lut_loglik_kernel(const T* __restrict__ lut, int64_t row_stride,
                       const int32_t* __restrict__ row_map,
@@ -68,23 +75,16 @@ __global__ void __launch_bounds__(kThreads)
       static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
   if (i >= n) return;  // whole warps leave together; no later __syncthreads
 
-  const float x = particles[3 * i];
-  const float y = particles[3 * i + 1];
-  const float theta = particles[3 * i + 2];
-  const int gx = static_cast<int>((x - p.ox) / p.res);
-  const int gy = static_cast<int>((y - p.oy) / p.res);
-  if (gx < 0 || gx >= width || gy < 0 || gy >= height) {
+  mcl::Window w;
+  if (!mcl::particle_window<kSubbin>(particles[3 * i], particles[3 * i + 1],
+                                     particles[3 * i + 2], row_map, base,
+                                     t_bins, height, width, p, &w)) {
     if (lane == 0) out[i] = -1e4f;
     return;
   }
-  const int64_t cell = static_cast<int64_t>(gy) * width + gx;
-  const int64_t row = row_map ? static_cast<int64_t>(row_map[cell]) : cell;
-  int b0 = static_cast<int>(rintf(theta * p.bin_scale));
-  b0 = (b0 + base) % t_bins;  // truncating remainder, then fixed up
-  if (b0 < 0) b0 += t_bins;
-  const T* window = lut + row * row_stride + b0;
-
-  const float logw = mcl::warp_window_logp(window, s_obs, s_off, r, lane, p);
+  const T* window = lut + w.row * row_stride + w.b0;
+  const float logw = mcl::warp_window_logp<T, kSubbin>(window, s_obs, s_off,
+                                                       r, lane, p, w.frac);
   if (lane == 0) out[i] = logw;
 }
 
@@ -92,13 +92,15 @@ template <typename T>
 int launch(const T* lut, int64_t row_stride, const int32_t* row_map,
            const float* particles, int64_t n, const float* obs_px,
            const int32_t* offsets, int r, int base, int t_bins, int height,
-           int width, const float* consts, float* out, void* stream) {
+           int width, int subbin, const float* consts, float* out,
+           void* stream) {
   if (n <= 0) return 0;
   const Params p = mcl::params_from(consts);
   const int64_t blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
   const size_t smem = static_cast<size_t>(r) * (sizeof(float) + sizeof(int32_t));
-  lut_loglik_kernel<T><<<static_cast<unsigned>(blocks), kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = subbin ? lut_loglik_kernel<T, true> : lut_loglik_kernel<T, false>;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       lut, row_stride, row_map, particles, n, obs_px, offsets, r, base,
       t_bins, height, width, p, out);
   return static_cast<int>(cudaGetLastError());
@@ -112,20 +114,22 @@ int mcl_lut_loglik_u8(const uint8_t* lut, int64_t row_stride,
                       const int32_t* row_map, const float* particles,
                       int64_t n, const float* obs_px, const int32_t* offsets,
                       int r, int base, int t_bins, int height, int width,
-                      const float* consts, float* out, void* stream) {
+                      int subbin, const float* consts, float* out,
+                      void* stream) {
   return launch<uint8_t>(lut, row_stride, row_map, particles, n, obs_px,
-                         offsets, r, base, t_bins, height, width, consts, out,
-                         stream);
+                         offsets, r, base, t_bins, height, width, subbin,
+                         consts, out, stream);
 }
 
 int mcl_lut_loglik_u16(const uint16_t* lut, int64_t row_stride,
                        const int32_t* row_map, const float* particles,
                        int64_t n, const float* obs_px, const int32_t* offsets,
                        int r, int base, int t_bins, int height, int width,
-                       const float* consts, float* out, void* stream) {
+                       int subbin, const float* consts, float* out,
+                       void* stream) {
   return launch<uint16_t>(lut, row_stride, row_map, particles, n, obs_px,
-                          offsets, r, base, t_bins, height, width, consts, out,
-                          stream);
+                          offsets, r, base, t_bins, height, width, subbin,
+                          consts, out, stream);
 }
 
 const char* mcl_cuda_error_string(int code) {

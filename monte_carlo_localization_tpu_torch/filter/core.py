@@ -136,18 +136,17 @@ def mcl_step(
     return new_state, expected_pose(proposal, log_w)
 
 
-def _reject_unported(cfg: MCLConfig) -> None:
-    """Raise for JAX-package options whose kernels are not ported yet."""
-    unported = {
-        "pallas_subbin (kernel K3)": cfg.pallas_subbin,
-        "pallas_dedup_slots (kernels K4/K5)": cfg.pallas_dedup_slots > 0,
-        "pallas_dedup_matmul (kernel K5)": cfg.pallas_dedup_matmul,
-    }
-    on = [name for name, set_ in unported.items() if set_]
-    if on:
-        raise NotImplementedError(
-            f"{', '.join(on)} not ported to PyTorch yet; see ROADMAP.md"
-        )
+# particles per block of the unique-window kernel when MCLConfig.pallas_block
+# is 0: the JAX package's auto block at config #4's 100k particles
+DEDUP_BLOCK = 160
+
+
+def _resolve_dedup_slots(cfg: MCLConfig) -> int:
+    """S of the unique-window kernel, as the JAX filter resolves it
+    (``filter/core.py:329-336`` of the JAX package): an explicit S > 0
+    turns it on; 0 and -1 (auto) are off. The JAX filter also turns it
+    off for a fleet, which the port does not have yet."""
+    return max(cfg.pallas_dedup_slots, 0)
 
 
 def lut_query_kwargs(grid_map: GridMap, cfg: MCLConfig) -> dict:
@@ -176,15 +175,24 @@ def build_lut_likelihood(
     grid_map: GridMap, beam_angles: np.ndarray, cfg: MCLConfig
 ) -> tuple[GridMap, LUTQuery]:
     """Attach the LUT the fused likelihood reads (dense, or row-compacted
-    past ``MCL_LUT_DENSE_MAX``) and build the query for this beam set.
-    Returns (grid_map_with_lut, query). An unsupported beam geometry
-    raises."""
+    past ``MCL_LUT_DENSE_MAX``) and build the query for this beam set,
+    with the config's ``pallas_subbin``, ``pallas_dedup_slots`` and
+    ``pallas_dedup_matmul`` (the last ignored without slots, as in the
+    JAX filter). Returns (grid_map_with_lut, query). An unsupported beam
+    geometry raises."""
     dtype = lut_dtype(grid_map.max_range_px)
     beams = np.asarray(beam_angles, np.float32)
     t = suggest_theta_bins(beams)
     stride = required_row_stride(t, beams, itemsize=dtype.itemsize)
     grid_map = grid_map.with_kernel_lut(t, stride, dtype.itemsize)
-    query = LUTQuery(grid_map.lut_theta_bins, beams, **lut_query_kwargs(grid_map, cfg))
+    slots = _resolve_dedup_slots(cfg)
+    query = LUTQuery(
+        grid_map.lut_theta_bins, beams, **lut_query_kwargs(grid_map, cfg),
+        subbin=cfg.pallas_subbin,
+        dedup_slots=slots,
+        dedup_matmul=cfg.pallas_dedup_matmul and slots > 0,
+        block=cfg.pallas_block or DEDUP_BLOCK,
+    )
     return grid_map, query
 
 
@@ -194,7 +202,9 @@ class ParticleFilter:
 
     With ``config.pallas_mega`` (dense-LUT maps only) ``step_many`` runs
     each correction as one launch of the mega step (``filter/mega.py``);
-    ``step`` stays the classic correction.
+    ``step`` stays the classic correction. ``pallas_subbin`` and
+    ``pallas_dedup_slots`` select the likelihood's K3 and K4/K5 forms on
+    the classic correction (the mega step refuses them).
     """
 
     def __init__(
@@ -212,7 +222,6 @@ class ParticleFilter:
             raise ValueError(f"Unknown sensor model mode: {cfg.sensor_model_mode!r}")
         if cfg.reinit_mode not in ("reinit", "inject"):
             raise ValueError(f"Unknown reinit mode: {cfg.reinit_mode!r}")
-        _reject_unported(cfg)
         self.config = cfg
         self.device = torch.device(device) if device is not None else grid_map.device
         self.grid_map = grid_map.to(self.device)

@@ -1,11 +1,12 @@
 """Host C++/OpenMP builders (EDT, range LUTs), compiled at first use and
 loaded with ctypes.
 
-The source is the JAX package's ``monte_carlo_localization_tpu/native/
-mcl_native.cpp``, compiled by path: reading a file imports nothing, so the
-port shares the builders bit for bit without importing the JAX package
-(whose ``__init__`` imports jax). The ``.so`` goes into this package's
-``_build/`` directory, keyed by the source hash. Without a C++ toolchain
+The source is this package's own ``mcl_native.cpp``, a copy of the JAX
+package's ``monte_carlo_localization_tpu/native/mcl_native.cpp``, so the
+builders agree bit for bit (the parity tests hold the dense and compact
+LUTs equal) while the port reads no file of the JAX package. The ``.so``
+goes into this package's ``_build/`` directory, keyed by the source
+hash. Without a C++ toolchain
 the EDT and the dense LUT builder return None and callers use numpy; the
 compact builder has no numpy route and its callers raise.
 """
@@ -21,10 +22,7 @@ from pathlib import Path
 
 import numpy as np
 
-_SRC = (
-    Path(__file__).resolve().parents[2]
-    / "monte_carlo_localization_tpu" / "native" / "mcl_native.cpp"
-)
+_SRC = Path(__file__).resolve().parent / "mcl_native.cpp"
 _BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 _NATIVE_VERSION = 4
 _LOCK = threading.Lock()

@@ -103,10 +103,22 @@ def _bind(libs: dict[str, ctypes.CDLL]) -> None:
         fn = getattr(lut, name)
         fn.restype = i32
         # lut, row_stride, row_map, particles, n, obs_px, offsets, r, base,
-        # t_bins, height, width, consts, out, stream
-        fn.argtypes = [p, i64, p, p, i64, p, p, i32, i32, i32, i32, i32, p, p, p]
+        # t_bins, height, width, subbin, consts, out, stream
+        fn.argtypes = [p, i64, p, p, i64, p, p, i32, i32, i32, i32, i32, i32, p, p, p]
     lut.mcl_cuda_error_string.restype = ctypes.c_char_p
     lut.mcl_cuda_error_string.argtypes = [i32]
+
+    dedup = libs["lut_dedup"]
+    for name in ("mcl_lut_dedup_u8", "mcl_lut_dedup_u16"):
+        fn = getattr(dedup, name)
+        fn.restype = i32
+        # lut, row_stride, row_map, particles, n, perm, rank, slot_y0,
+        # slots, block, wents, eps, obs_px, offsets, r, base, t_bins,
+        # height, width, subbin, consts, out, overflow, stream
+        fn.argtypes = [p, i64, p, p, i64, p, p, p, i32, i32, i32, i32, p, p,
+                       i32, i32, i32, i32, i32, i32, p, p, p, p]
+    dedup.mcl_lut_dedup_max_slots.restype = i32
+    dedup.mcl_lut_dedup_max_slots.argtypes = [i32, i32, i32]
 
     mega = libs["mega_step"]
     for name in ("mcl_mega_step_u8", "mcl_mega_step_u16"):

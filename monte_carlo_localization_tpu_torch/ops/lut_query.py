@@ -1,6 +1,6 @@
 """Fused range-LUT likelihood: the query of the JAX package's
-``ops/pallas_lut.py`` for one map, as a hand-written CUDA kernel
-(``csrc/lut_likelihood.cu``) beside its plain PyTorch version.
+``ops/pallas_lut.py`` for one map, as hand-written CUDA kernels beside
+their plain PyTorch versions.
 
 Beam j of a particle reads LUT entry ``b0 + k*j + e_j`` of the particle's
 row, where ``b0`` is the particle's heading bin and ``(base, k, e)`` is the
@@ -9,9 +9,13 @@ geometry helpers below are the JAX module's, unchanged, so both packages
 agree on the LUT's byte layout (``row_stride`` entries per row with
 angle-wraparound padding) and one LUT buffer serves both.
 
-:class:`LUTQuery` is the wrapper: on CUDA tensors it launches the kernel
-(and raises on anything it does not take); on CPU tensors it runs
-:func:`lut_log_weights_reference`, the gather form of the same math.
+:class:`LUTQuery` is the wrapper. On CUDA tensors it launches
+``csrc/lut_likelihood.cu`` (TPU kernels K1/K2, and K3 with ``subbin``)
+or, with ``dedup_slots``, ``csrc/lut_dedup.cu`` (K4/K5), and raises on
+anything they do not take. On CPU tensors it runs the plain versions:
+:func:`lut_log_weights_reference`, the gather form of the same math, and
+:func:`lut_dedup_reference`, which reads every window through the slot
+table that :func:`dedup_plan` builds.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ LOG_TINY = 1e-35
 OOB_LOG_WEIGHT = -1e4
 # shared memory per block: r floats + r int32; stay in the 48 KB default
 MAX_BEAMS = 48 * 1024 // 8
+STAGE_ALIGN = 16  # bytes; lut_dedup.cu stages windows with 16 B loads
 
 
 def entries_per_subrow(itemsize: int) -> int:
@@ -119,8 +124,19 @@ class LUTQuery:
     int32 compact-LUT indirection, or None for a dense LUT. Particles
     outside the map get -1e4.
 
-    On CUDA tensors each call launches ``csrc/lut_likelihood.cu`` and adds
-    one to ``launch_count``; on CPU tensors it runs the plain version.
+    Options, as ``build_lut_query_fn``'s: ``subbin`` starts each window
+    at the floor bin and lerps every beam toward its +1 bin by the
+    heading's fractional bin (K3). ``dedup_slots`` = S > 0 sorts the
+    particles by window and reads each block of ``block`` particles'
+    first min(S, block) distinct windows once (K4); the result equals the
+    standard query's bit for bit. ``dedup_matmul`` (K5's option) needs S
+    in 1..128 and runs the same kernel. ``info`` mirrors the JAX query's.
+
+    On CUDA tensors each call launches ``csrc/lut_likelihood.cu`` (adding
+    one to ``launch_count``) or, with dedup, ``csrc/lut_dedup.cu``
+    (``dedup_launch_count``; ``last_overflow`` holds the device count of
+    blocks with more than S windows). On CPU tensors it runs the plain
+    versions.
     """
 
     def __init__(
@@ -142,6 +158,10 @@ class LUTQuery:
         sigma_hit: float,
         inv_squash: float,
         lut_dtype=np.uint8,
+        subbin: bool = False,
+        dedup_slots: int = 0,
+        dedup_matmul: bool = False,
+        block: int = 16,
         device: torch.device | str = DEFAULT_DEVICE,
     ):
         beam_angles = np.asarray(beam_angles)
@@ -165,6 +185,14 @@ class LUTQuery:
             raise ValueError(
                 f"row_stride must be a multiple of {entries_per_subrow(itemsize)}"
             )
+        if block < 1:
+            raise ValueError(f"block {block} < 1")
+        # the JAX query's rules (pallas_lut.py:511-521)
+        n_slots = min(int(dedup_slots), int(block))
+        if dedup_matmul and n_slots <= 0:
+            raise ValueError("dedup_matmul requires dedup_slots > 0")
+        if dedup_matmul and n_slots > LANE:
+            raise ValueError(f"dedup_matmul supports at most {LANE} slots")
         self.device = resolve_device(device)
         self.num_beams = r
         self.t_bins = int(t_bins)
@@ -172,6 +200,20 @@ class LUTQuery:
         self.row_stride = int(row_stride)
         self.height = int(height)
         self.width = int(width)
+        self.subbin = bool(subbin)
+        self.dedup_slots = max(n_slots, 0)
+        self.dedup_matmul = bool(dedup_matmul)
+        self.block = int(block)
+        self.eps = entries_per_subrow(itemsize)
+        self.window_entries = window_entries(t_bins, beam_angles, itemsize)
+        self.info = dict(
+            n_e=len(set(int(v) for v in e)),
+            window_bytes=self.window_entries * itemsize,
+            window_entries=self.window_entries,
+            row_stride=self.row_stride, t_bins=self.t_bins,
+            lut_dtype=str(self.lut_dtype), dedup_slots=n_slots,
+            subbin=self.subbin, dedup_matmul=self.dedup_matmul,
+        )
         self.beam_offsets = torch.as_tensor(offsets, dtype=torch.int32, device=self.device)
         # Python floats, folded from double exactly as the JAX kernel folds
         # them; torch and the CUDA kernel both apply them in float32
@@ -190,7 +232,7 @@ class LUTQuery:
         self.rand_term = z_rand / self.m
         self.sq2 = math.sqrt(2.0) * sigma_hit
         self.inv_squash = float(inv_squash)
-        # order of Params in csrc/lut_likelihood.cu
+        # order of Params in csrc/beam_model.cuh
         self._consts = (ctypes.c_float * 15)(
             self.resolution, self.origin_x, self.origin_y, self.bin_scale,
             self.m, self.gauss_coef, self.inv2s2, self.short2, self.z_short,
@@ -198,18 +240,27 @@ class LUTQuery:
             self.inv_squash,
         )
         self.launch_count = 0
+        self.dedup_launch_count = 0
+        self.last_overflow: torch.Tensor | None = None
+        self.launched_slots = 0  # S of the last dedup launch, after the card's clamp
 
     def __call__(self, lut_flat, particles, obs_px, row_map=None) -> torch.Tensor:
         if particles.device.type == "cuda":
+            if self.dedup_slots > 0:
+                return self.launch_dedup(lut_flat, particles, obs_px, row_map)
             return self.launch(lut_flat, particles, obs_px, row_map)
         if particles.device.type == "cpu":
+            if self.dedup_slots > 0:
+                logw, self.last_overflow = lut_dedup_reference(
+                    self, lut_flat, particles, obs_px, row_map
+                )
+                return logw
             return lut_log_weights_reference(self, lut_flat, particles, obs_px, row_map)
         raise ValueError(f"no LUT likelihood for device {particles.device}")
 
-    def launch(self, lut_flat, particles, obs_px, row_map=None) -> torch.Tensor:
-        """Run the CUDA kernel; raises on any input it does not take."""
-        from monte_carlo_localization_tpu_torch.ops._cuda_build import load_library
-
+    def _check_inputs(self, lut_flat, particles, obs_px, row_map) -> torch.dtype:
+        """Raise on any input the kernels do not take; returns the LUT's
+        torch dtype."""
         dev = particles.device
         if dev.type != "cuda":
             raise ValueError(f"kernel launch needs CUDA tensors, got {dev}")
@@ -239,7 +290,15 @@ class LUTQuery:
             )
         if row_map is None and lut_flat.numel() < self.height * self.width * self.row_stride:
             raise ValueError("dense LUT has fewer rows than the map has cells")
+        return want_dtype
 
+    def launch(self, lut_flat, particles, obs_px, row_map=None) -> torch.Tensor:
+        """Run ``csrc/lut_likelihood.cu`` (K1/K2, K3 with ``subbin``);
+        raises on any input it does not take."""
+        from monte_carlo_localization_tpu_torch.ops._cuda_build import load_library
+
+        want_dtype = self._check_inputs(lut_flat, particles, obs_px, row_map)
+        dev = particles.device
         built = load_library()
         lib = built.libs["lut_likelihood"]
         fn = lib.mcl_lut_loglik_u8 if want_dtype == torch.uint8 else lib.mcl_lut_loglik_u16
@@ -252,7 +311,7 @@ class LUTQuery:
                 None if row_map is None else row_map.data_ptr(),
                 particles.data_ptr(), n, obs_px.data_ptr(),
                 self.beam_offsets.data_ptr(), self.num_beams, self.base,
-                self.t_bins, self.height, self.width,
+                self.t_bins, self.height, self.width, int(self.subbin),
                 ctypes.addressof(self._consts), out.data_ptr(), stream,
             )
         if err != 0:
@@ -262,35 +321,101 @@ class LUTQuery:
         self.launch_count += 1
         return out
 
+    def launch_dedup(self, lut_flat, particles, obs_px, row_map=None) -> torch.Tensor:
+        """Run ``csrc/lut_dedup.cu`` (K4/K5) after :func:`dedup_plan`;
+        raises on any input it does not take. S is clamped to what fits
+        the card's shared memory (``launched_slots``)."""
+        from monte_carlo_localization_tpu_torch.ops._cuda_build import load_library
 
-def lut_log_weights_reference(
-    q: LUTQuery, lut_flat, particles, obs_px, row_map=None
-) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: the same float32 address math
-    and beam model, as one (N, R) gather, and the beam sum accumulated in
-    double. The CPU path and the kernel's reference in the tests and on
-    the card."""
+        if self.dedup_slots <= 0:
+            raise ValueError("launch_dedup needs dedup_slots > 0")
+        want_dtype = self._check_inputs(lut_flat, particles, obs_px, row_map)
+        if lut_flat.data_ptr() % STAGE_ALIGN:
+            raise ValueError(f"lut_flat must start on a {STAGE_ALIGN} B boundary")
+        dev = particles.device
+        built = load_library()
+        lib = built.libs["lut_dedup"]
+        itemsize = self.lut_dtype.itemsize
+        with torch.cuda.device(dev):
+            fit = lib.mcl_lut_dedup_max_slots(self.num_beams, self.window_entries, itemsize)
+        slots = min(self.dedup_slots, fit)
+        if slots < 1:
+            raise RuntimeError(
+                f"no dedup slot of {self.window_entries * itemsize} B fits the card's shared memory"
+            )
+        perm, rank, slot_y0, _ = dedup_plan(self, particles, row_map, slots)
+        fn = lib.mcl_lut_dedup_u8 if want_dtype == torch.uint8 else lib.mcl_lut_dedup_u16
+        n = particles.shape[0]
+        out = torch.empty(n, dtype=torch.float32, device=dev)
+        overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(
+                lut_flat.data_ptr(), self.row_stride,
+                None if row_map is None else row_map.data_ptr(),
+                particles.data_ptr(), n, perm.data_ptr(), rank.data_ptr(),
+                slot_y0.data_ptr(), slots, self.block, self.window_entries,
+                self.eps, obs_px.data_ptr(), self.beam_offsets.data_ptr(),
+                self.num_beams, self.base, self.t_bins, self.height, self.width,
+                int(self.subbin), ctypes.addressof(self._consts), out.data_ptr(),
+                overflow.data_ptr(), stream,
+            )
+        if err != 0:
+            raise RuntimeError(
+                f"lut_dedup launch failed: CUDA error {err} ({built.error_string(err)})"
+            )
+        self.dedup_launch_count += 1
+        self.last_overflow = overflow
+        self.launched_slots = slots
+        return out
+
+
+def window_start(q: LUTQuery, particles, row_map=None):
+    """Each particle's window, with the kernels' float32 address math
+    (``pallas_lut.py`` query :873-900): (row (N,) int64, b0 (N,) int32,
+    frac (N,) float32 or None without ``subbin``, oob (N,) bool). Off the
+    map, row and b0 are those of the nearest cell."""
     x, y, theta = particles[:, 0], particles[:, 1], particles[:, 2]
-    gx = ((x - q.origin_x) / q.resolution).to(torch.int32)  # truncates
-    gy = ((y - q.origin_y) / q.resolution).to(torch.int32)
+    # divide by a tensor on the particles' device: CUDA torch divides by a
+    # Python number as a multiply by its reciprocal, which truncates to
+    # another cell than the kernels' IEEE division at knife edges
+    res = torch.tensor(q.resolution, dtype=torch.float32, device=particles.device)
+    gx = ((x - q.origin_x) / res).to(torch.int32)  # truncates
+    gy = ((y - q.origin_y) / res).to(torch.int32)
     oob = (gx < 0) | (gx >= q.width) | (gy < 0) | (gy >= q.height)
     cell = (
         gy.clamp(0, q.height - 1).to(torch.int64) * q.width
         + gx.clamp(0, q.width - 1).to(torch.int64)
     )
     row = cell if row_map is None else row_map[cell].to(torch.int64)
-    b0 = torch.round(theta * q.bin_scale).to(torch.int32)  # half to even
+    bpos = theta * q.bin_scale
+    if q.subbin:
+        bfloor = torch.floor(bpos)
+        frac = bpos - bfloor
+        b0 = bfloor.to(torch.int32)
+    else:
+        frac = None
+        b0 = torch.round(bpos).to(torch.int32)  # half to even
     b0 = torch.fmod(b0 + q.base, q.t_bins)  # truncating, as lax.rem
     b0 = torch.where(b0 < 0, b0 + q.t_bins, b0)
-    idx = (
-        (row * q.row_stride + b0.to(torch.int64))[:, None]
-        + q.beam_offsets.to(device=particles.device, dtype=torch.int64)[None, :]
-    )
+    return row, b0, frac, oob
+
+
+def _read_lut(lut_flat, idx) -> torch.Tensor:
     if lut_flat.dtype == torch.uint16:
         # few uint16 ops exist; read the bits through int16
-        d = (lut_flat.view(torch.int16)[idx].to(torch.int32) & 0xFFFF).to(torch.float32)
-    else:
-        d = lut_flat[idx].to(torch.float32)
+        return (lut_flat.view(torch.int16)[idx].to(torch.int32) & 0xFFFF).to(torch.float32)
+    return lut_flat[idx].to(torch.float32)
+
+
+def _window_log_weights(q: LUTQuery, lut_flat, start, frac, obs_px, oob) -> torch.Tensor:
+    """The beam model and beam sum of every particle's window, read from
+    flat LUT index ``start`` (N,) onward."""
+    idx = start[:, None] + q.beam_offsets.to(device=start.device, dtype=torch.int64)[None, :]
+    d = _read_lut(lut_flat, idx)
+    if frac is not None:
+        # x0 + f * (x1 - x0), three float32 ops as the kernel's lerp
+        d = d + frac[:, None] * (_read_lut(lut_flat, idx + 1) - d)
 
     m = q.m
     obs = torch.clamp(obs_px.to(torch.float32), max=m)[None, :]
@@ -311,3 +436,77 @@ def lut_log_weights_reference(
     # summed in double, as the kernel does, then rounded to float32
     logw = q.inv_squash * logp.sum(dim=1, dtype=torch.float64).to(torch.float32)
     return torch.where(oob, OOB_LOG_WEIGHT, logw)
+
+
+def lut_log_weights_reference(
+    q: LUTQuery, lut_flat, particles, obs_px, row_map=None
+) -> torch.Tensor:
+    """Plain PyTorch version of ``csrc/lut_likelihood.cu``: the same
+    float32 address math and beam model (and the sub-bin lerp with
+    ``q.subbin``), as one (N, R) gather, and the beam sum accumulated in
+    double. The CPU path and the kernel's reference in the tests and on
+    the card."""
+    row, b0, frac, oob = window_start(q, particles, row_map)
+    start = row * q.row_stride + b0.to(torch.int64)
+    return _window_log_weights(q, lut_flat, start, frac, obs_px, oob)
+
+
+def dedup_plan(q: LUTQuery, particles, row_map=None, slots: int | None = None):
+    """The unique-window kernel's tables, as torch ops on the particles'
+    device with no host sync (``pallas_lut.py`` query :951-978).
+
+    Every particle's window key is its first subrow, ``row * (row_stride
+    / eps) + b0 // eps`` (0 off the map). The particles are sorted by key
+    (``perm``), the sorted order is cut into blocks of ``q.block``, and
+    ``rank`` is each particle's 0-based rank among its block's distinct
+    keys. ``slot_y0`` (nb * S,) int64 holds each block's first S distinct
+    keys: a scatter-amax whose writers of one slot share one key; ranks
+    >= S go to a spare slot that is dropped. Returns (perm (N,) int64,
+    rank (N,) int32, slot_y0, overflow), ``overflow`` the 0-d count of
+    blocks with more than S distinct keys.
+    """
+    slots = q.dedup_slots if slots is None else int(slots)
+    if slots < 1:
+        raise ValueError(f"dedup_plan needs slots >= 1, got {slots}")
+    row, b0, _, oob = window_start(q, particles, row_map)
+    key = torch.where(
+        oob, 0, row * (q.row_stride // q.eps) + torch.div(b0, q.eps, rounding_mode="floor")
+    )
+    n, bsz = key.shape[0], q.block
+    key_sorted, perm = torch.sort(key, stable=True)
+    pos = torch.arange(n, device=key.device)
+    first = pos - pos % bsz
+    new = pos == first
+    new[1:] |= key_sorted[1:] != key_sorted[:-1]
+    c = torch.cumsum(new, 0, dtype=torch.int32)
+    rank = c - c[first]
+    nb = -(-n // bsz)
+    spare = nb * slots
+    idx = torch.where(rank < slots, (pos // bsz) * slots + rank, spare)
+    slot_y0 = torch.zeros(spare + 1, dtype=torch.int64, device=key.device)
+    slot_y0 = slot_y0.scatter_reduce_(0, idx, key_sorted, "amax")[:spare].contiguous()
+    last = torch.clamp(torch.arange(1, nb + 1, device=key.device) * bsz, max=n) - 1
+    overflow = (rank[last] >= slots).sum()
+    return perm, rank, slot_y0, overflow
+
+
+def lut_dedup_reference(
+    q: LUTQuery, lut_flat, particles, obs_px, row_map=None, slots: int | None = None
+):
+    """Plain PyTorch version of ``csrc/lut_dedup.cu``: every particle
+    reads its beams through the slot table of :func:`dedup_plan`, from
+    ``slot_y0[block, rank] * eps + b0 % eps``, and from its own window
+    only where its rank is >= S. With a right plan this is
+    :func:`lut_log_weights_reference` bit for bit. Returns (log weights
+    (N,), the 0-d count of overflowed blocks)."""
+    slots = q.dedup_slots if slots is None else int(slots)
+    perm, rank, slot_y0, overflow = dedup_plan(q, particles, row_map, slots)
+    row, b0, frac, oob = window_start(q, particles, row_map)
+    own = row * q.row_stride + b0.to(torch.int64)
+    rem = (b0 % q.eps).to(torch.int64)
+    pos = torch.arange(own.shape[0], device=own.device)
+    slot = (pos // q.block) * slots + rank.clamp(max=slots - 1)
+    via_slot = slot_y0[slot] * q.eps + rem[perm]
+    start = torch.empty_like(own)
+    start[perm] = torch.where(rank < slots, via_slot, own[perm])
+    return _window_log_weights(q, lut_flat, start, frac, obs_px, oob), overflow

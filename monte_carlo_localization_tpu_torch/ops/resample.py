@@ -69,6 +69,33 @@ def systematic_invert_cdf_window(
     return torch.clamp(torch.cummax(seeded, dim=0).values, 0, n - 1)
 
 
+def prefix_sum_doubling(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum of a 1-D tensor by doubling (Hillis-Steele):
+    log2(N) elementwise adds in float64, into buffers whose zero head
+    stands in for the missing terms, rounded back to ``x.dtype``. Only
+    elementwise ops, so the same input gives the same bits on every run
+    and every device."""
+    n = x.shape[0]
+    a = torch.zeros(2 * n, dtype=torch.float64, device=x.device)
+    b = torch.zeros_like(a)
+    a[n:] = x
+    s = 1
+    while s < n:
+        torch.add(a[n:], a[n - s:2 * n - s], out=b[n:])
+        a, b = b, a
+        s *= 2
+    return a[n:].to(x.dtype)
+
+
+def weight_cdf(log_weights: torch.Tensor) -> torch.Tensor:
+    """The float32 CDF of softmax(log_weights), the same bits on every run
+    and device: :func:`prefix_sum_doubling`, since on a card
+    ``torch.cumsum`` of floats is not reproducible (its single-pass scan
+    adds tile prefixes in whatever order the tiles finish, so two runs of
+    one seeded chain could part ways)."""
+    return prefix_sum_doubling(torch.softmax(log_weights, dim=0))
+
+
 def systematic_resample_indices(
     log_weights: torch.Tensor,
     num_samples: int | None = None,
@@ -79,7 +106,7 @@ def systematic_resample_indices(
     drawn from ``generator`` unless given."""
     n = log_weights.shape[0]
     m = n if num_samples is None else num_samples
-    cdf = torch.cumsum(torch.softmax(log_weights, dim=0), dim=0)
+    cdf = weight_cdf(log_weights)
     return systematic_invert_cdf_window(cdf, _uniform_u0(log_weights, generator, u0), m, 0, m)
 
 

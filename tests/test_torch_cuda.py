@@ -1,12 +1,14 @@
-"""The CUDA kernels (LUT likelihood, mega step) against their plain
-PyTorch versions, on a card. Skipped without one. This file imports no jax, so it also runs on a
+"""The CUDA kernels (LUT likelihood with and without the sub-bin lerp,
+unique-window LUT likelihood, mega step) against their plain PyTorch
+versions, on a card. Skipped without one. This file imports no jax, so it also runs on a
 GPU machine without the JAX package's dependencies:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Tolerance: atol 1e-3. Both sides evaluate the same float32 expressions;
 they differ by the kernel's fused multiply-adds, CUDA's expf/logf and
-the order of the beam sum. The mega step also resamples from a weight CDF
+the order of the beam sum. The unique-window kernel must equal the LUT
+kernel bit for bit. The mega step also resamples from a weight CDF
 summed in another order, so at least 99% of its proposal rows must agree
 within 1e-5 and the log weights within 1e-3 on those rows; its moment
 sums hold relative 1e-4.
@@ -20,6 +22,7 @@ import torch
 
 from monte_carlo_localization_tpu_torch.ops.lut_query import (
     LUTQuery,
+    lut_dedup_reference,
     lut_log_weights_reference,
     required_row_stride,
     suggest_theta_bins,
@@ -37,7 +40,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _case(rng, beams, max_range_px, compact, n, device):
+def _case(rng, beams, max_range_px, compact, n, device, **opts):
     dtype = np.uint8 if max_range_px <= 254 else np.uint16
     t = suggest_theta_bins(beams)
     stride = required_row_stride(t, beams, np.dtype(dtype).itemsize)
@@ -45,7 +48,7 @@ def _case(rng, beams, max_range_px, compact, n, device):
         t, beams, height=H, width=W, resolution=RES, origin_x=OX, origin_y=OY,
         max_range_px=max_range_px, row_stride=stride, z_hit=0.8, z_short=0.01,
         z_max=0.07, z_rand=0.12, sigma_hit=8.0, inv_squash=1 / 2.2,
-        lut_dtype=dtype, device=device,
+        lut_dtype=dtype, device=device, **opts,
     )
     n_rows = H * W // 3 + 1 if compact else H * W
     base = rng.integers(0, max_range_px + 1, (n_rows, t)).astype(dtype)
@@ -76,6 +79,77 @@ def test_kernel_matches_plain_version(cuda, num_beams, max_range_px, compact):
     assert float((got - want).abs().max()) <= 1e-3
 
 
+def _beams(num_beams):
+    return (-0.75 * np.pi + np.arange(num_beams) * 1.5 * np.pi / (num_beams - 1)).astype(np.float32)
+
+
+@pytest.mark.parametrize("compact", [False, True], ids=["dense", "row_map"])
+@pytest.mark.parametrize("max_range_px", [200, 400], ids=["u8", "u16"])
+@pytest.mark.parametrize("num_beams", [60, 1080])
+def test_subbin_kernel_matches_plain_version(cuda, num_beams, max_range_px, compact):
+    rng = np.random.default_rng(7 + num_beams + max_range_px + compact)
+    q, lut, parts, obs, row_map = _case(rng, _beams(num_beams), max_range_px, compact, 4000,
+                                        cuda, subbin=True)
+    parts[:2, 2] = torch.tensor([-2 * math.pi, 2 * math.pi], device=cuda)
+    got = q(lut, parts, obs, row_map=row_map)
+    want = lut_log_weights_reference(q, lut, parts, obs, row_map=row_map)
+    torch.cuda.synchronize()
+    assert q.launch_count == 1
+    assert bool(((got == -1e4) == (want == -1e4)).all())
+    assert 0 < int((want == -1e4).sum()) < 4000
+    assert float((got - want).abs().max()) <= 1e-3
+
+
+def _cloud(rng, kind, n):
+    """converged: a few poses; uniform: every particle its own window;
+    mixed: both, with particles off the map."""
+    x0, y0 = OX + 0.5 * W * RES, OY + 0.5 * H * RES
+    poses = np.array([[x0, y0, 0.3], [x0 + 0.4, y0 - 0.3, -1.2], [x0 - 0.7, y0, 2.5]])
+    conv = poses[rng.integers(0, 3, n)]
+    uni = np.stack([rng.uniform(OX, OX + W * RES, n), rng.uniform(OY, OY + H * RES, n),
+                    rng.uniform(-math.pi, math.pi, n)], 1)
+    if kind == "converged":
+        parts = conv
+    elif kind == "uniform":
+        parts = uni
+    else:
+        pick = rng.uniform(size=n)
+        parts = np.where((pick < 0.7)[:, None], conv, uni)
+        parts[pick > 0.97, 0] = OX - 1.0
+    return parts.astype(np.float32)
+
+
+@pytest.mark.parametrize("subbin", [False, True], ids=["K4", "K3+K4"])
+@pytest.mark.parametrize("kind", ["converged", "uniform", "mixed"])
+def test_dedup_kernel_equals_lut_kernel(cuda, kind, subbin):
+    rng = np.random.default_rng(11)
+    n = 20000
+    q, lut, _, obs, _ = _case(rng, _beams(60), 200, False, 8, cuda, subbin=subbin,
+                              dedup_slots=16, block=160)
+    parts = torch.from_numpy(_cloud(rng, kind, n)).to(cuda)
+    got = q(lut, parts, obs)
+    want = q.launch(lut, parts, obs)
+    plain, overflow = lut_dedup_reference(q, lut, parts, obs)
+    torch.cuda.synchronize()
+    assert q.dedup_launch_count == 1 and q.launched_slots == 16
+    assert torch.equal(got, want)
+    assert float((got - plain).abs().max()) <= 1e-3
+    assert int(q.last_overflow) == int(overflow)
+    blocks = -(-n // 160)
+    assert int(overflow) == {"converged": 0, "uniform": blocks}.get(kind, int(overflow))
+
+
+def test_dedup_u16_1080_beams_needs_opt_in_shared_memory(cuda):
+    rng = np.random.default_rng(12)
+    q, lut, parts, obs, row_map = _case(rng, _beams(1080), 400, True, 4000, cuda,
+                                        dedup_slots=16, block=64)
+    assert q.window_entries * 2 * 16 > 48 * 1024
+    got = q(lut, parts, obs, row_map=row_map)
+    want = q.launch(lut, parts, obs, row_map=row_map)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 def test_launch_rejects_what_the_kernel_does_not_take(cuda):
     rng = np.random.default_rng(0)
     beams = np.linspace(-2.35, 2.35, 60).astype(np.float32)
@@ -88,7 +162,14 @@ def test_launch_rejects_what_the_kernel_does_not_take(cuda):
         q(lut, parts, obs[:10])
     with pytest.raises(ValueError, match="is on"):
         q(lut.cpu(), parts, obs)
-    assert q.launch_count == 0
+    with pytest.raises(ValueError, match="dedup_slots"):
+        q.launch_dedup(lut, parts, obs)
+    qd = _case(rng, beams, 200, False, 64, cuda, dedup_slots=4)[0]
+    shifted = torch.empty(lut.numel() + 1, dtype=lut.dtype, device=cuda)[1:]
+    shifted.copy_(lut)
+    with pytest.raises(ValueError, match="16 B boundary"):
+        qd(shifted, parts, obs)
+    assert q.launch_count == qd.dedup_launch_count == 0
 
 
 def _mega_case(rng, num_beams, max_range_px, n, device):
@@ -161,3 +242,28 @@ def test_mega_launch_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="debug_phases"):
         step.launch(lut, parts, logw, noise, obs, scalars, out_p, out_w, sums, debug_phases="x")
     assert step.launch_count == 0
+
+
+def test_seeded_chains_agree_bit_for_bit_with_and_without_dedup(cuda):
+    """At 50k particles the classic step is reproducible on the card (the
+    weight CDF is a doubling scan, not torch.cumsum), and the
+    unique-window kernel changes no bit of the trajectory."""
+    from monte_carlo_localization_tpu_torch import MCLConfig, ParticleFilter
+    from monte_carlo_localization_tpu_torch.mapping import map_from_occupancy
+
+    occ = np.zeros((120, 160), np.int8)
+    occ[[0, -1], :] = occ[:, [0, -1]] = 100
+    occ[40:50, 60:90] = occ[80:95, 20:30] = 100
+    gm = map_from_occupancy(occ, resolution=0.05, origin=(0.0, 0.0, 0.0), device=cuda)
+    beams = _beams(60)
+    scans = np.tile(np.linspace(0.5, 4.0, 60, dtype=np.float32), (5, 1))
+    actions = np.tile(np.float32([0.02, 0.0, 0.01]), (5, 1))
+    poses = []
+    for slots in (0, 0, 16):
+        pf = ParticleFilter(gm, MCLConfig(max_particles=50_000, pallas_dedup_slots=slots),
+                            beam_angles=beams)
+        _, p = pf.step_many(pf.init_global(seed=3), actions, scans)
+        poses.append(p.cpu())
+        assert (pf.likelihood.dedup_launch_count, pf.likelihood.launch_count) == (
+            (5, 0) if slots else (0, 5))
+    assert torch.equal(poses[0], poses[1]) and torch.equal(poses[0], poses[2])

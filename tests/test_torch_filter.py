@@ -67,8 +67,27 @@ def _carry_map(jm) -> GridMap:
 
 
 def test_slice_matches_jax_filter_on_its_draws(clutter_map, beams60, make_scan):
+    _chained_parity(clutter_map, beams60, make_scan)
+
+
+@pytest.mark.parametrize(
+    "opts",
+    [dict(pallas_subbin=True), dict(pallas_dedup_slots=4),
+     dict(pallas_dedup_slots=4, pallas_dedup_matmul=True)],
+    ids=["subbin_K3", "dedup_K4", "dedup_matmul_K5"],
+)
+def test_slice_matches_jax_filter_under_kernel_options(clutter_map, beams60, make_scan, opts):
+    pf = _chained_parity(clutter_map, beams60, make_scan, **opts)
+    assert pf.likelihood.subbin == opts.get("pallas_subbin", False)
+    assert pf.likelihood.dedup_slots == opts.get("pallas_dedup_slots", 0)
+    assert pf.likelihood.dedup_matmul == opts.get("pallas_dedup_matmul", False)
+
+
+def _chained_parity(clutter_map, beams60, make_scan, **opts):
+    """3 chained corrections of both filters on one LUT and cloud, the
+    port fed the JAX filter's draws; returns the port's filter."""
     n, steps = 128, 3
-    cfg_kw = dict(max_particles=n, raycast_method="lut_pallas", seed=7)
+    cfg_kw = dict(max_particles=n, raycast_method="lut_pallas", seed=7, **opts)
     jpf = JParticleFilter(clutter_map, JMCLConfig(**cfg_kw))
     jpf.set_beam_angles(beams60)
     pf = ParticleFilter(_carry_map(jpf.grid_map), MCLConfig(**cfg_kw))
@@ -95,7 +114,9 @@ def test_slice_matches_jax_filter_on_its_draws(clutter_map, beams60, make_scan):
         row_ok = np.all(np.abs(parts - np.asarray(js.particles)) <= 1e-4, axis=1)
         assert row_ok.mean() >= 0.99, f"step {i}: {row_ok.mean():.3f} rows equal"
         assert abs(pf.log_quality(ts) - float(js.log_quality)) < 1e-3
-    assert pf.likelihood.launch_count == 0  # CPU tensors: the plain version
+    # CPU tensors: the plain versions
+    assert pf.likelihood.launch_count == pf.likelihood.dedup_launch_count == 0
+    return pf
 
 
 def test_step_many_equals_chained_steps(small_map, beams60):
@@ -123,8 +144,29 @@ def test_unported_options_raise(small_map, method):
     gm = small_map
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ParticleFilter(gm, MCLConfig(raycast_method=method))
-    with pytest.raises(NotImplementedError, match="K3"):
-        ParticleFilter(gm, MCLConfig(pallas_subbin=True))
+
+
+def test_kernel_options_build_and_mega_refuses_them(small_map, beams60, clutter_map):
+    for opts, want in (
+        (dict(pallas_subbin=True), (True, 0, False)),
+        (dict(pallas_dedup_slots=4), (False, 4, False)),
+        (dict(pallas_dedup_slots=4, pallas_dedup_matmul=True), (False, 4, True)),
+        (dict(pallas_dedup_matmul=True), (False, 0, False)),  # ignored without slots
+        (dict(pallas_dedup_slots=-1), (False, 0, False)),  # auto: off
+    ):
+        q = ParticleFilter(small_map, MCLConfig(max_particles=64, **opts),
+                           beam_angles=beams60).likelihood
+        assert (q.subbin, q.dedup_slots, q.dedup_matmul) == want, opts
+    for opts in (dict(pallas_subbin=True), dict(pallas_dedup_slots=4)):
+        with pytest.raises(ValueError, match="pallas_mega"):
+            ParticleFilter(small_map, MCLConfig(max_particles=64, pallas_mega=True, **opts),
+                           beam_angles=beams60)
+        jpf = JParticleFilter(clutter_map, JMCLConfig(
+            max_particles=64, raycast_method="lut_pallas", pallas_mega=True, **opts))
+        with pytest.raises(ValueError, match="pallas_mega"):
+            jpf.set_beam_angles(beams60)
+            jpf.step_many(jpf.init_global(seed=0), np.zeros((2, 3), np.float32),
+                          np.ones((2, 60), np.float32))
 
 
 def test_init_global_samples_free_space(small_map):

@@ -29,6 +29,7 @@ from monte_carlo_localization_tpu_torch.models.sensor import (
 )
 from monte_carlo_localization_tpu_torch.ops.resample import (
     multinomial_resample_indices,
+    prefix_sum_doubling,
     resample_indices,
     systematic_invert_cdf_window,
 )
@@ -123,6 +124,20 @@ def test_systematic_resample_matches_jax_draw():
     idx = multinomial_resample_indices(torch.from_numpy(logw), generator=gen)
     assert idx.dtype == torch.int32 and idx.shape == (300,)
     assert idx.min() >= 0 and idx.max() < 300
+
+
+@pytest.mark.parametrize("n", [1, 5, 4000, 100_003])
+def test_doubling_prefix_sum_is_the_cdf(n):
+    """The card's reproducible CDF (float64 doubling, rounded) against the
+    float64 numpy cumsum, and the JAX package's float32 CDF to 1e-6."""
+    rng = np.random.default_rng(n)
+    w = rng.gamma(0.3, size=n).astype(np.float32)
+    w /= w.sum()
+    got = prefix_sum_doubling(torch.from_numpy(w)).numpy()
+    want = np.cumsum(w.astype(np.float64)).astype(np.float32)
+    assert got.dtype == np.float32 and got.shape == (n,)
+    np.testing.assert_array_max_ulp(got, want, maxulp=1)
+    np.testing.assert_allclose(got, np.asarray(jnp.cumsum(jnp.asarray(w))), rtol=0, atol=1e-6)
 
 
 def test_expected_pose_matches():
