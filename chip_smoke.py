@@ -14,8 +14,12 @@ trace through ``ParticleFilter`` on the classic step and on the mega step
 replays the config #4 golden trace on basement_fixed (compact LUT, built
 here) with and without ``pallas_subbin``, runs config #4 global
 localization at 100k particles with and without the unique-window kernel
-(``pallas_dedup_slots``, once with ``pallas_dedup_matmul``), and drives
-the 4000-particle x 1080-beam Spielberg headline shape. Each phase prints
+(``pallas_dedup_slots``, once with ``pallas_dedup_matmul``), drives
+the 4000-particle x 1080-beam Spielberg headline shape, holds the fleet
+form of the LUT kernel against its plain version, runs config #5 (a
+``FleetFilter`` of 64 cars x 4000 particles over 4 maps, bench.py
+``bench_fleet``'s counterpart) and runs the probes of
+``tools/mega_probe.py`` through their Hopper kernels. Each phase prints
 one JSON line with its own seconds; any failure raises and exits
 non-zero. The last two lines are the kernel report and ``{"ok": true,
 "device": {...}}``. It imports nothing of JAX and needs no network.
@@ -71,6 +75,12 @@ OPS_PER_BEAM = 80
 OPS_PER_LERP = 3  # the sub-bin lerp: subtract, multiply, add
 OPS_PER_PARTICLE_K1 = 12  # address: 2 sub, 2 div, casts, compares, rint, fix-ups
 OPS_PER_PARTICLE_K6 = 60  # + motion (sin/cos, chord, noise, wrap) and moments
+# config #5 (BASELINE.json, bench.py CONFIGS[5] / CONFIG_MAPS[5])
+CONFIG5_MAPS = ("map_1753950572.yaml", "icra_2_clean.yaml", "first_map.yaml", "new_map1.yaml")
+CONFIG5_FLEET = 64
+CONFIG5_CHAIN = 10  # bench_fleet: chain 10, 3 rounds of 3 reps, 3 rounds of 20 steps
+CONFIG5_ROUNDS, CONFIG5_REPS, CONFIG5_ITERS = 3, 3, 20
+FLEET_KERNELS_MAX = 1.5  # fleet device kernels per correction / config #1 classic's
 
 
 def emit(phase: str, t0: float, **fields) -> None:
@@ -244,28 +254,6 @@ def mega_bound(n: int, n_on: int, r: int, itemsize: int) -> dict:
     b = (12 + 4 + 12) * n + (12 + 4) * n + 8 * r + 64 + n_on * r * itemsize
     f64 = n_on * r + 7 * n  # beam sums, the CDF and the moment sums
     return bound(b, n * (OPS_PER_PARTICLE_K6 + 2 * math.ceil(math.log2(n))) + n_on * r * OPS_PER_BEAM, f64)
-
-
-def probe_bounds() -> dict:
-    """Bounds of the TPU feasibility probes of tools/mega_probe.py (not
-    ported yet), from their shapes: f32 arrays in and out, and the
-    operations of the function each probe computes (a resample inversion
-    of 4096 weights is a cumsum plus a binary search per slot, not the
-    TPU's one-hot matmul)."""
-    n = 32 * 128  # the mega probes' particle count
-    inversion_ops = n + n * math.ceil(math.log2(n)) + 3 * n + 10 * n
-    mega_bytes = 4 * (n + 3 * n + 128 * 128 + 32 * 32 + 3 * n + n)
-    shapes = {  # probe: (bytes in + out, float32 operations)
-        "probe_smem": (4 * (16 + 16 * 128 + 16 * 128), 16),
-        "probe_rng": (4 * 4 * 32 * 128, 12 * 4 * 32 * 128),
-        "probe_cumsum": (4 * 2 * 32 * 128, 32 * 128),
-        "probe_scratch": (4 * 8 * 128, 8 * 128),
-        "probe_mega_ops": (mega_bytes, inversion_ops),
-        "probe_smem_roundtrip": (4 * 2 * 256, 256),
-        "probe_mega_parts": (mega_bytes, inversion_ops),
-        "probe_mega_bisect": (mega_bytes, inversion_ops),
-    }
-    return {k: bound(b, ops, 0) for k, (b, ops) in shapes.items()}
 
 
 def synthetic_case(rng, beams, max_range_px, compact, n, device, **opts):
@@ -783,7 +771,9 @@ def phase_config1_mega(device, classic_rate: float) -> dict:
          kernel_vs_plain=cmp, kernel_times=times, profile_20_steps=prof)
     del pf, pf_c, gm
     torch.cuda.empty_cache()
-    return dict(launches=mega_launches, max_abs_err=cmp["max_abs_err"], **times)
+    return dict(launches=mega_launches, max_abs_err=cmp["max_abs_err"],
+                classic_kernels_per_correction=prof["classic"]["device_kernels_per_correction"],
+                **times)
 
 
 def phase_mega_full_window(device) -> dict:
@@ -1037,6 +1027,340 @@ def phase_config4_converge(device, gm, beams) -> dict:
     torch.cuda.empty_cache()
     return kernels
 
+# fleet cases: (map shapes, members, particles per member, map_of,
+# member_base, compact, max_range_px, subbin). npm 4001 and 1003 are not
+# multiples of 8, so a block of 8 warps would straddle two members; every
+# case has particles off their member's map.
+FLEET_CASES = {
+    "3_members_2_maps": ([(64, 80), (40, 120)], 3, 4000, [0, 1, 0], 0, False, 200, False),
+    "shared_map_of": ([(64, 80), (40, 120)], 8, 1003, [1, 1, 0, 1, 0, 0, 1, 1], 0, False, 200,
+                      False),
+    "compact_row_map_bases": ([(64, 80), (40, 120)], 3, 4000, [1, 0, 1], 0, True, 200, False),
+    "u16": ([(64, 80), (40, 120)], 3, 4001, [0, 1, 1], 0, False, 400, False),
+    "subbin": ([(64, 80), (40, 120)], 3, 4000, [0, 1, 0], 0, True, 200, True),
+    "member_base_2": ([(64, 80), (40, 120)], 2, 1003, [0, 0, 1, 0, 1], 2, False, 200, False),
+}
+
+
+def fleet_case(rng, maps, f, npm, map_of, member_base, compact, max_range_px, subbin, device):
+    """A fleet LUTQuery over random tight LUT blocks of maps with their own
+    origins, particles of which some lie off their member's map, one scan
+    per member. Returns (query, lut, particles, obs, row_map, fleet
+    arguments)."""
+    import torch
+
+    from monte_carlo_localization_tpu_torch.ops.lut_query import (
+        LUTQuery,
+        required_row_stride,
+        suggest_theta_bins,
+    )
+
+    beams = headline_beams(60)
+    dtype = np.uint8 if max_range_px <= 254 else np.uint16
+    itemsize = np.dtype(dtype).itemsize
+    t = suggest_theta_bins(beams)
+    stride = required_row_stride(t, beams, itemsize)
+    eps = 512 // itemsize
+    q = LUTQuery(
+        t, beams, height=max(h for h, _ in maps), width=max(w for _, w in maps),
+        resolution=0.05, origin_x=0.0, origin_y=0.0, max_range_px=max_range_px,
+        row_stride=stride, z_hit=0.8, z_short=0.01, z_max=0.07, z_rand=0.12, sigma_hit=8.0,
+        inv_squash=1 / 2.2, lut_dtype=dtype, subbin=subbin, num_members=f,
+        per_member_maps=True, device=device,
+    )
+    ox = rng.uniform(-2, 2, len(maps)).astype(np.float32)
+    oy = rng.uniform(-2, 2, len(maps)).astype(np.float32)
+    blocks, bases, rmaps, rbases, at, rat = [], [], [], [], 0, 0
+    for h, w in maps:
+        rows = h * w // 3 + 1 if compact else h * w
+        blocks.append(rng.integers(0, max_range_px + 1, rows * stride).astype(dtype))
+        bases.append(at)
+        at += rows * (stride // eps)
+        if compact:
+            rmaps.append(rng.integers(0, rows, h * w).astype(np.int32))
+            rbases.append(rat)
+            rat += h * w
+    mi = np.asarray(map_of)[np.arange(f) + member_base]
+    parts = np.zeros((f, npm, 3), np.float32)
+    for k in range(f):
+        h, w = maps[mi[k]]
+        parts[k, :, 0] = rng.uniform(ox[mi[k]] - 0.3, ox[mi[k]] + w * 0.05 + 0.3, npm)
+        parts[k, :, 1] = rng.uniform(oy[mi[k]] - 0.3, oy[mi[k]] + h * 0.05 + 0.3, npm)
+        parts[k, :, 2] = rng.uniform(-2 * math.pi, 2 * math.pi, npm)
+    obs = rng.uniform(0, max_range_px * 1.1, (f, 60)).astype(np.float32)
+
+    def to(a):
+        return None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    fleet = dict(member_base=member_base, origins=(to(ox), to(oy)),
+                 map_of=to(np.asarray(map_of, np.int32)), dims=to(np.array(maps, np.int32)),
+                 lut_bases=to(np.array(bases, np.int32)),
+                 row_map_bases=to(np.array(rbases, np.int32)) if compact else None)
+    row_map = to(np.concatenate(rmaps)) if compact else None
+    return q, to(np.concatenate(blocks)), to(parts.reshape(-1, 3)), to(obs), row_map, fleet
+
+
+def fleet_compare(q, lut, parts, obs, row_map, fleet, what: str, synthetic: bool = True) -> dict:
+    """One fleet-kernel launch against its plain version; raises on a gate
+    (a synthetic case must hold particles on and off the maps)."""
+    import torch
+
+    from monte_carlo_localization_tpu_torch.ops.lut_query import lut_log_weights_reference
+
+    tables = q.fleet_tables(parts, obs, row_map, **fleet)
+    got = q.launch_fleet(lut, parts, obs, row_map, tables)
+    torch.cuda.synchronize()
+    want = lut_log_weights_reference(q, lut, parts, obs, row_map, tables)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    off = int((want == -1e4).sum())
+    check(bool(((got == -1e4) == (want == -1e4)).all()), f"{what}: off-map particles differ")
+    check(not synthetic or 0 < off < parts.shape[0],
+          f"{what}: case needs particles on and off the maps")
+    check(err <= KERNEL_TOL, f"{what}: fleet kernel vs plain {err} > {KERNEL_TOL}")
+    return dict(max_abs_err=err, off_map=off, particles=parts.shape[0])
+
+
+def phase_fleet_vs_plain(device) -> dict:
+    """The fleet form of lut_likelihood.cu against its plain version on
+    synthetic cases, and a one-member fleet against the single-map kernel
+    (torch.equal)."""
+    import torch
+
+    from monte_carlo_localization_tpu_torch.ops.lut_query import LUTQuery
+
+    t0 = time.perf_counter()
+    cases = {}
+    for name, case in FLEET_CASES.items():
+        args = fleet_case(np.random.default_rng(len(name)), *case, device)
+        cases[name] = fleet_compare(*args, f"fleet {name}")
+    one = {}
+    for subbin in (False, True):
+        for compact in (False, True):
+            q, lut, parts, obs, row_map = synthetic_case(
+                np.random.default_rng(5), headline_beams(60), 200, compact, N_PARTICLES + 1,
+                device, subbin=subbin)
+            fq = LUTQuery(q.t_bins, headline_beams(60), height=q.height, width=q.width,
+                          resolution=q.resolution, origin_x=q.origin_x, origin_y=q.origin_y,
+                          max_range_px=200, row_stride=q.row_stride, z_hit=0.8, z_short=0.01,
+                          z_max=0.07, z_rand=0.12, sigma_hit=8.0, inv_squash=1 / 2.2,
+                          subbin=subbin, per_member_maps=True, device=device)
+            fleet = dict(
+                origins=(torch.tensor([q.origin_x], device=device),
+                         torch.tensor([q.origin_y], device=device)),
+                lut_bases=torch.zeros(1, dtype=torch.int32, device=device),
+                row_map_bases=torch.zeros(1, dtype=torch.int32, device=device) if compact else None)
+            got = fq(lut, parts, obs[None], row_map=row_map, **fleet)
+            want = q.launch(lut, parts, obs, row_map)
+            torch.cuda.synchronize()
+            what = f"one-member fleet, subbin={subbin}, compact={compact}"
+            check(torch.equal(got, want), f"{what}: differs from the single-map kernel")
+            one[f"subbin={subbin} compact={compact}"] = "torch.equal"
+    emit("fleet_vs_plain", t0, tol=KERNEL_TOL, cases=cases, one_member_vs_single=one)
+    return dict(max_abs_err=max(c["max_abs_err"] for c in cases.values()))
+
+
+# copies of bench.py's helpers (chip_smoke imports neither bench.py nor
+# jax; headline_beams is bench.py's _beams)
+def _center_pose(gm) -> np.ndarray:
+    """A pose at the centroid of free space (bench.py ``_center_pose``)."""
+    free = gm.free_cells[: int(gm.num_free)].cpu().numpy()
+    row, col = free.mean(axis=0)
+    return np.array([col * gm.resolution + float(gm.origin_x),
+                     row * gm.resolution + float(gm.origin_y), 0.3], np.float32)
+
+
+def _nearest_free_pose(gm, pose) -> np.ndarray:
+    """Snap a pose to the nearest free cell (bench.py ``_nearest_free_pose``)."""
+    free = gm.free_cells[: int(gm.num_free)].cpu().numpy()
+    col = (pose[0] - float(gm.origin_x)) / gm.resolution
+    row = (pose[1] - float(gm.origin_y)) / gm.resolution
+    i = np.argmin((free[:, 0] - row) ** 2 + (free[:, 1] - col) ** 2)
+    return np.array([free[i, 1] * gm.resolution + float(gm.origin_x),
+                     free[i, 0] * gm.resolution + float(gm.origin_y), pose[2]], np.float32)
+
+
+def _drift_threshold(n_corrections: int, sigma_xy: float = 0.05) -> float:
+    """bench.py's divergence gate for zero-action benches: 3 sigma of the
+    motion noise's random walk over S corrections, floored at 1 m."""
+    return max(1.0, 3.0 * float(np.sqrt(max(n_corrections, 1))) * sigma_xy)
+
+
+def phase_config5(device, classic_kernels: float) -> dict:
+    """BASELINE.json config #5 as bench.py ``bench_fleet`` runs it: 64 cars
+    x 4000 particles x 60 beams over 4 maps (map_assignment = arange(64) %
+    4), tight dense member LUTs, each car at its map's best-cleared pose
+    with a sphere-cast scan; chains of 10 corrections (1 warm + 3 rounds x
+    3), then 3 rounds of 20 single steps."""
+    import torch
+
+    from monte_carlo_localization_tpu_torch import MCLConfig, load_map
+    from monte_carlo_localization_tpu_torch.ops.lut_query import fleet_window_start
+    from monte_carlo_localization_tpu_torch.ops.lut_query import lut_log_weights_reference
+    from monte_carlo_localization_tpu_torch.ops.raycast import cast_rays_sphere
+    from monte_carlo_localization_tpu_torch.parallel import FleetFilter, stack_maps
+
+    t0 = time.perf_counter()
+    f, n, r = CONFIG5_FLEET, N_PARTICLES, 60
+    maps = [load_map(REPO / "maps" / name, device=device) for name in CONFIG5_MAPS]
+    asg = np.arange(f, dtype=np.int32) % len(maps)
+    beams = headline_beams(r)
+    ff = FleetFilter(stack_maps(maps), f, MCLConfig(max_particles=n, lut_theta_bins=720),
+                     map_assignment=asg)
+    t1 = time.perf_counter()
+    ff.set_beam_angles(beams)  # builds the tight member LUTs on the host, uploads them
+    torch.cuda.synchronize()
+    t_lut = time.perf_counter() - t1
+    gm, q = ff.map, ff.likelihood
+    check(gm.lut_row_map is None and gm.lut_member_base is not None,
+          "config #5 should take tight dense member LUTs")
+    lut_bytes = gm.range_lut.numel() * gm.range_lut.element_size()
+    cells = [int(h) * int(w) for h, w in gm.member_dims.tolist()]
+    check(lut_bytes == sum(cells) * gm.row_stride * gm.range_lut.element_size(),
+          f"member LUT of {lut_bytes} B is not the sum of the true map areas")
+
+    map_poses = [_nearest_free_pose(m, _center_pose(m)) for m in maps]
+    beams_t = torch.as_tensor(beams, device=device)
+    map_scans = []
+    for m, p in zip(maps, map_poses):
+        qry = torch.stack([torch.full_like(beams_t, float(p[0])), torch.full_like(beams_t, float(p[1])),
+                           float(p[2]) + beams_t], 1)
+        map_scans.append(cast_rays_sphere(m, qry, num_iters=64).cpu().numpy())
+    poses0 = np.stack([map_poses[a] for a in asg])
+    scans = np.stack([map_scans[a] for a in asg])
+    action = np.zeros((f, 3), np.float32)
+    actions_k = np.tile(action, (CONFIG5_CHAIN, 1, 1))
+    scans_k = np.tile(scans, (CONFIG5_CHAIN, 1, 1))
+    state = ff.init_pose(poses0, seed=1)
+    q.fleet_launch_count = q.launch_count = 0
+
+    state, poses = ff.step_many(state, actions_k, scans_k)  # warm chain
+    torch.cuda.synchronize()
+    chained = []
+    for _ in range(CONFIG5_ROUNDS):
+        t2 = time.perf_counter()
+        for _ in range(CONFIG5_REPS):
+            state, poses = ff.step_many(state, actions_k, scans_k)
+        torch.cuda.synchronize()
+        chained.append(CONFIG5_REPS * CONFIG5_CHAIN / (time.perf_counter() - t2))
+    n_corr = CONFIG5_CHAIN * (1 + CONFIG5_ROUNDS * CONFIG5_REPS)
+    err_chain = np.linalg.norm(poses[-1].cpu().numpy()[:, :2] - poses0[:, :2], axis=1)
+    thr_chain = _drift_threshold(n_corr)
+    check(bool(np.isfinite(err_chain).all()) and err_chain.max() < thr_chain,
+          f"config #5 chained: max member error {err_chain.max()} m >= {thr_chain}")
+    per_step = []
+    for _ in range(CONFIG5_ROUNDS):
+        t2 = time.perf_counter()
+        for _ in range(CONFIG5_ITERS):
+            state, pose_s = ff.step(state, action, scans)
+        torch.cuda.synchronize()
+        per_step.append(CONFIG5_ITERS / (time.perf_counter() - t2))
+    n_corr += CONFIG5_ROUNDS * CONFIG5_ITERS
+    err = np.linalg.norm(pose_s.cpu().numpy()[:, :2] - poses0[:, :2], axis=1)
+    thr = _drift_threshold(n_corr)
+    check(bool(np.isfinite(err).all()) and err.max() < thr,
+          f"config #5 per step: max member error {err.max()} m >= {thr}")
+    launches = q.fleet_launch_count
+    check(launches == n_corr and q.launch_count == 0,
+          f"{launches} fleet-kernel launches (and {q.launch_count} single) for {n_corr} corrections")
+
+    # the fleet kernel against its plain version at this path's shape
+    obs = ff.sensor.to_pixel_index(torch.as_tensor(scans, device=device)).float()
+    parts = state.particles.reshape(-1, 3).contiguous()
+    fleet = dict(origins=(gm.origin_x, gm.origin_y), map_of=ff._member_map, dims=gm.member_dims,
+                 lut_bases=gm.lut_member_base, row_map_bases=gm.lut_row_map_base)
+    cmp = fleet_compare(q, gm.range_lut, parts, obs, None, fleet, "config #5 fleet kernel",
+                        synthetic=False)
+    tables = q.fleet_tables(parts, obs, None, **fleet)
+    start, _, oob, _ = fleet_window_start(q, parts, tables)
+    windows = int(torch.unique(start[~oob]).numel())
+    dev = device_ms(lambda: q.launch_fleet(gm.range_lut, parts, obs, None, tables),
+                    "lut_loglik_fleet_kernel")
+    kernel = dict(
+        launches=launches, max_abs_err=cmp["max_abs_err"], ms=dev["ms"], time_source=dev["source"],
+        wrapper_ms=cuda_ms(lambda: q.launch_fleet(gm.range_lut, parts, obs, None, tables)),
+        plain_ms=cuda_ms(lambda: lut_log_weights_reference(q, gm.range_lut, parts, obs, None, tables),
+                         iters=10),
+        distinct_windows=windows,
+        **lut_bound(f * n, f * n - cmp["off_map"], r, 1, False, windows=windows),
+    )
+    prof = chain_profile(lambda: ff.step_many(state, actions_k, scans_k), CONFIG5_CHAIN)
+    kernels = prof["device_kernels_per_correction"]
+    check(kernels <= FLEET_KERNELS_MAX * classic_kernels,
+          f"config #5: {kernels} device kernels per correction > {FLEET_KERNELS_MAX} x "
+          f"the single filter's {classic_kernels}")
+    emit("config5_fleet", t0, maps=[m.name for m in maps], fleet=f, particles=n, beams=r,
+         map_assignment="arange(64) % 4", lut="tight dense " + str(gm.range_lut.dtype),
+         lut_bytes=lut_bytes, lut_row_stride=gm.row_stride, lut_theta_bins=gm.lut_theta_bins,
+         member_cells=cells, lut_build_and_upload_s=t_lut, corrections=n_corr,
+         fleet_launches=launches,
+         chained_fleet_steps_per_s=chained,
+         chained_member_updates_per_s=[x * f for x in chained],
+         per_step_fleet_steps_per_s=per_step,
+         per_step_member_updates_per_s=[x * f for x in per_step],
+         max_member_err_m=dict(chained=float(err_chain.max()), per_step=float(err.max())),
+         drift_threshold_m=dict(chained=thr_chain, per_step=thr),
+         kernel=kernel, profile_10_steps=prof,
+         classic_config1_kernels_per_correction=classic_kernels)
+    del ff, state, parts, maps
+    torch.cuda.empty_cache()
+    return kernel
+
+
+def phase_probes(device) -> dict:
+    """The probes of tools/mega_probe.py through their Hopper kernels (the
+    port's ``tools/mega_probe.py``): every probe once with the launch
+    counts reset (a failed probe fails the run), then each kernel call
+    timed: device ms, wrapper ms, plain ms, library ms, bound."""
+    import torch
+
+    from monte_carlo_localization_tpu_torch.ops.probes import Probes
+    from monte_carlo_localization_tpu_torch.tools.mega_probe import PROBES, measure
+
+    t0 = time.perf_counter()
+    pr = Probes()
+    calls = {name: PROBES[name](pr, device) for name in PROBES}
+    torch.cuda.synchronize()
+    launches = dict(pr.launch_count)
+    for kernel, count in launches.items():
+        check(count > 0, f"probe kernel {kernel} was never launched")
+    timed = {}
+    for name, probe_calls in calls.items():
+        timed[name] = []
+        for call in probe_calls:
+            m = measure(call)
+            m.update(bound(m["bytes"], m["f32_ops"], m["f64_ops"]))
+            timed[name].append(m)
+    emit("probes", t0, passed=list(calls), launches=launches, calls=timed)
+    return dict(launches=launches, timed=timed)
+
+
+def probe_entries(probes: dict) -> list[dict]:
+    """The kernels-line entries of the four probe kernels."""
+    timed, launches = probes["timed"], probes["launches"]
+    keys = ("ms", "time_source", "wrapper_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    src = "monte_carlo_localization_tpu_torch/csrc/probes.cu"
+
+    def entry(name, kernel, replaces, head, others):
+        return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                "launches": launches[kernel],
+                "max_abs_err": max(m["max_abs_err"] for m in [head, *others]),
+                **{k: head[k] for k in keys},
+                "other_calls": [{k: m[k] for k in ("label", *keys)} for m in others]}
+
+    scans = [m for name in ("cumsum", "mega_parts", "mega_bisect") for m in timed[name]]
+    return [
+        entry("probe_gather_rows", "gather_rows", "tools/mega_probe.py:58",
+              timed["smem"][0], []),
+        entry("probe_philox_normals", "philox_normals", "tools/mega_probe.py:97",
+              timed["rng"][0], []),
+        entry("probe_staged_writes", "staged_writes", "tools/mega_probe.py:155, 303",
+              timed["scratch"][0], timed["smem_roundtrip"]),
+        entry("probe_scan_resample", "scan_resample",
+              "tools/mega_probe.py:127, 238, 369, 380, 401, 423, 436, 487, 526, 567",
+              timed["mega_ops"][0], scans),
+    ]
+
 
 def main() -> int:
     import torch
@@ -1046,7 +1370,7 @@ def main() -> int:
         return 2
     csrc = REPO / "monte_carlo_localization_tpu_torch" / "csrc"
     if not all((csrc / f).exists() for f in ("lut_likelihood.cu", "lut_dedup.cu", "mega_step.cu",
-                                             "beam_model.cuh")):
+                                             "probes.cu", "beam_model.cuh")):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
@@ -1068,7 +1392,8 @@ def main() -> int:
     t0 = time.perf_counter()
     built = load_library()
     check(native.available(), "the native C++ LUT builder did not build (g++ with OpenMP)")
-    check(set(built.libs) == {"lut_likelihood", "lut_dedup", "mega_step"}, f"built {sorted(built.libs)}")
+    check(set(built.libs) == {"lut_likelihood", "lut_dedup", "mega_step", "probes"},
+          f"built {sorted(built.libs)}")
     keep = ("== ", "Compiling entry", "registers", "smem", "spill")
     ptxas = [ln.strip() for ln in built.log.splitlines() if any(k in ln for k in keep)]
     grids = {}
@@ -1078,8 +1403,7 @@ def main() -> int:
             grids[f"{num_beams} beams {'u8' if max_range_px <= 254 else 'u16'}"] = step.grid_blocks()
     emit("build", t0, nvcc_s=built.seconds,
          so={k: str(v.relative_to(REPO)) for k, v in built.paths.items()}, ptxas=ptxas,
-         mega_grid_blocks=grids, sms=torch.cuda.get_device_properties(0).multi_processor_count,
-         probe_bounds=probe_bounds())
+         mega_grid_blocks=grids, sms=torch.cuda.get_device_properties(0).multi_processor_count)
 
     lut_plain = phase_kernel_vs_plain(device)
     dedup_plain = phase_dedup_vs_plain(device)
@@ -1092,6 +1416,9 @@ def main() -> int:
     del gm4
     torch.cuda.empty_cache()
     head = phase_headline(device)
+    fleet_plain = phase_fleet_vs_plain(device)
+    config5 = phase_config5(device, mega1["classic_kernels_per_correction"])
+    probes = phase_probes(device)
     keys = ("launches", "max_abs_err", "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")
     k3 = config4["k3"]
     dedup_entries = []
@@ -1150,6 +1477,17 @@ def main() -> int:
             "phase_device_ms": mega1["phase_device_ms"],
             "synthetic_times": mega_plain["times"],
         },
+        {
+            "name": "lut_likelihood (fleet)",
+            "route": "cuda",
+            "source": "monte_carlo_localization_tpu_torch/csrc/lut_likelihood.cu",
+            "replaces": "monte_carlo_localization_tpu/ops/pallas_lut.py:835-949",
+            **{k: config5[k] for k in keys},
+            "max_abs_err": max(config5["max_abs_err"], fleet_plain["max_abs_err"]),
+            "library_ms": None,
+            "config5_launches": config5["launches"],
+        },
+        *probe_entries(probes),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -80,17 +80,20 @@ class MCLState:
 
 
 def expected_pose(particles: torch.Tensor, log_weights: torch.Tensor) -> torch.Tensor:
-    """Weighted mean x/y and circular-mean heading."""
-    w = torch.softmax(log_weights, dim=0)
-    x = torch.sum(w * particles[:, 0])
-    y = torch.sum(w * particles[:, 1])
-    s = torch.sum(w * torch.sin(particles[:, 2]))
-    c = torch.sum(w * torch.cos(particles[:, 2]))
-    return torch.stack([x, y, torch.atan2(s, c)])
+    """Weighted mean x/y and circular-mean heading: (3,) for (N, 3)
+    particles, (F, 3) for a fleet's (F, N, 3)."""
+    w = torch.softmax(log_weights, dim=-1)
+    x = torch.sum(w * particles[..., 0], dim=-1)
+    y = torch.sum(w * particles[..., 1], dim=-1)
+    s = torch.sum(w * torch.sin(particles[..., 2]), dim=-1)
+    c = torch.sum(w * torch.cos(particles[..., 2]), dim=-1)
+    return torch.stack([x, y, torch.atan2(s, c)], dim=-1)
 
 
-def mcl_step(
-    state: MCLState,
+def correct(
+    particles: torch.Tensor,
+    log_weights: torch.Tensor,
+    generator: torch.Generator,
     action: torch.Tensor,
     obs_px: torch.Tensor,
     likelihood_fn,
@@ -100,21 +103,26 @@ def mcl_step(
     exact_dt_heuristic: bool = True,
     u0=None,
     noise: torch.Tensor | None = None,
-) -> tuple[MCLState, torch.Tensor]:
-    """One MCL correction. Returns (new_state, inferred_pose).
+):
+    """One MCL correction of (N, 3) particles, or of a fleet's (F, N, 3)
+    with per-member actions (F, 3) and scans: the same launches serve
+    every member. Returns (proposal, shifted log weights, log quality,
+    pose).
 
     The reference's phase order: resample from the old weights, then
     motion, then the likelihood ``likelihood_fn(particles, obs_px)`` of
-    the (R,) observed ranges in pixels; the pose comes from the new
-    particles and weights. ``u0`` (systematic resampling offset) and
-    ``noise`` ((N, 3) N(0, 1) motion noise) replace the generator's draws
-    when given.
+    the observed ranges in pixels; the pose comes from the new particles
+    and weights. ``u0`` (systematic resampling offset, one per member)
+    and ``noise`` (N(0, 1) motion noise shaped like the particles)
+    replace the generator's draws when given.
     """
-    gen = state.generator
     idx = resample_indices(
-        state.log_weights, method=resample_method, generator=gen, u0=u0
+        log_weights, method=resample_method, generator=generator, u0=u0
     )
-    proposal = state.particles[idx]
+    if particles.dim() == 3:
+        proposal = torch.gather(particles, 1, idx.long()[..., None].expand(-1, -1, 3))
+    else:
+        proposal = particles[idx]
     proposal = motion_model(
         proposal,
         action,
@@ -122,18 +130,34 @@ def mcl_step(
         dispersion_y=motion_dispersion[1],
         dispersion_theta=motion_dispersion[2],
         exact_dt_heuristic=exact_dt_heuristic,
-        generator=gen,
+        generator=generator,
         noise=noise,
     )
     log_w = likelihood_fn(proposal, obs_px)
     # log(mean_i w_i) before the shift: linear space underflows at 1080 beams
-    log_quality = torch.logsumexp(log_w, dim=0) - math.log(log_w.shape[0])
-    log_w = log_w - torch.max(log_w)
-    new_state = MCLState(
-        particles=proposal, log_weights=log_w, generator=gen,
-        log_quality=log_quality.to(torch.float32),
+    log_quality = torch.logsumexp(log_w, dim=-1) - math.log(log_w.shape[-1])
+    log_w = log_w - torch.amax(log_w, dim=-1, keepdim=True)
+    return proposal, log_w, log_quality.to(torch.float32), expected_pose(proposal, log_w)
+
+
+def mcl_step(
+    state: MCLState,
+    action: torch.Tensor,
+    obs_px: torch.Tensor,
+    likelihood_fn,
+    **kwargs,
+) -> tuple[MCLState, torch.Tensor]:
+    """One MCL correction (:func:`correct`) of a single filter. Returns
+    (new_state, inferred_pose)."""
+    proposal, log_w, log_quality, pose = correct(
+        state.particles, state.log_weights, state.generator, action, obs_px,
+        likelihood_fn, **kwargs,
     )
-    return new_state, expected_pose(proposal, log_w)
+    new_state = MCLState(
+        particles=proposal, log_weights=log_w, generator=state.generator,
+        log_quality=log_quality,
+    )
+    return new_state, pose
 
 
 # particles per block of the unique-window kernel when MCLConfig.pallas_block
@@ -144,20 +168,21 @@ DEDUP_BLOCK = 160
 def _resolve_dedup_slots(cfg: MCLConfig) -> int:
     """S of the unique-window kernel, as the JAX filter resolves it
     (``filter/core.py:329-336`` of the JAX package): an explicit S > 0
-    turns it on; 0 and -1 (auto) are off. The JAX filter also turns it
-    off for a fleet, which the port does not have yet."""
+    turns it on; 0 and -1 (auto) are off. A fleet with S > 0 makes the
+    query raise, where the JAX fleet turns dedup off without a word."""
     return max(cfg.pallas_dedup_slots, 0)
 
 
 def lut_query_kwargs(grid_map: GridMap, cfg: MCLConfig) -> dict:
     """The map and beam-model arguments of :class:`LUTQuery` (and of
-    ``MegaStep``) for a map with its kernel LUT attached."""
+    ``MegaStep``) for a map with its kernel LUT attached. A batched map's
+    origins go to each query call instead."""
     return dict(
         height=grid_map.height,
         width=grid_map.width,
         resolution=grid_map.resolution,
-        origin_x=grid_map.origin_x,
-        origin_y=grid_map.origin_y,
+        origin_x=0.0 if grid_map.is_batched else grid_map.origin_x,
+        origin_y=0.0 if grid_map.is_batched else grid_map.origin_y,
         max_range_px=grid_map.max_range_px,
         row_stride=grid_map.row_stride,
         z_hit=cfg.z_hit,
@@ -172,12 +197,13 @@ def lut_query_kwargs(grid_map: GridMap, cfg: MCLConfig) -> dict:
 
 
 def build_lut_likelihood(
-    grid_map: GridMap, beam_angles: np.ndarray, cfg: MCLConfig
+    grid_map: GridMap, beam_angles: np.ndarray, cfg: MCLConfig, num_members: int = 1
 ) -> tuple[GridMap, LUTQuery]:
     """Attach the LUT the fused likelihood reads (dense, or row-compacted
-    past ``MCL_LUT_DENSE_MAX``) and build the query for this beam set,
-    with the config's ``pallas_subbin``, ``pallas_dedup_slots`` and
-    ``pallas_dedup_matmul`` (the last ignored without slots, as in the
+    past ``MCL_LUT_DENSE_MAX``; tight per-map blocks for a batched map)
+    and build the query for this beam set and ``num_members`` fleet
+    members, with the config's ``pallas_subbin``, ``pallas_dedup_slots``
+    and ``pallas_dedup_matmul`` (the last ignored without slots, as in the
     JAX filter). Returns (grid_map_with_lut, query). An unsupported beam
     geometry raises."""
     dtype = lut_dtype(grid_map.max_range_px)
@@ -192,6 +218,8 @@ def build_lut_likelihood(
         dedup_slots=slots,
         dedup_matmul=cfg.pallas_dedup_matmul and slots > 0,
         block=cfg.pallas_block or DEDUP_BLOCK,
+        num_members=num_members,
+        per_member_maps=grid_map.is_batched,
     )
     return grid_map, query
 

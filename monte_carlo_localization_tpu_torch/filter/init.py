@@ -43,18 +43,19 @@ def initialize_pose(
     dtype=torch.float32,
     device: torch.device | str = DEFAULT_DEVICE,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Gaussian cloud around a seed pose. Returns (particles, log_weights)."""
+    """Gaussian cloud around a seed pose (3,), or one cloud per pose of an
+    (F, 3) fleet. Returns (particles (..., N, 3), log_weights (..., N))."""
     device = resolve_device(device)
     pose = torch.as_tensor(pose, dtype=dtype, device=device)
-    noise = torch.randn(
-        (num_particles, 3), generator=generator, dtype=dtype, device=device
-    )
+    shape = (*pose.shape[:-1], num_particles)
+    noise = torch.randn((*shape, 3), generator=generator, dtype=dtype, device=device)
+    pose = pose[..., None, :]
     particles = torch.stack(
         [
-            pose[0] + noise[:, 0] * sigma_xy,
-            pose[1] + noise[:, 1] * sigma_xy,
-            normalize_angle(pose[2] + noise[:, 2] * sigma_theta),
+            pose[..., 0] + noise[..., 0] * sigma_xy,
+            pose[..., 1] + noise[..., 1] * sigma_xy,
+            normalize_angle(pose[..., 2] + noise[..., 2] * sigma_theta),
         ],
-        dim=1,
+        dim=-1,
     )
-    return particles, torch.zeros(num_particles, dtype=dtype, device=device)
+    return particles, torch.zeros(shape, dtype=dtype, device=device)

@@ -35,25 +35,27 @@ def motion_model(
     generator: torch.Generator | None = None,
     noise: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Propagate particles (N, 3) by one action (3,), adding Gaussian noise.
+    """Propagate particles (N, 3) by one action (3,), adding Gaussian noise;
+    or a fleet's (F, N, 3) by per-member actions (F, 3).
 
-    ``noise`` is an optional (N, 3) draw of N(0, 1) (the tests feed the
-    JAX package's own draws); without it the noise comes from
-    ``generator``. With ``exact_dt_heuristic=False`` the displacements are
-    taken from the action directly.
+    ``noise`` is an optional draw of N(0, 1) shaped like ``particles``
+    (the tests feed the JAX package's own draws); without it the noise
+    comes from ``generator``. With ``exact_dt_heuristic=False`` the
+    displacements are taken from the action directly.
     """
-    x = particles[:, 0]
-    y = particles[:, 1]
-    theta = particles[:, 2]
+    x = particles[..., 0]
+    y = particles[..., 1]
+    theta = particles[..., 2]
+    act = action[..., None, :]  # broadcasts over the particle axis
 
     if exact_dt_heuristic:
-        dt, v, omega = reconstruct_velocity(action)
+        dt, v, omega = reconstruct_velocity(act)
         ds = v * dt
         dtheta = omega * dt
         omega_for_branch = omega
     else:
-        ds = action[0]
-        dtheta = action[2]
+        ds = act[..., 0]
+        dtheta = act[..., 2]
         omega_for_branch = dtheta
 
     x_straight = x + ds * torch.cos(theta)
@@ -79,8 +81,8 @@ def motion_model(
         )
     elif noise.shape != particles.shape:
         raise ValueError(f"noise shape {tuple(noise.shape)} != {tuple(particles.shape)}")
-    new_x = new_x + noise[:, 0] * dispersion_x
-    new_y = new_y + noise[:, 1] * dispersion_y
-    new_theta = normalize_angle(new_theta + noise[:, 2] * dispersion_theta)
+    new_x = new_x + noise[..., 0] * dispersion_x
+    new_y = new_y + noise[..., 1] * dispersion_y
+    new_theta = normalize_angle(new_theta + noise[..., 2] * dispersion_theta)
 
-    return torch.stack([new_x, new_y, new_theta], dim=1)
+    return torch.stack([new_x, new_y, new_theta], dim=-1)

@@ -105,6 +105,15 @@ def _bind(libs: dict[str, ctypes.CDLL]) -> None:
         # lut, row_stride, row_map, particles, n, obs_px, offsets, r, base,
         # t_bins, height, width, subbin, consts, out, stream
         fn.argtypes = [p, i64, p, p, i64, p, p, i32, i32, i32, i32, i32, i32, p, p, p]
+    for name in ("mcl_lut_loglik_fleet_u8", "mcl_lut_loglik_fleet_u16"):
+        fn = getattr(lut, name)
+        fn.restype = i32
+        # lut, row_stride, row_map, row_map_bases, particles, members, npm,
+        # member_base, map_of, per_member, origin_x, origin_y, dims,
+        # lut_bases, eps, obs_px, offsets, r, base, t_bins, subbin, consts,
+        # out, stream
+        fn.argtypes = [p, i64, p, p, p, i32, i64, i32, p, i32, p, p, p, p, i32,
+                       p, p, i32, i32, i32, i32, p, p, p]
     lut.mcl_cuda_error_string.restype = ctypes.c_char_p
     lut.mcl_cuda_error_string.argtypes = [i32]
 
@@ -135,6 +144,25 @@ def _bind(libs: dict[str, ctypes.CDLL]) -> None:
         fn.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
     mega.mcl_mega_workspace_bytes.restype = i64
     mega.mcl_mega_workspace_bytes.argtypes = [i64, i32]
+
+    probes = libs["probes"]
+    u32, f32 = ctypes.c_uint32, ctypes.c_float
+    signatures = {
+        # hbm, rows, lanes, y0, slots, out, stream
+        "mcl_probe_gather_rows": [p, i32, i32, p, i32, p, p],
+        # k0, k1, count, out, bits, stream
+        "mcl_probe_philox_normals": [u32, u32, i64, p, p, p],
+        # k0, k1, calls, words, stream
+        "mcl_probe_curand_philox": [u32, u32, i32, p, p],
+        # steps, per_step, a, b, c, add, stage, ticket, out, stream
+        "mcl_probe_staged_writes": [i32, i32, f32, f32, f32, f32, p, p, p, p],
+        # part, w, g, parts, n, lanes, u0, out_a, out_b, stream
+        "mcl_probe_scan_resample": [i32, p, p, p, i32, i32, f32, p, p, p],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(probes, name)
+        fn.restype = i32
+        fn.argtypes = argtypes
 
 
 def load_library() -> BuiltLibrary:

@@ -1,6 +1,6 @@
 """Fused range-LUT likelihood: the query of the JAX package's
-``ops/pallas_lut.py`` for one map, as hand-written CUDA kernels beside
-their plain PyTorch versions.
+``ops/pallas_lut.py``, for one map or for a fleet, as hand-written CUDA
+kernels beside their plain PyTorch versions.
 
 Beam j of a particle reads LUT entry ``b0 + k*j + e_j`` of the particle's
 row, where ``b0`` is the particle's heading bin and ``(base, k, e)`` is the
@@ -16,12 +16,18 @@ anything they do not take. On CPU tensors it runs the plain versions:
 :func:`lut_log_weights_reference`, the gather form of the same math, and
 :func:`lut_dedup_reference`, which reads every window through the slot
 table that :func:`dedup_plan` builds.
+
+The fleet form (``num_members`` F, ``per_member_maps``) serves F filters
+of N/F particles each in one launch: each member reads its own scan row
+and, over a batched map, its own map's origin, shape, row-map block and
+LUT block (``pallas_lut.py`` query :855-912).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -116,7 +122,8 @@ def _erf_as(x: torch.Tensor) -> torch.Tensor:
 
 class LUTQuery:
     """``query(lut_flat, particles, obs_px, row_map=None) -> (N,)`` log
-    weights for one map and one beam set.
+    weights for one map and one beam set, or with the fleet arguments for
+    a fleet (:meth:`__call__`).
 
     ``lut_flat`` is the (rows * row_stride,) u8/u16 LUT; ``particles`` is
     (N, 3) float32; ``obs_px`` is the (R,) float32 observed range in
@@ -132,11 +139,17 @@ class LUTQuery:
     standard query's bit for bit. ``dedup_matmul`` (K5's option) needs S
     in 1..128 and runs the same kernel. ``info`` mirrors the JAX query's.
 
+    ``num_members`` = F > 1 makes it a fleet query: the particles are F
+    contiguous groups of N/F and ``obs_px`` is (F, R), one scan per
+    member. ``per_member_maps`` adds a batched map: each call then takes
+    the per-map origins, and optionally shapes, LUT block bases and
+    row-map bases (as the JAX query). Dedup needs a single member.
+
     On CUDA tensors each call launches ``csrc/lut_likelihood.cu`` (adding
-    one to ``launch_count``) or, with dedup, ``csrc/lut_dedup.cu``
-    (``dedup_launch_count``; ``last_overflow`` holds the device count of
-    blocks with more than S windows). On CPU tensors it runs the plain
-    versions.
+    one to ``launch_count``, or to ``fleet_launch_count`` for the fleet
+    kernel) or, with dedup, ``csrc/lut_dedup.cu`` (``dedup_launch_count``;
+    ``last_overflow`` holds the device count of blocks with more than S
+    windows). On CPU tensors it runs the plain versions.
     """
 
     def __init__(
@@ -162,6 +175,8 @@ class LUTQuery:
         dedup_slots: int = 0,
         dedup_matmul: bool = False,
         block: int = 16,
+        num_members: int = 1,
+        per_member_maps: bool = False,
         device: torch.device | str = DEFAULT_DEVICE,
     ):
         beam_angles = np.asarray(beam_angles)
@@ -187,7 +202,14 @@ class LUTQuery:
             )
         if block < 1:
             raise ValueError(f"block {block} < 1")
+        if num_members < 1:
+            raise ValueError(f"num_members {num_members} < 1")
         # the JAX query's rules (pallas_lut.py:511-521)
+        if int(dedup_slots) > 0 and (num_members > 1 or per_member_maps):
+            raise ValueError(
+                "dedup_slots needs a single member (sorting particles by "
+                "window would mix fleet members' scans)"
+            )
         n_slots = min(int(dedup_slots), int(block))
         if dedup_matmul and n_slots <= 0:
             raise ValueError("dedup_matmul requires dedup_slots > 0")
@@ -204,6 +226,9 @@ class LUTQuery:
         self.dedup_slots = max(n_slots, 0)
         self.dedup_matmul = bool(dedup_matmul)
         self.block = int(block)
+        self.num_members = int(num_members)
+        self.per_member_maps = bool(per_member_maps)
+        self.fleet = self.num_members > 1 or self.per_member_maps
         self.eps = entries_per_subrow(itemsize)
         self.window_entries = window_entries(t_bins, beam_angles, itemsize)
         self.info = dict(
@@ -239,12 +264,26 @@ class LUTQuery:
             self.z_max, self.z_rand, self.z_hit, self.rand_term, self.sq2,
             self.inv_squash,
         )
+        self._shared_tables = None  # ((device, N), FleetTables) of a one-map fleet
         self.launch_count = 0
+        self.fleet_launch_count = 0
         self.dedup_launch_count = 0
         self.last_overflow: torch.Tensor | None = None
         self.launched_slots = 0  # S of the last dedup launch, after the card's clamp
 
-    def __call__(self, lut_flat, particles, obs_px, row_map=None) -> torch.Tensor:
+    def __call__(self, lut_flat, particles, obs_px, row_map=None, **fleet) -> torch.Tensor:
+        """Log weights (N,). A fleet query also takes the keywords of
+        :meth:`fleet_tables`: ``member_base``, ``origins``, ``map_of``,
+        ``dims``, ``lut_bases``, ``row_map_bases``."""
+        if self.fleet:
+            tables = self.fleet_tables(particles, obs_px, row_map, **fleet)
+            if particles.device.type == "cuda":
+                return self.launch_fleet(lut_flat, particles, obs_px, row_map, tables)
+            if particles.device.type == "cpu":
+                return lut_log_weights_reference(self, lut_flat, particles, obs_px, row_map, tables)
+            raise ValueError(f"no LUT likelihood for device {particles.device}")
+        if fleet:
+            raise ValueError(f"fleet arguments {sorted(fleet)} to a single-map query")
         if particles.device.type == "cuda":
             if self.dedup_slots > 0:
                 return self.launch_dedup(lut_flat, particles, obs_px, row_map)
@@ -369,6 +408,211 @@ class LUTQuery:
         self.launched_slots = slots
         return out
 
+    def fleet_tables(
+        self, particles, obs_px, row_map=None, member_base: int = 0, origins=None,
+        map_of=None, dims=None, lut_bases=None, row_map_bases=None,
+    ) -> FleetTables:
+        """The per-map tables of one fleet call, on the particles' device,
+        with the JAX query's rules (``pallas_lut.py`` query :855-912):
+
+        - ``member_base``: the global index of this call's first member;
+        - ``origins`` = (x (M,), y (M,)) float32 per-map origins, needed
+          with ``per_member_maps``;
+        - ``map_of`` (F_total,) int32 member -> map (default: identity);
+        - ``dims`` (M, 2) int32 true (height, width) and ``lut_bases``
+          (M,) LUT block starts in 512 B subrows select the tight layout;
+          without them every map has the common (height, width) and its
+          block starts at ``map * height * width * row_stride / eps``;
+        - ``row_map_bases`` (M,) int32: each map's cells in the
+          concatenated compact row map, needed with a ``row_map``.
+
+        Without ``per_member_maps`` every member reads the query's one map
+        and these arguments are ignored, as in JAX. ``obs_px`` row m is
+        the scan of the call's member m."""
+        dev = particles.device
+        f = self.num_members
+        n = particles.shape[0]
+        if n % f != 0:
+            raise ValueError(f"{n} particles do not split into {f} members")
+        if tuple(obs_px.shape) != (f, self.num_beams):
+            raise ValueError(f"obs_px shape {tuple(obs_px.shape)} != ({f}, {self.num_beams})")
+
+        def i32(x):
+            return torch.as_tensor(x, dtype=torch.int32, device=dev).contiguous()
+
+        if not self.per_member_maps:  # one map for all: built once per shape
+            if self._shared_tables is None or self._shared_tables[0] != (dev, n):
+                self._shared_tables = ((dev, n), FleetTables(
+                    npm=n // f, member_base=0, map_of=None,
+                    origin_x=torch.tensor([self.origin_x], dtype=torch.float32, device=dev),
+                    origin_y=torch.tensor([self.origin_y], dtype=torch.float32, device=dev),
+                    dims=i32([[self.height, self.width]]), lut_bases=i32([0]),
+                    row_map_bases=None,
+                ))
+            return self._shared_tables[1]
+        if origins is None:
+            raise ValueError("per_member_maps query needs origins=(ox (M,), oy (M,))")
+        ox = torch.as_tensor(origins[0], dtype=torch.float32, device=dev).contiguous()
+        oy = torch.as_tensor(origins[1], dtype=torch.float32, device=dev).contiguous()
+        m = ox.shape[0]
+        if row_map is not None and (row_map_bases is None or lut_bases is None):
+            raise ValueError(
+                "compact per-member LUTs need row_map_bases and lut_bases "
+                "(GridMap.with_member_compact_luts)"
+            )
+        if dims is None:
+            dims = [[self.height, self.width]] * m
+        if lut_bases is None:
+            member_subrows = self.height * self.width * (self.row_stride // self.eps)
+            if (m - 1) * member_subrows > np.iinfo(np.int32).max:
+                raise ValueError("padded per-member LUT bases overflow int32")
+            lut_bases = np.arange(m, dtype=np.int64) * member_subrows
+        tables = FleetTables(
+            npm=n // f, member_base=int(member_base),
+            map_of=None if map_of is None else i32(map_of),
+            origin_x=ox, origin_y=oy, dims=i32(dims), lut_bases=i32(lut_bases),
+            row_map_bases=None if row_map_bases is None else i32(row_map_bases),
+        )
+        for name, t, shape in (
+            ("origins[1]", tables.origin_y, (m,)), ("dims", tables.dims, (m, 2)),
+            ("lut_bases", tables.lut_bases, (m,)),
+            ("row_map_bases", tables.row_map_bases, (m,)),
+        ):
+            if t is not None and tuple(t.shape) != shape:
+                raise ValueError(f"{name} shape {tuple(t.shape)} != {shape}")
+        need = tables.member_base + f
+        if tables.map_of is not None:
+            if tables.map_of.dim() != 1 or tables.map_of.shape[0] < need:
+                raise ValueError(f"map_of must be 1-D with at least {need} members")
+        elif m < need:
+            raise ValueError(f"{m} maps for members up to {need} and no map_of")
+        return tables
+
+    def launch_fleet(self, lut_flat, particles, obs_px, row_map, tables: FleetTables) -> torch.Tensor:
+        """Run the fleet form of ``csrc/lut_likelihood.cu`` (K1/K2, K3
+        with ``subbin``) over all F members in one launch; raises on any
+        input it does not take."""
+        from monte_carlo_localization_tpu_torch.ops._cuda_build import load_library
+
+        dev = particles.device
+        if dev.type != "cuda":
+            raise ValueError(f"kernel launch needs CUDA tensors, got {dev}")
+        want_dtype = torch.uint8 if self.lut_dtype.itemsize == 1 else torch.uint16
+        f = self.num_members
+        tensors = dict(
+            lut_flat=(lut_flat, want_dtype), particles=(particles, torch.float32),
+            obs_px=(obs_px, torch.float32), beam_offsets=(self.beam_offsets, torch.int32),
+            origin_x=(tables.origin_x, torch.float32), origin_y=(tables.origin_y, torch.float32),
+            dims=(tables.dims, torch.int32), lut_bases=(tables.lut_bases, torch.int32),
+            row_map=(row_map, torch.int32), row_map_bases=(tables.row_map_bases, torch.int32),
+            map_of=(tables.map_of, torch.int32),
+        )
+        for name, (t, dtype) in tensors.items():
+            if t is None:
+                continue
+            if t.device != dev:
+                raise ValueError(f"{name} is on {t.device}, particles on {dev}")
+            if t.dtype != dtype:
+                raise ValueError(f"{name} dtype {t.dtype}, kernel takes {dtype}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+        if particles.dim() != 2 or particles.shape[1] != 3:
+            raise ValueError(f"particles shape {tuple(particles.shape)} != (N, 3)")
+        if lut_flat.dim() != 1 or lut_flat.numel() % self.row_stride:
+            raise ValueError(f"lut_flat must be flat whole rows of {self.row_stride} entries")
+        built = load_library()
+        lib = built.libs["lut_likelihood"]
+        fn = (lib.mcl_lut_loglik_fleet_u8 if want_dtype == torch.uint8
+              else lib.mcl_lut_loglik_fleet_u16)
+        out = torch.empty(particles.shape[0], dtype=torch.float32, device=dev)
+
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(
+                lut_flat.data_ptr(), self.row_stride, ptr(row_map), ptr(tables.row_map_bases),
+                particles.data_ptr(), f, tables.npm, tables.member_base, ptr(tables.map_of),
+                int(self.per_member_maps), tables.origin_x.data_ptr(),
+                tables.origin_y.data_ptr(), tables.dims.data_ptr(),
+                tables.lut_bases.data_ptr(), self.eps, obs_px.data_ptr(),
+                self.beam_offsets.data_ptr(), self.num_beams, self.base, self.t_bins,
+                int(self.subbin), ctypes.addressof(self._consts), out.data_ptr(), stream,
+            )
+        if err != 0:
+            raise RuntimeError(
+                f"lut_likelihood fleet launch failed: CUDA error {err} ({built.error_string(err)})"
+            )
+        self.fleet_launch_count += 1
+        return out
+
+
+@dataclass(frozen=True)
+class FleetTables:
+    """The resolved per-map tables of one fleet query call
+    (:meth:`LUTQuery.fleet_tables`), all on the particles' device. A query
+    without ``per_member_maps`` holds its one map as map 0."""
+
+    npm: int  # particles per member
+    member_base: int
+    map_of: torch.Tensor | None  # (F_total,) int32, or None: map = member
+    origin_x: torch.Tensor  # (M,) float32
+    origin_y: torch.Tensor
+    dims: torch.Tensor  # (M, 2) int32 (height, width)
+    lut_bases: torch.Tensor  # (M,) int32, in subrows of eps entries
+    row_map_bases: torch.Tensor | None  # (M,) int32
+
+
+def _heading_bin(q: LUTQuery, theta):
+    """(b0 (N,) int32 in [0, T), frac (N,) float32 or None): the window's
+    first bin, rounded half to even, or with ``subbin`` the floor bin and
+    its fraction (``pallas_lut.py`` query :889-900)."""
+    bpos = theta * q.bin_scale
+    if q.subbin:
+        bfloor = torch.floor(bpos)
+        frac = bpos - bfloor
+        b0 = bfloor.to(torch.int32)
+    else:
+        frac = None
+        b0 = torch.round(bpos).to(torch.int32)  # half to even
+    b0 = torch.fmod(b0 + q.base, q.t_bins)  # truncating, as lax.rem
+    b0 = torch.where(b0 < 0, b0 + q.t_bins, b0)
+    return b0, frac
+
+
+def fleet_window_start(q: LUTQuery, particles, tables: FleetTables, row_map=None):
+    """The fleet kernel's address math (``pallas_lut.py`` query :855-912):
+    (start (N,) int64 flat LUT index of each window, frac, oob (N,) bool,
+    member (N,) int64 the call-local member, whose scan row it reads)."""
+    n = particles.shape[0]
+    dev = particles.device
+    member = torch.arange(n, device=dev) // tables.npm
+    if not q.per_member_maps:
+        maps = torch.zeros_like(member)
+    elif tables.map_of is not None:
+        maps = tables.map_of[tables.member_base + member].to(torch.int64)
+    else:
+        maps = tables.member_base + member
+    res = torch.tensor(q.resolution, dtype=torch.float32, device=dev)
+    gx = ((particles[:, 0] - tables.origin_x[maps]) / res).to(torch.int32)
+    gy = ((particles[:, 1] - tables.origin_y[maps]) / res).to(torch.int32)
+    h, w = tables.dims[maps, 0], tables.dims[maps, 1]
+    oob = (gx < 0) | (gx >= w) | (gy < 0) | (gy >= h)
+    cell = (
+        torch.minimum(torch.clamp(gy, min=0), h - 1).to(torch.int64) * w
+        + torch.minimum(torch.clamp(gx, min=0), w - 1)
+    )
+    if row_map is not None:
+        if tables.row_map_bases is not None:
+            cell = cell + tables.row_map_bases[maps]
+        row = row_map[cell].to(torch.int64)
+    else:
+        row = cell
+    b0, frac = _heading_bin(q, particles[:, 2])
+    start = tables.lut_bases[maps].to(torch.int64) * q.eps + row * q.row_stride + b0
+    return start, frac, oob, member
+
 
 def window_start(q: LUTQuery, particles, row_map=None):
     """Each particle's window, with the kernels' float32 address math
@@ -388,16 +632,7 @@ def window_start(q: LUTQuery, particles, row_map=None):
         + gx.clamp(0, q.width - 1).to(torch.int64)
     )
     row = cell if row_map is None else row_map[cell].to(torch.int64)
-    bpos = theta * q.bin_scale
-    if q.subbin:
-        bfloor = torch.floor(bpos)
-        frac = bpos - bfloor
-        b0 = bfloor.to(torch.int32)
-    else:
-        frac = None
-        b0 = torch.round(bpos).to(torch.int32)  # half to even
-    b0 = torch.fmod(b0 + q.base, q.t_bins)  # truncating, as lax.rem
-    b0 = torch.where(b0 < 0, b0 + q.t_bins, b0)
+    b0, frac = _heading_bin(q, theta)
     return row, b0, frac, oob
 
 
@@ -410,7 +645,8 @@ def _read_lut(lut_flat, idx) -> torch.Tensor:
 
 def _window_log_weights(q: LUTQuery, lut_flat, start, frac, obs_px, oob) -> torch.Tensor:
     """The beam model and beam sum of every particle's window, read from
-    flat LUT index ``start`` (N,) onward."""
+    flat LUT index ``start`` (N,) onward, against one scan (R,) or each
+    particle's own (N, R)."""
     idx = start[:, None] + q.beam_offsets.to(device=start.device, dtype=torch.int64)[None, :]
     d = _read_lut(lut_flat, idx)
     if frac is not None:
@@ -418,7 +654,9 @@ def _window_log_weights(q: LUTQuery, lut_flat, start, frac, obs_px, oob) -> torc
         d = d + frac[:, None] * (_read_lut(lut_flat, idx + 1) - d)
 
     m = q.m
-    obs = torch.clamp(obs_px.to(torch.float32), max=m)[None, :]
+    obs = torch.clamp(obs_px.to(torch.float32), max=m)
+    if obs.dim() == 1:
+        obs = obs[None, :]
     d = torch.clamp(d, max=m)
     z = obs - d
     p = q.gauss_coef * torch.exp(-(z * z) * q.inv2s2)
@@ -439,13 +677,19 @@ def _window_log_weights(q: LUTQuery, lut_flat, start, frac, obs_px, oob) -> torc
 
 
 def lut_log_weights_reference(
-    q: LUTQuery, lut_flat, particles, obs_px, row_map=None
+    q: LUTQuery, lut_flat, particles, obs_px, row_map=None, tables: FleetTables | None = None
 ) -> torch.Tensor:
     """Plain PyTorch version of ``csrc/lut_likelihood.cu``: the same
     float32 address math and beam model (and the sub-bin lerp with
     ``q.subbin``), as one (N, R) gather, and the beam sum accumulated in
     double. The CPU path and the kernel's reference in the tests and on
-    the card."""
+    the card. A fleet query takes its ``tables``
+    (:meth:`LUTQuery.fleet_tables`) and (F, R) scans."""
+    if q.fleet:
+        if tables is None:
+            raise ValueError("a fleet query needs its tables (LUTQuery.fleet_tables)")
+        start, frac, oob, member = fleet_window_start(q, particles, tables, row_map)
+        return _window_log_weights(q, lut_flat, start, frac, obs_px[member], oob)
     row, b0, frac, oob = window_start(q, particles, row_map)
     start = row * q.row_stride + b0.to(torch.int64)
     return _window_log_weights(q, lut_flat, start, frac, obs_px, oob)

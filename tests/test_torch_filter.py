@@ -203,7 +203,10 @@ def test_package_imports_without_jax():
         "import monte_carlo_localization_tpu_torch.runtime, "
         "monte_carlo_localization_tpu_torch.ops._cuda_build, "
         "monte_carlo_localization_tpu_torch.ops.mega_step, "
-        "monte_carlo_localization_tpu_torch.filter.mega\n"
+        "monte_carlo_localization_tpu_torch.filter.mega, "
+        "monte_carlo_localization_tpu_torch.parallel, "
+        "monte_carlo_localization_tpu_torch.ops.probes, "
+        "monte_carlo_localization_tpu_torch.tools.mega_probe\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k.startswith('monte_carlo_localization_tpu.')"
         " or k == 'monte_carlo_localization_tpu')\n"
