@@ -24,9 +24,12 @@ one JSON line with its own seconds; any failure raises and exits
 non-zero. The last two lines are the kernel report and ``{"ok": true,
 "device": {...}}``. It imports nothing of JAX and needs no network.
 
-Kernel times are device times from ``torch.profiler`` (``device_ms``);
-``wrapper_ms`` times back-to-back Python calls of a wrapper with CUDA
-events, which is host-bound where the kernel is shorter than the
+Kernel times are device times from ``torch.profiler`` (``device_ms`` of
+``monte_carlo_localization_tpu_torch/utils/timing.py``); the probe
+kernels and their library calls are timed alike, as CUDA graphs of the
+bare call (``graph_ms``), since the profiler drops events of kernels that
+short. ``wrapper_ms`` times back-to-back Python calls of a wrapper with
+CUDA events, which is host-bound where the kernel is shorter than the
 wrapper's host work. Bounds use the H100 SXM's published peaks.
 """
 
@@ -42,6 +45,11 @@ from pathlib import Path
 import numpy as np
 
 REPO = Path(__file__).resolve().parent
+sys.path.insert(0, str(REPO))
+try:
+    from monte_carlo_localization_tpu_torch.utils.timing import device_ms, event_ms, profile_run
+except ModuleNotFoundError as exc:
+    sys.exit(f"chip_smoke: run from a checkout of the repository ({exc})")
 KERNEL_TOL = 1e-3  # float32, same expressions; FMA contraction and sum order differ
 CONFIG1_RMSE_MAX = 0.075  # m, ~1.5x the 0.0486 m the JAX engine records (BENCHES.md)
 # The config #4 trace ends in a long corridor where the filter slides
@@ -95,93 +103,6 @@ def check(cond: bool, msg: str) -> None:
 def headline_beams(num_beams: int) -> np.ndarray:
     inc = 1.5 * np.pi / max(num_beams - 1, 1)
     return (-0.75 * np.pi + np.arange(num_beams) * inc).astype(np.float32)
-
-
-def cuda_ms(fn, iters: int = 50) -> float:
-    """Wrapper milliseconds per call (host-bound at small shapes): CUDA
-    events around ``iters`` back-to-back Python calls after one warm-up
-    call."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def _self_device_us(avg) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        v = getattr(avg, name, None)
-        if v is not None:
-            return float(v)
-    return 0.0
-
-
-def profile_run(fn, iters: int):
-    """Run ``fn`` ``iters`` times under torch.profiler (CPU + CUDA). Returns
-    ({name: (device us, count)} over the device-side events, host wall
-    seconds). CPU operator rows also carry their kernels' device time, so
-    only rows of device type CUDA are kept."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = {}
-    for avg in prof.key_averages():
-        us = _self_device_us(avg)
-        if avg.device_type == torch.autograd.DeviceType.CUDA and us > 0:
-            rows[avg.key] = (us, avg.count)
-    return rows, wall
-
-
-def graph_ms(fn, iters: int = 50) -> float:
-    """Device milliseconds per call from a CUDA graph of ``iters`` calls,
-    replayed between CUDA events (no host work inside the timed span)."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_ms(fn, kernel: str, iters: int = 20) -> dict:
-    """A kernel's own device milliseconds per launch: the profiler's
-    device time summed over events whose name holds ``kernel``, divided
-    by their count; where the profiler shows none, a CUDA graph of
-    ``iters`` calls timed with events."""
-    rows, _ = profile_run(fn, iters)
-    hits = [(us, n) for key, (us, n) in rows.items() if kernel in key]
-    if hits:
-        return dict(ms=sum(us for us, _ in hits) / 1e3 / sum(n for _, n in hits), source="profiler")
-    return dict(ms=graph_ms(fn, iters), source="cuda_graph")
 
 
 def chain_profile(run, steps: int) -> dict:
@@ -327,8 +248,8 @@ def phase_kernel_vs_plain(device) -> dict:
                         times[kernel][f"{N_PARTICLES}x{num_beams}"] = dict(
                             **dict(zip(("device_ms", "time_source"), device_ms(
                                 lambda: q.launch(lut, parts, obs, row_map), "lut_loglik_kernel").values())),
-                            wrapper_ms=cuda_ms(lambda: q.launch(lut, parts, obs, row_map)),
-                            plain_ms=cuda_ms(lambda: lut_log_weights_reference(q, lut, parts, obs, row_map)),
+                            wrapper_ms=event_ms(lambda: q.launch(lut, parts, obs, row_map)),
+                            plain_ms=event_ms(lambda: lut_log_weights_reference(q, lut, parts, obs, row_map)),
                             **lut_bound(N_PARTICLES, N_PARTICLES - oob, num_beams, 1, False,
                                         subbin=subbin),
                         )
@@ -393,9 +314,9 @@ def dedup_times(q, lut, parts, obs, row_map, n_on: int) -> dict:
         device_ms=dev["ms"], time_source=dev["source"], k1_device_ms=k1["ms"],
         plan_device_ms=sum(us for us, _ in plan_rows.values()) / 1e3 / 10,
         plan_device_kernels=sum(n for _, n in plan_rows.values()) / 10,
-        wrapper_ms=cuda_ms(lambda: q.launch_dedup(lut, parts, obs, row_map)),
-        k1_wrapper_ms=cuda_ms(lambda: q.launch(lut, parts, obs, row_map)),
-        plain_ms=cuda_ms(lambda: lut_dedup_reference(q, lut, parts, obs, row_map), iters=10),
+        wrapper_ms=event_ms(lambda: q.launch_dedup(lut, parts, obs, row_map)),
+        k1_wrapper_ms=event_ms(lambda: q.launch(lut, parts, obs, row_map)),
+        plain_ms=event_ms(lambda: lut_dedup_reference(q, lut, parts, obs, row_map), iters=10),
         **lut_bound(parts.shape[0], n_on, q.num_beams, q.lut_dtype.itemsize, row_map is not None,
                     windows=distinct_windows(q, parts, row_map), subbin=q.subbin),
     )
@@ -578,8 +499,8 @@ def phase_headline(device) -> dict:
     n_on = int((want != -1e4).sum())
     dev = device_ms(lambda: pf.likelihood.launch(lut, parts, obs_px, row_map), "lut_loglik_kernel")
     kernel_ms = dev["ms"]
-    wrapper_ms = cuda_ms(lambda: pf.likelihood.launch(lut, parts, obs_px, row_map))
-    plain_ms = cuda_ms(lambda: lut_log_weights_reference(pf.likelihood, lut, parts, obs_px, row_map))
+    wrapper_ms = event_ms(lambda: pf.likelihood.launch(lut, parts, obs_px, row_map))
+    plain_ms = event_ms(lambda: lut_log_weights_reference(pf.likelihood, lut, parts, obs_px, row_map))
     bnd = lut_bound(N_PARTICLES, n_on, 1080, 1, True)
     emit("headline_spielberg", t0, particles=N_PARTICLES, beams=1080, lut="compact u8",
          lut_rows=lut.numel() // pf.grid_map.row_stride, row_stride=pf.grid_map.row_stride,
@@ -680,8 +601,8 @@ def mega_times(step, lut, parts, logw, noise, obs, scalars, n_on: int) -> dict:
     n, r = parts.shape[0], obs.shape[0]
     return dict(
         device_ms=dev["ms"], time_source=dev["source"], phase_device_ms=phases,
-        wrapper_ms=cuda_ms(launch()),
-        plain_ms=cuda_ms(lambda: mega_step_reference(step, lut, parts, logw, noise, obs, scalars)),
+        wrapper_ms=event_ms(launch()),
+        plain_ms=event_ms(lambda: mega_step_reference(step, lut, parts, logw, noise, obs, scalars)),
         grid_blocks=step.grid_blocks(),
         **mega_bound(n, n_on, r, lut.element_size()),
     )
@@ -897,8 +818,8 @@ def phase_config4_replay(device):
     dev = device_ms(lambda: q.launch(lut, parts, obs, row_map), "lut_loglik_kernel")
     k3 = dict(launches=runs["subbin"]["launches"], max_abs_err=err, ms=dev["ms"],
               time_source=dev["source"],
-              wrapper_ms=cuda_ms(lambda: q.launch(lut, parts, obs, row_map)),
-              plain_ms=cuda_ms(lambda: lut_log_weights_reference(q, lut, parts, obs, row_map)),
+              wrapper_ms=event_ms(lambda: q.launch(lut, parts, obs, row_map)),
+              plain_ms=event_ms(lambda: lut_log_weights_reference(q, lut, parts, obs, row_map)),
               **lut_bound(N_PARTICLES, n_on, q.num_beams, 1, True,
                           windows=distinct_windows(q, parts, row_map), subbin=True))
     s0 = pf.init_pose(tr["truth_pose"][0], seed=3)
@@ -1108,7 +1029,7 @@ def fleet_compare(q, lut, parts, obs, row_map, fleet, what: str, synthetic: bool
     from monte_carlo_localization_tpu_torch.ops.lut_query import lut_log_weights_reference
 
     tables = q.fleet_tables(parts, obs, row_map, **fleet)
-    got = q.launch_fleet(lut, parts, obs, row_map, tables)
+    got = q.launch(lut, parts, obs, row_map, tables)
     torch.cuda.synchronize()
     want = lut_log_weights_reference(q, lut, parts, obs, row_map, tables)
     torch.cuda.synchronize()
@@ -1123,8 +1044,8 @@ def fleet_compare(q, lut, parts, obs, row_map, fleet, what: str, synthetic: bool
 
 def phase_fleet_vs_plain(device) -> dict:
     """The fleet form of lut_likelihood.cu against its plain version on
-    synthetic cases, and a one-member fleet against the single-map kernel
-    (torch.equal)."""
+    synthetic cases, and a one-member fleet with its own map tables
+    against the single-map query's launch (torch.equal)."""
     import torch
 
     from monte_carlo_localization_tpu_torch.ops.lut_query import LUTQuery
@@ -1274,12 +1195,12 @@ def phase_config5(device, classic_kernels: float) -> dict:
     tables = q.fleet_tables(parts, obs, None, **fleet)
     start, _, oob, _ = fleet_window_start(q, parts, tables)
     windows = int(torch.unique(start[~oob]).numel())
-    dev = device_ms(lambda: q.launch_fleet(gm.range_lut, parts, obs, None, tables),
-                    "lut_loglik_fleet_kernel")
+    dev = device_ms(lambda: q.launch(gm.range_lut, parts, obs, None, tables),
+                    "lut_loglik_kernel")
     kernel = dict(
         launches=launches, max_abs_err=cmp["max_abs_err"], ms=dev["ms"], time_source=dev["source"],
-        wrapper_ms=cuda_ms(lambda: q.launch_fleet(gm.range_lut, parts, obs, None, tables)),
-        plain_ms=cuda_ms(lambda: lut_log_weights_reference(q, gm.range_lut, parts, obs, None, tables),
+        wrapper_ms=event_ms(lambda: q.launch(gm.range_lut, parts, obs, None, tables)),
+        plain_ms=event_ms(lambda: lut_log_weights_reference(q, gm.range_lut, parts, obs, None, tables),
                          iters=10),
         distinct_windows=windows,
         **lut_bound(f * n, f * n - cmp["off_map"], r, 1, False, windows=windows),
@@ -1310,8 +1231,9 @@ def phase_config5(device, classic_kernels: float) -> dict:
 def phase_probes(device) -> dict:
     """The probes of tools/mega_probe.py through their Hopper kernels (the
     port's ``tools/mega_probe.py``): every probe once with the launch
-    counts reset (a failed probe fails the run), then each kernel call
-    timed: device ms, wrapper ms, plain ms, library ms, bound."""
+    counts reset (a failed probe or a kernel off its plain version fails
+    the run), then each kernel call timed: kernel and library ms as CUDA
+    graphs, wrapper ms, plain ms, bound."""
     import torch
 
     from monte_carlo_localization_tpu_torch.ops.probes import Probes
@@ -1338,7 +1260,8 @@ def phase_probes(device) -> dict:
 def probe_entries(probes: dict) -> list[dict]:
     """The kernels-line entries of the four probe kernels."""
     timed, launches = probes["timed"], probes["launches"]
-    keys = ("ms", "time_source", "wrapper_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    keys = ("ms", "time_source", "wrapper_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "rows_off")
     src = "monte_carlo_localization_tpu_torch/csrc/probes.cu"
 
     def entry(name, kernel, replaces, head, others):
@@ -1373,7 +1296,6 @@ def main() -> int:
                                              "probes.cu", "beam_model.cuh")):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(REPO))
     t0 = time.perf_counter()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

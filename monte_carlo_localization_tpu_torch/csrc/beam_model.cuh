@@ -99,13 +99,15 @@ __device__ __forceinline__ float warp_window_logp(
   return p.inv_squash * static_cast<float>(acc);
 }
 
-// Where one particle's window starts (pallas_lut.py query :873-900), the
+// Where one particle's window starts (pallas_lut.py query :855-912), the
 // address math of the LUT kernels (lut_likelihood.cu, lut_dedup.cu):
 //   cell = (int)((y - oy) / res) * W + (int)((x - ox) / res)  (truncating)
 //   row  = row_map ? row_map[cell] : cell
 //   b0   = (rint(theta * T / 2pi) + base) mod T                (half to even)
 // or, with the sub-bin lerp, b0 from floor(theta * T / 2pi) and frac its
-// fractional part. Returns false for a particle outside the map.
+// fractional part. Returns false for a particle outside the map. The
+// origin is the map's float32 origin: a batched map's own (JAX's
+// origins[0][mi]), or the single map's as folded into Params.
 struct Window {
   int64_t row;
   int b0;
@@ -114,11 +116,11 @@ struct Window {
 
 template <bool kSubbin>
 __device__ __forceinline__ bool particle_window(
-    float x, float y, float theta, const int32_t* __restrict__ row_map,
-    int base, int t_bins, int height, int width, const Params& p,
-    Window* w) {
-  const int gx = static_cast<int>((x - p.ox) / p.res);
-  const int gy = static_cast<int>((y - p.oy) / p.res);
+    float x, float y, float theta, float ox, float oy,
+    const int32_t* __restrict__ row_map, int base, int t_bins, int height,
+    int width, const Params& p, Window* w) {
+  const int gx = static_cast<int>((x - ox) / p.res);
+  const int gy = static_cast<int>((y - oy) / p.res);
   if (gx < 0 || gx >= width || gy < 0 || gy >= height) return false;
   const int64_t cell = static_cast<int64_t>(gy) * width + gx;
   w->row = row_map ? static_cast<int64_t>(row_map[cell]) : cell;
@@ -133,38 +135,6 @@ __device__ __forceinline__ bool particle_window(
     w->frac = 0.0f;
   }
   b0 = (b0 + base) % t_bins;  // truncating remainder, then fixed up
-  if (b0 < 0) b0 += t_bins;
-  w->b0 = b0;
-  return true;
-}
-
-// The fleet form of particle_window (pallas_lut.py query :855-912): the
-// particle's own map supplies the origin (float32, as the JAX query's
-// per-member origins), the true (height, width) and, on a compact LUT,
-// the start of its cells in the concatenated row map. The row is local
-// to the map's LUT block; the caller adds the block base. Kept apart from
-// particle_window so the kernels that share that routine stay as they are.
-template <bool kSubbin>
-__device__ __forceinline__ bool fleet_particle_window(
-    float x, float y, float theta, float ox, float oy, int height, int width,
-    const int32_t* __restrict__ row_map, int64_t row_map_base, int base,
-    int t_bins, const Params& p, Window* w) {
-  const int gx = static_cast<int>((x - ox) / p.res);
-  const int gy = static_cast<int>((y - oy) / p.res);
-  if (gx < 0 || gx >= width || gy < 0 || gy >= height) return false;
-  const int64_t cell = static_cast<int64_t>(gy) * width + gx;
-  w->row = row_map ? static_cast<int64_t>(row_map[row_map_base + cell]) : cell;
-  int b0;
-  if (kSubbin) {
-    const float bpos = __fmul_rn(theta, p.bin_scale);
-    const float bf = floorf(bpos);
-    w->frac = __fsub_rn(bpos, bf);
-    b0 = static_cast<int>(bf);
-  } else {
-    b0 = static_cast<int>(rintf(theta * p.bin_scale));
-    w->frac = 0.0f;
-  }
-  b0 = (b0 + base) % t_bins;
   if (b0 < 0) b0 += t_bins;
   w->b0 = b0;
   return true;

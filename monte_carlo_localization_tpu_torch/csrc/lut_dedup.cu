@@ -105,7 +105,7 @@ __global__ void __launch_bounds__(kThreads) lut_dedup_kernel(
     mcl::Window w;
     if (!mcl::particle_window<kSubbin>(
             particles[3 * src], particles[3 * src + 1], particles[3 * src + 2],
-            row_map, base, t_bins, height, width, p, &w)) {
+            p.ox, p.oy, row_map, base, t_bins, height, width, p, &w)) {
       if (lane == 0) out[src] = -1e4f;
       continue;
     }

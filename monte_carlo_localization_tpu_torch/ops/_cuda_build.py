@@ -102,12 +102,6 @@ def _bind(libs: dict[str, ctypes.CDLL]) -> None:
     for name in ("mcl_lut_loglik_u8", "mcl_lut_loglik_u16"):
         fn = getattr(lut, name)
         fn.restype = i32
-        # lut, row_stride, row_map, particles, n, obs_px, offsets, r, base,
-        # t_bins, height, width, subbin, consts, out, stream
-        fn.argtypes = [p, i64, p, p, i64, p, p, i32, i32, i32, i32, i32, i32, p, p, p]
-    for name in ("mcl_lut_loglik_fleet_u8", "mcl_lut_loglik_fleet_u16"):
-        fn = getattr(lut, name)
-        fn.restype = i32
         # lut, row_stride, row_map, row_map_bases, particles, members, npm,
         # member_base, map_of, per_member, origin_x, origin_y, dims,
         # lut_bases, eps, obs_px, offsets, r, base, t_bins, subbin, consts,

@@ -146,10 +146,11 @@ class LUTQuery:
     row-map bases (as the JAX query). Dedup needs a single member.
 
     On CUDA tensors each call launches ``csrc/lut_likelihood.cu`` (adding
-    one to ``launch_count``, or to ``fleet_launch_count`` for the fleet
-    kernel) or, with dedup, ``csrc/lut_dedup.cu`` (``dedup_launch_count``;
-    ``last_overflow`` holds the device count of blocks with more than S
-    windows). On CPU tensors it runs the plain versions.
+    one to ``launch_count``, or to ``fleet_launch_count`` for a fleet
+    query; one kernel serves both) or, with dedup,
+    ``csrc/lut_dedup.cu`` (``dedup_launch_count``; ``last_overflow``
+    holds the device count of blocks with more than S windows). On CPU
+    tensors it runs the plain versions.
     """
 
     def __init__(
@@ -264,7 +265,7 @@ class LUTQuery:
             self.z_max, self.z_rand, self.z_hit, self.rand_term, self.sq2,
             self.inv_squash,
         )
-        self._shared_tables = None  # ((device, N), FleetTables) of a one-map fleet
+        self._shared_tables = None  # ((device, N), FleetTables) of the one map
         self.launch_count = 0
         self.fleet_launch_count = 0
         self.dedup_launch_count = 0
@@ -278,7 +279,7 @@ class LUTQuery:
         if self.fleet:
             tables = self.fleet_tables(particles, obs_px, row_map, **fleet)
             if particles.device.type == "cuda":
-                return self.launch_fleet(lut_flat, particles, obs_px, row_map, tables)
+                return self.launch(lut_flat, particles, obs_px, row_map, tables)
             if particles.device.type == "cpu":
                 return lut_log_weights_reference(self, lut_flat, particles, obs_px, row_map, tables)
             raise ValueError(f"no LUT likelihood for device {particles.device}")
@@ -297,22 +298,34 @@ class LUTQuery:
             return lut_log_weights_reference(self, lut_flat, particles, obs_px, row_map)
         raise ValueError(f"no LUT likelihood for device {particles.device}")
 
-    def _check_inputs(self, lut_flat, particles, obs_px, row_map) -> torch.dtype:
+    def _check_inputs(self, lut_flat, particles, obs_px, row_map, tables=None) -> torch.dtype:
         """Raise on any input the kernels do not take; returns the LUT's
-        torch dtype."""
+        torch dtype. A fleet call's ``obs_px`` is (F, R) and its
+        ``tables`` are checked too."""
         dev = particles.device
         if dev.type != "cuda":
             raise ValueError(f"kernel launch needs CUDA tensors, got {dev}")
         want_dtype = torch.uint8 if self.lut_dtype.itemsize == 1 else torch.uint16
+        obs_shape = (self.num_members, self.num_beams) if self.fleet else (self.num_beams,)
         tensors = dict(
             lut_flat=(lut_flat, want_dtype, None),
             particles=(particles, torch.float32, None),
-            obs_px=(obs_px, torch.float32, (self.num_beams,)),
+            obs_px=(obs_px, torch.float32, obs_shape),
             beam_offsets=(self.beam_offsets, torch.int32, None),
+            row_map=(row_map, torch.int32, None if self.fleet else (self.height * self.width,)),
         )
-        if row_map is not None:
-            tensors["row_map"] = (row_map, torch.int32, (self.height * self.width,))
+        if tables is not None:
+            tensors.update(
+                origin_x=(tables.origin_x, torch.float32, None),
+                origin_y=(tables.origin_y, torch.float32, None),
+                dims=(tables.dims, torch.int32, None),
+                lut_bases=(tables.lut_bases, torch.int32, None),
+                row_map_bases=(tables.row_map_bases, torch.int32, None),
+                map_of=(tables.map_of, torch.int32, None),
+            )
         for name, (t, dtype, shape) in tensors.items():
+            if t is None:
+                continue
             if t.device != dev:
                 raise ValueError(f"{name} is on {t.device}, particles on {dev}")
             if t.dtype != dtype:
@@ -327,37 +340,52 @@ class LUTQuery:
             raise ValueError(
                 f"lut_flat must be flat whole rows of {self.row_stride} entries"
             )
-        if row_map is None and lut_flat.numel() < self.height * self.width * self.row_stride:
+        if (not self.fleet and row_map is None
+                and lut_flat.numel() < self.height * self.width * self.row_stride):
             raise ValueError("dense LUT has fewer rows than the map has cells")
         return want_dtype
 
-    def launch(self, lut_flat, particles, obs_px, row_map=None) -> torch.Tensor:
-        """Run ``csrc/lut_likelihood.cu`` (K1/K2, K3 with ``subbin``);
-        raises on any input it does not take."""
+    def launch(self, lut_flat, particles, obs_px, row_map=None,
+               tables: FleetTables | None = None) -> torch.Tensor:
+        """Run ``csrc/lut_likelihood.cu`` (K1/K2, K3 with ``subbin``) over
+        every particle in one launch; raises on any input it does not
+        take. A fleet query passes its :meth:`fleet_tables`; one map is
+        the fleet of one member on map 0."""
         from monte_carlo_localization_tpu_torch.ops._cuda_build import load_library
 
-        want_dtype = self._check_inputs(lut_flat, particles, obs_px, row_map)
+        if self.fleet and tables is None:
+            raise ValueError("a fleet launch needs its tables (LUTQuery.fleet_tables)")
+        want_dtype = self._check_inputs(lut_flat, particles, obs_px, row_map, tables)
         dev = particles.device
+        if tables is None:
+            tables = self._one_map_tables(dev, particles.shape[0])
         built = load_library()
         lib = built.libs["lut_likelihood"]
         fn = lib.mcl_lut_loglik_u8 if want_dtype == torch.uint8 else lib.mcl_lut_loglik_u16
-        n = particles.shape[0]
-        out = torch.empty(n, dtype=torch.float32, device=dev)
+        out = torch.empty(particles.shape[0], dtype=torch.float32, device=dev)
+
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(
-                lut_flat.data_ptr(), self.row_stride,
-                None if row_map is None else row_map.data_ptr(),
-                particles.data_ptr(), n, obs_px.data_ptr(),
-                self.beam_offsets.data_ptr(), self.num_beams, self.base,
-                self.t_bins, self.height, self.width, int(self.subbin),
-                ctypes.addressof(self._consts), out.data_ptr(), stream,
+                lut_flat.data_ptr(), self.row_stride, ptr(row_map), ptr(tables.row_map_bases),
+                particles.data_ptr(), self.num_members, tables.npm, tables.member_base,
+                ptr(tables.map_of), int(self.per_member_maps), tables.origin_x.data_ptr(),
+                tables.origin_y.data_ptr(), tables.dims.data_ptr(),
+                tables.lut_bases.data_ptr(), self.eps, obs_px.data_ptr(),
+                self.beam_offsets.data_ptr(), self.num_beams, self.base, self.t_bins,
+                int(self.subbin), ctypes.addressof(self._consts), out.data_ptr(), stream,
             )
         if err != 0:
             raise RuntimeError(
                 f"lut_likelihood launch failed: CUDA error {err} ({built.error_string(err)})"
             )
-        self.launch_count += 1
+        if self.fleet:
+            self.fleet_launch_count += 1
+        else:
+            self.launch_count += 1
         return out
 
     def launch_dedup(self, lut_flat, particles, obs_px, row_map=None) -> torch.Tensor:
@@ -440,16 +468,8 @@ class LUTQuery:
         def i32(x):
             return torch.as_tensor(x, dtype=torch.int32, device=dev).contiguous()
 
-        if not self.per_member_maps:  # one map for all: built once per shape
-            if self._shared_tables is None or self._shared_tables[0] != (dev, n):
-                self._shared_tables = ((dev, n), FleetTables(
-                    npm=n // f, member_base=0, map_of=None,
-                    origin_x=torch.tensor([self.origin_x], dtype=torch.float32, device=dev),
-                    origin_y=torch.tensor([self.origin_y], dtype=torch.float32, device=dev),
-                    dims=i32([[self.height, self.width]]), lut_bases=i32([0]),
-                    row_map_bases=None,
-                ))
-            return self._shared_tables[1]
+        if not self.per_member_maps:
+            return self._one_map_tables(dev, n)
         if origins is None:
             raise ValueError("per_member_maps query needs origins=(ox (M,), oy (M,))")
         ox = torch.as_tensor(origins[0], dtype=torch.float32, device=dev).contiguous()
@@ -488,64 +508,20 @@ class LUTQuery:
             raise ValueError(f"{m} maps for members up to {need} and no map_of")
         return tables
 
-    def launch_fleet(self, lut_flat, particles, obs_px, row_map, tables: FleetTables) -> torch.Tensor:
-        """Run the fleet form of ``csrc/lut_likelihood.cu`` (K1/K2, K3
-        with ``subbin``) over all F members in one launch; raises on any
-        input it does not take."""
-        from monte_carlo_localization_tpu_torch.ops._cuda_build import load_library
-
-        dev = particles.device
-        if dev.type != "cuda":
-            raise ValueError(f"kernel launch needs CUDA tensors, got {dev}")
-        want_dtype = torch.uint8 if self.lut_dtype.itemsize == 1 else torch.uint16
-        f = self.num_members
-        tensors = dict(
-            lut_flat=(lut_flat, want_dtype), particles=(particles, torch.float32),
-            obs_px=(obs_px, torch.float32), beam_offsets=(self.beam_offsets, torch.int32),
-            origin_x=(tables.origin_x, torch.float32), origin_y=(tables.origin_y, torch.float32),
-            dims=(tables.dims, torch.int32), lut_bases=(tables.lut_bases, torch.int32),
-            row_map=(row_map, torch.int32), row_map_bases=(tables.row_map_bases, torch.int32),
-            map_of=(tables.map_of, torch.int32),
-        )
-        for name, (t, dtype) in tensors.items():
-            if t is None:
-                continue
-            if t.device != dev:
-                raise ValueError(f"{name} is on {t.device}, particles on {dev}")
-            if t.dtype != dtype:
-                raise ValueError(f"{name} dtype {t.dtype}, kernel takes {dtype}")
-            if not t.is_contiguous():
-                raise ValueError(f"{name} must be contiguous")
-        if particles.dim() != 2 or particles.shape[1] != 3:
-            raise ValueError(f"particles shape {tuple(particles.shape)} != (N, 3)")
-        if lut_flat.dim() != 1 or lut_flat.numel() % self.row_stride:
-            raise ValueError(f"lut_flat must be flat whole rows of {self.row_stride} entries")
-        built = load_library()
-        lib = built.libs["lut_likelihood"]
-        fn = (lib.mcl_lut_loglik_fleet_u8 if want_dtype == torch.uint8
-              else lib.mcl_lut_loglik_fleet_u16)
-        out = torch.empty(particles.shape[0], dtype=torch.float32, device=dev)
-
-        def ptr(t):
-            return None if t is None else t.data_ptr()
-
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(
-                lut_flat.data_ptr(), self.row_stride, ptr(row_map), ptr(tables.row_map_bases),
-                particles.data_ptr(), f, tables.npm, tables.member_base, ptr(tables.map_of),
-                int(self.per_member_maps), tables.origin_x.data_ptr(),
-                tables.origin_y.data_ptr(), tables.dims.data_ptr(),
-                tables.lut_bases.data_ptr(), self.eps, obs_px.data_ptr(),
-                self.beam_offsets.data_ptr(), self.num_beams, self.base, self.t_bins,
-                int(self.subbin), ctypes.addressof(self._consts), out.data_ptr(), stream,
-            )
-        if err != 0:
-            raise RuntimeError(
-                f"lut_likelihood fleet launch failed: CUDA error {err} ({built.error_string(err)})"
-            )
-        self.fleet_launch_count += 1
-        return out
+    def _one_map_tables(self, dev, n: int) -> FleetTables:
+        """The query's one map as map 0 of a fleet of ``num_members``, with
+        its origin as float32 (the value the single-map math applies),
+        built once per (device, N)."""
+        if self._shared_tables is None or self._shared_tables[0] != (dev, n):
+            self._shared_tables = ((dev, n), FleetTables(
+                npm=n // self.num_members, member_base=0, map_of=None,
+                origin_x=torch.tensor([self.origin_x], dtype=torch.float32, device=dev),
+                origin_y=torch.tensor([self.origin_y], dtype=torch.float32, device=dev),
+                dims=torch.tensor([[self.height, self.width]], dtype=torch.int32, device=dev),
+                lut_bases=torch.zeros(1, dtype=torch.int32, device=dev),
+                row_map_bases=None,
+            ))
+        return self._shared_tables[1]
 
 
 @dataclass(frozen=True)

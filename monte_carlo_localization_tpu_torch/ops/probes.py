@@ -182,6 +182,7 @@ class Probes:
     def __init__(self):
         self.launch_count = dict(gather_rows=0, philox_normals=0, staged_writes=0,
                                  scan_resample=0)
+        self._tickets: dict[torch.device, torch.Tensor] = {}  # staged_writes' grid ticket
 
     def gather_rows(self, hbm: torch.Tensor, y0: torch.Tensor) -> torch.Tensor:
         """``out[s] = hbm[y0[s]]``: hbm (rows, lanes) float32 with lanes a
@@ -236,7 +237,10 @@ class Probes:
             return staged_writes_reference(steps, per_step, a, b, c, add, device)
         built, lib = _lib()
         stage = torch.empty(steps * per_step, dtype=torch.float32, device=device)
-        ticket = torch.zeros(1, dtype=torch.int32, device=device)
+        # zeroed once: the block that draws the last ticket resets it
+        ticket = self._tickets.get(device)
+        if ticket is None:
+            ticket = self._tickets[device] = torch.zeros(1, dtype=torch.int32, device=device)
         out = torch.empty_like(stage)
         with torch.cuda.device(device):
             err = lib.mcl_probe_staged_writes(steps, per_step, a, b, c, add, stage.data_ptr(),

@@ -21,9 +21,11 @@ Probes (the TPU capability each one tested, in brackets):
   mega_bisect    the gather, the front half, the whole prologue
 
 Prints PASS/FAIL per probe (FAIL with the traceback) and exits 1 if any
-failed. On the card each kernel call also prints its device time
-(``torch.profiler``), the wrapper's, the plain version's and the time of
-the PyTorch call that computes the same function.
+failed. Every kernel call is held against its plain version at the
+probe's own tolerance. On the card each call also prints the kernel's
+time and the time of the PyTorch call that computes the same function,
+both as CUDA graphs of the bare call (``utils/timing.py`` ``graph_ms``),
+beside the wrapper's and the plain version's per-call time.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from monte_carlo_localization_tpu_torch.ops.probes import (
     scan_resample_reference,
     staged_writes_reference,
 )
+from monte_carlo_localization_tpu_torch.utils.timing import event_ms, graph_ms
 
 # Philox4x32-10 known answers (Random123 kat_vectors): counter, key -> words
 PHILOX_KAT = (
@@ -57,10 +60,15 @@ PHILOX_KAT = (
 N_MEGA = 32 * 128  # the mega probes' particle count
 U0 = 0.37
 ROWS_MIN = 0.99  # share of ancestor rows that must agree (knife-edge CDF slots)
-KERNEL_NAMES = dict(gather_rows="probe_gather_rows_kernel",
-                    philox_normals="probe_philox_normals_kernel",
-                    staged_writes="probe_staged_writes_kernel",
-                    scan_resample="probe_scan_resample_kernel")
+
+
+class ProbeFailure(Exception):
+    """A probe's check did not hold."""
+
+
+def _expect(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ProbeFailure(msg)
 
 
 @dataclass
@@ -73,7 +81,8 @@ class Call:
     plain: Callable  # the plain version on the same inputs
     library: Callable | None  # one PyTorch call computing the same function
     work: tuple[float, float, float]  # bytes moved, float32 ops, float64 ops
-    max_abs_err: float  # kernel against plain (0.0 where the device is the CPU)
+    max_abs_err: float  # kernel against plain over every entry (0.0 on the CPU)
+    rows_off: float = 0.0  # share of ancestor rows that differ from the plain version
 
 
 def _t(a, device) -> torch.Tensor:
@@ -84,11 +93,25 @@ def _err(got, want) -> float:
     return float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
 
 
-def _rows_agree(got, want, what: str, tol: float = 0.0) -> torch.Tensor:
-    rows = (got - want).abs().le(tol).all(dim=1)
-    share = float(rows.float().mean())
-    assert share >= ROWS_MIN, f"{what}: {share:.4f} of rows agree (< {ROWS_MIN})"
-    return rows
+def _vs_plain(got, plain, what: str, rtol: float = 0.0, atol: float = 0.0) -> float:
+    """Max abs error of the kernel against its plain version; raises
+    unless every entry is within ``atol + rtol * |plain|`` (the probe's
+    own tolerance; exact by default)."""
+    g, p = got.float(), plain.float()
+    _expect(bool(((g - p).abs() <= atol + rtol * p.abs()).all()),
+            f"{what}: kernel differs from its plain version (max abs {_err(g, p):.3g}, "
+            f"rtol {rtol}, atol {atol})")
+    return _err(g, p)
+
+
+def _rows_vs_plain(got, plain, what: str):
+    """(rows that agree exactly, share of rows that differ) of an ancestor
+    gather against its plain version; raises where ROWS_MIN of the rows
+    do not agree (a knife-edge CDF slot may pick the other ancestor)."""
+    rows = (got == plain).all(dim=1)
+    off = 1.0 - float(rows.float().mean())
+    _expect(off <= 1.0 - ROWS_MIN, f"{what}: {off:.4f} of rows differ from the plain version")
+    return rows, off
 
 
 def probe_smem(pr: Probes, device) -> list[Call]:
@@ -98,12 +121,12 @@ def probe_smem(pr: Probes, device) -> list[Call]:
     hbm, y0 = _t(hbm_np, device), _t(y0_np, device)
     out = pr.gather_rows(hbm, y0)
     np.testing.assert_array_equal(out.cpu().numpy(), hbm_np[y0_np])
-    plain = gather_rows_reference(hbm, y0)
-    assert torch.equal(out, plain)
+    err = _vs_plain(out, gather_rows_reference(hbm, y0), "smem")
+    lib_out = torch.empty_like(out)
     return [Call("gather_rows", "smem", lambda: pr.gather_rows(hbm, y0),
                  lambda: gather_rows_reference(hbm, y0),
-                 lambda: torch.index_select(hbm, 0, y0),
-                 (4 * (16 + 2 * 16 * 128), 0, 0), _err(out, plain))]
+                 lambda: torch.index_select(hbm, 0, y0, out=lib_out),
+                 (4 * (16 + 2 * 16 * 128), 0, 0), err)]
 
 
 def probe_rng(pr: Probes, device) -> list[Call]:
@@ -112,26 +135,27 @@ def probe_rng(pr: Probes, device) -> list[Call]:
     bits equal the plain version's and the CUDA toolkit's curand Philox."""
     for ctr, key, want in PHILOX_KAT:
         got = philox4x32_10_reference(torch.tensor([ctr], dtype=torch.int64), key)[0]
-        assert tuple(int(v) for v in got) == want, f"Philox KAT {ctr}: {got}"
+        _expect(tuple(int(v) for v in got) == want, f"Philox KAT {ctr}: {got}")
     seed, count = (12345, 678), 4 * 32 * 128
     out, bits = pr.philox_normals(seed, count, device, with_bits=True)
     blocks = out.reshape(4, 32, 128).cpu().numpy()
-    assert not np.allclose(blocks[0], blocks[1]), "the stream must run on across blocks"
+    _expect(not np.allclose(blocks[0], blocks[1]), "the stream must run on across blocks")
     m, s = float(blocks.mean()), float(blocks.std())
-    assert abs(m) < 0.05 and abs(s - 1.0) < 0.05, (m, s)
+    _expect(abs(m) < 0.05 and abs(s - 1.0) < 0.05, f"normals: mean {m}, std {s}")
     plain, words = philox_normals_reference(seed, count, device)
-    err = _err(out, plain)
+    err = _vs_plain(out, plain, "rng normals", atol=1e-5)
     if torch.device(device).type == "cuda":
-        assert torch.equal(bits.long() & 0xFFFFFFFF, words), "Philox bits differ from the plain version"
+        _expect(torch.equal(bits.long() & 0xFFFFFFFF, words),
+                "Philox bits differ from the plain version")
         oracle = pr.curand_philox_words(seed, 256, device)
-        assert torch.equal(bits[:256], oracle), "Philox bits differ from curand's Philox4_32_10"
-        assert err <= 1e-5, f"normals differ from the plain version by {err}"
+        _expect(torch.equal(bits[:256], oracle), "Philox bits differ from curand's Philox4_32_10")
     # Philox: 10 rounds of 2 mul-hi, 2 mul-lo, 4 xor, 2 key adds per 4
     # words (counted at the float32 rate), + ~20 float32 ops per normal
     ops = count * (10 * 10 / 2 + 20)
+    lib_out = torch.empty_like(out)
     return [Call("philox_normals", "rng", lambda: pr.philox_normals(seed, count, device),
                  lambda: philox_normals_reference(seed, count, device),
-                 lambda: torch.randn(count, device=device),
+                 lambda: torch.randn(count, out=lib_out),
                  (4 * count, ops, 0), err)]
 
 
@@ -141,23 +165,25 @@ def probe_cumsum(pr: Probes, device) -> list[Call]:
     out = pr.scan_resample("scan", w=x)
     np.testing.assert_allclose(out.cpu().numpy().reshape(32, 128),
                                np.cumsum(x_np.reshape(-1)).reshape(32, 128), rtol=2e-5)
-    plain = scan_resample_reference("scan", w=x)
+    err = _vs_plain(out, scan_resample_reference("scan", w=x), "cumsum", rtol=2e-5)
     n = x.numel()
+    lib_out = torch.empty_like(out)
     return [Call("scan_resample", "cumsum (scan)", lambda: pr.scan_resample("scan", w=x),
                  lambda: scan_resample_reference("scan", w=x),
-                 lambda: torch.cumsum(x.reshape(-1), 0), (8 * n, 0, n), _err(out, plain))]
+                 lambda: torch.cumsum(x.reshape(-1), 0, out=lib_out), (8 * n, 0, n), err)]
 
 
 def _staged(pr, device, label, steps, per_step, a, b, c, add, want) -> Call:
     out = pr.staged_writes(steps, per_step, a, b, c, add, device)
     np.testing.assert_array_equal(out.cpu().numpy(), want.reshape(-1))
     plain = staged_writes_reference(steps, per_step, a, b, c, add, device)
-    assert torch.equal(out, plain)
+    err = _vs_plain(out, plain, label)
     n = steps * per_step
+    lib_out = torch.empty_like(plain)
     return Call("staged_writes", label,
                 lambda: pr.staged_writes(steps, per_step, a, b, c, add, device),
                 lambda: staged_writes_reference(steps, per_step, a, b, c, add, device),
-                lambda: plain.clone(), (4 * n, 3 * n, 0), _err(out, plain))
+                lambda: lib_out.copy_(plain), (4 * n, 3 * n, 0), err)
 
 
 def probe_scratch(pr: Probes, device) -> list[Call]:
@@ -196,34 +222,48 @@ def _want_prologue(w: np.ndarray, parts: np.ndarray) -> np.ndarray:
     return parts[idx]
 
 
-def _scan_call(pr, label, part, work, err, library=None, **kw) -> Call:
+def _scan_call(pr, label, part, work, err, library=None, rows_off=0.0, **kw) -> Call:
     return Call("scan_resample", label, lambda: pr.scan_resample(part, **kw),
-                lambda: scan_resample_reference(part, **kw), library, work, err)
+                lambda: scan_resample_reference(part, **kw), library, work, err, rows_off)
 
 
 def _gather_library(g, parts):
-    slots = torch.arange(g.shape[0], dtype=torch.float32, device=g.device)
-    return lambda: parts[torch.searchsorted(g, slots).clamp(max=g.shape[0] - 1)]
+    """searchsorted + index into outputs allocated beforehand."""
+    n = g.shape[0]
+    slots = torch.arange(n, dtype=torch.float32, device=g.device)
+    j = torch.empty(n, dtype=torch.int64, device=g.device)
+    out = torch.empty_like(parts)
+
+    def run():
+        torch.searchsorted(g, slots, out=j)
+        j.clamp_(max=n - 1)
+        return torch.index_select(parts, 0, j, out=out)
+
+    return run
 
 
 def _check_prologue(pr, device, w_np, parts_np, part: str):
-    """The front or full prologue against the probe's reference (< 1% rows
-    off, the knife-edge CDF slots) and the plain version."""
+    """The front or full prologue against the probe's reference (< 1%
+    entries off, the knife-edge CDF slots) and against the plain version:
+    at least ROWS_MIN of the ancestor rows equal, the column math within
+    the probe's tolerance on them. Returns (w, parts, max abs error over
+    every row, share of rows that differ)."""
     w, parts = _t(w_np, device), _t(parts_np, device)
     got = pr.scan_resample(part, w=w, parts=parts, u0=U0)
     plain = scan_resample_reference(part, w=w, parts=parts, u0=U0)
     prop, pprop = (got[0], plain[0]) if part == "full" else (got, plain)
     want = _want_prologue(w_np, parts_np)
     off = float((np.abs(prop.cpu().numpy() - want) > 0).mean())
-    assert off < 0.01, f"{part}: resample gather mismatch on {off:.4f} of entries"
-    rows = _rows_agree(prop, pprop, f"{part} kernel vs plain")
-    err = _err(prop[rows], pprop[rows])
+    _expect(off < 0.01, f"{part}: resample gather mismatch on {off:.4f} of entries")
+    rows, rows_off = _rows_vs_plain(prop, pprop, f"{part} kernel vs plain")
+    err = _err(prop, pprop)
     if part == "full":
         th = prop[:, 2].cpu().numpy()
         np.testing.assert_allclose(got[1].cpu().numpy(), np.sin(th) + th * 0.5,
                                    rtol=1e-5, atol=1e-5)
-        err = max(err, _err(got[1][rows], plain[1][rows]))
-    return w, parts, err
+        _vs_plain(got[1][rows], plain[1][rows], "full column math", rtol=1e-5, atol=1e-5)
+        err = max(err, _err(got[1], plain[1]))
+    return w, parts, err, rows_off
 
 
 def _prologue_work(full: bool) -> tuple[float, float, float]:
@@ -237,9 +277,9 @@ def probe_mega_ops(pr: Probes, device) -> list[Call]:
     """The mega prologue at N = 4096: scan -> CDF -> ancestor gather ->
     column math (the TPU's matmul cumsum and one-hot gather)."""
     w_np, parts_np, _ = _mega_inputs(10.0)
-    w, parts, err = _check_prologue(pr, device, w_np, parts_np, "full")
+    w, parts, err, rows_off = _check_prologue(pr, device, w_np, parts_np, "full")
     return [_scan_call(pr, "mega_ops (full prologue)", "full", _prologue_work(True), err,
-                       w=w, parts=parts, u0=U0)]
+                       rows_off=rows_off, w=w, parts=parts, u0=U0)]
 
 
 def probe_mega_parts(pr: Probes, device) -> list[Call]:
@@ -256,18 +296,20 @@ def probe_mega_parts(pr: Probes, device) -> list[Call]:
     np.testing.assert_allclose(lanes.cpu().numpy().reshape(32, 128),
                                np.cumsum(w_np, axis=1) / w_np.sum(), rtol=2e-5)
     calls.append(_scan_call(pr, "mega_parts lanes (cumsum-matmul)", "lanes", (8 * n, n, n),
-                            _err(lanes, scan_resample_reference("lanes", w=w)), w=w))
+                            _vs_plain(lanes, scan_resample_reference("lanes", w=w), "lanes",
+                                      rtol=2e-5), w=w))
 
     rolled = pr.scan_resample("roll", w=w)
     np.testing.assert_array_equal(rolled.cpu().numpy(), np.roll(w_np.reshape(-1), 1))
     calls.append(_scan_call(pr, "mega_parts roll (flatten+roll)", "roll", (8 * n, 0, 0),
-                            _err(rolled, scan_resample_reference("roll", w=w)),
+                            _vs_plain(rolled, scan_resample_reference("roll", w=w), "roll"),
                             library=lambda: torch.roll(w.reshape(-1), 1), w=w))
 
     ge = pr.scan_resample("ge_sum", g=g, parts=parts)
     want = np.stack([parts_np[g_np >= s].astype(np.float64).sum(0) for s in range(n)])
     np.testing.assert_allclose(ge.cpu().numpy(), want, rtol=0, atol=1e-3)
-    ge_err = _err(ge, scan_resample_reference("ge_sum", g=g, parts=parts))
+    ge_err = _vs_plain(ge, scan_resample_reference("ge_sum", g=g, parts=parts), "ge_sum",
+                       atol=1e-3)
     for precision in ("HIGHEST", "DEFAULT"):
         calls.append(_scan_call(pr, f"mega_parts ge_sum (onehot32+mm-{precision})", "ge_sum",
                                 (4 * n + 12 * n + 12 * n, search, 6 * n), ge_err, g=g,
@@ -277,7 +319,8 @@ def probe_mega_parts(pr: Probes, device) -> list[Call]:
     th = parts_np[:, 2]
     np.testing.assert_allclose(col.cpu().numpy(), np.sin(th) + th * 0.5, rtol=1e-5, atol=1e-5)
     calls.append(_scan_call(pr, "mega_parts col (colmath+reshape)", "col", (8 * n, 3 * n, 0),
-                            _err(col, scan_resample_reference("col", parts=parts)),
+                            _vs_plain(col, scan_resample_reference("col", parts=parts), "col",
+                                      rtol=1e-5, atol=1e-5),
                             parts=parts))
     return calls
 
@@ -292,13 +335,14 @@ def probe_mega_bisect(pr: Probes, device) -> list[Call]:
     np.testing.assert_array_equal(got.cpu().numpy(), _want_ancestors(g_np, parts_np))
     plain = scan_resample_reference("gather", g=g, parts=parts)
     calls = [_scan_call(pr, "mega_bisect gather (onehot-diff+mm)", "gather",
-                        (4 * n + 24 * n, n * math.ceil(math.log2(n)), 0), _err(got, plain),
+                        (4 * n + 24 * n, n * math.ceil(math.log2(n)), 0),
+                        _vs_plain(got, plain, "gather"),
                         library=_gather_library(g, parts), g=g, parts=parts)]
     for part, label, full in (("front", "cumsum->onehot-diff+mm", False),
                               ("full", "full(+colmath+2outs)", True)):
-        w, parts_t, err = _check_prologue(pr, device, w_np, parts_np, part)
+        w, parts_t, err, rows_off = _check_prologue(pr, device, w_np, parts_np, part)
         calls.append(_scan_call(pr, f"mega_bisect {part} ({label})", part, _prologue_work(full),
-                                err, w=w, parts=parts_t, u0=U0))
+                                err, rows_off=rows_off, w=w, parts=parts_t, u0=U0))
     return calls
 
 
@@ -307,84 +351,19 @@ PROBES = dict(smem=probe_smem, rng=probe_rng, cumsum=probe_cumsum, scratch=probe
               mega_parts=probe_mega_parts, mega_bisect=probe_mega_bisect)
 
 
-def _device_ms(fn, kernel: str, iters: int = 20, attempts: int = 3) -> tuple[float, str]:
-    """(device milliseconds per launch, source) of the kernel whose name
-    holds ``kernel``: from torch.profiler over ``iters`` calls of ``fn``,
-    the mean over the events it caught (it can drop events of kernels
-    this short); when ``attempts`` profiles caught none, from a CUDA
-    graph of the calls (:func:`_graph_ms`, which also counts the
-    wrapper's allocations and memsets)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        us, count = 0.0, 0
-        for avg in prof.key_averages():
-            if avg.device_type == torch.autograd.DeviceType.CUDA and kernel in avg.key:
-                us += float(getattr(avg, "self_device_time_total", 0.0)
-                            or getattr(avg, "self_cuda_time_total", 0.0))
-                count += avg.count
-        if count:
-            return us / 1e3 / count, "profiler"
-    return _graph_ms(fn, iters), "cuda_graph"
-
-
-def _graph_ms(fn, iters: int = 20) -> float:
-    """Device milliseconds per call of ``fn`` (all its kernels): a CUDA
-    graph of ``iters`` calls replayed between CUDA events, so no host work
-    is inside the timed span. Used for the library calls, whose kernels
-    the profiler cannot be asked for by name."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def _event_ms(fn, iters: int = 50) -> float:
-    """Milliseconds per call between CUDA events around back-to-back calls
-    (host-bound for calls shorter than their Python)."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def measure(call: Call) -> dict:
-    """Times of one call on the card: the kernel's device ms (profiler, or
-    a CUDA graph where it caught no event), the wrapper's and the plain
-    version's event ms, and the library call's device ms (CUDA graph;
-    None where no one PyTorch call computes it)."""
-    ms, source = _device_ms(call.run, KERNEL_NAMES[call.kernel])
+    """Times of one call on the card. The kernel (``ms``) and the library
+    call (``library_ms``, None where no one PyTorch call computes it) are
+    timed alike: a CUDA graph of the bare call, outputs allocated before
+    capture or from the graph's pool. The wrapper's and the plain
+    version's ms are CUDA events around back-to-back Python calls."""
     return dict(
-        kernel=call.kernel, label=call.label, ms=ms, time_source=source,
-        wrapper_ms=_event_ms(call.run),
-        plain_ms=_event_ms(call.plain, iters=10),
-        library_ms=None if call.library is None else _graph_ms(call.library),
+        kernel=call.kernel, label=call.label, ms=graph_ms(call.run), time_source="cuda_graph",
+        wrapper_ms=event_ms(call.run),
+        plain_ms=event_ms(call.plain, iters=10),
+        library_ms=None if call.library is None else graph_ms(call.library),
         bytes=call.work[0], f32_ops=call.work[1], f64_ops=call.work[2],
-        max_abs_err=call.max_abs_err,
+        max_abs_err=call.max_abs_err, rows_off=call.rows_off,
     )
 
 
@@ -418,10 +397,10 @@ def main(argv=None) -> int:
         if device.type == "cuda":
             for call in calls:
                 m = measure(call)
-                lib = "-" if m["library_ms"] is None else f"{m['library_ms']:.4f}"
-                print(f"  {call.label:44s} device {m['ms']:.4f} ms ({m['time_source']}), wrapper "
-                      f"{m['wrapper_ms']:.4f}, plain {m['plain_ms']:.4f}, library {lib}, "
-                      f"max abs err {m['max_abs_err']:.3g}")
+                lib = "-" if m["library_ms"] is None else f"{m['library_ms']:.5f}"
+                print(f"  {call.label:44s} kernel {m['ms']:.5f} ms, library {lib} (CUDA graphs); "
+                      f"wrapper {m['wrapper_ms']:.4f}, plain {m['plain_ms']:.4f}; "
+                      f"max abs err {m['max_abs_err']:.3g}, rows off {m['rows_off']:.4f}")
     return 1 if failed else 0
 
 

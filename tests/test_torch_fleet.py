@@ -451,3 +451,20 @@ def test_unported_fleet_paths_raise():
         FleetFilter(gm, 2, MCLConfig(max_particles=64, pallas_dedup_slots=4), beam_angles=BEAMS)
     with pytest.raises(ValueError, match="map_assignment requires"):
         FleetFilter(gm, 2, MCLConfig(max_particles=64), map_assignment=[0, 0])
+
+
+def test_fleet_launch_needs_its_tables():
+    """One kernel serves both forms: a fleet query's launch refuses to run
+    without its per-map tables, before it reaches the card."""
+    t = jlut.suggest_theta_bins(BEAMS)
+    stride = jlut.required_row_stride(t, BEAMS, itemsize=1)
+    tq = tlut.LUTQuery(t, BEAMS, height=40, width=48, resolution=RES, origin_x=0.0,
+                       origin_y=0.0, max_range_px=120, row_stride=stride, num_members=2,
+                       **BEAM_MODEL, device="cpu")
+    lut, parts, obs = torch.zeros(stride, dtype=torch.uint8), torch.zeros((8, 3)), torch.zeros((2, 60))
+    with pytest.raises(ValueError, match="needs its tables"):
+        tq.launch(lut, parts, obs)
+    tables = tq.fleet_tables(parts, obs)
+    assert tables.npm == 4 and tables is tq.fleet_tables(parts, obs)  # built once per shape
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tq.launch(lut, parts, obs, tables=tables)

@@ -203,3 +203,39 @@ def test_failed_probe_prints_fail_and_exits_1(monkeypatch, capsys):
     assert tprobe.main(["smem", "cumsum", "--device", "cpu"]) == 1
     out = capsys.readouterr().out
     assert "FAIL smem" in out and "PASS cumsum" in out
+
+
+def test_probe_gates_raise_explicitly():
+    """Kernel-vs-plain gates raise ProbeFailure (they survive python -O):
+    beyond the probe's tolerance, and where more than 1% of ancestor rows
+    differ; the error is reported over every entry."""
+    got, plain = torch.zeros(4), torch.tensor([0.0, 0.0, 0.0, 1e-3])
+    with pytest.raises(tprobe.ProbeFailure, match="plain version"):
+        tprobe._vs_plain(got, plain, "x")
+    assert tprobe._vs_plain(got, plain, "x", atol=1e-3) == pytest.approx(1e-3)
+    rows, other = torch.zeros((100, 3)), torch.zeros((100, 3))
+    other[0, 0] = 5.0
+    agree, off = tprobe._rows_vs_plain(rows, other, "x")
+    assert off == pytest.approx(0.01) and not bool(agree[0]) and bool(agree[1:].all())
+    other[1, 2] = 5.0
+    with pytest.raises(tprobe.ProbeFailure, match="rows differ"):
+        tprobe._rows_vs_plain(rows, other, "x")
+
+
+@pytest.mark.parametrize("probe, plain", [
+    ("smem", "gather_rows_reference"), ("cumsum", "scan_resample_reference"),
+    ("scratch", "staged_writes_reference"), ("mega_parts", "scan_resample_reference"),
+    ("mega_bisect", "scan_resample_reference"),
+])
+def test_probe_fails_when_kernel_and_plain_disagree(probe, plain, monkeypatch):
+    """Every call of a probe is held against its plain version: a plain
+    version that drifts fails the probe."""
+    real = getattr(tprobe, plain)
+
+    def drifted(*args, **kwargs):
+        out = real(*args, **kwargs)
+        return tuple(o + 0.5 for o in out) if isinstance(out, tuple) else out + 0.5
+
+    monkeypatch.setattr(tprobe, plain, drifted)
+    with pytest.raises(tprobe.ProbeFailure):
+        tprobe.PROBES[probe](Probes(), torch.device("cpu"))
