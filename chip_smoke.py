@@ -7,8 +7,10 @@ Run from the root of a checkout, with no arguments:
 
 It builds the port's CUDA kernels from ``csrc/`` (one nvcc per source,
 in parallel), holds each against its plain PyTorch version on the card
-(the LUT likelihood with and without the sub-bin lerp, the unique-window
-kernel at 100k particles, the mega step), replays the config #1 golden
+(the LUT likelihood with and without the sub-bin lerp and on the shapes
+its lane layout makes edge cases, its normaliser table, the unique-window
+kernel at 100k particles, the mega step on each side of its small-n
+choice), replays the config #1 golden
 trace through ``ParticleFilter`` on the classic step and on the mega step
 (``pallas_mega``), drives the mega step at 4000 x 1080 on the same map,
 replays the config #4 golden trace on basement_fixed (compact LUT, built
@@ -89,6 +91,25 @@ CONFIG5_FLEET = 64
 CONFIG5_CHAIN = 10  # bench_fleet: chain 10, 3 rounds of 3 reps, 3 rounds of 20 steps
 CONFIG5_ROUNDS, CONFIG5_REPS, CONFIG5_ITERS = 3, 3, 20
 FLEET_KERNELS_MAX = 1.5  # fleet device kernels per correction / config #1 classic's
+SECTOR_BYTES = 32  # the granule of a global-memory read
+# the normaliser table against its plain version: CUDA's expf/logf and
+# torch's differ by an ulp of values near 1
+TABLE_TOL = 2e-6
+# Device ms of the kernels before their redesign (one warp per particle
+# with the analytic normaliser per beam term; the mega step as a
+# cooperative grid of 660 blocks with five grid barriers), from a run of
+# this script on an NVIDIA H100 80GB HBM3 at 700 W: what the report's
+# ``before_ms`` fields hold beside this run's times.
+BEFORE_MS = {
+    "lut_likelihood 4000x1080 spielberg": 0.03910, "lut_likelihood 4000x60": 0.004756,
+    "lut_likelihood 4000x1080": 0.03910, "lut_likelihood 100000x60": 0.06881,
+    "lut_likelihood subbin 4000x60 basement": 0.004969, "lut_likelihood subbin 4000x60": 0.004788,
+    "lut_likelihood subbin 4000x1080": 0.03845, "lut_likelihood fleet 64x4000x60": 0.1712,
+    "lut_dedup 100000x60": 0.08575, "mega_step 4000x60": 0.03245,
+    "mega_step 4000x60 pro_only": 0.01808, "mega_step 4000x60 no_epi": 0.02286,
+    "mega_step 4000x1080": 0.07862, "mega_step 4000x1080 pro_only": 0.01859,
+    "mega_step 4000x1080 no_epi": 0.06753,
+}
 
 
 def emit(phase: str, t0: float, **fields) -> None:
@@ -143,29 +164,54 @@ def bound(bytes_moved: float, f32_ops: float, f64_ops: float) -> dict:
 
 
 def lut_bound(n: int, n_on: int, r: int, itemsize: int, row_map: bool,
-              windows: int | None = None, subbin: bool = False) -> dict:
+              windows: int | None = None, subbin: bool = False,
+              sectors: int | None = None) -> dict:
     """K1-K5: particles in, log weights out, obs + offsets, the LUT
     entries of each distinct on-map window (``windows``, default one per
     on-map particle; the entry and its +1 neighbour with the sub-bin lerp)
     and each on-map particle's row_map entry; the beam model per beam of
-    each on-map particle."""
+    each on-map particle. With ``sectors`` (the distinct 32 B sectors the
+    cloud's beams touch, :func:`lut_reads`) also ``sector_bytes`` and
+    ``sector_bound_ms``: the same bound with the LUT counted in the
+    sectors a read moves instead of entries."""
     windows = n_on if windows is None else windows
     entries = windows * r * (2 if subbin else 1)
-    b = 12 * n + 4 * n + 8 * r + entries * itemsize + n_on * (4 if row_map else 0)
+    other = 12 * n + 4 * n + 8 * r + n_on * (4 if row_map else 0)
     ops_beam = OPS_PER_BEAM + (OPS_PER_LERP if subbin else 0)
-    return bound(b, n * OPS_PER_PARTICLE_K1 + n_on * r * ops_beam, n_on * r)
+    f32, f64 = n * OPS_PER_PARTICLE_K1 + n_on * r * ops_beam, n_on * r
+    out = bound(other + entries * itemsize, f32, f64)
+    if sectors is not None:
+        by_sector = bound(other + sectors * SECTOR_BYTES, f32, f64)
+        out.update(sector_bytes=sectors * SECTOR_BYTES, sector_bound_ms=by_sector["bound_ms"],
+                   sector_bound_by=by_sector["bound_by"])
+    return out
 
 
-def distinct_windows(q, particles, row_map) -> int:
-    """Distinct on-map (row, start bin) windows of a cloud: the LUT reads
-    its data needs."""
+def lut_reads(q, start, oob) -> tuple[int, int]:
+    """(distinct windows, distinct 32 B sectors) the on-map particles'
+    beams read, from each particle's flat window start: what this cloud's
+    data needs of the LUT, in entries and in the granule a read moves."""
+    import torch
+
+    start = torch.unique(start[~oob])
+    itemsize = q.lut_dtype.itemsize
+    off = q.beam_offsets.to(torch.int64)
+    if q.subbin:
+        off = torch.unique(torch.cat([off, off + 1]))
+    parts = [torch.unique(((chunk[:, None] + off[None, :]) * itemsize) // SECTOR_BYTES)
+             for chunk in torch.split(start, 1 << 14)]  # bounded scratch: 16k windows x R
+    sectors = int(torch.unique(torch.cat(parts)).numel()) if parts else 0
+    return int(start.numel()), sectors
+
+
+def cloud_reads(q, particles, row_map) -> tuple[int, int]:
+    """:func:`lut_reads` of a single-map cloud."""
     import torch
 
     from monte_carlo_localization_tpu_torch.ops.lut_query import window_start
 
     row, b0, _, oob = window_start(q, particles, row_map)
-    start = row * q.row_stride + b0.to(torch.int64)
-    return int(torch.unique(start[~oob]).numel())
+    return lut_reads(q, row * q.row_stride + b0.to(torch.int64), oob)
 
 
 def mega_bound(n: int, n_on: int, r: int, itemsize: int) -> dict:
@@ -206,7 +252,7 @@ def synthetic_case(rng, beams, max_range_px, compact, n, device, **opts):
     x = rng.uniform(ox - 0.3, ox + w * res + 0.3, n)
     y = rng.uniform(oy - 0.3, oy + h * res + 0.3, n)
     theta = rng.uniform(-2 * math.pi, 2 * math.pi, n)
-    theta[:2] = -2 * math.pi, 2 * math.pi
+    theta[:2] = (-2 * math.pi, 2 * math.pi)[: min(n, 2)]
     parts = np.stack([x, y, theta], 1).astype(np.float32)
     obs = rng.uniform(0, max_range_px * 1.1, len(beams)).astype(np.float32)
 
@@ -245,16 +291,133 @@ def phase_kernel_vs_plain(device) -> dict:
                     cases[kernel].append(dict(beams=num_beams, lut="u8" if max_range_px <= 254 else "u16",
                                               row_map=compact, off_map=oob, max_abs_err=err))
                     if max_range_px == 200 and not compact:
-                        times[kernel][f"{N_PARTICLES}x{num_beams}"] = dict(
+                        shape = f"{N_PARTICLES}x{num_beams}"
+                        times[kernel][shape] = dict(
                             **dict(zip(("device_ms", "time_source"), device_ms(
                                 lambda: q.launch(lut, parts, obs, row_map), "lut_loglik_kernel").values())),
+                            before_ms=BEFORE_MS["lut_likelihood " + ("subbin " if subbin else "") + shape],
                             wrapper_ms=event_ms(lambda: q.launch(lut, parts, obs, row_map)),
                             plain_ms=event_ms(lambda: lut_log_weights_reference(q, lut, parts, obs, row_map)),
                             **lut_bound(N_PARTICLES, N_PARTICLES - oob, num_beams, 1, False,
-                                        subbin=subbin),
+                                        subbin=subbin, sectors=cloud_reads(q, parts, row_map)[1]),
                         )
-    emit("kernel_vs_plain", t0, tol=KERNEL_TOL, cases=cases, synthetic_lut_times=times)
-    return dict(times=times, max_abs_err={k: max(c["max_abs_err"] for c in v) for k, v in cases.items()})
+    # the shapes the lane layout makes edge cases: 16 lanes per particle up
+    # to 64 beams and 32 past them, 8 or 16 particle groups per block, up
+    # to as many consecutive particles per group as it has lanes
+    edges = []
+    for num_beams in (1, 31, 33, 60, 64, 65, 1080):
+        for n in (1, 7, 4001) + {60: (300_007,), 1080: (70_001,)}.get(num_beams, ()):
+            for max_range_px, compact, subbin in ((200, False, False), (400, True, False),
+                                                  (200, True, True)):
+                q, lut, parts, obs, row_map = synthetic_case(
+                    rng, headline_beams(num_beams), max_range_px, compact, n, device, subbin=subbin)
+                got = q.launch(lut, parts, obs, row_map)
+                want = lut_log_weights_reference(q, lut, parts, obs, row_map)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                what = f"edge {n} x {num_beams}, {max_range_px} px, compact={compact}, subbin={subbin}"
+                check(bool(((got == -1e4) == (want == -1e4)).all()), f"{what}: off-map particles differ")
+                check(err <= KERNEL_TOL, f"{what}: kernel vs plain {err} > {KERNEL_TOL}")
+                edges.append(dict(particles=n, beams=num_beams, lut="u8" if max_range_px <= 254 else "u16",
+                                  row_map=compact, subbin=subbin, off_map=int((want == -1e4).sum()),
+                                  max_abs_err=err))
+    # u16 entries far above ceil(m) read the table's last row
+    q, lut, parts, obs, _ = synthetic_case(rng, headline_beams(60), 400, False, N_PARTICLES, device)
+    big = torch.from_numpy(rng.integers(401, 65536, lut.numel() // 3).astype(np.uint16)).to(device)
+    lut.view(torch.int16)[::3][: big.numel()] = big.view(torch.int16)
+    got, want = q.launch(lut, parts, obs), lut_log_weights_reference(q, lut, parts, obs)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(q.table_entries == 401 and err <= KERNEL_TOL,
+          f"u16 entries above max range: kernel vs plain {err} > {KERNEL_TOL}")
+    edges.append(dict(particles=N_PARTICLES, beams=60, lut="u16 with entries up to 65535",
+                      max_abs_err=err))
+    # a range past the table's cap keeps the analytic normaliser
+    for num_beams in (60, 1080):
+        q, lut, parts, obs, row_map = synthetic_case(rng, headline_beams(num_beams), 2000, True,
+                                                     N_PARTICLES, device)
+        got = q.launch(lut, parts, obs, row_map)
+        want = lut_log_weights_reference(q, lut, parts, obs, row_map)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(q.table_entries == 0 and err <= KERNEL_TOL,
+              f"max range 2000 px, {num_beams} beams: kernel vs plain {err} > {KERNEL_TOL}")
+        edges.append(dict(particles=N_PARTICLES, beams=num_beams, lut="u16, analytic (2000 px)",
+                          max_abs_err=err))
+    emit("kernel_vs_plain", t0, tol=KERNEL_TOL, cases=cases, edge_cases=edges,
+         synthetic_lut_times=times)
+    worst = {k: max(c["max_abs_err"] for c in v) for k, v in cases.items()}
+    for c in edges:
+        kernel = "K3" if c.get("subbin") else "K1"
+        worst[kernel] = max(worst[kernel], c["max_abs_err"])
+    return dict(times=times, max_abs_err=worst)
+
+
+def phase_norm_table(device) -> dict:
+    """The normaliser table the kernels read (log_norm_kernel): against its
+    plain version within TABLE_TOL, bit for bit against the analytic
+    device function at every entry value, and end to end: the sub-bin
+    kernel, which keeps the analytic normaliser, on headings whose
+    fractional bin is 0 must give the table kernel's bits."""
+    import torch
+
+    from monte_carlo_localization_tpu_torch.ops.lut_query import _log_norm, log_norm_table
+    from monte_carlo_localization_tpu_torch.utils.timing import graph_ms
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(6)
+    cases = []
+    timed = None
+    for max_range_px in (200, 400, 198.4):
+        q = synthetic_case(rng, headline_beams(60), max_range_px, False, 8, device)[0]
+        q.table_launch_count = 0
+        table = q.norm_table(device)
+        check(q.table_launch_count == 1 and q.norm_table(device) is table,
+              "the table is filled once per query and device")
+        plain = log_norm_table(q, device)
+        check(tuple(table.shape) == tuple(plain.shape) == (math.ceil(max_range_px) + 1, 2),
+              f"table shape {tuple(table.shape)}")
+        err = float((table[:, 0] - plain[:, 0]).abs().max())
+        check(err <= TABLE_TOL, f"table vs plain at m={max_range_px}: {err} > {TABLE_TOL}")
+        check(torch.equal(table[:, 1], plain[:, 1]), f"reciprocal column differs at m={max_range_px}")
+        d = torch.clamp(torch.arange(table.shape[0], dtype=torch.float32, device=device), max=q.m)
+        analytic = q.launch_log_norm(d)
+        check(torch.equal(analytic, table), f"table differs from the analytic function at m={max_range_px}")
+        frac = torch.rand(4096, device=device) * q.m
+        err_frac = float((q.launch_log_norm(frac)[:, 0] - _log_norm(q, frac)).abs().max())
+        check(err_frac <= TABLE_TOL, f"analytic log_norm vs plain at fractional d: {err_frac}")
+        cases.append(dict(max_range_px=max_range_px, entries=table.shape[0], max_abs_err=err,
+                          analytic_bits="torch.equal", fractional_d_max_abs_err=err_frac))
+        if max_range_px == 200:
+            entries = table.shape[0]
+            timed = dict(
+                ms=graph_ms(lambda: q.launch_log_norm(device=device)), time_source="cuda_graph",
+                wrapper_ms=event_ms(lambda: q.launch_log_norm(device=device)),
+                plain_ms=event_ms(lambda: log_norm_table(q, device)),
+                # entries x {2 erf (division, exp, 11 ops), a log, a reciprocal, ~12 more}
+                **bound(8 * entries + 60, 50 * entries, 0),
+            )
+    whole_bins = {}
+    for num_beams in (60, 1080):
+        q, lut, parts, obs, row_map = synthetic_case(rng, headline_beams(num_beams), 200, True,
+                                                     6000, device)
+        qs = synthetic_case(rng, headline_beams(num_beams), 200, True, 8, device, subbin=True)[0]
+        k = torch.from_numpy(rng.integers(-q.t_bins, q.t_bins, 6000).astype(np.float32)).to(device)
+        theta = k / q.bin_scale
+        bpos = theta * q.bin_scale
+        keep = (bpos == torch.floor(bpos)) & (bpos == torch.round(bpos))
+        parts = parts[keep].contiguous()
+        parts[:, 2] = theta[keep]
+        got, want = qs.launch(lut, parts, obs, row_map), q.launch(lut, parts, obs, row_map)
+        torch.cuda.synchronize()
+        on = int((want != -1e4).sum())
+        check(on > 1000, f"whole-bin case at {num_beams} beams kept {on} particles on the map")
+        check(torch.equal(got, want),
+              f"sub-bin kernel on whole-bin headings differs from the table kernel at {num_beams} beams")
+        whole_bins[f"{num_beams} beams"] = dict(particles=int(keep.sum()), on_map=on, result="torch.equal")
+    emit("norm_table", t0, tol=TABLE_TOL, cases=cases, subbin_on_whole_bins_vs_table_kernel=whole_bins,
+         fill_times=timed)
+    return dict(max_abs_err=max(c["max_abs_err"] for c in cases), **timed)
 
 
 def dedup_cloud(rng, kind: str, n: int, h: int, w: int, res: float, ox: float, oy: float):
@@ -312,13 +475,14 @@ def dedup_times(q, lut, parts, obs, row_map, n_on: int) -> dict:
     plan_rows, _ = profile_run(lambda: dedup_plan(q, parts, row_map, q.launched_slots), 10)
     return dict(
         device_ms=dev["ms"], time_source=dev["source"], k1_device_ms=k1["ms"],
+        before_ms=BEFORE_MS["lut_dedup 100000x60"], k1_before_ms=BEFORE_MS["lut_likelihood 100000x60"],
         plan_device_ms=sum(us for us, _ in plan_rows.values()) / 1e3 / 10,
         plan_device_kernels=sum(n for _, n in plan_rows.values()) / 10,
         wrapper_ms=event_ms(lambda: q.launch_dedup(lut, parts, obs, row_map)),
         k1_wrapper_ms=event_ms(lambda: q.launch(lut, parts, obs, row_map)),
         plain_ms=event_ms(lambda: lut_dedup_reference(q, lut, parts, obs, row_map), iters=10),
         **lut_bound(parts.shape[0], n_on, q.num_beams, q.lut_dtype.itemsize, row_map is not None,
-                    windows=distinct_windows(q, parts, row_map), subbin=q.subbin),
+                    subbin=q.subbin, **dict(zip(("windows", "sectors"), cloud_reads(q, parts, row_map)))),
     )
 
 
@@ -396,9 +560,10 @@ def phase_config1(device) -> dict:
     pf = ParticleFilter(gm, cfg)
     pf.set_beam_angles(load_trace(trace)["beam_angles"][:: cfg.angle_step])
     t_setup = time.perf_counter() - t0
-    pf.likelihood.launch_count = 0
+    pf.likelihood.launch_count = pf.likelihood.table_launch_count = 0
     res = replay_chained(pf, trace, chunk=64)
-    launches = pf.likelihood.launch_count
+    launches, table_launches = pf.likelihood.launch_count, pf.likelihood.table_launch_count
+    check(table_launches == 1, f"{table_launches} fills of the normaliser table in one replay (want 1)")
     check(np.isfinite(res.poses).all(), "config #1 replay gave non-finite poses")
     check(launches == res.corrections == 500,
           f"{launches} kernel launches for {res.corrections} corrections (want 500)")
@@ -406,11 +571,13 @@ def phase_config1(device) -> dict:
     emit("config1_replay", t0, setup_s=t_setup, particles=N_PARTICLES,
          beams=int(pf.beam_angles.shape[0]), lut=("compact " if pf.grid_map.lut_row_map is not None else "dense ") + str(pf.grid_map.range_lut.dtype),
          lut_bytes=pf.grid_map.range_lut.numel() * pf.grid_map.range_lut.element_size(),
-         corrections=res.corrections, launches=launches, rmse_xy_m=res.rmse_xy,
+         corrections=res.corrections, launches=launches, table_fills=table_launches,
+         rmse_xy_m=res.rmse_xy,
          rmse_theta_rad=res.rmse_theta, chained_updates_per_s=res.updates_per_sec)
     del pf, gm
     torch.cuda.empty_cache()
-    return dict(launches=launches, rmse_xy=res.rmse_xy, rate=res.updates_per_sec)
+    return dict(launches=launches, table_launches=table_launches, rmse_xy=res.rmse_xy,
+                rate=res.updates_per_sec)
 
 
 def lut_scan(pf, pose) -> np.ndarray:
@@ -501,17 +668,21 @@ def phase_headline(device) -> dict:
     kernel_ms = dev["ms"]
     wrapper_ms = event_ms(lambda: pf.likelihood.launch(lut, parts, obs_px, row_map))
     plain_ms = event_ms(lambda: lut_log_weights_reference(pf.likelihood, lut, parts, obs_px, row_map))
-    bnd = lut_bound(N_PARTICLES, n_on, 1080, 1, True)
+    bnd = lut_bound(N_PARTICLES, n_on, 1080, 1, True,
+                    sectors=cloud_reads(pf.likelihood, parts, row_map)[1])
     emit("headline_spielberg", t0, particles=N_PARTICLES, beams=1080, lut="compact u8",
          lut_rows=lut.numel() // pf.grid_map.row_stride, row_stride=pf.grid_map.row_stride,
          lut_bytes=lut_bytes, map_load_s=t_map, lut_build_and_upload_s=t_lut,
          lut_upload_only_s=t_upload, launches=launches,
          chained_updates_per_s=chain / t_chain, per_step_updates_per_s=30 / t_steps,
          drift_from_start_m=drift, max_abs_err=err, kernel_device_ms=kernel_ms,
+         kernel_before_ms=BEFORE_MS["lut_likelihood 4000x1080 spielberg"],
          kernel_time_source=dev["source"], wrapper_ms=wrapper_ms, plain_ms=plain_ms, **bnd,
          peak_device_bytes=torch.cuda.max_memory_allocated(device))
     return dict(launches=launches, max_abs_err=err, ms=kernel_ms, wrapper_ms=wrapper_ms,
-                plain_ms=plain_ms, bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"])
+                plain_ms=plain_ms, bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
+                sector_bound_ms=bnd["sector_bound_ms"], sector_bytes=bnd["sector_bytes"],
+                before_ms=BEFORE_MS["lut_likelihood 4000x1080 spielberg"])
 
 
 MOTIONS = {"straight": [0.05, 0.0, 1.0, 0.37], "arc": [0.04, 0.03, 0.0, 0.81]}
@@ -563,7 +734,11 @@ def mega_compare(step, lut, parts, logw, noise, obs, scalars, what: str) -> dict
     out_p, out_w = torch.empty_like(parts), torch.empty_like(logw)
     sums = torch.empty(8, dtype=torch.float32, device=parts.device)
     step.launch(lut, parts, logw, noise, obs, scalars, out_p, out_w, sums)
+    again = torch.empty_like(parts), torch.empty_like(logw), torch.empty_like(sums)
+    step.launch(lut, parts, logw, noise, obs, scalars, *again)
     torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip((out_p, out_w, sums), again)),
+          f"{what}: two launches on the same inputs differ")
     want_p, want_w, want_s = mega_step_reference(step, lut, parts, logw, noise, obs, scalars)
     torch.cuda.synchronize()
     n = parts.shape[0]
@@ -579,12 +754,14 @@ def mega_compare(step, lut, parts, logw, noise, obs, scalars, what: str) -> dict
     check(mx_err <= KERNEL_TOL, f"{what}: max log weight differs by {mx_err}")
     check(bool(torch.isfinite(sums[:6]).all()), f"{what}: non-finite sums")
     return dict(rows_equal=n_rows, rows=n, max_abs_err=lw_err, sums_rel_err=sums_rel,
-                max_err=mx_err, off_map=off)
+                max_err=mx_err, off_map=off, two_launches="torch.equal")
 
 
 def mega_times(step, lut, parts, logw, noise, obs, scalars, n_on: int) -> dict:
     """Device time of the kernel (and of each debug_phases part), wrapper
-    time, plain time and the bound, on these inputs."""
+    time, plain time, the launcher's plan and the bound, on these inputs;
+    beside them the times before the redesign where BEFORE_MS has the
+    shape."""
     import torch
 
     from monte_carlo_localization_tpu_torch.ops.mega_step import mega_step_reference
@@ -599,11 +776,16 @@ def mega_times(step, lut, parts, logw, noise, obs, scalars, n_on: int) -> dict:
     dev = device_ms(launch(), "mega_step_kernel")
     phases = {ph: device_ms(launch(ph), "mega_step_kernel")["ms"] for ph in ("pro_only", "no_epi")}
     n, r = parts.shape[0], obs.shape[0]
+    grid, chunk, small = step.plan(n)
+    key = f"mega_step {n}x{r}"
+    before = {k[len(key):].strip() or "all": v for k, v in BEFORE_MS.items() if k.startswith(key)}
     return dict(
         device_ms=dev["ms"], time_source=dev["source"], phase_device_ms=phases,
+        before_ms=before or None,
         wrapper_ms=event_ms(launch()),
         plain_ms=event_ms(lambda: mega_step_reference(step, lut, parts, logw, noise, obs, scalars)),
-        grid_blocks=step.grid_blocks(),
+        grid_blocks=grid, particles_per_block=chunk,
+        phase1="per block, no grid barrier" if small else "across a cooperative grid",
         **mega_bound(n, n_on, r, lut.element_size()),
     )
 
@@ -628,6 +810,22 @@ def phase_mega_vs_plain(device) -> dict:
                 if max_range_px == 200 and motion == "arc":
                     times[f"{N_PARTICLES}x{num_beams}"] = mega_times(
                         step, lut, parts, logw, noise, obs, scalars, N_PARTICLES - res["off_map"])
+    # each side of the launcher's choice: up to 8192 particles every block
+    # computes the weight CDF itself, past that a cooperative grid does
+    scalars = torch.tensor(MOTIONS["arc"] + [0.0] * 4, dtype=torch.float32, device=device)
+    for num_beams, n in ((60, 1), (60, 8192), (1080, 8192), (60, 30_011), (1080, 30_011), (60, 100_000)):
+        step, lut, parts, logw, noise, obs = mega_case(rng, headline_beams(num_beams), 200, n, device)
+        if n == 1:
+            parts[:, :2] = torch.tensor([1.0, 2.0], device=device)  # on the map
+        what = f"mega {n} x {num_beams}"
+        res = mega_compare(step, lut, parts, logw, noise, obs, scalars, what)
+        grid, chunk, small = step.plan(n)
+        check(small == (n <= 8192) and grid == -(-n // chunk), f"{what}: plan {(grid, chunk, small)}")
+        cases.append(dict(beams=num_beams, lut="u8", motion="arc", grid_blocks=grid,
+                          phase1="per block" if small else "cooperative grid", **res))
+        if n == 100_000:
+            times[f"{n}x{num_beams}"] = mega_times(step, lut, parts, logw, noise, obs, scalars,
+                                                   n - res["off_map"])
     emit("mega_vs_plain", t0, row_tol=MEGA_ROW_TOL, rows_min=MEGA_ROWS_MIN, lw_tol=KERNEL_TOL,
          sums_rtol=MEGA_SUMS_RTOL, cases=cases, synthetic_lut_times=times)
     return dict(max_abs_err=max(c["max_abs_err"] for c in cases), times=times)
@@ -820,8 +1018,9 @@ def phase_config4_replay(device):
               time_source=dev["source"],
               wrapper_ms=event_ms(lambda: q.launch(lut, parts, obs, row_map)),
               plain_ms=event_ms(lambda: lut_log_weights_reference(q, lut, parts, obs, row_map)),
-              **lut_bound(N_PARTICLES, n_on, q.num_beams, 1, True,
-                          windows=distinct_windows(q, parts, row_map), subbin=True))
+              before_ms=BEFORE_MS["lut_likelihood subbin 4000x60 basement"],
+              **lut_bound(N_PARTICLES, n_on, q.num_beams, 1, True, subbin=True,
+                          **dict(zip(("windows", "sectors"), cloud_reads(q, parts, row_map)))))
     s0 = pf.init_pose(tr["truth_pose"][0], seed=3)
     prof = {name: chain_profile(lambda f=f: f.step_many(s0, actions[:20], scans[:20]), 20)
             for name, f in (("default", pf), ("subbin", pf_sub))}
@@ -951,7 +1150,9 @@ def phase_config4_converge(device, gm, beams) -> dict:
 # fleet cases: (map shapes, members, particles per member, map_of,
 # member_base, compact, max_range_px, subbin). npm 4001 and 1003 are not
 # multiples of 8, so a block of 8 warps would straddle two members; every
-# case has particles off their member's map.
+# case has particles off their member's map. The last three are members
+# smaller than a block, than a lane group's share and of one particle,
+# and members whose last block is ragged at several particles per group.
 FLEET_CASES = {
     "3_members_2_maps": ([(64, 80), (40, 120)], 3, 4000, [0, 1, 0], 0, False, 200, False),
     "shared_map_of": ([(64, 80), (40, 120)], 8, 1003, [1, 1, 0, 1, 0, 0, 1, 1], 0, False, 200,
@@ -960,6 +1161,9 @@ FLEET_CASES = {
     "u16": ([(64, 80), (40, 120)], 3, 4001, [0, 1, 1], 0, False, 400, False),
     "subbin": ([(64, 80), (40, 120)], 3, 4000, [0, 1, 0], 0, True, 200, True),
     "member_base_2": ([(64, 80), (40, 120)], 2, 1003, [0, 0, 1, 0, 1], 2, False, 200, False),
+    "npm_7": ([(64, 80), (40, 120)], 9, 7, [0, 1, 0, 1, 1, 0, 0, 1, 0], 0, False, 200, False),
+    "npm_1": ([(64, 80), (40, 120)], 40, 1, [0, 1] * 20, 0, True, 200, False),
+    "ragged_70001": ([(64, 80), (40, 120)], 5, 70_001, [0, 1, 0, 1, 1], 0, False, 400, False),
 }
 
 
@@ -1194,7 +1398,7 @@ def phase_config5(device, classic_kernels: float) -> dict:
                         synthetic=False)
     tables = q.fleet_tables(parts, obs, None, **fleet)
     start, _, oob, _ = fleet_window_start(q, parts, tables)
-    windows = int(torch.unique(start[~oob]).numel())
+    windows, sectors = lut_reads(q, start, oob)
     dev = device_ms(lambda: q.launch(gm.range_lut, parts, obs, None, tables),
                     "lut_loglik_kernel")
     kernel = dict(
@@ -1202,8 +1406,8 @@ def phase_config5(device, classic_kernels: float) -> dict:
         wrapper_ms=event_ms(lambda: q.launch(gm.range_lut, parts, obs, None, tables)),
         plain_ms=event_ms(lambda: lut_log_weights_reference(q, gm.range_lut, parts, obs, None, tables),
                          iters=10),
-        distinct_windows=windows,
-        **lut_bound(f * n, f * n - cmp["off_map"], r, 1, False, windows=windows),
+        distinct_windows=windows, before_ms=BEFORE_MS["lut_likelihood fleet 64x4000x60"],
+        **lut_bound(f * n, f * n - cmp["off_map"], r, 1, False, windows=windows, sectors=sectors),
     )
     prof = chain_profile(lambda: ff.step_many(state, actions_k, scans_k), CONFIG5_CHAIN)
     kernels = prof["device_kernels_per_correction"]
@@ -1322,12 +1526,14 @@ def main() -> int:
     for num_beams in (60, 1080):
         for max_range_px in (200, 400):
             step = mega_case(np.random.default_rng(0), headline_beams(num_beams), max_range_px, 8, device)[0]
-            grids[f"{num_beams} beams {'u8' if max_range_px <= 254 else 'u16'}"] = step.grid_blocks()
+            grids[f"{num_beams} beams {'u8' if max_range_px <= 254 else 'u16'}"] = {
+                n: step.plan(n)[0] for n in (N_PARTICLES, CONFIG4_PARTICLES)}
     emit("build", t0, nvcc_s=built.seconds,
          so={k: str(v.relative_to(REPO)) for k, v in built.paths.items()}, ptxas=ptxas,
          mega_grid_blocks=grids, sms=torch.cuda.get_device_properties(0).multi_processor_count)
 
     lut_plain = phase_kernel_vs_plain(device)
+    table = phase_norm_table(device)
     dedup_plain = phase_dedup_vs_plain(device)
     mega_plain = phase_mega_vs_plain(device)
     config1 = phase_config1(device)
@@ -1356,6 +1562,8 @@ def main() -> int:
             "max_abs_err": max(c["max_abs_err"], dedup_plain["max_abs_err"]),
             "ms": c["device_ms"], "wrapper_ms": c["wrapper_ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": None,
+            "before_ms": c["before_ms"], "k1_before_ms": c["k1_before_ms"],
+            "sector_bytes": c["sector_bytes"], "sector_bound_ms": c["sector_bound_ms"],
             "k1_ms_same_cloud": c["k1_device_ms"], "plan_ms": c["plan_device_ms"],
             "overflowed_blocks": c["overflowed_blocks"],
             "synthetic_times": dedup_plain["times"] if name == "dedup_K4" else None,
@@ -1368,6 +1576,8 @@ def main() -> int:
             "replaces": "monte_carlo_localization_tpu/ops/pallas_lut.py:450",
             **{k: head[k] for k in keys},
             "library_ms": None,
+            "before_ms": head["before_ms"],
+            "sector_bytes": head["sector_bytes"], "sector_bound_ms": head["sector_bound_ms"],
             "config1_launches": config1["launches"],
             "config4_launches": config4["k1_launches"],
             "synthetic_times": lut_plain["times"]["K1"],
@@ -1380,7 +1590,18 @@ def main() -> int:
             **{k: k3[k] for k in keys},
             "max_abs_err": max(k3["max_abs_err"], lut_plain["max_abs_err"]["K3"]),
             "library_ms": None,
+            "before_ms": k3["before_ms"],
+            "sector_bytes": k3["sector_bytes"], "sector_bound_ms": k3["sector_bound_ms"],
             "synthetic_times": lut_plain["times"]["K3"],
+        },
+        {
+            "name": "log_norm_table",
+            "route": "cuda",
+            "source": "monte_carlo_localization_tpu_torch/csrc/lut_likelihood.cu",
+            "replaces": "monte_carlo_localization_tpu/ops/pallas_lut.py:411",
+            "launches": config1["table_launches"],
+            **{k: table[k] for k in keys[1:]},
+            "library_ms": None,
         },
         *dedup_entries,
         {
@@ -1396,6 +1617,8 @@ def main() -> int:
             "bound_ms": mega1["bound_ms"],
             "bound_by": mega1["bound_by"],
             "library_ms": None,
+            "before_ms": mega1["before_ms"],
+            "grid_blocks": mega1["grid_blocks"], "phase1": mega1["phase1"],
             "phase_device_ms": mega1["phase_device_ms"],
             "synthetic_times": mega_plain["times"],
         },
@@ -1407,6 +1630,8 @@ def main() -> int:
             **{k: config5[k] for k in keys},
             "max_abs_err": max(config5["max_abs_err"], fleet_plain["max_abs_err"]),
             "library_ms": None,
+            "before_ms": config5["before_ms"],
+            "sector_bytes": config5["sector_bytes"], "sector_bound_ms": config5["sector_bound_ms"],
             "config5_launches": config5["launches"],
         },
         *probe_entries(probes),

@@ -1,5 +1,5 @@
-// Fused range-LUT lookup + analytic beam-model log-likelihood, one value
-// per particle, for Hopper (sm_90a).
+// Fused range-LUT lookup + beam-model log-likelihood, one value per
+// particle, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel monte_carlo_localization_tpu/ops/pallas_lut.py
 // build_lut_query_fn -> kernel (:450) in all three of its forms: K1, the
@@ -26,18 +26,39 @@
 // Offsets are 64-bit: the Spielberg compact LUT (3.4 M rows x 3072 B) is
 // far past 2^31 entries.
 //
-// What bounds it on an H100: at 4000 particles x 1080 beams one launch
-// reads ~4.3 MB of LUT (a warp reads 32 neighbouring entries of one row
-// per step, so the reads coalesce) and evaluates ~4.3 M beam terms (two
-// exp, two erf approximations, two log each): a few microseconds of HBM
-// or ALU time. Launch latency bounds it at these shapes, so the design
-// stays simple: one warp per particle, lane l takes beams l, l+32, ...,
-// and a warp-shuffle sum. A block of 8 warps stages min(obs, m) and the
-// beam offsets in shared memory once.
+// What binds it on an H100, and what the design does about it. The large
+// shapes (64 x 4000 x 60, 100k x 60, 4000 x 1080) are bound by the
+// arithmetic of a beam term, not by bytes: a term's LUT byte comes from
+// L2 or HBM at a small fraction of their rates, while the analytic model
+// costs two erf (a division and an exp each), a third division and two
+// logs per term. So:
+//   - the normaliser, which depends on the LUT entry alone, is read from
+//     a table in shared memory (beam_model.cuh), filled once per query by
+//     log_norm_kernel below; a term is then one exp and one log. How the
+//     model is evaluated (tabled, analytic, analytic on the sub-bin lerp)
+//     is a template argument, so the tabled kernel carries no analytic
+//     code: half the code to fetch, which the 4 us shapes feel;
+//   - tabled scans of <= 64 beams put two particles in a warp (16 lanes
+//     each, every lane <= 4 terms from registers), so no lane idles at 60
+//     beams and the butterfly is 4 steps for two particles; the next
+//     particle's window values are loaded before this one's are summed.
+//     Analytic terms (K3) are about five times as long, so they keep a
+//     warp per particle: two terms deep per lane at 60 beams, not four;
+//   - a group of lanes takes P consecutive particles (P <= the group's
+//     lanes, chosen by the launcher so the grid is about two waves): lane
+//     i does the address math of particle i (two IEEE divisions, a rint,
+//     a remainder, the row_map load), once per P particles instead of on
+//     every lane for every particle, and hands the window to the group by
+//     shuffle; results go out in one coalesced store;
+//   - a block stages min(obs, m) with the beam offsets and the table
+//     (1.6-4 KB) once for its 8..16 x P particles.
+// The small shapes (4000 x 60) are bound by latency: the launch, the
+// staging and the dependent loads particle -> row_map -> window; the
+// particle load starts before the staging so the two overlap.
 //
 // Numerics follow the TPU kernel in float32, through the beam model that
-// beam_model.cuh shares with mega_step.cu. Only the beam sum is wider: it
-// accumulates in double.
+// beam_model.cuh shares with lut_dedup.cu and mega_step.cu. Only the beam
+// sum is wider: it accumulates in double.
 //
 // One kernel serves one map and a fleet (num_members / per_member_maps,
 // pallas_lut.py:835-949): F members of npm particles each, in one launch.
@@ -50,11 +71,10 @@
 // where lut_bases counts subrows of eps entries (the JAX layout). One map
 // is the fleet of one member on map 0 (LUTQuery.launch passes its tables).
 // The TPU grid could put a block across two members; here the grid is
-// members x ceil(npm / 8) blocks, so a block never straddles one and
-// stages its member's scan and map tables in shared memory once; the
-// last block of a member idles npm % 8 of its warps at most. JAX's member
-// chunking (SMEM_PARTICLE_CAP) is TPU glue: one launch serves 64 x 4000
-// particles.
+// members x blocks_per_member blocks, so a block never straddles one and
+// stages its member's scan and map tables in shared memory once; the last
+// block of a member idles the groups past npm. JAX's member chunking
+// (SMEM_PARTICLE_CAP) is TPU glue: one launch serves 64 x 4000 particles.
 
 #include <cstdint>
 
@@ -64,10 +84,12 @@
 
 namespace {
 
+using mcl::kFullMask;
 using mcl::kWarp;
+using mcl::Model;
 using mcl::Params;
-constexpr int kWarpsPerBlock = 8;
-constexpr int kThreads = kWarp * kWarpsPerBlock;
+constexpr int kThreads = 256;
+constexpr int kWaves = 2;  // the grid the launcher aims for, in full waves
 
 // One map's part of the fleet tables, uniform over a block (a block never
 // straddles a member), so thread 0 reads it once beside the scan staging
@@ -80,63 +102,189 @@ struct MapView {
   int height, width;
 };
 
-template <typename T, bool kSubbin>
-__global__ void __launch_bounds__(kThreads)
-    lut_loglik_kernel(const T* __restrict__ lut, int64_t row_stride,
-                      const int32_t* __restrict__ row_map,
-                      const int32_t* __restrict__ row_map_bases,
-                      const float* __restrict__ particles, int64_t npm,
-                      unsigned blocks_per_member, int member_base,
-                      const int32_t* __restrict__ map_of, int per_member,
-                      const float* __restrict__ origin_x,
-                      const float* __restrict__ origin_y,
-                      const int32_t* __restrict__ dims,
-                      const int32_t* __restrict__ lut_bases, int eps,
-                      const float* __restrict__ obs_px,
-                      const int32_t* __restrict__ offsets, int r, int base,
-                      int t_bins, Params p, float* __restrict__ out) {
-  extern __shared__ float smem[];
-  __shared__ MapView<T> s_map;
-  float* s_obs = smem;
-  int32_t* s_off = reinterpret_cast<int32_t*>(smem + r);
-  const unsigned member = blockIdx.x / blocks_per_member;
-  if (threadIdx.x == 0) {
-    const int mi = member_base + static_cast<int>(member);
-    const int map = per_member ? (map_of ? map_of[mi] : mi) : 0;
-    // widen before multiplying: lut_bases * eps passes 2^31 entries
-    s_map.lut = lut + static_cast<int64_t>(lut_bases[map]) * eps;
-    s_map.rows = row_map && row_map_bases ? row_map + row_map_bases[map] : row_map;
-    s_map.ox = origin_x[map];
-    s_map.oy = origin_y[map];
-    s_map.height = dims[2 * map];
-    s_map.width = dims[2 * map + 1];
-  }
-  const float* obs_row = obs_px + static_cast<int64_t>(member) * r;
-  for (int j = threadIdx.x; j < r; j += blockDim.x) {
-    s_obs[j] = fminf(obs_row[j], p.m);
-    s_off[j] = offsets[j];
-  }
-  __syncthreads();
+template <typename T>
+struct Args {
+  const T* lut;
+  int64_t row_stride;
+  const int32_t* row_map;
+  const int32_t* row_map_bases;
+  const float* particles;
+  int64_t npm;
+  unsigned blocks_per_member;
+  int per_group;  // P: consecutive particles per group of lanes
+  int member_base;
+  const int32_t* map_of;
+  int per_member;
+  const float* origin_x;
+  const float* origin_y;
+  const int32_t* dims;
+  const int32_t* lut_bases;
+  int eps;
+  const float* obs_px;
+  const int32_t* offsets;
+  int r, base, t_bins;
+  const float2* table;  // the query's normaliser table, or null
+  int table_entries;
+  Params p;
+  float* out;
+};
 
+template <typename T, Model kModel, int kGroup>
+__global__ void __launch_bounds__(kThreads) lut_loglik_kernel(Args<T> a) {
+  constexpr bool kSubbin = kModel == Model::kLerped;
+  extern __shared__ float2 smem[];
+  __shared__ MapView<T> s_map;
+  constexpr int kGroups = kThreads / kGroup;
+  const Params& p = a.p;
+  const unsigned member = blockIdx.x / a.blocks_per_member;
+  const unsigned block = blockIdx.x % a.blocks_per_member;
   const int lane = threadIdx.x % kWarp;
-  const int64_t local =
-      static_cast<int64_t>(blockIdx.x % blocks_per_member) * kWarpsPerBlock +
-      threadIdx.x / kWarp;
-  if (local >= npm) return;  // whole warps leave together
-  const int64_t i = static_cast<int64_t>(member) * npm + local;
+  const int lig = threadIdx.x % kGroup;  // lane in group
+
+  // this group's P consecutive particles of the member; lane i owns the
+  // address math and the result of particle i
+  const int64_t first =
+      (static_cast<int64_t>(block) * kGroups + threadIdx.x / kGroup) * a.per_group;
+  const int64_t left = a.npm - first;
+  const int count = left <= 0 ? 0 : (left < a.per_group ? static_cast<int>(left) : a.per_group);
+  const int64_t i = static_cast<int64_t>(member) * a.npm + first + lig;
+  float x = 0.0f, y = 0.0f, theta = 0.0f;
+  if (lig < count) {  // in flight while the block stages
+    x = a.particles[3 * i];
+    y = a.particles[3 * i + 1];
+    theta = a.particles[3 * i + 2];
+  }
+
+  if (threadIdx.x == 0) {
+    const int mi = a.member_base + static_cast<int>(member);
+    const int map = a.per_member ? (a.map_of ? a.map_of[mi] : mi) : 0;
+    // widen before multiplying: lut_bases * eps passes 2^31 entries
+    s_map.lut = a.lut + static_cast<int64_t>(a.lut_bases[map]) * a.eps;
+    s_map.rows = a.row_map && a.row_map_bases ? a.row_map + a.row_map_bases[map]
+                                              : a.row_map;
+    s_map.ox = a.origin_x[map];
+    s_map.oy = a.origin_y[map];
+    s_map.height = a.dims[2 * map];
+    s_map.width = a.dims[2 * map + 1];
+  }
+  const mcl::BeamStage s = mcl::stage_beams(
+      smem, a.obs_px + static_cast<int64_t>(member) * a.r, a.offsets, a.r, a.table,
+      a.table_entries, p);
+  __syncthreads();
   const MapView<T> m = s_map;
 
-  mcl::Window w;
-  if (!mcl::particle_window<kSubbin>(particles[3 * i], particles[3 * i + 1],
-                                     particles[3 * i + 2], m.ox, m.oy, m.rows,
-                                     base, t_bins, m.height, m.width, p, &w)) {
-    if (lane == 0) out[i] = -1e4f;
-    return;
+  int64_t start = -1;  // the window's first entry in the map's LUT block
+  float frac = 0.0f;
+  if (lig < count) {
+    mcl::Window w;
+    if (mcl::particle_window<kSubbin>(x, y, theta, m.ox, m.oy, m.rows, a.base,
+                                      a.t_bins, m.height, m.width, p, &w)) {
+      start = w.row * a.row_stride + w.b0;
+      frac = w.frac;
+    }
   }
-  const T* window = m.lut + w.row * row_stride + w.b0;
-  const float logw = mcl::warp_window_logp<T, kSubbin>(window, s_obs, s_off,
-                                                       r, lane, p, w.frac);
-  if (lane == 0) out[i] = logw;
+  // the warp runs as many rounds as its fullest group has particles
+  int rounds = count;
+  if (kGroup < kWarp) rounds = max(rounds, __shfl_xor_sync(kFullMask, rounds, kGroup));
+
+  float mine = -1e4f;
+  if (kGroup == mcl::kSmallGroup) {
+    // tabled scans of <= 64 beams, <= 4 terms per lane: fetch round
+    // it + 1's window values, then sum round it's from registers
+    float next[mcl::kTermsPerLane];
+    int64_t at = __shfl_sync(kFullMask, start, 0, kGroup);
+    mcl::load_ranges<kModel>(m.lut + at, s, at >= 0 ? a.r : 0, lig, 0.0f, next);
+    for (int it = 0; it < rounds; ++it) {
+      const int rr = at >= 0 ? a.r : 0;
+      float cur[mcl::kTermsPerLane];
+#pragma unroll
+      for (int k = 0; k < mcl::kTermsPerLane; ++k) cur[k] = next[k];
+      at = __shfl_sync(kFullMask, start, min(it + 1, kGroup - 1), kGroup);
+      mcl::load_ranges<kModel>(m.lut + at, s, it + 1 < rounds && at >= 0 ? a.r : 0, lig,
+                               0.0f, next);
+      const float logw = mcl::group_total<kGroup>(
+          mcl::sum_ranges<kModel>(cur, s, rr, lig, p), lane, p);
+      if (lig == it && rr > 0) mine = logw;
+    }
+  } else {
+    for (int it = 0; it < rounds; ++it) {
+      const int64_t at = __shfl_sync(kFullMask, start, it, kGroup);
+      const float fr = kSubbin ? __shfl_sync(kFullMask, frac, it, kGroup) : 0.0f;
+      const float logw = mcl::group_window_logp<kGroup, kModel>(
+          m.lut + at, at >= 0, s, a.r, lane, p, fr);
+      if (lig == it && at >= 0) mine = logw;
+    }
+  }
+  if (lig < count) a.out[i] = mine;
+}
+
+// Fills the normaliser table of one query: entry e holds
+// {log norm(d), 1 / max(d, 1)} at d = min(e, m), or with ``d_in`` at
+// d = min(d_in[e], m) (how the analytic function is read out for any d).
+__global__ void log_norm_kernel(const float* __restrict__ d_in, int count, Params p,
+                                float2* __restrict__ out) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= count) return;
+  const float d = fminf(d_in ? d_in[e] : static_cast<float>(e), p.m);
+  out[e] = mcl::norm_entry(d, p);
+}
+
+// Blocks of one kernel instantiation that fit the device at once, and the
+// opt-in to more than 48 KB of dynamic shared memory.
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, size_t smem, int* blocks) {
+  // the last answer: a filter asks the same question at every correction
+  static const void* last_kernel = nullptr;
+  static int last_dev = -1, last_blocks = 0;
+  static size_t last_smem = 0;
+  const void* asked = reinterpret_cast<const void*>(kernel);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (asked == last_kernel && dev == last_dev && smem == last_smem) {
+    *blocks = last_blocks;
+    return cudaSuccess;
+  }
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *blocks = last_blocks = per_sm * sms;
+  last_kernel = asked;
+  last_dev = dev;
+  last_smem = smem;
+  return cudaSuccess;
+}
+
+template <typename T, Model kModel, int kGroup>
+int launch_as(Args<T> a, int members, void* stream) {
+  constexpr int kGroups = kThreads / kGroup;
+  const size_t smem = mcl::stage_bytes(a.r, a.table ? a.table_entries : 0);
+  auto kernel = lut_loglik_kernel<T, kModel, kGroup>;
+  int resident = 0;
+  const cudaError_t err = resident_blocks(kernel, smem, &resident);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // P particles per group so that the grid is about kWaves waves; never
+  // more than the group has lanes to own them
+  const int64_t groups = static_cast<int64_t>(resident) * kGroups * kWaves;
+  const int64_t total = a.npm * members;
+  int64_t per_group = (total + groups - 1) / groups;
+  per_group = per_group < 1 ? 1 : (per_group > kGroup ? kGroup : per_group);
+  const int64_t per_block = per_group * kGroups;
+  const int64_t per_member_blocks = (a.npm + per_block - 1) / per_block;
+  const int64_t blocks = per_member_blocks * members;  // 32-bit block math in the kernel
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
+  a.per_group = static_cast<int>(per_group);
+  a.blocks_per_member = static_cast<unsigned>(per_member_blocks);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -146,20 +294,47 @@ int launch(const T* lut, int64_t row_stride, const int32_t* row_map,
            const float* origin_x, const float* origin_y, const int32_t* dims,
            const int32_t* lut_bases, int eps, const float* obs_px,
            const int32_t* offsets, int r, int base, int t_bins, int subbin,
-           const float* consts, float* out, void* stream) {
+           const float* consts, const float* table, int table_entries, float* out,
+           void* stream) {
   if (members <= 0 || npm <= 0) return 0;
-  const Params p = mcl::params_from(consts);
-  const int64_t per_member_blocks = (npm + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  const int64_t blocks = per_member_blocks * members;  // 32-bit block math below
-  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem = static_cast<size_t>(r) * (sizeof(float) + sizeof(int32_t));
-  auto kernel = subbin ? lut_loglik_kernel<T, true> : lut_loglik_kernel<T, false>;
-  kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-           static_cast<cudaStream_t>(stream)>>>(
-      lut, row_stride, row_map, row_map_bases, particles, npm,
-      static_cast<unsigned>(per_member_blocks), member_base, map_of, per_member, origin_x, origin_y,
-      dims, lut_bases, eps, obs_px, offsets, r, base, t_bins, p, out);
-  return static_cast<int>(cudaGetLastError());
+  if (table != nullptr && (subbin || table_entries < 1 ||
+                           table_entries > mcl::kMaxTableEntries)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Args<T> a;
+  a.lut = lut;
+  a.row_stride = row_stride;
+  a.row_map = row_map;
+  a.row_map_bases = row_map_bases;
+  a.particles = particles;
+  a.npm = npm;
+  a.member_base = member_base;
+  a.map_of = map_of;
+  a.per_member = per_member;
+  a.origin_x = origin_x;
+  a.origin_y = origin_y;
+  a.dims = dims;
+  a.lut_bases = lut_bases;
+  a.eps = eps;
+  a.obs_px = obs_px;
+  a.offsets = offsets;
+  a.r = r;
+  a.base = base;
+  a.t_bins = t_bins;
+  a.table = reinterpret_cast<const float2*>(table);
+  a.table_entries = table_entries;
+  a.p = mcl::params_from(consts);
+  a.out = out;
+  switch (mcl::model_of(subbin, table != nullptr)) {
+    case Model::kLerped:
+      return launch_as<T, Model::kLerped, kWarp>(a, members, stream);
+    case Model::kAnalytic:
+      return launch_as<T, Model::kAnalytic, kWarp>(a, members, stream);
+    default:
+      return mcl::group_lanes(r, Model::kTabled) == mcl::kSmallGroup
+                 ? launch_as<T, Model::kTabled, mcl::kSmallGroup>(a, members, stream)
+                 : launch_as<T, Model::kTabled, kWarp>(a, members, stream);
+  }
 }
 
 }  // namespace
@@ -173,16 +348,30 @@ extern "C" {
            int per_member, const float* origin_x, const float* origin_y,     \
            const int32_t* dims, const int32_t* lut_bases, int eps,           \
            const float* obs_px, const int32_t* offsets, int r, int base,     \
-           int t_bins, int subbin, const float* consts, float* out,          \
-           void* stream) {                                                    \
+           int t_bins, int subbin, const float* consts, const float* table,  \
+           int table_entries, float* out, void* stream) {                    \
     return launch<T>(lut, row_stride, row_map, row_map_bases, particles,     \
                      members, npm, member_base, map_of, per_member,          \
                      origin_x, origin_y, dims, lut_bases, eps, obs_px,       \
-                     offsets, r, base, t_bins, subbin, consts, out, stream); \
+                     offsets, r, base, t_bins, subbin, consts, table,        \
+                     table_entries, out, stream);                            \
   }
 
 MCL_LUT_ENTRY(mcl_lut_loglik_u8, uint8_t)
 MCL_LUT_ENTRY(mcl_lut_loglik_u16, uint16_t)
+
+// out (count, 2) float32: the normaliser table of the query with these
+// constants (d_in null), or the same function at d_in[0..count).
+int mcl_log_norm(const float* d_in, int count, const float* consts, float* out,
+                 void* stream) {
+  if (count <= 0) return 0;
+  const Params p = mcl::params_from(consts);
+  log_norm_kernel<<<(count + 127) / 128, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      d_in, count, p, reinterpret_cast<float2*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int mcl_max_table_entries() { return mcl::kMaxTableEntries; }
 
 const char* mcl_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -105,9 +105,13 @@ def _bind(libs: dict[str, ctypes.CDLL]) -> None:
         # lut, row_stride, row_map, row_map_bases, particles, members, npm,
         # member_base, map_of, per_member, origin_x, origin_y, dims,
         # lut_bases, eps, obs_px, offsets, r, base, t_bins, subbin, consts,
-        # out, stream
+        # table, table_entries, out, stream
         fn.argtypes = [p, i64, p, p, p, i32, i64, i32, p, i32, p, p, p, p, i32,
-                       p, p, i32, i32, i32, i32, p, p, p]
+                       p, p, i32, i32, i32, i32, p, p, i32, p, p]
+    lut.mcl_log_norm.restype = i32
+    lut.mcl_log_norm.argtypes = [p, i32, p, p, p]  # d_in, count, consts, out, stream
+    lut.mcl_max_table_entries.restype = i32
+    lut.mcl_max_table_entries.argtypes = []
     lut.mcl_cuda_error_string.restype = ctypes.c_char_p
     lut.mcl_cuda_error_string.argtypes = [i32]
 
@@ -117,25 +121,29 @@ def _bind(libs: dict[str, ctypes.CDLL]) -> None:
         fn.restype = i32
         # lut, row_stride, row_map, particles, n, perm, rank, slot_y0,
         # slots, block, wents, eps, obs_px, offsets, r, base, t_bins,
-        # height, width, subbin, consts, out, overflow, stream
+        # height, width, subbin, consts, table, table_entries, out,
+        # overflow, stream
         fn.argtypes = [p, i64, p, p, i64, p, p, p, i32, i32, i32, i32, p, p,
-                       i32, i32, i32, i32, i32, i32, p, p, p, p]
+                       i32, i32, i32, i32, i32, i32, p, p, i32, p, p, p]
     dedup.mcl_lut_dedup_max_slots.restype = i32
-    dedup.mcl_lut_dedup_max_slots.argtypes = [i32, i32, i32]
+    dedup.mcl_lut_dedup_max_slots.argtypes = [i32, i32, i32, i32]  # r, wents, itemsize, table_entries
 
     mega = libs["mega_step"]
     for name in ("mcl_mega_step_u8", "mcl_mega_step_u16"):
         fn = getattr(mega, name)
         fn.restype = i32
         # lut, row_stride, particles, log_weights, noise, n, obs, offsets,
-        # r, base, t_bins, height, width, consts, scalars, out_particles,
-        # out_log_weights, out_sums, workspace, grid, phases, stream
+        # r, base, t_bins, height, width, consts, table, table_entries,
+        # scalars, out_particles, out_log_weights, out_sums, workspace, grid,
+        # chunk, small, phases, stream
         fn.argtypes = [p, i64, p, p, p, i64, p, p, i32, i32, i32, i32, i32,
-                       p, p, p, p, p, p, i32, i32, p]
-    for name in ("mcl_mega_grid_size_u8", "mcl_mega_grid_size_u16"):
+                       p, p, i32, p, p, p, p, p, i32, i64, i32, i32, p]
+    for name in ("mcl_mega_plan_u8", "mcl_mega_plan_u16"):
         fn = getattr(mega, name)
         fn.restype = i32
-        fn.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
+        # n, r, table_entries, grid, chunk, small
+        fn.argtypes = [i64, i32, i32, ctypes.POINTER(ctypes.c_int),
+                       ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int)]
     mega.mcl_mega_workspace_bytes.restype = i64
     mega.mcl_mega_workspace_bytes.argtypes = [i64, i32]
 

@@ -17,6 +17,12 @@ anything they do not take. On CPU tensors it runs the plain versions:
 :func:`lut_dedup_reference`, which reads every window through the slot
 table that :func:`dedup_plan` builds.
 
+The kernels read the beam model's normaliser, which depends on the LUT
+entry alone, from a table of ``ceil(m) + 1`` entries that one tiny kernel
+fills once per query (:meth:`LUTQuery.norm_table`; plain version
+:func:`log_norm_table`). The sub-bin lerp makes the expected range a
+fraction, so K3 keeps the analytic normaliser.
+
 The fleet form (``num_members`` F, ``per_member_maps``) serves F filters
 of N/F particles each in one launch: each member reads its own scan row
 and, over a batched map, its own map's origin, shape, row-map block and
@@ -41,6 +47,9 @@ OOB_LOG_WEIGHT = -1e4
 # shared memory per block: r floats + r int32; stay in the 48 KB default
 MAX_BEAMS = 48 * 1024 // 8
 STAGE_ALIGN = 16  # bytes; lut_dedup.cu stages windows with 16 B loads
+# the normaliser table's cap (kMaxTableEntries of csrc/beam_model.cuh):
+# a query with ceil(max_range_px) + 1 entries past it stays analytic
+MAX_TABLE_ENTRIES = 1024
 
 
 def entries_per_subrow(itemsize: int) -> int:
@@ -151,6 +160,12 @@ class LUTQuery:
     ``csrc/lut_dedup.cu`` (``dedup_launch_count``; ``last_overflow``
     holds the device count of blocks with more than S windows). On CPU
     tensors it runs the plain versions.
+
+    Without ``subbin`` the kernels read the normaliser from
+    :meth:`norm_table` (``table_entries`` = ceil(max_range_px) + 1 rows,
+    0 where the query stays analytic); filling it on a card launches
+    ``log_norm_kernel`` once per device and adds one to
+    ``table_launch_count``.
     """
 
     def __init__(
@@ -265,8 +280,12 @@ class LUTQuery:
             self.z_max, self.z_rand, self.z_hit, self.rand_term, self.sq2,
             self.inv_squash,
         )
+        entries = math.ceil(self.m) + 1
+        self.table_entries = 0 if self.subbin or entries > MAX_TABLE_ENTRIES else entries
+        self._norm_tables: dict[torch.device, torch.Tensor] = {}
         self._shared_tables = None  # ((device, N), FleetTables) of the one map
         self.launch_count = 0
+        self.table_launch_count = 0
         self.fleet_launch_count = 0
         self.dedup_launch_count = 0
         self.last_overflow: torch.Tensor | None = None
@@ -345,6 +364,58 @@ class LUTQuery:
             raise ValueError("dense LUT has fewer rows than the map has cells")
         return want_dtype
 
+    def launch_log_norm(self, d: torch.Tensor | None = None,
+                        device: torch.device | str | None = None) -> torch.Tensor:
+        """Run ``log_norm_kernel`` (``csrc/lut_likelihood.cu``): the
+        (count, 2) float32 rows {log norm(d), 1 / max(d, 1)} of the beam
+        model's normaliser at ``d`` (float32 on a card, clipped to
+        ``max_range_px``), or without ``d`` the query's table, row e at
+        d = min(e, max_range_px)."""
+        from monte_carlo_localization_tpu_torch.ops._cuda_build import load_library
+
+        if d is None:
+            dev = resolve_device(self.device if device is None else device)
+            count = self.table_entries
+            if count < 1:
+                raise ValueError("this query has no normaliser table (subbin, or max_range_px past the cap)")
+        else:
+            dev, count = d.device, d.numel()
+            if d.dtype != torch.float32 or d.dim() != 1 or not d.is_contiguous():
+                raise ValueError("d must be a contiguous 1-D float32 tensor")
+        if dev.type != "cuda":
+            raise ValueError(f"kernel launch needs a CUDA device, got {dev}")
+        built = load_library()
+        out = torch.empty((count, 2), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = built.libs["lut_likelihood"].mcl_log_norm(
+                None if d is None else d.data_ptr(), count,
+                ctypes.addressof(self._consts), out.data_ptr(), stream,
+            )
+        if err != 0:
+            raise RuntimeError(
+                f"log_norm launch failed: CUDA error {err} ({built.error_string(err)})"
+            )
+        self.table_launch_count += 1
+        return out
+
+    def norm_table(self, device: torch.device | str) -> torch.Tensor | None:
+        """The normaliser table the kernels read, (``table_entries``, 2)
+        float32 on ``device``, filled once per device: by
+        ``log_norm_kernel`` on a card, by :func:`log_norm_table` on the
+        CPU. None where the query stays analytic."""
+        if self.table_entries < 1:
+            return None
+        dev = torch.device(device)
+        table = self._norm_tables.get(dev)
+        if table is None:
+            if dev.type == "cuda":
+                table = self.launch_log_norm(device=dev)
+            else:
+                table = log_norm_table(self, dev)
+            self._norm_tables[dev] = table
+        return table
+
     def launch(self, lut_flat, particles, obs_px, row_map=None,
                tables: FleetTables | None = None) -> torch.Tensor:
         """Run ``csrc/lut_likelihood.cu`` (K1/K2, K3 with ``subbin``) over
@@ -363,6 +434,7 @@ class LUTQuery:
         lib = built.libs["lut_likelihood"]
         fn = lib.mcl_lut_loglik_u8 if want_dtype == torch.uint8 else lib.mcl_lut_loglik_u16
         out = torch.empty(particles.shape[0], dtype=torch.float32, device=dev)
+        table = self.norm_table(dev)
 
         def ptr(t):
             return None if t is None else t.data_ptr()
@@ -376,7 +448,8 @@ class LUTQuery:
                 tables.origin_y.data_ptr(), tables.dims.data_ptr(),
                 tables.lut_bases.data_ptr(), self.eps, obs_px.data_ptr(),
                 self.beam_offsets.data_ptr(), self.num_beams, self.base, self.t_bins,
-                int(self.subbin), ctypes.addressof(self._consts), out.data_ptr(), stream,
+                int(self.subbin), ctypes.addressof(self._consts), ptr(table),
+                self.table_entries, out.data_ptr(), stream,
             )
         if err != 0:
             raise RuntimeError(
@@ -404,7 +477,8 @@ class LUTQuery:
         lib = built.libs["lut_dedup"]
         itemsize = self.lut_dtype.itemsize
         with torch.cuda.device(dev):
-            fit = lib.mcl_lut_dedup_max_slots(self.num_beams, self.window_entries, itemsize)
+            fit = lib.mcl_lut_dedup_max_slots(self.num_beams, self.window_entries, itemsize,
+                                              self.table_entries)
         slots = min(self.dedup_slots, fit)
         if slots < 1:
             raise RuntimeError(
@@ -415,6 +489,7 @@ class LUTQuery:
         n = particles.shape[0]
         out = torch.empty(n, dtype=torch.float32, device=dev)
         overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+        table = self.norm_table(dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(
@@ -424,8 +499,9 @@ class LUTQuery:
                 slot_y0.data_ptr(), slots, self.block, self.window_entries,
                 self.eps, obs_px.data_ptr(), self.beam_offsets.data_ptr(),
                 self.num_beams, self.base, self.t_bins, self.height, self.width,
-                int(self.subbin), ctypes.addressof(self._consts), out.data_ptr(),
-                overflow.data_ptr(), stream,
+                int(self.subbin), ctypes.addressof(self._consts),
+                None if table is None else table.data_ptr(), self.table_entries,
+                out.data_ptr(), overflow.data_ptr(), stream,
             )
         if err != 0:
             raise RuntimeError(
@@ -619,12 +695,43 @@ def _read_lut(lut_flat, idx) -> torch.Tensor:
     return lut_flat[idx].to(torch.float32)
 
 
-def _window_log_weights(q: LUTQuery, lut_flat, start, frac, obs_px, oob) -> torch.Tensor:
+def _log_norm(q: LUTQuery, d: torch.Tensor) -> torch.Tensor:
+    """log of the beam model's normaliser at expected range ``d`` (float32,
+    already clipped to ``max_range_px``)."""
+    m = q.m
+    gauss_sum = 0.5 * (_erf_as((m - d + 0.5) / q.sq2) - _erf_as((-d - 0.5) / q.sq2))
+    norm = (
+        q.z_hit * gauss_sum
+        + torch.where(d > 0, q.z_short * (d + 1.0), 0.0)
+        + q.z_max
+        + q.z_rand
+    )
+    return torch.log(norm)
+
+
+def log_norm_table(q: LUTQuery, device: torch.device | str = "cpu") -> torch.Tensor:
+    """Plain PyTorch version of ``log_norm_kernel``: the query's normaliser
+    table, (ceil(max_range_px) + 1, 2) float32. Row e holds, at
+    d = min(e, max_range_px), the analytic ``log norm(d)`` of
+    :func:`lut_log_weights_reference` and ``1 / max(d, 1)``; a LUT entry e
+    reads row min(e, last)."""
+    entries = math.ceil(q.m) + 1
+    d = torch.clamp(torch.arange(entries, dtype=torch.float32, device=device), max=q.m)
+    return torch.stack([_log_norm(q, d), 1.0 / torch.clamp(d, min=1.0)], dim=1)
+
+
+def _window_log_weights(q: LUTQuery, lut_flat, start, frac, obs_px, oob,
+                        norm_table: torch.Tensor | None = None) -> torch.Tensor:
     """The beam model and beam sum of every particle's window, read from
     flat LUT index ``start`` (N,) onward, against one scan (R,) or each
-    particle's own (N, R)."""
+    particle's own (N, R). With ``norm_table`` (no sub-bin lerp) the
+    normaliser is read from it by LUT entry, as the kernels do."""
     idx = start[:, None] + q.beam_offsets.to(device=start.device, dtype=torch.int64)[None, :]
     d = _read_lut(lut_flat, idx)
+    if norm_table is not None:
+        if frac is not None:
+            raise ValueError("the sub-bin lerp has no integer table index")
+        log_norm = norm_table[torch.clamp(d.to(torch.int64), max=norm_table.shape[0] - 1), 0]
     if frac is not None:
         # x0 + f * (x1 - x0), three float32 ops as the kernel's lerp
         d = d + frac[:, None] * (_read_lut(lut_flat, idx + 1) - d)
@@ -639,36 +746,34 @@ def _window_log_weights(q: LUTQuery, lut_flat, start, frac, obs_px, oob) -> torc
     p = p + torch.where(obs < d, q.short2 * (d - obs) / torch.clamp(d, min=1.0), 0.0)
     p = p + torch.where(obs >= m, q.z_max, 0.0)
     p = p + torch.where(obs < m, q.rand_term, 0.0)
-    gauss_sum = 0.5 * (_erf_as((m - d + 0.5) / q.sq2) - _erf_as((-d - 0.5) / q.sq2))
-    norm = (
-        q.z_hit * gauss_sum
-        + torch.where(d > 0, q.z_short * (d + 1.0), 0.0)
-        + q.z_max
-        + q.z_rand
-    )
-    logp = torch.log(torch.clamp(p, min=LOG_TINY)) - torch.log(norm)
+    if norm_table is None:
+        log_norm = _log_norm(q, d)
+    logp = torch.log(torch.clamp(p, min=LOG_TINY)) - log_norm
     # summed in double, as the kernel does, then rounded to float32
     logw = q.inv_squash * logp.sum(dim=1, dtype=torch.float64).to(torch.float32)
     return torch.where(oob, OOB_LOG_WEIGHT, logw)
 
 
 def lut_log_weights_reference(
-    q: LUTQuery, lut_flat, particles, obs_px, row_map=None, tables: FleetTables | None = None
+    q: LUTQuery, lut_flat, particles, obs_px, row_map=None, tables: FleetTables | None = None,
+    norm_table: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of ``csrc/lut_likelihood.cu``: the same
-    float32 address math and beam model (and the sub-bin lerp with
-    ``q.subbin``), as one (N, R) gather, and the beam sum accumulated in
-    double. The CPU path and the kernel's reference in the tests and on
+    float32 address math and analytic beam model (and the sub-bin lerp
+    with ``q.subbin``), as one (N, R) gather, and the beam sum accumulated
+    in double. The CPU path and the kernel's reference in the tests and on
     the card. A fleet query takes its ``tables``
-    (:meth:`LUTQuery.fleet_tables`) and (F, R) scans."""
+    (:meth:`LUTQuery.fleet_tables`) and (F, R) scans. ``norm_table``
+    (:func:`log_norm_table`) reads the normaliser by LUT entry instead of
+    evaluating it per beam."""
     if q.fleet:
         if tables is None:
             raise ValueError("a fleet query needs its tables (LUTQuery.fleet_tables)")
         start, frac, oob, member = fleet_window_start(q, particles, tables, row_map)
-        return _window_log_weights(q, lut_flat, start, frac, obs_px[member], oob)
+        return _window_log_weights(q, lut_flat, start, frac, obs_px[member], oob, norm_table)
     row, b0, frac, oob = window_start(q, particles, row_map)
     start = row * q.row_stride + b0.to(torch.int64)
-    return _window_log_weights(q, lut_flat, start, frac, obs_px, oob)
+    return _window_log_weights(q, lut_flat, start, frac, obs_px, oob, norm_table)
 
 
 def dedup_plan(q: LUTQuery, particles, row_map=None, slots: int | None = None):

@@ -1,6 +1,6 @@
 """The mega step: one whole MCL correction (resample, motion, LUT
-likelihood, max-shift, pose moment sums) as one launch of the cooperative
-CUDA kernel ``csrc/mega_step.cu``, the Hopper counterpart of the JAX
+likelihood, max-shift, pose moment sums) as one launch of the CUDA
+kernel ``csrc/mega_step.cu``, the Hopper counterpart of the JAX
 package's ``ops/pallas_mega.py`` (TPU kernel K6), beside its plain
 PyTorch version :func:`mega_step_reference`.
 
@@ -44,7 +44,10 @@ class MegaStep:
     the folded beam-model constants live in ``self.query``) plus the
     motion model's ``motion_dispersion`` (x, y, theta). On CUDA tensors
     each call launches ``csrc/mega_step.cu`` and adds one to
-    ``launch_count``.
+    ``launch_count``. The launcher sizes the grid by the work
+    (:meth:`plan`): up to 8192 particles every block computes the weight
+    CDF itself in shared memory and no grid barrier is needed; past that
+    the CDF is scanned across a cooperative grid.
     """
 
     def __init__(
@@ -66,26 +69,32 @@ class MegaStep:
             *self.query._consts, self.disp_x, self.disp_y, self.disp_theta,
             self.two_pi, self.inv_2pi,
         )
-        self._grid: int | None = None
+        self._plans: dict[tuple[torch.device, int], tuple[int, int, bool]] = {}
         self._workspace: torch.Tensor | None = None
         self.launch_count = 0
 
-    def grid_blocks(self) -> int:
-        """The co-resident grid the kernel launches with (blocks per SM at
-        this beam count times the SM count), queried once."""
-        if self._grid is None:
+    def plan(self, n: int, device: torch.device | str | None = None) -> tuple[int, int, bool]:
+        """(grid blocks, particles per block, small) the kernel launches
+        with for ``n`` particles, asked of the launcher once per (device,
+        n). ``small``: every block computes the weight CDF itself and the
+        launch has no grid barrier; else the CDF runs across a
+        cooperative grid."""
+        dev = torch.device(self.device if device is None else device)
+        key = (dev, int(n))
+        if key not in self._plans:
             from monte_carlo_localization_tpu_torch.ops._cuda_build import load_library
 
             built = load_library()
             lib = built.libs["mega_step"]
-            fn = lib.mcl_mega_grid_size_u8 if self.query.lut_dtype.itemsize == 1 else lib.mcl_mega_grid_size_u16
-            blocks = ctypes.c_int(0)
-            with torch.cuda.device(self.device):
-                err = fn(self.query.num_beams, ctypes.byref(blocks))
+            fn = lib.mcl_mega_plan_u8 if self.query.lut_dtype.itemsize == 1 else lib.mcl_mega_plan_u16
+            grid, chunk, small = ctypes.c_int(0), ctypes.c_int64(0), ctypes.c_int(0)
+            with torch.cuda.device(dev):
+                err = fn(int(n), self.query.num_beams, self.query.table_entries,
+                         ctypes.byref(grid), ctypes.byref(chunk), ctypes.byref(small))
             if err != 0:
-                raise RuntimeError(f"mega_step grid query failed: CUDA error {err} ({built.error_string(err)})")
-            self._grid = blocks.value
-        return self._grid
+                raise RuntimeError(f"mega_step plan failed: CUDA error {err} ({built.error_string(err)})")
+            self._plans[key] = (grid.value, chunk.value, bool(small.value))
+        return self._plans[key]
 
     def __call__(self, lut_flat, particles, log_weights, noise, obs_clipped, scalars,
                  out_particles, out_log_weights, out_sums):
@@ -151,20 +160,24 @@ class MegaStep:
         built = load_library()
         lib = built.libs["mega_step"]
         fn = lib.mcl_mega_step_u8 if want_dtype == torch.uint8 else lib.mcl_mega_step_u16
-        grid = self.grid_blocks()
+        grid, chunk, small = self.plan(n, dev)
         ws_bytes = lib.mcl_mega_workspace_bytes(n, grid)
         ws = self._workspace
         if ws is None or ws.device != dev or ws.numel() < ws_bytes:
-            ws = self._workspace = torch.empty(ws_bytes, dtype=torch.uint8, device=dev)
+            # zeroed: the kernel's ticket counts from 0 and resets itself
+            ws = self._workspace = torch.zeros(ws_bytes, dtype=torch.uint8, device=dev)
+        table = q.norm_table(dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(
                 lut_flat.data_ptr(), q.row_stride, particles.data_ptr(),
                 log_weights.data_ptr(), noise.data_ptr(), n, obs_clipped.data_ptr(),
                 q.beam_offsets.data_ptr(), q.num_beams, q.base, q.t_bins, q.height,
-                q.width, ctypes.addressof(self._consts), scalars.data_ptr(),
-                out_particles.data_ptr(), out_log_weights.data_ptr(), out_sums.data_ptr(),
-                ws.data_ptr(), grid, PHASES[debug_phases], stream,
+                q.width, ctypes.addressof(self._consts),
+                None if table is None else table.data_ptr(), q.table_entries,
+                scalars.data_ptr(), out_particles.data_ptr(), out_log_weights.data_ptr(),
+                out_sums.data_ptr(), ws.data_ptr(), grid, chunk, int(small),
+                PHASES[debug_phases], stream,
             )
         if err != 0:
             raise RuntimeError(f"mega_step launch failed: CUDA error {err} ({built.error_string(err)})")

@@ -80,7 +80,130 @@ def test_kernel_matches_plain_version(cuda, num_beams, max_range_px, compact):
 
 
 def _beams(num_beams):
-    return (-0.75 * np.pi + np.arange(num_beams) * 1.5 * np.pi / (num_beams - 1)).astype(np.float32)
+    return (-0.75 * np.pi + np.arange(num_beams) * 1.5 * np.pi / max(num_beams - 1, 1)).astype(np.float32)
+
+
+# shapes the kernel's layout makes edge cases: a lane group holds 16 lanes
+# up to 64 beams and 32 past them, a block 8 or 16 groups, and a group
+# takes up to as many consecutive particles as it has lanes
+@pytest.mark.parametrize("n", [1, 7, 4001])
+@pytest.mark.parametrize("num_beams", [1, 31, 33, 60, 64, 65])
+def test_kernel_edge_shapes_match_plain_version(cuda, num_beams, n):
+    rng = np.random.default_rng(100 * num_beams + n)
+    for max_range_px, compact, subbin in ((200, False, False), (400, True, False), (200, True, True)):
+        q, lut, parts, obs, row_map = _case(rng, _beams(num_beams), max_range_px, compact, n,
+                                            cuda, subbin=subbin)
+        if n == 4001:
+            parts[:, 0].clamp_(OX + 0.1, OX + W * RES - 0.1)  # all on the map but a few
+            parts[::97, 0] = OX - 1.0
+        got = q(lut, parts, obs, row_map=row_map)
+        want = lut_log_weights_reference(q, lut, parts, obs, row_map=row_map)
+        torch.cuda.synchronize()
+        assert bool(((got == -1e4) == (want == -1e4)).all())
+        assert float((got - want).abs().max()) <= 1e-3
+
+
+def test_kernel_many_particles_per_lane_group(cuda):
+    """Enough particles that a lane group takes several: every particle
+    still gets its own window and the ragged last block its own count."""
+    rng = np.random.default_rng(31)
+    for num_beams, n in ((60, 300_007), (1080, 70_001)):
+        q, lut, parts, obs, row_map = _case(rng, _beams(num_beams), 200, True, n, cuda)
+        got = q(lut, parts, obs, row_map=row_map)
+        want = lut_log_weights_reference(q, lut, parts, obs, row_map=row_map)
+        torch.cuda.synchronize()
+        assert bool(((got == -1e4) == (want == -1e4)).all())
+        assert float((got - want).abs().max()) <= 1e-3
+
+
+def test_u16_entries_above_max_range_read_the_last_table_row(cuda):
+    rng = np.random.default_rng(32)
+    q, lut, parts, obs, row_map = _case(rng, _beams(60), 400, False, 4000, cuda)
+    big = torch.from_numpy(rng.integers(401, 65536, lut.numel() // 3).astype(np.uint16)).to(cuda)
+    lut.view(torch.int16)[::3][: big.numel()] = big.view(torch.int16)
+    got = q(lut, parts, obs)
+    want = lut_log_weights_reference(q, lut, parts, obs)
+    torch.cuda.synchronize()
+    assert q.table_entries == 401
+    assert float((got - want).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("num_beams", [60, 1080])
+def test_range_past_the_table_cap_stays_analytic(cuda, num_beams):
+    """max_range_px 2000 has no table: the LUT kernel, the unique-window
+    kernel (bit-equal to it) and the mega step evaluate the normaliser."""
+    from monte_carlo_localization_tpu_torch.ops.mega_step import mega_step_reference
+
+    rng = np.random.default_rng(40 + num_beams)
+    q, lut, parts, obs, row_map = _case(rng, _beams(num_beams), 2000, True, 4000, cuda,
+                                        dedup_slots=8, block=64)
+    assert q.table_entries == 0
+    got = q.launch(lut, parts, obs, row_map)
+    want = lut_log_weights_reference(q, lut, parts, obs, row_map=row_map)
+    assert float((got - want).abs().max()) <= 1e-3
+    assert torch.equal(q(lut, parts, obs, row_map=row_map), got) and q.dedup_launch_count == 1
+    step, lut, parts, logw, noise, obs = _mega_case(rng, num_beams, 2000, 4000, cuda)
+    scalars = torch.tensor([0.04, 0.03, 0.0, 0.81, 0, 0, 0, 0], dtype=torch.float32, device=cuda)
+    out_p, out_w = torch.empty_like(parts), torch.empty_like(logw)
+    sums = torch.empty(8, dtype=torch.float32, device=cuda)
+    step(lut, parts, logw, noise, obs, scalars, out_p, out_w, sums)
+    want_p, want_w, want_s = mega_step_reference(step, lut, parts, logw, noise, obs, scalars)
+    rows = (out_p - want_p).abs().le(1e-5).all(dim=1)
+    assert float(rows.float().mean()) >= 0.99
+    assert float((out_w - want_w)[rows].abs().max()) <= 1e-3
+    assert abs(float(sums[5] - want_s[5])) <= 1e-3
+
+
+@pytest.mark.parametrize("max_range_px", [200, 400, 198.4, 2000], ids=["u8", "u16", "fractional", "past_cap"])
+def test_norm_table_kernel_matches_plain_and_analytic(cuda, max_range_px):
+    """The table the kernels read: within 2e-6 of its plain version (CUDA
+    expf/logf and torch's differ by an ulp), and bit for bit the analytic
+    device function at every entry value."""
+    from monte_carlo_localization_tpu_torch.ops._cuda_build import load_library
+    from monte_carlo_localization_tpu_torch.ops.lut_query import (
+        MAX_TABLE_ENTRIES,
+        _log_norm,
+        log_norm_table,
+    )
+
+    rng = np.random.default_rng(33)
+    q = _case(rng, _beams(60), max_range_px, False, 8, cuda)[0]
+    assert load_library().libs["lut_likelihood"].mcl_max_table_entries() == MAX_TABLE_ENTRIES
+    if max_range_px == 2000:
+        assert q.table_entries == 0 and q.norm_table(cuda) is None
+        return
+    table = q.norm_table(cuda)
+    assert q.table_launch_count == 1 and q.norm_table(cuda) is table
+    plain = log_norm_table(q, cuda)
+    assert table.shape == plain.shape == (math.ceil(max_range_px) + 1, 2)
+    assert float((table[:, 0] - plain[:, 0]).abs().max()) <= 2e-6
+    assert torch.equal(table[:, 1], plain[:, 1])
+    d = torch.clamp(torch.arange(table.shape[0], dtype=torch.float32, device=cuda), max=q.m)
+    assert torch.equal(q.launch_log_norm(d), table)
+    frac = torch.rand(4096, device=cuda) * q.m
+    want = _log_norm(q, frac)
+    assert float((q.launch_log_norm(frac)[:, 0] - want).abs().max()) <= 2e-6
+
+
+def test_subbin_kernel_on_whole_bin_headings_equals_table_kernel(cuda):
+    """At headings on a whole bin the lerp's fraction is 0, so K3 reads
+    K1's entries: its analytic normaliser must give the table's bits."""
+    rng = np.random.default_rng(34)
+    for num_beams in (60, 1080):
+        q, lut, parts, obs, row_map = _case(rng, _beams(num_beams), 200, True, 6000, cuda)
+        qs = _case(rng, _beams(num_beams), 200, True, 8, cuda, subbin=True)[0]
+        k = torch.from_numpy(rng.integers(-q.t_bins, q.t_bins, 6000).astype(np.float32)).to(cuda)
+        theta = k / q.bin_scale
+        bpos = theta * q.bin_scale
+        keep = (bpos == torch.floor(bpos)) & (bpos == torch.round(bpos))
+        assert int(keep.sum()) > 1000
+        parts = parts[keep].contiguous()
+        parts[:, 2] = theta[keep]
+        got = qs(lut, parts, obs, row_map=row_map)
+        want = q(lut, parts, obs, row_map=row_map)
+        torch.cuda.synchronize()
+        assert bool((want != -1e4).any())
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("compact", [False, True], ids=["dense", "row_map"])
@@ -217,7 +340,9 @@ def test_mega_kernel_matches_plain_version(cuda, num_beams, max_range_px, motion
     step(lut, parts, logw, noise, obs, scalars, out_p, out_w, sums)
     want_p, want_w, want_s = mega_step_reference(step, lut, parts, logw, noise, obs, scalars)
     torch.cuda.synchronize()
-    assert step.launch_count == 1 and step.grid_blocks() >= 132
+    grid, chunk, small = step.plan(n)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert step.launch_count == 1 and small and grid == -(-n // chunk) and grid <= 3 * sms
     rows = (out_p - want_p).abs().le(1e-5).all(dim=1)
     assert float(rows.float().mean()) >= 0.99
     assert float((out_w - want_w)[rows].abs().max()) <= 1e-3
@@ -225,6 +350,88 @@ def test_mega_kernel_matches_plain_version(cuda, num_beams, max_range_px, motion
     assert float(rel) <= 1e-4
     assert abs(float(sums[5] - want_s[5])) <= 1e-3
     assert bool((want_w + want_s[5] == -1e4).any())  # off-map rows were drawn
+
+
+@pytest.mark.parametrize("n", [1, 100, 8192, 8193, 30_011], ids=lambda n: f"n{n}")
+@pytest.mark.parametrize("num_beams", [60, 1080])
+def test_mega_kernel_on_each_side_of_the_small_n_choice(cuda, num_beams, n):
+    """Up to 8192 particles every block computes the weight CDF itself;
+    past that the CDF runs across a cooperative grid. Both match the
+    plain version, and a second launch on the same inputs gives the same
+    bits (no float atomics, partials combined in block order)."""
+    from monte_carlo_localization_tpu_torch.ops.mega_step import mega_step_reference
+
+    rng = np.random.default_rng(num_beams + n)
+    step, lut, parts, logw, noise, obs = _mega_case(rng, num_beams, 200, n, cuda)
+    if n <= 100:
+        parts[:, 0].clamp_(OX + 0.2, OX + W * RES - 0.2)
+        parts[:, 1].clamp_(OY + 0.2, OY + H * RES - 0.2)
+    scalars = torch.tensor([0.04, 0.03, 0.0, 0.81, 0, 0, 0, 0], dtype=torch.float32, device=cuda)
+    outs = []
+    for _ in range(2):
+        out_p, out_w = torch.empty_like(parts), torch.empty_like(logw)
+        sums = torch.empty(8, dtype=torch.float32, device=cuda)
+        step(lut, parts, logw, noise, obs, scalars, out_p, out_w, sums)
+        outs.append((out_p, out_w, sums))
+    want_p, want_w, want_s = mega_step_reference(step, lut, parts, logw, noise, obs, scalars)
+    torch.cuda.synchronize()
+    grid, chunk, small = step.plan(n)
+    assert small == (n <= 8192) and grid == -(-n // chunk) and chunk % (16 if num_beams <= 64 else 8) == 0
+    for a, b in zip(outs[0], outs[1]):
+        assert torch.equal(a, b)
+    out_p, out_w, sums = outs[0]
+    rows = (out_p - want_p).abs().le(1e-5).all(dim=1)
+    assert float(rows.float().mean()) >= 0.99
+    assert float((out_w - want_w)[rows].abs().max()) <= 1e-3
+    # each sum against the sum of its absolute terms: S_wsin and S_wcos
+    # cancel (0.0008 of a total 2.3 in one of these cases), so an error of
+    # 1e-7 is 1e-4 of the sum itself
+    ww = torch.exp(want_w.double())
+    terms = torch.stack([want_p[:, 0].double().abs(), want_p[:, 1].double().abs(),
+                         torch.sin(want_p[:, 2].double()).abs(),
+                         torch.cos(want_p[:, 2].double()).abs(), torch.ones_like(ww)])
+    rel = (sums[:5] - want_s[:5]).abs().double() / (terms * ww).sum(dim=1)
+    assert float(rel.max()) <= 1e-4
+    assert abs(float(sums[5] - want_s[5])) <= 1e-3
+
+
+def test_mega_debug_phases_stop_where_they_say(cuda):
+    from monte_carlo_localization_tpu_torch.ops.mega_step import mega_step_reference
+
+    rng = np.random.default_rng(5)
+    step, lut, parts, logw, noise, obs = _mega_case(rng, 60, 200, 4000, cuda)
+    scalars = torch.tensor([0.05, 0.0, 1.0, 0.37, 0, 0, 0, 0], dtype=torch.float32, device=cuda)
+    want_p, want_w, want_s = mega_step_reference(step, lut, parts, logw, noise, obs, scalars)
+    out_p, sums = torch.empty_like(parts), torch.empty(8, dtype=torch.float32, device=cuda)
+    out_w = torch.full_like(logw, 7.0)
+    step.launch(lut, parts, logw, noise, obs, scalars, out_p, out_w, sums, debug_phases="pro_only")
+    assert bool((out_w == 7.0).all()) and float((out_p - want_p).abs().max()) <= 1e-5
+    step.launch(lut, parts, logw, noise, obs, scalars, out_p, out_w, sums, debug_phases="no_epi")
+    assert float((out_w - (want_w + want_s[5])).abs().max()) <= 1e-3  # not yet shifted
+    step.launch(lut, parts, logw, noise, obs, scalars, out_p, out_w, sums)
+    assert float((out_w - want_w).abs().max()) <= 1e-3
+
+
+def test_mega_one_stepper_serves_changing_particle_counts(cuda):
+    """The grid, the workspace layout and the form of phase 1 change with
+    n; the ticket that hands the epilogue to the last block must start at
+    0 whatever ran before."""
+    from monte_carlo_localization_tpu_torch.ops.mega_step import mega_step_reference
+
+    rng = np.random.default_rng(9)
+    step, lut, parts, logw, noise, obs = _mega_case(rng, 60, 200, 30_000, cuda)
+    scalars = torch.tensor([0.04, 0.03, 0.0, 0.81, 0, 0, 0, 0], dtype=torch.float32, device=cuda)
+    for n in (30_000, 4000, 100, 8192, 30_000, 16, 4000):
+        args = (lut, parts[:n], logw[:n], noise[:n], obs, scalars)
+        out_p, out_w = torch.empty_like(parts[:n]), torch.empty_like(logw[:n])
+        sums = torch.empty(8, dtype=torch.float32, device=cuda)
+        step(*args, out_p, out_w, sums)
+        want_p, want_w, want_s = mega_step_reference(step, *args)
+        rows = (out_p - want_p).abs().le(1e-5).all(dim=1)
+        assert float(rows.float().mean()) >= 0.99, n
+        assert float((out_w - want_w)[rows].abs().max()) <= 1e-3, n
+        assert abs(float(sums[4] - want_s[4])) <= 1e-4 * float(want_s[4]), n
+        assert abs(float(sums[5] - want_s[5])) <= 1e-3, n
 
 
 def test_mega_launch_rejects_what_the_kernel_does_not_take(cuda):
@@ -279,6 +486,10 @@ FLEET_CASES = {
     "u16": ([(64, 80), (40, 120)], 3, 4001, [0, 1, 1], 0, False, 400, False),
     "subbin": ([(64, 80), (40, 120)], 3, 4000, [0, 1, 0], 0, True, 200, True),
     "member_base": ([(64, 80), (40, 120)], 2, 1003, [0, 0, 1, 0, 1], 2, False, 200, False),
+    # members smaller than a block, than a lane group's share, and of one particle
+    "npm_7": ([(64, 80), (40, 120)], 9, 7, [0, 1, 0, 1, 1, 0, 0, 1, 0], 0, False, 200, False),
+    "npm_1": ([(64, 80), (40, 120)], 40, 1, [0, 1] * 20, 0, True, 200, False),
+    "ragged_many": ([(64, 80), (40, 120)], 5, 70_001, [0, 1, 0, 1, 1], 0, False, 400, False),
 }
 
 
