@@ -78,10 +78,18 @@ MEGA_SUMS_RTOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12
 F64_OPS_PER_S = 34e12
-# float32 operations per beam term, counted from csrc/beam_model.cuh
-# beam_logp + two erf_as (each add, multiply, compare, select, division
-# and transcendental as one); the beam sum adds one double add per term
-OPS_PER_BEAM = 80
+# float32 operations per beam term (each add, multiply, compare, select,
+# conversion, division and transcendental as one), counted from
+# csrc/beam_model.cuh; the beam sum adds one double add per term.
+# Tabled (integer LUT entries: the normaliser is a table read): convert and
+# clip the entry, its table index, the hit term (subtract, two multiplies,
+# exp, multiply), the short term (compare, subtract, multiply, fma,
+# select), the max and rand terms (compare, add, select each), fmax, log,
+# subtract. Analytic (the sub-bin lerp, K3): the same with the division of
+# the short term, plus log_norm: two erf_as (a division, a reciprocal, an
+# exp and 11 more each) and a log.
+OPS_PER_BEAM_TABLED = 23
+OPS_PER_BEAM_ANALYTIC = 80
 OPS_PER_LERP = 3  # the sub-bin lerp: subtract, multiply, add
 OPS_PER_PARTICLE_K1 = 12  # address: 2 sub, 2 div, casts, compares, rint, fix-ups
 OPS_PER_PARTICLE_K6 = 60  # + motion (sin/cos, chord, noise, wrap) and moments
@@ -95,21 +103,6 @@ SECTOR_BYTES = 32  # the granule of a global-memory read
 # the normaliser table against its plain version: CUDA's expf/logf and
 # torch's differ by an ulp of values near 1
 TABLE_TOL = 2e-6
-# Device ms of the kernels before their redesign (one warp per particle
-# with the analytic normaliser per beam term; the mega step as a
-# cooperative grid of 660 blocks with five grid barriers), from a run of
-# this script on an NVIDIA H100 80GB HBM3 at 700 W: what the report's
-# ``before_ms`` fields hold beside this run's times.
-BEFORE_MS = {
-    "lut_likelihood 4000x1080 spielberg": 0.03910, "lut_likelihood 4000x60": 0.004756,
-    "lut_likelihood 4000x1080": 0.03910, "lut_likelihood 100000x60": 0.06881,
-    "lut_likelihood subbin 4000x60 basement": 0.004969, "lut_likelihood subbin 4000x60": 0.004788,
-    "lut_likelihood subbin 4000x1080": 0.03845, "lut_likelihood fleet 64x4000x60": 0.1712,
-    "lut_dedup 100000x60": 0.08575, "mega_step 4000x60": 0.03245,
-    "mega_step 4000x60 pro_only": 0.01808, "mega_step 4000x60 no_epi": 0.02286,
-    "mega_step 4000x1080": 0.07862, "mega_step 4000x1080 pro_only": 0.01859,
-    "mega_step 4000x1080 no_epi": 0.06753,
-}
 
 
 def emit(phase: str, t0: float, **fields) -> None:
@@ -170,14 +163,16 @@ def lut_bound(n: int, n_on: int, r: int, itemsize: int, row_map: bool,
     entries of each distinct on-map window (``windows``, default one per
     on-map particle; the entry and its +1 neighbour with the sub-bin lerp)
     and each on-map particle's row_map entry; the beam model per beam of
-    each on-map particle. With ``sectors`` (the distinct 32 B sectors the
-    cloud's beams touch, :func:`lut_reads`) also ``sector_bytes`` and
-    ``sector_bound_ms``: the same bound with the LUT counted in the
-    sectors a read moves instead of entries."""
+    each on-map particle: the tabled term, or with the sub-bin lerp the
+    analytic one (no query timed here has a range past the table's cap).
+    With ``sectors`` (the distinct 32 B sectors the cloud's beams touch,
+    :func:`lut_reads`) also ``sector_bytes`` and ``sector_bound_ms``: the
+    same bound with the LUT counted in the sectors a read moves instead of
+    entries."""
     windows = n_on if windows is None else windows
     entries = windows * r * (2 if subbin else 1)
     other = 12 * n + 4 * n + 8 * r + n_on * (4 if row_map else 0)
-    ops_beam = OPS_PER_BEAM + (OPS_PER_LERP if subbin else 0)
+    ops_beam = OPS_PER_BEAM_ANALYTIC + OPS_PER_LERP if subbin else OPS_PER_BEAM_TABLED
     f32, f64 = n * OPS_PER_PARTICLE_K1 + n_on * r * ops_beam, n_on * r
     out = bound(other + entries * itemsize, f32, f64)
     if sectors is not None:
@@ -220,7 +215,8 @@ def mega_bound(n: int, n_on: int, r: int, itemsize: int) -> dict:
     proposal."""
     b = (12 + 4 + 12) * n + (12 + 4) * n + 8 * r + 64 + n_on * r * itemsize
     f64 = n_on * r + 7 * n  # beam sums, the CDF and the moment sums
-    return bound(b, n * (OPS_PER_PARTICLE_K6 + 2 * math.ceil(math.log2(n))) + n_on * r * OPS_PER_BEAM, f64)
+    f32 = n * (OPS_PER_PARTICLE_K6 + 2 * math.ceil(math.log2(n))) + n_on * r * OPS_PER_BEAM_TABLED
+    return bound(b, f32, f64)
 
 
 def synthetic_case(rng, beams, max_range_px, compact, n, device, **opts):
@@ -295,7 +291,6 @@ def phase_kernel_vs_plain(device) -> dict:
                         times[kernel][shape] = dict(
                             **dict(zip(("device_ms", "time_source"), device_ms(
                                 lambda: q.launch(lut, parts, obs, row_map), "lut_loglik_kernel").values())),
-                            before_ms=BEFORE_MS["lut_likelihood " + ("subbin " if subbin else "") + shape],
                             wrapper_ms=event_ms(lambda: q.launch(lut, parts, obs, row_map)),
                             plain_ms=event_ms(lambda: lut_log_weights_reference(q, lut, parts, obs, row_map)),
                             **lut_bound(N_PARTICLES, N_PARTICLES - oob, num_beams, 1, False,
@@ -475,7 +470,6 @@ def dedup_times(q, lut, parts, obs, row_map, n_on: int) -> dict:
     plan_rows, _ = profile_run(lambda: dedup_plan(q, parts, row_map, q.launched_slots), 10)
     return dict(
         device_ms=dev["ms"], time_source=dev["source"], k1_device_ms=k1["ms"],
-        before_ms=BEFORE_MS["lut_dedup 100000x60"], k1_before_ms=BEFORE_MS["lut_likelihood 100000x60"],
         plan_device_ms=sum(us for us, _ in plan_rows.values()) / 1e3 / 10,
         plan_device_kernels=sum(n for _, n in plan_rows.values()) / 10,
         wrapper_ms=event_ms(lambda: q.launch_dedup(lut, parts, obs, row_map)),
@@ -676,13 +670,11 @@ def phase_headline(device) -> dict:
          lut_upload_only_s=t_upload, launches=launches,
          chained_updates_per_s=chain / t_chain, per_step_updates_per_s=30 / t_steps,
          drift_from_start_m=drift, max_abs_err=err, kernel_device_ms=kernel_ms,
-         kernel_before_ms=BEFORE_MS["lut_likelihood 4000x1080 spielberg"],
          kernel_time_source=dev["source"], wrapper_ms=wrapper_ms, plain_ms=plain_ms, **bnd,
          peak_device_bytes=torch.cuda.max_memory_allocated(device))
     return dict(launches=launches, max_abs_err=err, ms=kernel_ms, wrapper_ms=wrapper_ms,
                 plain_ms=plain_ms, bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
-                sector_bound_ms=bnd["sector_bound_ms"], sector_bytes=bnd["sector_bytes"],
-                before_ms=BEFORE_MS["lut_likelihood 4000x1080 spielberg"])
+                sector_bound_ms=bnd["sector_bound_ms"], sector_bytes=bnd["sector_bytes"])
 
 
 MOTIONS = {"straight": [0.05, 0.0, 1.0, 0.37], "arc": [0.04, 0.03, 0.0, 0.81]}
@@ -759,9 +751,7 @@ def mega_compare(step, lut, parts, logw, noise, obs, scalars, what: str) -> dict
 
 def mega_times(step, lut, parts, logw, noise, obs, scalars, n_on: int) -> dict:
     """Device time of the kernel (and of each debug_phases part), wrapper
-    time, plain time, the launcher's plan and the bound, on these inputs;
-    beside them the times before the redesign where BEFORE_MS has the
-    shape."""
+    time, plain time, the launcher's plan and the bound, on these inputs."""
     import torch
 
     from monte_carlo_localization_tpu_torch.ops.mega_step import mega_step_reference
@@ -777,11 +767,8 @@ def mega_times(step, lut, parts, logw, noise, obs, scalars, n_on: int) -> dict:
     phases = {ph: device_ms(launch(ph), "mega_step_kernel")["ms"] for ph in ("pro_only", "no_epi")}
     n, r = parts.shape[0], obs.shape[0]
     grid, chunk, small = step.plan(n)
-    key = f"mega_step {n}x{r}"
-    before = {k[len(key):].strip() or "all": v for k, v in BEFORE_MS.items() if k.startswith(key)}
     return dict(
         device_ms=dev["ms"], time_source=dev["source"], phase_device_ms=phases,
-        before_ms=before or None,
         wrapper_ms=event_ms(launch()),
         plain_ms=event_ms(lambda: mega_step_reference(step, lut, parts, logw, noise, obs, scalars)),
         grid_blocks=grid, particles_per_block=chunk,
@@ -1018,7 +1005,6 @@ def phase_config4_replay(device):
               time_source=dev["source"],
               wrapper_ms=event_ms(lambda: q.launch(lut, parts, obs, row_map)),
               plain_ms=event_ms(lambda: lut_log_weights_reference(q, lut, parts, obs, row_map)),
-              before_ms=BEFORE_MS["lut_likelihood subbin 4000x60 basement"],
               **lut_bound(N_PARTICLES, n_on, q.num_beams, 1, True, subbin=True,
                           **dict(zip(("windows", "sectors"), cloud_reads(q, parts, row_map)))))
     s0 = pf.init_pose(tr["truth_pose"][0], seed=3)
@@ -1406,7 +1392,7 @@ def phase_config5(device, classic_kernels: float) -> dict:
         wrapper_ms=event_ms(lambda: q.launch(gm.range_lut, parts, obs, None, tables)),
         plain_ms=event_ms(lambda: lut_log_weights_reference(q, gm.range_lut, parts, obs, None, tables),
                          iters=10),
-        distinct_windows=windows, before_ms=BEFORE_MS["lut_likelihood fleet 64x4000x60"],
+        distinct_windows=windows,
         **lut_bound(f * n, f * n - cmp["off_map"], r, 1, False, windows=windows, sectors=sectors),
     )
     prof = chain_profile(lambda: ff.step_many(state, actions_k, scans_k), CONFIG5_CHAIN)
@@ -1562,7 +1548,6 @@ def main() -> int:
             "max_abs_err": max(c["max_abs_err"], dedup_plain["max_abs_err"]),
             "ms": c["device_ms"], "wrapper_ms": c["wrapper_ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": None,
-            "before_ms": c["before_ms"], "k1_before_ms": c["k1_before_ms"],
             "sector_bytes": c["sector_bytes"], "sector_bound_ms": c["sector_bound_ms"],
             "k1_ms_same_cloud": c["k1_device_ms"], "plan_ms": c["plan_device_ms"],
             "overflowed_blocks": c["overflowed_blocks"],
@@ -1576,7 +1561,6 @@ def main() -> int:
             "replaces": "monte_carlo_localization_tpu/ops/pallas_lut.py:450",
             **{k: head[k] for k in keys},
             "library_ms": None,
-            "before_ms": head["before_ms"],
             "sector_bytes": head["sector_bytes"], "sector_bound_ms": head["sector_bound_ms"],
             "config1_launches": config1["launches"],
             "config4_launches": config4["k1_launches"],
@@ -1590,7 +1574,6 @@ def main() -> int:
             **{k: k3[k] for k in keys},
             "max_abs_err": max(k3["max_abs_err"], lut_plain["max_abs_err"]["K3"]),
             "library_ms": None,
-            "before_ms": k3["before_ms"],
             "sector_bytes": k3["sector_bytes"], "sector_bound_ms": k3["sector_bound_ms"],
             "synthetic_times": lut_plain["times"]["K3"],
         },
@@ -1617,7 +1600,6 @@ def main() -> int:
             "bound_ms": mega1["bound_ms"],
             "bound_by": mega1["bound_by"],
             "library_ms": None,
-            "before_ms": mega1["before_ms"],
             "grid_blocks": mega1["grid_blocks"], "phase1": mega1["phase1"],
             "phase_device_ms": mega1["phase_device_ms"],
             "synthetic_times": mega_plain["times"],
@@ -1630,7 +1612,6 @@ def main() -> int:
             **{k: config5[k] for k in keys},
             "max_abs_err": max(config5["max_abs_err"], fleet_plain["max_abs_err"]),
             "library_ms": None,
-            "before_ms": config5["before_ms"],
             "sector_bytes": config5["sector_bytes"], "sector_bound_ms": config5["sector_bound_ms"],
             "config5_launches": config5["launches"],
         },

@@ -79,26 +79,28 @@ struct Params {
 };
 constexpr int kNumConsts = 15;
 
-// Abramowitz & Stegun 7.1.26, Horner in explicit FMAs, so every kernel
-// and the table's fill round it alike.
-__device__ __forceinline__ float erf_as(float x) {
-  const float sign = x < 0.0f ? -1.0f : 1.0f;
-  const float ax = fabsf(x);
+// erf(ax) for ax >= 0 by Abramowitz & Stegun 7.1.26, Horner in explicit
+// FMAs, so every kernel and the table's fill round it alike.
+__device__ __forceinline__ float erf_as(float ax) {
   const float t = __frcp_rn(__fmaf_rn(0.3275911f, ax, 1.0f));
   float poly = __fmaf_rn(t, 1.061405429f, -1.453152027f);
   poly = __fmaf_rn(t, poly, 1.421413741f);
   poly = __fmaf_rn(t, poly, -0.284496736f);
   poly = __fmaf_rn(t, poly, 0.254829592f);
   poly = __fmul_rn(t, poly);
-  return __fmul_rn(sign, __fmaf_rn(-poly, expf(-__fmul_rn(ax, ax)), 1.0f));
+  return __fmaf_rn(-poly, expf(-__fmul_rn(ax, ax)), 1.0f);
 }
 
-// log of the beam model's normaliser at expected range d (already clipped
-// to m): the one function behind the table and the analytic path.
+// log of the beam model's normaliser at expected range d in [0, m]: the
+// one function behind the table and the analytic path. Both erf arguments
+// have a known sign there (m - d + 0.5 > 0 > -d - 0.5), so the model's
+// erf((m - d + 0.5) / sq2) - erf((-d - 0.5) / sq2) is evaluated as
+// erf(hi) + erf(lo) on positive arguments: the bits of the signed form,
+// without its compare, select and sign multiply per erf.
 __device__ __forceinline__ float log_norm(float d, const Params& p) {
   const float hi = erf_as(__fdiv_rn(__fadd_rn(__fsub_rn(p.m, d), 0.5f), p.sq2));
-  const float lo = erf_as(__fdiv_rn(__fsub_rn(-d, 0.5f), p.sq2));
-  const float gauss_sum = __fmul_rn(0.5f, __fsub_rn(hi, lo));
+  const float lo = erf_as(__fdiv_rn(__fadd_rn(d, 0.5f), p.sq2));
+  const float gauss_sum = __fmul_rn(0.5f, __fadd_rn(hi, lo));
   const float shorts = d > 0.0f ? __fmul_rn(p.z_short, __fadd_rn(d, 1.0f)) : 0.0f;
   const float norm =
       __fadd_rn(__fadd_rn(__fmaf_rn(p.z_hit, gauss_sum, shorts), p.z_max), p.z_rand);

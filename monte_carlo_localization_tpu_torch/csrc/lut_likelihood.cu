@@ -220,12 +220,13 @@ __global__ void __launch_bounds__(kThreads) lut_loglik_kernel(Args<T> a) {
 
 // Fills the normaliser table of one query: entry e holds
 // {log norm(d), 1 / max(d, 1)} at d = min(e, m), or with ``d_in`` at
-// d = min(d_in[e], m) (how the analytic function is read out for any d).
+// d_in[e] clipped to [0, m], the model's domain (how the analytic function
+// is read out for any d).
 __global__ void log_norm_kernel(const float* __restrict__ d_in, int count, Params p,
                                 float2* __restrict__ out) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= count) return;
-  const float d = fminf(d_in ? d_in[e] : static_cast<float>(e), p.m);
+  const float d = fminf(d_in ? fmaxf(d_in[e], 0.0f) : static_cast<float>(e), p.m);
   out[e] = mcl::norm_entry(d, p);
 }
 

@@ -618,11 +618,18 @@ cudaError_t plan_as(Form<kModel, kGroup, kSmall>, int64_t n, int r, int table_en
     if (err != cudaSuccess) return err;
     if (!coop) return cudaErrorNotSupported;
   }
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
+  // Opt this instantiation into all the shared memory a block may have,
+  // not into this plan's size: the attribute holds for every later launch
+  // of the instantiation, whatever n, r or stepper planned it.
+  int optin = 0;
+  cudaFuncAttributes attr;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin - static_cast<int>(attr.sharedSizeBytes));
+  if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;

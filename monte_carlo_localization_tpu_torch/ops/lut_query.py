@@ -369,7 +369,7 @@ class LUTQuery:
         """Run ``log_norm_kernel`` (``csrc/lut_likelihood.cu``): the
         (count, 2) float32 rows {log norm(d), 1 / max(d, 1)} of the beam
         model's normaliser at ``d`` (float32 on a card, clipped to
-        ``max_range_px``), or without ``d`` the query's table, row e at
+        [0, ``max_range_px``]), or without ``d`` the query's table, row e at
         d = min(e, max_range_px)."""
         from monte_carlo_localization_tpu_torch.ops._cuda_build import load_library
 

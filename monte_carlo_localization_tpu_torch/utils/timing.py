@@ -7,9 +7,9 @@
 - :func:`graph_ms`: a CUDA graph of the calls replayed between CUDA
   events, so no host work is inside the timed span; each call still pays
   the graph's gap between kernels.
-- :func:`device_ms`: one kernel's own device time from ``torch.profiler``,
-  falling back to :func:`graph_ms` where the profiler caught no event of
-  it.
+- :func:`device_ms`: one kernel's own device time from ``torch.profiler``
+  (the median of three profiled runs), falling back to :func:`graph_ms`
+  where the profiler caught no event of it.
 """
 
 from __future__ import annotations
@@ -94,13 +94,19 @@ def profile_run(fn, iters: int):
     return rows, wall
 
 
-def device_ms(fn, kernel: str, iters: int = 20) -> dict:
+def device_ms(fn, kernel: str, iters: int = 20, reps: int = 3) -> dict:
     """A kernel's own device milliseconds per launch: the profiler's
     device time summed over events whose name holds ``kernel``, divided
-    by their count; where the profiler shows none, :func:`graph_ms` of
-    ``fn``. Returns dict(ms, source)."""
-    rows, _ = profile_run(fn, iters)
-    hits = [(us, n) for key, (us, n) in rows.items() if kernel in key]
-    if hits:
-        return dict(ms=sum(us for us, _ in hits) / 1e3 / sum(n for _, n in hits), source="profiler")
+    by their count, as the median of ``reps`` profiled runs of ``iters``
+    launches (one slow launch moves a mean of 20 by several percent at
+    5 us); where the profiler shows none, :func:`graph_ms` of ``fn``.
+    Returns dict(ms, source)."""
+    means = []
+    for _ in range(reps):
+        rows, _ = profile_run(fn, iters)
+        hits = [(us, n) for key, (us, n) in rows.items() if kernel in key]
+        if hits:
+            means.append(sum(us for us, _ in hits) / 1e3 / sum(n for _, n in hits))
+    if means:
+        return dict(ms=statistics.median(means), source="profiler")
     return dict(ms=graph_ms(fn, iters), source="cuda_graph")

@@ -1,0 +1,54 @@
+"""``chip_smoke.py`` on a machine without a card: it refuses to run,
+prints no result and imports nothing of JAX; its bounds count the
+operations the kernels' beam term needs."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+
+import chip_smoke  # noqa: E402
+
+
+def test_chip_smoke_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the script would run in full")
+    probe = ("import runpy, sys\n"
+             "try:\n"
+             "    runpy.run_path('chip_smoke.py', run_name='__main__')\n"
+             "except SystemExit as e:\n"
+             "    assert 'jax' not in sys.modules, 'chip_smoke.py imported jax'\n"
+             "    sys.exit(e.code)\n")
+    res = subprocess.run([sys.executable, "-c", probe], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 2, res.stderr
+    assert res.stdout == "" and "no CUDA device" in res.stderr
+
+
+@pytest.mark.parametrize("subbin, ops_beam", [(False, chip_smoke.OPS_PER_BEAM_TABLED),
+                                              (True, chip_smoke.OPS_PER_BEAM_ANALYTIC + chip_smoke.OPS_PER_LERP)])
+def test_lut_bound_counts_the_term_the_kernel_evaluates(subbin, ops_beam):
+    """A tabled term is one exp, one log and a table read; only the
+    sub-bin lerp pays the analytic normaliser's two erf."""
+    n, n_on, r = 4000, 3000, 60
+    b = chip_smoke.lut_bound(n, n_on, r, 1, False, subbin=subbin, sectors=1000)
+    assert b["f32_ops"] == n * chip_smoke.OPS_PER_PARTICLE_K1 + n_on * r * ops_beam
+    assert b["f64_ops"] == n_on * r
+    assert b["bytes"] == 16 * n + 8 * r + n_on * r * (2 if subbin else 1)
+    assert b["sector_bytes"] == 1000 * chip_smoke.SECTOR_BYTES
+    assert chip_smoke.OPS_PER_BEAM_TABLED < chip_smoke.OPS_PER_BEAM_ANALYTIC
+
+
+def test_bound_is_the_larger_of_bytes_and_operations():
+    by_bytes = chip_smoke.bound(3.35e9, 1.0, 0.0)
+    assert by_bytes["bound_by"] == "bytes" and by_bytes["bound_ms"] == pytest.approx(1.0)
+    by_ops = chip_smoke.bound(1.0, 67e9, 34e9)
+    assert by_ops["bound_by"] == "operations" and by_ops["bound_ms"] == pytest.approx(2.0)
+    mega = chip_smoke.mega_bound(4000, 4000, 60, 1)
+    assert mega["f32_ops"] > 4000 * 60 * chip_smoke.OPS_PER_BEAM_TABLED
+    assert mega["f64_ops"] == 4000 * 60 + 7 * 4000

@@ -421,7 +421,9 @@ def test_mega_one_stepper_serves_changing_particle_counts(cuda):
     rng = np.random.default_rng(9)
     step, lut, parts, logw, noise, obs = _mega_case(rng, 60, 200, 30_000, cuda)
     scalars = torch.tensor([0.04, 0.03, 0.0, 0.81, 0, 0, 0, 0], dtype=torch.float32, device=cuda)
-    for n in (30_000, 4000, 100, 8192, 30_000, 16, 4000):
+    # 8192, 4000, 8192: a smaller count's plan must not take away the
+    # shared memory the larger one was opted into
+    for n in (30_000, 4000, 100, 8192, 30_000, 16, 4000, 8192):
         args = (lut, parts[:n], logw[:n], noise[:n], obs, scalars)
         out_p, out_w = torch.empty_like(parts[:n]), torch.empty_like(logw[:n])
         sums = torch.empty(8, dtype=torch.float32, device=cuda)
@@ -432,6 +434,26 @@ def test_mega_one_stepper_serves_changing_particle_counts(cuda):
         assert float((out_w - want_w)[rows].abs().max()) <= 1e-3, n
         assert abs(float(sums[4] - want_s[4])) <= 1e-4 * float(want_s[4]), n
         assert abs(float(sums[5] - want_s[5])) <= 1e-3, n
+
+
+def test_mega_two_steppers_share_the_kernel(cuda):
+    """Two steppers of one beam layout run one kernel instantiation: what
+    one of them plans (its shared-memory opt-in at its particle count)
+    must leave the other's cached plan launchable."""
+    from monte_carlo_localization_tpu_torch.ops.mega_step import mega_step_reference
+
+    scalars = torch.tensor([0.04, 0.03, 0.0, 0.81, 0, 0, 0, 0], dtype=torch.float32, device=cuda)
+    cases = [_mega_case(np.random.default_rng(s), 60, 200, n, cuda) for s, n in ((3, 8192), (4, 4000))]
+    for step, lut, parts, logw, noise, obs in cases + cases[:1]:
+        args = (lut, parts, logw, noise, obs, scalars)
+        out_p, out_w = torch.empty_like(parts), torch.empty_like(logw)
+        sums = torch.empty(8, dtype=torch.float32, device=cuda)
+        step(*args, out_p, out_w, sums)
+        want_p, want_w, want_s = mega_step_reference(step, *args)
+        rows = (out_p - want_p).abs().le(1e-5).all(dim=1)
+        assert float(rows.float().mean()) >= 0.99
+        assert float((out_w - want_w)[rows].abs().max()) <= 1e-3
+        assert abs(float(sums[4] - want_s[4])) <= 1e-4 * float(want_s[4])
 
 
 def test_mega_launch_rejects_what_the_kernel_does_not_take(cuda):
