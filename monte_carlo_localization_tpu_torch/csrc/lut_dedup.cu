@@ -1,6 +1,6 @@
 // Unique-window range-LUT likelihood for Hopper (sm_90a): the function of
 // lut_likelihood.cu, bit for bit, reading each distinct LUT window of a
-// block of particles once.
+// chunk of particles once.
 //
 // Replaces two TPU kernels of monte_carlo_localization_tpu/ops/
 // pallas_lut.py that compute one function: K4, kernel_dedup (:584-638,
@@ -9,38 +9,55 @@
 // a one-hot MXU matmul because Mosaic lowered the dynamic index badly.
 // On Hopper a read from shared memory by slot index is the natural form,
 // so one kernel serves both (pallas_dedup_matmul selects the same launch).
+// It also does the work of the TPU query's plan (:951-978), which XLA ran
+// as sort, cumsum and scatter around the Pallas call.
 //
-// The host side (ops/lut_query.py dedup_plan, torch ops on the device,
-// as pallas_lut.py query :951-978) sorts the particles by the key of
-// their window, y0 = row * (row_stride / eps) + b0 / eps (the window's
-// first 512 B subrow; 0 off the map), cuts the sorted order into blocks
-// of B particles, ranks each particle's window among the block's
-// distinct windows and fills a slot table with the first S of them.
-// One CUDA block takes one block of particles:
-//   - it stages its <= S slot windows, wents entries each from
-//     slot_y0 * eps, into dynamic shared memory with coalesced 16 B loads
-//     (no cp.async or TMA yet), then one __syncthreads;
-//   - each group of lanes (16 for tabled scans of <= 64 beams, else a
-//     warp: beam_model.cuh group_lanes) takes particles of the block in
-//     turn, recomputes the particle's window with the address math of K1
-//     (beam_model.cuh particle_window) and reads it through
-//     group_window_logp, K1's own beam sum with K1's normaliser table:
-//     from shared memory at slot * wents + b0 % eps when its rank is < S
-//     and the slot holds its key, else from global memory exactly as K1
-//     does. This per-block overflow replaces the TPU query's whole-call
-//     lax.cond (:1013); every branch reads the same entries in the same
-//     order, so the result equals K1's bit for bit;
-//   - it writes each result to out[perm[i]] (no separate scatter) and
-//     -1e4 for a particle off the map, and counts the blocks whose
-//     distinct windows exceed S into a device int32 (no host sync).
+// What it computes, with the plan's semantics (ops/lut_query.py
+// dedup_plan is the plain version): the particles sorted by the key of
+// their window, y0 = start / eps (the window's first 512 B subrow; 0 off
+// the map), are cut into chunks of B; a chunk reads its first S distinct
+// windows from shared memory and the rest from global memory, and counts
+// into ``overflow`` when it has more than S.
 //
-// What bounds it on an H100: the same beam terms as K1 (the normaliser
-// from K1's table, so one exp and one log each) plus the staging,
-// S * wents entries per block against r entries per particle for K1. At
-// 100k particles x 60 beams a converged cloud needs a few slots of 2 KB per block of 160, against 60 scattered
-// bytes per particle that K1 reads (mostly from L2, since the cloud shares
-// its windows): both are operation-bound, and on this card the sort of
-// the host side, not the reads, is what dedup adds.
+// The launch is three steps (LUTQuery.launch_dedup):
+//   - window_key_kernel computes every particle's window once with K1's
+//     address math (beam_model.cuh particle_window): its start in the LUT
+//     (-1 off the map, the off-map flag), its fractional bin with the
+//     sub-bin lerp, and its key, in 32 bits where the LUT's subrows fit
+//     (basement_fixed's 1,669,064 rows x 6 subrows, Spielberg's 3.4 M x 6)
+//     and 64 bits otherwise. It zeroes the overflow count;
+//   - torch.sort(keys, stable=True): the sort stays a library sort, as the
+//     JAX package leaves argsort to XLA; 32-bit keys halve its radix
+//     passes;
+//   - lut_dedup_kernel, a persistent grid (at most as many blocks as fit
+//     the card at once) that walks over the chunks. For each it ranks
+//     the chunk's distinct keys by a block scan of "differs from the
+//     previous key" (ballot and popc), fills its S slots, counts the
+//     chunk if it overflows, and stages the slot windows with
+//     cp.async.bulk (1-D TMA, one contiguous window per copy) on an
+//     mbarrier. A block that walks over several chunks keeps two buffers
+//     and stages chunk c + 1 into the one chunk c - 1 used while it sums
+//     chunk c; where one buffer a block lets every chunk have a block of
+//     its own (config #4: 625 chunks of 160), the launcher takes that
+//     grid instead, as a second buffer would only cap the grid below the
+//     chunks and leave a tail of blocks summing two. The beam stage and
+//     the normaliser table are staged once per block, not per chunk. A
+//     slot stages the eps - 1 + span entries a window can reach from its
+//     subrow (16 B rounded), not the TPU's (8, 128)-rounded window.
+//
+// Each particle's beams are read through group_rounds, K1's own round
+// loop, beam sum and table: from the staged slot at
+// (start mod eps) when its key is among the chunk's slots, else from
+// global memory exactly as K1 reads them. Every branch reads the same
+// entries in the same order, so the result equals K1's bit for bit
+// whatever the plan; a result goes straight to out[perm[i]].
+//
+// What bounds it on an H100: the same beam terms as K1 plus, per
+// particle, the sorted key, perm and a gather of its start (and fraction)
+// against K1's particle and row-map loads, and per chunk a scan and S
+// windows of ~1.6 KB (u8, 60 beams) copied by the TMA engine. At 100k
+// particles x 60 beams both are operation-bound; the sort, not the
+// reads, is what dedup adds.
 
 #include <cstdint>
 
@@ -50,143 +67,370 @@
 
 namespace {
 
+using mcl::kFullMask;
 using mcl::kWarp;
 using mcl::Model;
 using mcl::Params;
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = kWarp * kWarpsPerBlock;
-constexpr int kChunk = 16;  // bytes per staging load
+constexpr int kAlign = 16;   // cp.async.bulk: 16 B multiples at 16 B aligned addresses
+constexpr int kMaxBuffers = 2;  // chunk c + 1 stages while chunk c sums
 
-// Bytes of shared memory before the staged windows: the beam stage of
-// beam_model.cuh (min(obs, m) with the beam offsets, then the normaliser
-// table), rounded up to a 16 B boundary for the vector stores.
-__host__ __device__ inline size_t header_bytes(int r, int table_entries) {
-  return (mcl::stage_bytes(r, table_entries) + kChunk - 1) / kChunk * kChunk;
+__host__ __device__ inline size_t align16(size_t b) { return (b + kAlign - 1) / kAlign * kAlign; }
+
+// ---- mbarrier and 1-D TMA -------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// One arrival that also expects ``bytes`` of copies before the phase ends.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Until the phase of ``parity`` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// ---- window keys ----------------------------------------------------------
+
+// Per particle: start = row * row_stride + b0 (-1 off the map), key =
+// start >> log2(eps) (0 off the map), and the fractional bin with the
+// sub-bin lerp. Thread 0 zeroes the overflow count of the launch.
+template <typename K, bool kSubbin>
+__global__ void window_key_kernel(const float* __restrict__ particles, int64_t n,
+                                  const int32_t* __restrict__ row_map, int64_t row_stride,
+                                  int eps_shift, int base, int t_bins, int height, int width,
+                                  Params p, K* __restrict__ keys, int64_t* __restrict__ starts,
+                                  float* __restrict__ fracs, int32_t* __restrict__ overflow) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i == 0) *overflow = 0;
+  if (i >= n) return;
+  mcl::Window w;
+  const bool on = mcl::particle_window<kSubbin>(particles[3 * i], particles[3 * i + 1],
+                                                particles[3 * i + 2], p.ox, p.oy, row_map,
+                                                base, t_bins, height, width, p, &w);
+  const int64_t start = on ? w.row * row_stride + w.b0 : -1;
+  keys[i] = on ? static_cast<K>(start >> eps_shift) : K(0);
+  starts[i] = start;
+  if (kSubbin) fracs[i] = on ? w.frac : 0.0f;
+}
+
+// ---- the unique-window kernel --------------------------------------------
+
+template <typename T>
+struct DedupArgs {
+  const T* lut;
+  const int64_t* starts;  // per particle, -1 off the map
+  const float* fracs;     // per particle, with the sub-bin lerp
+  const void* keys;       // sorted keys, int32 or int64 (key64)
+  int key64;
+  const int64_t* perm;    // sorted position -> particle
+  int64_t n;
+  int block;              // B: particles per chunk
+  int slots;              // S
+  int buffers;            // 1, or 2 where a block walks over several chunks
+  int slot_ents;          // entries staged per slot
+  int eps;
+  const float* obs_px;
+  const int32_t* offsets;
+  int r;
+  const float2* table;
+  int table_entries;
+  Params p;
+  float* out;
+  int32_t* overflow;
+};
+
+template <typename T>
+__device__ __forceinline__ int64_t key_at(const DedupArgs<T>& a, int64_t i) {
+  return a.key64 ? static_cast<const int64_t*>(a.keys)[i]
+                 : static_cast<int64_t>(static_cast<const int32_t*>(a.keys)[i]);
+}
+
+// The plan of one chunk of ``count`` sorted particles from ``first``: the
+// first S distinct keys into ``slot_keys`` (ascending), how many into
+// *used, and one count into overflow when the chunk has more. The whole
+// block calls it; it ends synchronized.
+template <typename T>
+__device__ void plan_chunk(const DedupArgs<T>& a, int64_t first, int count,
+                           int64_t* slot_keys, int* s_warp, int* used) {
+  const int tid = threadIdx.x;
+  const int lane = tid % kWarp;
+  const int warp = tid / kWarp;
+  int carry = 0;  // distinct keys before this tile
+  for (int base = 0; base < count; base += kThreads) {
+    const int k = base + tid;
+    bool fresh = false;
+    int64_t key = 0;
+    if (k < count) {
+      key = key_at(a, first + k);
+      fresh = k == 0 || key != key_at(a, first + k - 1);
+    }
+    const unsigned mask = __ballot_sync(kFullMask, fresh);
+    if (lane == 0) s_warp[warp] = __popc(mask);
+    __syncthreads();
+    int before = carry, tile = 0;
+#pragma unroll
+    for (int w = 0; w < kWarpsPerBlock; ++w) {
+      const int c = s_warp[w];
+      before += w < warp ? c : 0;
+      tile += c;
+    }
+    const int rank = before + __popc(mask & ((1u << lane) - 1u));
+    if (fresh && rank < a.slots) slot_keys[rank] = key;
+    carry += tile;
+    __syncthreads();  // s_warp is reused by the next tile
+  }
+  if (tid == 0) {
+    *used = min(carry, a.slots);
+    if (carry > a.slots) atomicAdd(a.overflow, 1);
+  }
+  __syncthreads();
+}
+
+// One thread: the copies of a chunk's ``used`` slot windows into ``dst``,
+// completing on ``bar``. The block's generic reads of ``dst`` (the chunk
+// before last) ended at a __syncthreads before this.
+template <typename T>
+__device__ void stage_chunk(const DedupArgs<T>& a, const int64_t* slot_keys, int used,
+                            unsigned char* dst, uint64_t* bar) {
+  const uint32_t bytes = static_cast<uint32_t>(a.slot_ents * sizeof(T));
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  mbar_expect(bar, bytes * used);
+  for (int sl = 0; sl < used; ++sl) {
+    bulk_copy(dst + static_cast<size_t>(sl) * bytes, a.lut + slot_keys[sl] * a.eps, bytes, bar);
+  }
 }
 
 template <typename T, Model kModel, int kGroup>
-__global__ void __launch_bounds__(kThreads) lut_dedup_kernel(
-    const T* __restrict__ lut, int64_t row_stride,
-    const int32_t* __restrict__ row_map, const float* __restrict__ particles,
-    int64_t n, const int64_t* __restrict__ perm,
-    const int32_t* __restrict__ rank, const int64_t* __restrict__ slot_y0,
-    int slots, int block_particles, int wents, int eps,
-    const float* __restrict__ obs_px, const int32_t* __restrict__ offsets,
-    int r, int base, int t_bins, int height, int width,
-    const float2* __restrict__ table, int table_entries, Params p,
-    float* __restrict__ out, int32_t* __restrict__ overflow) {
+__global__ void __launch_bounds__(kThreads) lut_dedup_kernel(DedupArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr bool kSubbin = kModel == Model::kLerped;
-  constexpr int kPerWarp = kWarp / kGroup;     // particles a warp sums at once
+  __shared__ __align__(8) uint64_t s_bar[kMaxBuffers];
+  __shared__ int s_warp[kWarpsPerBlock];
+  __shared__ int s_used[kMaxBuffers];
   constexpr int kGroups = kThreads / kGroup;
-  const int entries = table ? table_entries : 0;
-  T* s_win = reinterpret_cast<T*>(smem + header_bytes(r, entries));
-
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * block_particles;
-  const int count = static_cast<int>(
-      n - first < block_particles ? n - first : block_particles);
-  const int last_rank = rank[first + count - 1];  // ranks rise in a block
-  const int used = last_rank + 1 < slots ? last_rank + 1 : slots;
-  if (threadIdx.x == 0 && last_rank >= slots) atomicAdd(overflow, 1);
-  const int64_t* my_slots = slot_y0 + static_cast<int64_t>(blockIdx.x) * slots;
-
-  const mcl::BeamStage s = mcl::stage_beams(reinterpret_cast<float2*>(smem), obs_px,
-                                            offsets, r, table, entries, p);
-  const int chunks = wents * static_cast<int>(sizeof(T)) / kChunk;
-  uint4* dst = reinterpret_cast<uint4*>(s_win);
-  for (int c = threadIdx.x; c < used * chunks; c += blockDim.x) {
-    const int sl = c / chunks;
-    const uint4* src =
-        reinterpret_cast<const uint4*>(lut + my_slots[sl] * eps);
-    dst[c] = src[c - sl * chunks];
+  constexpr bool kSubTable = kModel == Model::kLerped;
+  const Params& p = a.p;
+  const int tid = threadIdx.x;
+  const int lane = tid % kWarp;
+  const int lig = tid % kGroup;
+  const int g = tid / kGroup;
+  const int64_t chunks = (a.n + a.block - 1) / a.block;
+  const size_t slot_bytes = static_cast<size_t>(a.slot_ents) * sizeof(T);
+  const size_t buf_bytes = slot_bytes * a.slots;
+  const int entries = a.table ? a.table_entries : 0;
+  const int nbuf = a.buffers;
+  // [windows: nbuf x S slots][beam stage + table][slot keys: nbuf x S]
+  unsigned char* s_win = smem;
+  const mcl::BeamStage s = mcl::stage_beams(reinterpret_cast<float2*>(smem + nbuf * buf_bytes),
+                                            a.obs_px, a.offsets, a.r, a.table, entries, p,
+                                            kSubTable);
+  int64_t* s_keys = reinterpret_cast<int64_t*>(
+      smem + align16(nbuf * buf_bytes + mcl::stage_bytes(a.r, entries, kSubTable)));
+  if (tid == 0) {
+    for (int b = 0; b < nbuf; ++b) mbar_init(&s_bar[b]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  const int lane = threadIdx.x % kWarp;
-  const int64_t sub_per_row = row_stride / eps;
-  for (int k0 = threadIdx.x / kWarp * kPerWarp; k0 < count; k0 += kGroups) {
-    const int k = k0 + lane / kGroup;  // the warp's groups take neighbours
-    const T* window = lut;
-    int64_t src = -1;
-    bool valid = false;
-    mcl::Window w;
-    w.frac = 0.0f;
-    if (k < count) {
-      const int64_t i = first + k;
-      src = perm[i];
-      valid = mcl::particle_window<kSubbin>(
-          particles[3 * src], particles[3 * src + 1], particles[3 * src + 2],
-          p.ox, p.oy, row_map, base, t_bins, height, width, p, &w);
-      if (valid) {
-        const int rk = rank[i];
-        const int64_t key = w.row * sub_per_row + w.b0 / eps;
-        window = (rk < slots && my_slots[rk] == key)
-                     ? s_win + static_cast<int64_t>(rk) * wents + w.b0 % eps
-                     : lut + w.row * row_stride + w.b0;
+  auto count_of = [&](int64_t c) {
+    return static_cast<int>(min(static_cast<int64_t>(a.block), a.n - c * a.block));
+  };
+  int64_t c = blockIdx.x;  // the launcher keeps the grid <= chunks
+  plan_chunk(a, c * a.block, count_of(c), s_keys, s_warp, &s_used[0]);
+  if (tid == 0) stage_chunk(a, s_keys, s_used[0], s_win, &s_bar[0]);
+  uint32_t parity = 0;  // bit b: the phase buffer b waits for next
+  for (int b = 0; c < chunks; b = (b + 1) % nbuf) {
+    const int64_t next = c + gridDim.x;
+    if (nbuf == 2 && next < chunks) {
+      const int nb = b ^ 1;
+      plan_chunk(a, next * a.block, count_of(next), s_keys + nb * a.slots, s_warp, &s_used[nb]);
+      if (tid == 0) {
+        stage_chunk(a, s_keys + nb * a.slots, s_used[nb], s_win + nb * buf_bytes, &s_bar[nb]);
       }
     }
-    const float logw = mcl::group_window_logp<kGroup, kModel>(window, valid, s, r,
-                                                               lane, p, w.frac);
-    if (src >= 0 && lane % kGroup == 0) out[src] = valid ? logw : -1e4f;
+    const int used = s_used[b];
+    const int64_t* keys = s_keys + b * a.slots;
+    const T* wins = reinterpret_cast<const T*>(s_win + b * buf_bytes);
+    const int64_t first = c * a.block;
+    const int count = count_of(c);
+    mbar_wait(&s_bar[b], (parity >> b) & 1u);
+    parity ^= 1u << b;
+
+    // a pass gives each group up to kGroup consecutive particles of the
+    // chunk; lane i of a group finds particle i's window
+    for (int base = 0; base < count; base += kGroups * kGroup) {
+      const int left = count - base;
+      const int per = min(kGroup, (left + kGroups - 1) / kGroups);
+      const int mine_n = max(0, min(per, left - g * per));
+      const T* win = nullptr;
+      float frac = 0.0f;
+      int64_t src = -1;
+      if (lig < mine_n) {
+        const int64_t i = first + base + g * per + lig;
+        src = a.perm[i];
+        const int64_t start = a.starts[src];
+        if (start >= 0) {
+          if (mcl::lerps(kModel)) frac = a.fracs[src];
+          const int64_t key = key_at(a, i);
+          int lo = 0, hi = used;  // the slot keys ascend
+          while (lo < hi) {
+            const int mid = (lo + hi) >> 1;
+            if (keys[mid] < key) {
+              lo = mid + 1;
+            } else {
+              hi = mid;
+            }
+          }
+          win = lo < used && keys[lo] == key
+                    ? wins + static_cast<int64_t>(lo) * a.slot_ents + (start & (a.eps - 1))
+                    : a.lut + start;
+        }
+      }
+      const float mine = mcl::group_rounds<kGroup, kModel>(win, frac, mine_n, s, a.r, lane, p);
+      if (lig < mine_n) a.out[src] = mine;
+    }
+    __syncthreads();  // buffer b is free for the chunk after next
+    if (nbuf == 1 && next < chunks) {
+      plan_chunk(a, next * a.block, count_of(next), s_keys, s_warp, &s_used[0]);
+      if (tid == 0) stage_chunk(a, s_keys, s_used[0], s_win, &s_bar[0]);
+    }
+    c = next;
   }
 }
 
-template <typename T>
-size_t smem_bytes(int r, int table_entries, int slots, int wents) {
-  return header_bytes(r, table_entries) + static_cast<size_t>(slots) * wents * sizeof(T);
+// The kernel's dynamic shared memory: the windows (16 B multiples), the
+// stage, 16 B aligned, and the slot keys, for ``buffers`` chunks.
+size_t smem_bytes(int r, int table_entries, bool sub_table, int slots, size_t slot_bytes,
+                  int buffers) {
+  return buffers * slots * (slot_bytes + sizeof(int64_t)) +
+         align16(mcl::stage_bytes(r, table_entries, sub_table));
 }
 
-// The most slots whose windows fit the card's opt-in shared memory.
+// Calls f with the kernel instantiation that serves the query.
+template <typename T, typename F>
+auto with_kernel(int r, Model model, F f) {
+  switch (model) {
+    case Model::kLerped:
+      return mcl::group_lanes(r, model) == mcl::kSmallGroup
+                 ? f(lut_dedup_kernel<T, Model::kLerped, mcl::kSmallGroup>)
+                 : f(lut_dedup_kernel<T, Model::kLerped, kWarp>);
+    case Model::kLerpedAnalytic:
+      return f(lut_dedup_kernel<T, Model::kLerpedAnalytic, kWarp>);
+    case Model::kAnalytic:
+      return f(lut_dedup_kernel<T, Model::kAnalytic, kWarp>);
+    default:
+      return mcl::group_lanes(r, model) == mcl::kSmallGroup
+                 ? f(lut_dedup_kernel<T, Model::kTabled, mcl::kSmallGroup>)
+                 : f(lut_dedup_kernel<T, Model::kTabled, kWarp>);
+  }
+}
+
+// The most slots of ``slot_ents`` entries whose two buffers fit the
+// card's opt-in shared memory beside the stage.
 template <typename T>
-int max_slots(int r, int wents, int table_entries) {
+int max_slots(int r, int slot_ents, int table_entries, int subbin) {
   int dev = 0, optin = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess) {
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+      cudaSuccess) {
     return 0;
   }
-  const size_t head = header_bytes(r, table_entries);
-  if (static_cast<size_t>(optin) <= head) return 0;
-  return static_cast<int>((optin - head) / (static_cast<size_t>(wents) * sizeof(T)));
+  cudaFuncAttributes attr;
+  if (cudaFuncGetAttributes(&attr, lut_dedup_kernel<T, Model::kTabled, kWarp>) != cudaSuccess) {
+    return 0;
+  }
+  const bool sub_table = subbin && table_entries > 0;
+  const size_t head = align16(mcl::stage_bytes(r, table_entries, sub_table));
+  const size_t room = static_cast<size_t>(optin) - attr.sharedSizeBytes;
+  if (room <= head) return 0;
+  const size_t per_slot =
+      kMaxBuffers * (static_cast<size_t>(slot_ents) * sizeof(T) + sizeof(int64_t));
+  return static_cast<int>((room - head) / per_slot);
 }
 
 template <typename T>
-int launch(const T* lut, int64_t row_stride, const int32_t* row_map,
-           const float* particles, int64_t n, const int64_t* perm,
-           const int32_t* rank, const int64_t* slot_y0, int slots,
-           int block_particles, int wents, int eps, const float* obs_px,
-           const int32_t* offsets, int r, int base, int t_bins, int height,
-           int width, int subbin, const float* consts, const float* table,
-           int table_entries, float* out, int32_t* overflow, void* stream) {
+int launch(const T* lut, const int64_t* starts, const float* fracs, const void* keys,
+           int key64, const int64_t* perm, int64_t n, int block, int slots, int slot_ents,
+           int eps, const float* obs_px, const int32_t* offsets, int r, int subbin,
+           const float* consts, const float* table, int table_entries, float* out,
+           int32_t* overflow, void* stream) {
   if (n <= 0) return 0;
-  if (slots < 1 || block_particles < 1 ||
-      (wents * static_cast<int>(sizeof(T))) % kChunk != 0 || eps <= 0 ||
-      row_stride % eps != 0 ||
-      (table != nullptr && (subbin || table_entries < 1 ||
-                            table_entries > mcl::kMaxTableEntries))) {
+  const Params p = mcl::params_from(consts);
+  if (slots < 1 || block < 1 || (slot_ents * static_cast<int>(sizeof(T))) % kAlign != 0 ||
+      eps <= 0 || (eps & (eps - 1)) != 0 || (subbin && fracs == nullptr) ||
+      (table != nullptr && !mcl::table_fits(subbin, table_entries, p))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Params p = mcl::params_from(consts);
-  const int64_t blocks = (n + block_particles - 1) / block_particles;
-  const size_t smem = smem_bytes<T>(r, table ? table_entries : 0, slots, wents);
+  DedupArgs<T> a{lut, starts, fracs, keys, key64, perm, n, block, slots, 1, slot_ents, eps,
+                 obs_px, offsets, r, reinterpret_cast<const float2*>(table), table_entries,
+                 p, out, overflow};
   const Model model = mcl::model_of(subbin, table != nullptr);
-  auto kernel = lut_dedup_kernel<T, Model::kLerped, kWarp>;
-  if (model == Model::kAnalytic) {
-    kernel = lut_dedup_kernel<T, Model::kAnalytic, kWarp>;
-  } else if (model == Model::kTabled) {
-    kernel = mcl::group_lanes(r, model) == mcl::kSmallGroup
-                 ? lut_dedup_kernel<T, Model::kTabled, mcl::kSmallGroup>
-                 : lut_dedup_kernel<T, Model::kTabled, kWarp>;
+  const int64_t chunks = (n + block - 1) / block;
+  return with_kernel<T>(r, model, [&](auto kernel) {
+    // one buffer where that grid holds every chunk at once, else two
+    int resident = 0;
+    size_t smem = 0;
+    for (a.buffers = 1; a.buffers <= kMaxBuffers; ++a.buffers) {
+      smem = smem_bytes(r, table ? table_entries : 0, model == Model::kLerped, slots,
+                        static_cast<size_t>(slot_ents) * sizeof(T), a.buffers);
+      const cudaError_t err = mcl::resident_blocks(kernel, smem, kThreads, &resident);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      if (chunks <= resident || a.buffers == kMaxBuffers) break;
+    }
+    const unsigned grid = static_cast<unsigned>(chunks < resident ? chunks : resident);
+    kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+template <typename K>
+int launch_keys(const float* particles, int64_t n, const int32_t* row_map, int64_t row_stride,
+                int eps_shift, int base, int t_bins, int height, int width, int subbin,
+                const Params& p, K* keys, int64_t* starts, float* fracs, int32_t* overflow,
+                void* stream) {
+  const int64_t grid = (n + kThreads - 1) / kThreads;
+  const unsigned blocks = static_cast<unsigned>(grid > 0 ? grid : 1);  // n = 0 zeroes overflow
+  auto s = static_cast<cudaStream_t>(stream);
+  if (subbin) {
+    window_key_kernel<K, true><<<blocks, kThreads, 0, s>>>(particles, n, row_map, row_stride,
+                                                           eps_shift, base, t_bins, height,
+                                                           width, p, keys, starts, fracs,
+                                                           overflow);
+  } else {
+    window_key_kernel<K, false><<<blocks, kThreads, 0, s>>>(particles, n, row_map, row_stride,
+                                                            eps_shift, base, t_bins, height,
+                                                            width, p, keys, starts, fracs,
+                                                            overflow);
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-           static_cast<cudaStream_t>(stream)>>>(
-      lut, row_stride, row_map, particles, n, perm, rank, slot_y0, slots,
-      block_particles, wents, eps, obs_px, offsets, r, base, t_bins, height,
-      width, reinterpret_cast<const float2*>(table), table_entries, p, out, overflow);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -194,39 +438,43 @@ int launch(const T* lut, int64_t row_stride, const int32_t* row_map,
 
 extern "C" {
 
-int mcl_lut_dedup_u8(const uint8_t* lut, int64_t row_stride,
-                     const int32_t* row_map, const float* particles,
-                     int64_t n, const int64_t* perm, const int32_t* rank,
-                     const int64_t* slot_y0, int slots, int block_particles,
-                     int wents, int eps, const float* obs_px,
-                     const int32_t* offsets, int r, int base, int t_bins,
-                     int height, int width, int subbin, const float* consts,
-                     const float* table, int table_entries, float* out,
-                     int32_t* overflow, void* stream) {
-  return launch<uint8_t>(lut, row_stride, row_map, particles, n, perm, rank,
-                         slot_y0, slots, block_particles, wents, eps, obs_px,
-                         offsets, r, base, t_bins, height, width, subbin,
-                         consts, table, table_entries, out, overflow, stream);
+// keys (n,) int32 (key64 = 0) or int64, starts (n,) int64, fracs (n,)
+// float32 (with subbin), overflow (1,) int32 zeroed.
+int mcl_window_keys(const float* particles, int64_t n, const int32_t* row_map,
+                    int64_t row_stride, int eps, int base, int t_bins, int height, int width,
+                    int subbin, int key64, const float* consts, void* keys, int64_t* starts,
+                    float* fracs, int32_t* overflow, void* stream) {
+  if (n < 0 || eps <= 0 || (eps & (eps - 1)) != 0 || row_stride % eps != 0 ||
+      (subbin && fracs == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Params p = mcl::params_from(consts);
+  const int shift = __builtin_ctz(static_cast<unsigned>(eps));
+  return key64 ? launch_keys(particles, n, row_map, row_stride, shift, base, t_bins, height,
+                             width, subbin, p, static_cast<int64_t*>(keys), starts, fracs,
+                             overflow, stream)
+               : launch_keys(particles, n, row_map, row_stride, shift, base, t_bins, height,
+                             width, subbin, p, static_cast<int32_t*>(keys), starts, fracs,
+                             overflow, stream);
 }
 
-int mcl_lut_dedup_u16(const uint16_t* lut, int64_t row_stride,
-                      const int32_t* row_map, const float* particles,
-                      int64_t n, const int64_t* perm, const int32_t* rank,
-                      const int64_t* slot_y0, int slots, int block_particles,
-                      int wents, int eps, const float* obs_px,
-                      const int32_t* offsets, int r, int base, int t_bins,
-                      int height, int width, int subbin, const float* consts,
-                      const float* table, int table_entries, float* out,
-                      int32_t* overflow, void* stream) {
-  return launch<uint16_t>(lut, row_stride, row_map, particles, n, perm, rank,
-                          slot_y0, slots, block_particles, wents, eps, obs_px,
-                          offsets, r, base, t_bins, height, width, subbin,
-                          consts, table, table_entries, out, overflow, stream);
-}
+#define MCL_DEDUP_ENTRY(NAME, T)                                                       \
+  int NAME(const T* lut, const int64_t* starts, const float* fracs, const void* keys,  \
+           int key64, const int64_t* perm, int64_t n, int block, int slots,           \
+           int slot_ents, int eps, const float* obs_px, const int32_t* offsets, int r, \
+           int subbin, const float* consts, const float* table, int table_entries,    \
+           float* out, int32_t* overflow, void* stream) {                             \
+    return launch<T>(lut, starts, fracs, keys, key64, perm, n, block, slots, slot_ents, \
+                     eps, obs_px, offsets, r, subbin, consts, table, table_entries, out, \
+                     overflow, stream);                                                \
+  }
 
-int mcl_lut_dedup_max_slots(int r, int wents, int itemsize, int table_entries) {
-  return itemsize == 1 ? max_slots<uint8_t>(r, wents, table_entries)
-                       : max_slots<uint16_t>(r, wents, table_entries);
+MCL_DEDUP_ENTRY(mcl_lut_dedup_u8, uint8_t)
+MCL_DEDUP_ENTRY(mcl_lut_dedup_u16, uint16_t)
+
+int mcl_lut_dedup_max_slots(int r, int slot_ents, int itemsize, int table_entries, int subbin) {
+  return itemsize == 1 ? max_slots<uint8_t>(r, slot_ents, table_entries, subbin)
+                       : max_slots<uint16_t>(r, slot_ents, table_entries, subbin);
 }
 
 }  // extern "C"

@@ -7,11 +7,12 @@
 // (block_logp_compact, :434), which differs only in the order of the
 // beam sum, so one kernel serves both beam counts; and K3, the sub-bin
 // heading lerp (subbin, next_bin/lerp_bins :383-398, used at :499-500),
-// a template flag: the window starts at floor(theta * T / 2pi) and each
-// beam lerps toward its +1 bin by the fractional bin (beam_model.cuh
+// a template argument: the window starts at floor(theta * T / 2pi) and
+// each beam lerps toward its +1 bin by the fractional bin (beam_model.cuh
 // window_range). The lerp reads one more LUT entry per beam from the
-// same row, so K3's bound is K1's plus a subtract, multiply and add per
-// beam.
+// same row and makes the expected range a fraction, so K3 reads its
+// normaliser from the sub-bin table (a cubic segment per 1/2 px,
+// subbin_norm_kernel below) and computes the short term's reciprocal.
 //
 // What it computes is query(lut_flat, particles, obs_px, row_map) of
 // pallas_lut.py:835-949; for one map:
@@ -32,18 +33,20 @@
 // L2 or HBM at a small fraction of their rates, while the analytic model
 // costs two erf (a division and an exp each), a third division and two
 // logs per term. So:
-//   - the normaliser, which depends on the LUT entry alone, is read from
-//     a table in shared memory (beam_model.cuh), filled once per query by
-//     log_norm_kernel below; a term is then one exp and one log. How the
-//     model is evaluated (tabled, analytic, analytic on the sub-bin lerp)
-//     is a template argument, so the tabled kernel carries no analytic
-//     code: half the code to fetch, which the 4 us shapes feel;
-//   - tabled scans of <= 64 beams put two particles in a warp (16 lanes
-//     each, every lane <= 4 terms from registers), so no lane idles at 60
-//     beams and the butterfly is 4 steps for two particles; the next
-//     particle's window values are loaded before this one's are summed.
-//     Analytic terms (K3) are about five times as long, so they keep a
-//     warp per particle: two terms deep per lane at 60 beams, not four;
+//   - the normaliser, which depends on the expected range alone, is read
+//     from a table in shared memory (beam_model.cuh), filled once per
+//     query by log_norm_kernel (integer entries: one exp and one log a
+//     term) or subbin_norm_kernel (the sub-bin lerp: three more FMAs and
+//     a reciprocal) below. How the model is evaluated is a template
+//     argument, so a tabled kernel carries no analytic code: half the
+//     code to fetch, which the 4 us shapes feel;
+//   - tabled scans of <= 64 beams (K2, and K3 with its table) put two
+//     particles in a warp (16 lanes each, every lane <= 4 terms from
+//     registers), so no lane idles at 60 beams and the butterfly is 4
+//     steps for two particles; the next particle's window values are
+//     loaded before this one's are summed (beam_model.cuh group_rounds).
+//     Analytic terms (a range past the tables' cap) are about four times
+//     as long, so they keep a warp per particle;
 //   - a group of lanes takes P consecutive particles (P <= the group's
 //     lanes, chosen by the launcher so the grid is about two waves): lane
 //     i does the address math of particle i (two IEEE divisions, a rint,
@@ -51,7 +54,8 @@
 //     every lane for every particle, and hands the window to the group by
 //     shuffle; results go out in one coalesced store;
 //   - a block stages min(obs, m) with the beam offsets and the table
-//     (1.6-4 KB) once for its 8..16 x P particles.
+//     (1.6-8 KB; 6.4 KB of sub-bin table at m = 200) once for its
+//     8..16 x P particles.
 // The small shapes (4000 x 60) are bound by latency: the launch, the
 // staging and the dependent loads particle -> row_map -> window; the
 // particle load starts before the staging so the two overlap.
@@ -84,7 +88,6 @@
 
 namespace {
 
-using mcl::kFullMask;
 using mcl::kWarp;
 using mcl::Model;
 using mcl::Params;
@@ -131,8 +134,8 @@ struct Args {
 
 template <typename T, Model kModel, int kGroup>
 __global__ void __launch_bounds__(kThreads) lut_loglik_kernel(Args<T> a) {
-  constexpr bool kSubbin = kModel == Model::kLerped;
-  extern __shared__ float2 smem[];
+  constexpr bool kSubbin = mcl::lerps(kModel);
+  extern __shared__ __align__(16) float2 smem[];
   __shared__ MapView<T> s_map;
   constexpr int kGroups = kThreads / kGroup;
   const Params& p = a.p;
@@ -169,53 +172,29 @@ __global__ void __launch_bounds__(kThreads) lut_loglik_kernel(Args<T> a) {
   }
   const mcl::BeamStage s = mcl::stage_beams(
       smem, a.obs_px + static_cast<int64_t>(member) * a.r, a.offsets, a.r, a.table,
-      a.table_entries, p);
+      a.table_entries, p, kModel == Model::kLerped);
   __syncthreads();
   const MapView<T> m = s_map;
 
-  int64_t start = -1;  // the window's first entry in the map's LUT block
+  const T* win = nullptr;  // null off the map
   float frac = 0.0f;
   if (lig < count) {
     mcl::Window w;
     if (mcl::particle_window<kSubbin>(x, y, theta, m.ox, m.oy, m.rows, a.base,
                                       a.t_bins, m.height, m.width, p, &w)) {
-      start = w.row * a.row_stride + w.b0;
+      win = m.lut + (w.row * a.row_stride + w.b0);
       frac = w.frac;
     }
   }
-  // the warp runs as many rounds as its fullest group has particles
-  int rounds = count;
-  if (kGroup < kWarp) rounds = max(rounds, __shfl_xor_sync(kFullMask, rounds, kGroup));
-
-  float mine = -1e4f;
-  if (kGroup == mcl::kSmallGroup) {
-    // tabled scans of <= 64 beams, <= 4 terms per lane: fetch round
-    // it + 1's window values, then sum round it's from registers
-    float next[mcl::kTermsPerLane];
-    int64_t at = __shfl_sync(kFullMask, start, 0, kGroup);
-    mcl::load_ranges<kModel>(m.lut + at, s, at >= 0 ? a.r : 0, lig, 0.0f, next);
-    for (int it = 0; it < rounds; ++it) {
-      const int rr = at >= 0 ? a.r : 0;
-      float cur[mcl::kTermsPerLane];
-#pragma unroll
-      for (int k = 0; k < mcl::kTermsPerLane; ++k) cur[k] = next[k];
-      at = __shfl_sync(kFullMask, start, min(it + 1, kGroup - 1), kGroup);
-      mcl::load_ranges<kModel>(m.lut + at, s, it + 1 < rounds && at >= 0 ? a.r : 0, lig,
-                               0.0f, next);
-      const float logw = mcl::group_total<kGroup>(
-          mcl::sum_ranges<kModel>(cur, s, rr, lig, p), lane, p);
-      if (lig == it && rr > 0) mine = logw;
-    }
-  } else {
-    for (int it = 0; it < rounds; ++it) {
-      const int64_t at = __shfl_sync(kFullMask, start, it, kGroup);
-      const float fr = kSubbin ? __shfl_sync(kFullMask, frac, it, kGroup) : 0.0f;
-      const float logw = mcl::group_window_logp<kGroup, kModel>(
-          m.lut + at, at >= 0, s, a.r, lane, p, fr);
-      if (lig == it && at >= 0) mine = logw;
-    }
-  }
+  const float mine = mcl::group_rounds<kGroup, kModel>(win, frac, count, s, a.r, lane, p);
   if (lig < count) a.out[i] = mine;
+}
+
+// Fills the sub-bin table of one query: count = kSubbinSteps * m + 1
+// entries (beam_model.cuh subbin_entry).
+__global__ void subbin_norm_kernel(int count, Params p, float4* __restrict__ out) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k < count) out[k] = mcl::subbin_entry(k, p);
 }
 
 // Fills the normaliser table of one query: entry e holds
@@ -230,46 +209,14 @@ __global__ void log_norm_kernel(const float* __restrict__ d_in, int count, Param
   out[e] = mcl::norm_entry(d, p);
 }
 
-// Blocks of one kernel instantiation that fit the device at once, and the
-// opt-in to more than 48 KB of dynamic shared memory.
-template <typename Kernel>
-cudaError_t resident_blocks(Kernel kernel, size_t smem, int* blocks) {
-  // the last answer: a filter asks the same question at every correction
-  static const void* last_kernel = nullptr;
-  static int last_dev = -1, last_blocks = 0;
-  static size_t last_smem = 0;
-  const void* asked = reinterpret_cast<const void*>(kernel);
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (asked == last_kernel && dev == last_dev && smem == last_smem) {
-    *blocks = last_blocks;
-    return cudaSuccess;
-  }
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  *blocks = last_blocks = per_sm * sms;
-  last_kernel = asked;
-  last_dev = dev;
-  last_smem = smem;
-  return cudaSuccess;
-}
-
 template <typename T, Model kModel, int kGroup>
 int launch_as(Args<T> a, int members, void* stream) {
   constexpr int kGroups = kThreads / kGroup;
-  const size_t smem = mcl::stage_bytes(a.r, a.table ? a.table_entries : 0);
+  const size_t smem = mcl::stage_bytes(a.r, a.table ? a.table_entries : 0,
+                                       kModel == Model::kLerped);
   auto kernel = lut_loglik_kernel<T, kModel, kGroup>;
   int resident = 0;
-  const cudaError_t err = resident_blocks(kernel, smem, &resident);
+  const cudaError_t err = mcl::resident_blocks(kernel, smem, kThreads, &resident);
   if (err != cudaSuccess) return static_cast<int>(err);
   // P particles per group so that the grid is about kWaves waves; never
   // more than the group has lanes to own them
@@ -298,8 +245,8 @@ int launch(const T* lut, int64_t row_stride, const int32_t* row_map,
            const float* consts, const float* table, int table_entries, float* out,
            void* stream) {
   if (members <= 0 || npm <= 0) return 0;
-  if (table != nullptr && (subbin || table_entries < 1 ||
-                           table_entries > mcl::kMaxTableEntries)) {
+  const Params p = mcl::params_from(consts);
+  if (table != nullptr && !mcl::table_fits(subbin, table_entries, p)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Args<T> a;
@@ -324,11 +271,15 @@ int launch(const T* lut, int64_t row_stride, const int32_t* row_map,
   a.t_bins = t_bins;
   a.table = reinterpret_cast<const float2*>(table);
   a.table_entries = table_entries;
-  a.p = mcl::params_from(consts);
+  a.p = p;
   a.out = out;
   switch (mcl::model_of(subbin, table != nullptr)) {
     case Model::kLerped:
-      return launch_as<T, Model::kLerped, kWarp>(a, members, stream);
+      return mcl::group_lanes(r, Model::kLerped) == mcl::kSmallGroup
+                 ? launch_as<T, Model::kLerped, mcl::kSmallGroup>(a, members, stream)
+                 : launch_as<T, Model::kLerped, kWarp>(a, members, stream);
+    case Model::kLerpedAnalytic:
+      return launch_as<T, Model::kLerpedAnalytic, kWarp>(a, members, stream);
     case Model::kAnalytic:
       return launch_as<T, Model::kAnalytic, kWarp>(a, members, stream);
     default:
@@ -372,7 +323,21 @@ int mcl_log_norm(const float* d_in, int count, const float* consts, float* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// out (count, 4) float32: the sub-bin table of the query with these
+// constants, count = kSubbinSteps * m + 1.
+int mcl_subbin_norm(int count, const float* consts, float* out, void* stream) {
+  const Params p = mcl::params_from(consts);
+  if (!mcl::table_fits(true, count, p)) return static_cast<int>(cudaErrorInvalidValue);
+  subbin_norm_kernel<<<(count + 127) / 128, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      count, p, reinterpret_cast<float4*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 int mcl_max_table_entries() { return mcl::kMaxTableEntries; }
+
+int mcl_max_subbin_entries() { return mcl::kMaxSubbinEntries; }
+
+int mcl_subbin_steps() { return mcl::kSubbinSteps; }
 
 const char* mcl_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -110,23 +110,31 @@ def _bind(libs: dict[str, ctypes.CDLL]) -> None:
                        p, p, i32, i32, i32, i32, p, p, i32, p, p]
     lut.mcl_log_norm.restype = i32
     lut.mcl_log_norm.argtypes = [p, i32, p, p, p]  # d_in, count, consts, out, stream
-    lut.mcl_max_table_entries.restype = i32
-    lut.mcl_max_table_entries.argtypes = []
+    lut.mcl_subbin_norm.restype = i32
+    lut.mcl_subbin_norm.argtypes = [i32, p, p, p]  # count, consts, out, stream
+    for name in ("mcl_max_table_entries", "mcl_max_subbin_entries", "mcl_subbin_steps"):
+        getattr(lut, name).restype = i32
+        getattr(lut, name).argtypes = []
     lut.mcl_cuda_error_string.restype = ctypes.c_char_p
     lut.mcl_cuda_error_string.argtypes = [i32]
 
     dedup = libs["lut_dedup"]
+    dedup.mcl_window_keys.restype = i32
+    # particles, n, row_map, row_stride, eps, base, t_bins, height, width,
+    # subbin, key64, consts, keys, starts, fracs, overflow, stream
+    dedup.mcl_window_keys.argtypes = [p, i64, p, i64, i32, i32, i32, i32, i32, i32, i32,
+                                      p, p, p, p, p, p]
     for name in ("mcl_lut_dedup_u8", "mcl_lut_dedup_u16"):
         fn = getattr(dedup, name)
         fn.restype = i32
-        # lut, row_stride, row_map, particles, n, perm, rank, slot_y0,
-        # slots, block, wents, eps, obs_px, offsets, r, base, t_bins,
-        # height, width, subbin, consts, table, table_entries, out,
+        # lut, starts, fracs, keys, key64, perm, n, block, slots, slot_ents,
+        # eps, obs_px, offsets, r, subbin, consts, table, table_entries, out,
         # overflow, stream
-        fn.argtypes = [p, i64, p, p, i64, p, p, p, i32, i32, i32, i32, p, p,
-                       i32, i32, i32, i32, i32, i32, p, p, i32, p, p, p]
+        fn.argtypes = [p, p, p, p, i32, p, i64, i32, i32, i32, i32, p, p, i32, i32, p, p,
+                       i32, p, p, p]
     dedup.mcl_lut_dedup_max_slots.restype = i32
-    dedup.mcl_lut_dedup_max_slots.argtypes = [i32, i32, i32, i32]  # r, wents, itemsize, table_entries
+    # r, slot_ents, itemsize, table_entries, subbin
+    dedup.mcl_lut_dedup_max_slots.argtypes = [i32, i32, i32, i32, i32]
 
     mega = libs["mega_step"]
     for name in ("mcl_mega_step_u8", "mcl_mega_step_u16"):

@@ -11,17 +11,20 @@ angle-wraparound padding) and one LUT buffer serves both.
 
 :class:`LUTQuery` is the wrapper. On CUDA tensors it launches
 ``csrc/lut_likelihood.cu`` (TPU kernels K1/K2, and K3 with ``subbin``)
-or, with ``dedup_slots``, ``csrc/lut_dedup.cu`` (K4/K5), and raises on
-anything they do not take. On CPU tensors it runs the plain versions:
+or, with ``dedup_slots``, ``csrc/lut_dedup.cu`` (K4/K5: a key kernel, a
+sort and the unique-window kernel), and raises on anything they do not
+take. On CPU tensors it runs the plain versions:
 :func:`lut_log_weights_reference`, the gather form of the same math, and
 :func:`lut_dedup_reference`, which reads every window through the slot
 table that :func:`dedup_plan` builds.
 
-The kernels read the beam model's normaliser, which depends on the LUT
-entry alone, from a table of ``ceil(m) + 1`` entries that one tiny kernel
-fills once per query (:meth:`LUTQuery.norm_table`; plain version
-:func:`log_norm_table`). The sub-bin lerp makes the expected range a
-fraction, so K3 keeps the analytic normaliser.
+The kernels read the beam model's normaliser, which depends on the
+expected range alone, from a table that one tiny kernel fills once per
+query: ``ceil(m) + 1`` entries of integer ranges
+(:meth:`LUTQuery.norm_table`; plain version :func:`log_norm_table`) or,
+for the sub-bin lerp's fractional ranges, a cubic segment per 1/2 px
+(:meth:`LUTQuery.subbin_table`; plain version :func:`subbin_norm_table`).
+A range past the tables' cap keeps the analytic normaliser.
 
 The fleet form (``num_members`` F, ``per_member_maps``) serves F filters
 of N/F particles each in one launch: each member reads its own scan row
@@ -46,10 +49,15 @@ LOG_TINY = 1e-35
 OOB_LOG_WEIGHT = -1e4
 # shared memory per block: r floats + r int32; stay in the 48 KB default
 MAX_BEAMS = 48 * 1024 // 8
-STAGE_ALIGN = 16  # bytes; lut_dedup.cu stages windows with 16 B loads
+STAGE_ALIGN = 16  # bytes; lut_dedup.cu stages windows by 1-D TMA: 16 B sizes and addresses
 # the normaliser table's cap (kMaxTableEntries of csrc/beam_model.cuh):
 # a query with ceil(max_range_px) + 1 entries past it stays analytic
 MAX_TABLE_ENTRIES = 1024
+# the sub-bin table (kSubbinSteps, kMaxSubbinEntries): SUBBIN_STEPS nodes
+# per pixel for an integer max_range_px of 1..1023, else analytic
+SUBBIN_STEPS = 2
+MAX_SUBBIN_ENTRIES = SUBBIN_STEPS * (MAX_TABLE_ENTRIES - 1) + 1
+INT32_MAX = 2**31 - 1
 
 
 def entries_per_subrow(itemsize: int) -> int:
@@ -165,7 +173,11 @@ class LUTQuery:
     :meth:`norm_table` (``table_entries`` = ceil(max_range_px) + 1 rows,
     0 where the query stays analytic); filling it on a card launches
     ``log_norm_kernel`` once per device and adds one to
-    ``table_launch_count``.
+    ``table_launch_count``. With ``subbin`` they read it from
+    :meth:`subbin_table` (``subbin_table_entries`` rows, 0 where the query
+    stays analytic: ``max_range_px`` not an integer, or past 1023), filled
+    by ``subbin_norm_kernel`` (``subbin_table_launch_count``). The dedup
+    plan's key kernel counts its launches in ``key_launch_count``.
     """
 
     def __init__(
@@ -247,6 +259,10 @@ class LUTQuery:
         self.fleet = self.num_members > 1 or self.per_member_maps
         self.eps = entries_per_subrow(itemsize)
         self.window_entries = window_entries(t_bins, beam_angles, itemsize)
+        # entries the dedup kernel stages per slot: all a window can reach
+        # from its subrow (the lerp's guard bin included), in 16 B
+        span = k * (r - 1) + int(e.max()) + 2
+        self.slot_entries = _round_up(self.eps - 1 + span, STAGE_ALIGN // itemsize)
         self.info = dict(
             n_e=len(set(int(v) for v in e)),
             window_bytes=self.window_entries * itemsize,
@@ -282,10 +298,14 @@ class LUTQuery:
         )
         entries = math.ceil(self.m) + 1
         self.table_entries = 0 if self.subbin or entries > MAX_TABLE_ENTRIES else entries
+        self.subbin_table_entries = subbin_table_entries(self.m) if self.subbin else 0
         self._norm_tables: dict[torch.device, torch.Tensor] = {}
+        self._subbin_tables: dict[torch.device, torch.Tensor] = {}
         self._shared_tables = None  # ((device, N), FleetTables) of the one map
         self.launch_count = 0
         self.table_launch_count = 0
+        self.subbin_table_launch_count = 0
+        self.key_launch_count = 0
         self.fleet_launch_count = 0
         self.dedup_launch_count = 0
         self.last_overflow: torch.Tensor | None = None
@@ -416,6 +436,56 @@ class LUTQuery:
             self._norm_tables[dev] = table
         return table
 
+    def launch_subbin_norm(self, device: torch.device | str | None = None) -> torch.Tensor:
+        """Run ``subbin_norm_kernel`` (``csrc/lut_likelihood.cu``): the
+        query's sub-bin table, (``subbin_table_entries``, 4) float32 on a
+        card (:func:`subbin_norm_table` is its plain version)."""
+        from monte_carlo_localization_tpu_torch.ops._cuda_build import load_library
+
+        dev = resolve_device(self.device if device is None else device)
+        count = self.subbin_table_entries
+        if count < 1:
+            raise ValueError("this query has no sub-bin table (no subbin, or max_range_px "
+                             "not an integer of 1..1023)")
+        if dev.type != "cuda":
+            raise ValueError(f"kernel launch needs a CUDA device, got {dev}")
+        built = load_library()
+        out = torch.empty((count, 4), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = built.libs["lut_likelihood"].mcl_subbin_norm(
+                count, ctypes.addressof(self._consts), out.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(
+                f"subbin_norm launch failed: CUDA error {err} ({built.error_string(err)})"
+            )
+        self.subbin_table_launch_count += 1
+        return out
+
+    def subbin_table(self, device: torch.device | str) -> torch.Tensor | None:
+        """The sub-bin table K3 reads, (``subbin_table_entries``, 4)
+        float32 on ``device``, filled once per device: by
+        ``subbin_norm_kernel`` on a card, by :func:`subbin_norm_table` on
+        the CPU. None where the query stays analytic."""
+        if self.subbin_table_entries < 1:
+            return None
+        dev = torch.device(device)
+        table = self._subbin_tables.get(dev)
+        if table is None:
+            if dev.type == "cuda":
+                table = self.launch_subbin_norm(dev)
+            else:
+                table = subbin_norm_table(self, dev)
+            self._subbin_tables[dev] = table
+        return table
+
+    def kernel_table(self, device) -> tuple[torch.Tensor | None, int]:
+        """(table, rows) the kernels take: the sub-bin table with
+        ``subbin``, else the normaliser table; (None, 0) where analytic."""
+        if self.subbin:
+            return self.subbin_table(device), self.subbin_table_entries
+        return self.norm_table(device), self.table_entries
+
     def launch(self, lut_flat, particles, obs_px, row_map=None,
                tables: FleetTables | None = None) -> torch.Tensor:
         """Run ``csrc/lut_likelihood.cu`` (K1/K2, K3 with ``subbin``) over
@@ -434,7 +504,7 @@ class LUTQuery:
         lib = built.libs["lut_likelihood"]
         fn = lib.mcl_lut_loglik_u8 if want_dtype == torch.uint8 else lib.mcl_lut_loglik_u16
         out = torch.empty(particles.shape[0], dtype=torch.float32, device=dev)
-        table = self.norm_table(dev)
+        table, entries = self.kernel_table(dev)
 
         def ptr(t):
             return None if t is None else t.data_ptr()
@@ -449,7 +519,7 @@ class LUTQuery:
                 tables.lut_bases.data_ptr(), self.eps, obs_px.data_ptr(),
                 self.beam_offsets.data_ptr(), self.num_beams, self.base, self.t_bins,
                 int(self.subbin), ctypes.addressof(self._consts), ptr(table),
-                self.table_entries, out.data_ptr(), stream,
+                entries, out.data_ptr(), stream,
             )
         if err != 0:
             raise RuntimeError(
@@ -461,10 +531,53 @@ class LUTQuery:
             self.launch_count += 1
         return out
 
-    def launch_dedup(self, lut_flat, particles, obs_px, row_map=None) -> torch.Tensor:
-        """Run ``csrc/lut_dedup.cu`` (K4/K5) after :func:`dedup_plan`;
+    def launch_window_keys(self, lut_flat, particles, row_map=None, key64: bool = False):
+        """Run ``window_key_kernel`` (``csrc/lut_dedup.cu``), the dedup
+        plan's address math: (keys (N,) int32, or int64 where the LUT has
+        more than 2^31 - 1 subrows or ``key64`` asks for them, starts (N,)
+        int64 (-1 off the map), fracs (N,) float32 with ``subbin`` else
+        None, overflow (1,) int32 zeroed). :func:`window_keys` is its plain
+        version."""
+        from monte_carlo_localization_tpu_torch.ops._cuda_build import load_library
+
+        self._check_inputs(lut_flat, particles, None, row_map)
+        dev, n = particles.device, particles.shape[0]
+        key64 = key64 or lut_flat.numel() // self.eps > INT32_MAX
+        keys = torch.empty(n, dtype=torch.int64 if key64 else torch.int32, device=dev)
+        starts = torch.empty(n, dtype=torch.int64, device=dev)
+        fracs = torch.empty(n, dtype=torch.float32, device=dev) if self.subbin else None
+        overflow = torch.empty(1, dtype=torch.int32, device=dev)
+        built = load_library()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = built.libs["lut_dedup"].mcl_window_keys(
+                particles.data_ptr(), n, None if row_map is None else row_map.data_ptr(),
+                self.row_stride, self.eps, self.base, self.t_bins, self.height, self.width,
+                int(self.subbin), int(key64), ctypes.addressof(self._consts), keys.data_ptr(),
+                starts.data_ptr(), None if fracs is None else fracs.data_ptr(),
+                overflow.data_ptr(), stream,
+            )
+        if err != 0:
+            raise RuntimeError(
+                f"window_key launch failed: CUDA error {err} ({built.error_string(err)})"
+            )
+        self.key_launch_count += 1
+        return keys, starts, fracs, overflow
+
+    def plan_dedup(self, lut_flat, particles, row_map=None, key64: bool = False):
+        """The unique-window kernel's plan on a card: the window keys, then
+        a stable library sort of them. Returns (sorted keys, perm, starts,
+        fracs, overflow)."""
+        keys, starts, fracs, overflow = self.launch_window_keys(lut_flat, particles, row_map, key64)
+        keys, perm = torch.sort(keys, stable=True)
+        return keys, perm, starts, fracs, overflow
+
+    def launch_dedup(self, lut_flat, particles, obs_px, row_map=None,
+                     key64: bool = False) -> torch.Tensor:
+        """Run ``csrc/lut_dedup.cu`` (K4/K5) after :meth:`plan_dedup`;
         raises on any input it does not take. S is clamped to what fits
-        the card's shared memory (``launched_slots``)."""
+        the card's shared memory twice over (``launched_slots``). Keys are
+        32-bit where the LUT's subrows fit, or with ``key64`` 64-bit."""
         from monte_carlo_localization_tpu_torch.ops._cuda_build import load_library
 
         if self.dedup_slots <= 0:
@@ -476,31 +589,28 @@ class LUTQuery:
         built = load_library()
         lib = built.libs["lut_dedup"]
         itemsize = self.lut_dtype.itemsize
+        table, entries = self.kernel_table(dev)
         with torch.cuda.device(dev):
-            fit = lib.mcl_lut_dedup_max_slots(self.num_beams, self.window_entries, itemsize,
-                                              self.table_entries)
+            fit = lib.mcl_lut_dedup_max_slots(self.num_beams, self.slot_entries, itemsize,
+                                              entries, int(self.subbin))
         slots = min(self.dedup_slots, fit)
         if slots < 1:
             raise RuntimeError(
-                f"no dedup slot of {self.window_entries * itemsize} B fits the card's shared memory"
+                f"no dedup slot of {self.slot_entries * itemsize} B fits the card's shared memory"
             )
-        perm, rank, slot_y0, _ = dedup_plan(self, particles, row_map, slots)
+        keys, perm, starts, fracs, overflow = self.plan_dedup(lut_flat, particles, row_map, key64)
         fn = lib.mcl_lut_dedup_u8 if want_dtype == torch.uint8 else lib.mcl_lut_dedup_u16
         n = particles.shape[0]
         out = torch.empty(n, dtype=torch.float32, device=dev)
-        overflow = torch.zeros(1, dtype=torch.int32, device=dev)
-        table = self.norm_table(dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(
-                lut_flat.data_ptr(), self.row_stride,
-                None if row_map is None else row_map.data_ptr(),
-                particles.data_ptr(), n, perm.data_ptr(), rank.data_ptr(),
-                slot_y0.data_ptr(), slots, self.block, self.window_entries,
-                self.eps, obs_px.data_ptr(), self.beam_offsets.data_ptr(),
-                self.num_beams, self.base, self.t_bins, self.height, self.width,
-                int(self.subbin), ctypes.addressof(self._consts),
-                None if table is None else table.data_ptr(), self.table_entries,
+                lut_flat.data_ptr(), starts.data_ptr(),
+                None if fracs is None else fracs.data_ptr(), keys.data_ptr(),
+                int(keys.dtype == torch.int64), perm.data_ptr(), n, self.block, slots,
+                self.slot_entries, self.eps, obs_px.data_ptr(), self.beam_offsets.data_ptr(),
+                self.num_beams, int(self.subbin), ctypes.addressof(self._consts),
+                None if table is None else table.data_ptr(), entries,
                 out.data_ptr(), overflow.data_ptr(), stream,
             )
         if err != 0:
@@ -709,6 +819,72 @@ def _log_norm(q: LUTQuery, d: torch.Tensor) -> torch.Tensor:
     return torch.log(norm)
 
 
+def _log_norm_right(q: LUTQuery, d: torch.Tensor) -> torch.Tensor:
+    """log of the normaliser with the short-return term on: at d > 0 the
+    bits of :func:`_log_norm`, at d = 0 its limit from the right."""
+    gauss_sum = 0.5 * (_erf_as((q.m - d + 0.5) / q.sq2) - _erf_as((-d - 0.5) / q.sq2))
+    return torch.log(q.z_hit * gauss_sum + q.z_short * (d + 1.0) + q.z_max + q.z_rand)
+
+
+def subbin_table_entries(m: float) -> int:
+    """Rows of the sub-bin table at max range ``m`` px: SUBBIN_STEPS * m + 1
+    for an integer m of 1..1023, else 0 (the query keeps the analytic
+    normaliser)."""
+    if m < 1 or m != int(m):
+        return 0
+    rows = SUBBIN_STEPS * int(m) + 1
+    return rows if rows <= MAX_SUBBIN_ENTRIES else 0
+
+
+def subbin_norm_table(q: LUTQuery, device: torch.device | str = "cpu") -> torch.Tensor:
+    """Plain PyTorch version of ``subbin_norm_kernel``: (SUBBIN_STEPS * m +
+    1, 4) float32. Row k is node d_k = k / SUBBIN_STEPS and the cubic
+    Hermite segment of log norm over (d_{k-1}, d_k] in s = (d_k - d) *
+    SUBBIN_STEPS: log norm(d) ~ c0 + s (c1 + s (c2 + s c3)), c0 the analytic
+    :func:`_log_norm` at the node (the integer table's value at integer
+    nodes). Slopes are exact Gaussian derivatives, the segment
+    coefficients float64 rounded once; a segment's left end is the limit
+    from the right, so row 1's reaches d -> 0+ and row 0 (d = 0 alone) is
+    log norm(0)."""
+    entries = subbin_table_entries(q.m)
+    if entries < 1:
+        raise ValueError(f"no sub-bin table at max_range_px {q.m} (an integer of 1..1023)")
+    h = 1.0 / SUBBIN_STEPS
+    d = torch.arange(entries, dtype=torch.float32, device=device) * h  # exact
+    v = _log_norm(q, d)
+    v0 = _log_norm_right(q, d[:-1])
+    f32 = lambda x: float(np.float32(x))  # noqa: E731  the kernel's float32 constants
+
+    def slope(dd, vv):
+        dd, sq2 = dd.double(), f32(q.sq2)
+        u_lo = (dd + 0.5) / sq2
+        u_hi = (f32(q.m) - dd + 0.5) / sq2
+        dgauss = (torch.exp(-u_lo * u_lo) - torch.exp(-u_hi * u_hi)) / (math.sqrt(math.pi) * sq2)
+        return (f32(q.z_hit) * dgauss + f32(q.z_short)) / torch.exp(vv.double())
+
+    a1 = -h * slope(d[1:], v[1:])
+    b1 = -h * slope(d[:-1], v0)
+    delta = v0.double() - v[1:].double()
+    rows = torch.zeros((entries, 4), dtype=torch.float32, device=device)
+    rows[:, 0] = v
+    rows[1:, 1] = a1.float()
+    rows[1:, 2] = (3.0 * delta - 2.0 * a1 - b1).float()
+    rows[1:, 3] = (b1 + a1 - 2.0 * delta).float()
+    return rows
+
+
+def subbin_log_norm(table: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """log norm(d) read from a sub-bin table as the kernels read it, d
+    float32 in [0, m]: the segment of node ceil(d * SUBBIN_STEPS) at
+    s = node - d * SUBBIN_STEPS (0 at a node, so a node gives its own
+    value)."""
+    u = d * SUBBIN_STEPS
+    k = torch.ceil(u)
+    s = k - u
+    c = table[k.to(torch.int64)]
+    return c[..., 0] + s * (c[..., 1] + s * (c[..., 2] + s * c[..., 3]))
+
+
 def log_norm_table(q: LUTQuery, device: torch.device | str = "cpu") -> torch.Tensor:
     """Plain PyTorch version of ``log_norm_kernel``: the query's normaliser
     table, (ceil(max_range_px) + 1, 2) float32. Row e holds, at
@@ -724,11 +900,13 @@ def _window_log_weights(q: LUTQuery, lut_flat, start, frac, obs_px, oob,
                         norm_table: torch.Tensor | None = None) -> torch.Tensor:
     """The beam model and beam sum of every particle's window, read from
     flat LUT index ``start`` (N,) onward, against one scan (R,) or each
-    particle's own (N, R). With ``norm_table`` (no sub-bin lerp) the
-    normaliser is read from it by LUT entry, as the kernels do."""
+    particle's own (N, R). With ``norm_table`` the normaliser is read from
+    it as the kernels do: a (rows, 2) normaliser table by LUT entry (no
+    sub-bin lerp), a (rows, 4) sub-bin table at the lerped range."""
     idx = start[:, None] + q.beam_offsets.to(device=start.device, dtype=torch.int64)[None, :]
     d = _read_lut(lut_flat, idx)
-    if norm_table is not None:
+    subbin_table = norm_table is not None and norm_table.shape[1] == 4
+    if norm_table is not None and not subbin_table:
         if frac is not None:
             raise ValueError("the sub-bin lerp has no integer table index")
         log_norm = norm_table[torch.clamp(d.to(torch.int64), max=norm_table.shape[0] - 1), 0]
@@ -746,7 +924,9 @@ def _window_log_weights(q: LUTQuery, lut_flat, start, frac, obs_px, oob,
     p = p + torch.where(obs < d, q.short2 * (d - obs) / torch.clamp(d, min=1.0), 0.0)
     p = p + torch.where(obs >= m, q.z_max, 0.0)
     p = p + torch.where(obs < m, q.rand_term, 0.0)
-    if norm_table is None:
+    if subbin_table:
+        log_norm = subbin_log_norm(norm_table, d)
+    elif norm_table is None:
         log_norm = _log_norm(q, d)
     logp = torch.log(torch.clamp(p, min=LOG_TINY)) - log_norm
     # summed in double, as the kernel does, then rounded to float32
@@ -764,8 +944,8 @@ def lut_log_weights_reference(
     in double. The CPU path and the kernel's reference in the tests and on
     the card. A fleet query takes its ``tables``
     (:meth:`LUTQuery.fleet_tables`) and (F, R) scans. ``norm_table``
-    (:func:`log_norm_table`) reads the normaliser by LUT entry instead of
-    evaluating it per beam."""
+    (:func:`log_norm_table`, or with ``q.subbin`` :func:`subbin_norm_table`)
+    reads the normaliser from it instead of evaluating it per beam."""
     if q.fleet:
         if tables is None:
             raise ValueError("a fleet query needs its tables (LUTQuery.fleet_tables)")
@@ -776,12 +956,36 @@ def lut_log_weights_reference(
     return _window_log_weights(q, lut_flat, start, frac, obs_px, oob, norm_table)
 
 
+def dedup_keys(q: LUTQuery, particles, row_map=None) -> torch.Tensor:
+    """Every particle's window key, int64: its first subrow, ``row *
+    (row_stride / eps) + b0 // eps`` (0 off the map)."""
+    row, b0, _, oob = window_start(q, particles, row_map)
+    return torch.where(
+        oob, 0, row * (q.row_stride // q.eps) + torch.div(b0, q.eps, rounding_mode="floor")
+    )
+
+
+def window_keys(q: LUTQuery, particles, row_map=None, key_dtype=torch.int32):
+    """Plain version of ``window_key_kernel`` (``csrc/lut_dedup.cu``):
+    (keys (N,) ``key_dtype``, the window's flat start // eps and 0 off the
+    map; starts (N,) int64, -1 off the map; fracs (N,) float32 with
+    ``q.subbin`` else None)."""
+    row, b0, frac, oob = window_start(q, particles, row_map)
+    start = row * q.row_stride + b0.to(torch.int64)
+    if key_dtype == torch.int32 and bool((start // q.eps > INT32_MAX).any()):
+        raise ValueError("window keys past 2^31 - 1 need int64")
+    keys = torch.where(oob, 0, start // q.eps).to(key_dtype)
+    starts = torch.where(oob, -1, start)
+    fracs = None if frac is None else torch.where(oob, 0.0, frac)
+    return keys, starts, fracs
+
+
 def dedup_plan(q: LUTQuery, particles, row_map=None, slots: int | None = None):
     """The unique-window kernel's tables, as torch ops on the particles'
     device with no host sync (``pallas_lut.py`` query :951-978).
 
-    Every particle's window key is its first subrow, ``row * (row_stride
-    / eps) + b0 // eps`` (0 off the map). The particles are sorted by key
+    Every particle's window key is its first subrow (:func:`dedup_keys`).
+    The particles are sorted by key
     (``perm``), the sorted order is cut into blocks of ``q.block``, and
     ``rank`` is each particle's 0-based rank among its block's distinct
     keys. ``slot_y0`` (nb * S,) int64 holds each block's first S distinct
@@ -793,10 +997,7 @@ def dedup_plan(q: LUTQuery, particles, row_map=None, slots: int | None = None):
     slots = q.dedup_slots if slots is None else int(slots)
     if slots < 1:
         raise ValueError(f"dedup_plan needs slots >= 1, got {slots}")
-    row, b0, _, oob = window_start(q, particles, row_map)
-    key = torch.where(
-        oob, 0, row * (q.row_stride // q.eps) + torch.div(b0, q.eps, rounding_mode="floor")
-    )
+    key = dedup_keys(q, particles, row_map)
     n, bsz = key.shape[0], q.block
     key_sorted, perm = torch.sort(key, stable=True)
     pos = torch.arange(n, device=key.device)

@@ -31,17 +31,20 @@ def test_chip_smoke_needs_a_card():
 
 
 @pytest.mark.parametrize("subbin, ops_beam", [(False, chip_smoke.OPS_PER_BEAM_TABLED),
-                                              (True, chip_smoke.OPS_PER_BEAM_ANALYTIC + chip_smoke.OPS_PER_LERP)])
+                                              (True, chip_smoke.OPS_PER_BEAM_SUBBIN + chip_smoke.OPS_PER_LERP)])
 def test_lut_bound_counts_the_term_the_kernel_evaluates(subbin, ops_beam):
-    """A tabled term is one exp, one log and a table read; only the
-    sub-bin lerp pays the analytic normaliser's two erf."""
+    """A tabled term is one exp, one log and a table read; the sub-bin
+    lerp reads its table's cubic segment and computes the reciprocal, and
+    only a range past the tables' cap pays the analytic normaliser's two
+    erf."""
     n, n_on, r = 4000, 3000, 60
     b = chip_smoke.lut_bound(n, n_on, r, 1, False, subbin=subbin, sectors=1000)
     assert b["f32_ops"] == n * chip_smoke.OPS_PER_PARTICLE_K1 + n_on * r * ops_beam
     assert b["f64_ops"] == n_on * r
     assert b["bytes"] == 16 * n + 8 * r + n_on * r * (2 if subbin else 1)
     assert b["sector_bytes"] == 1000 * chip_smoke.SECTOR_BYTES
-    assert chip_smoke.OPS_PER_BEAM_TABLED < chip_smoke.OPS_PER_BEAM_ANALYTIC
+    assert (chip_smoke.OPS_PER_BEAM_TABLED < chip_smoke.OPS_PER_BEAM_SUBBIN
+            < chip_smoke.OPS_PER_BEAM_ANALYTIC)
 
 
 def test_bound_is_the_larger_of_bytes_and_operations():

@@ -1,6 +1,6 @@
-"""The CUDA kernels (LUT likelihood with and without the sub-bin lerp,
-unique-window LUT likelihood, mega step) against their plain PyTorch
-versions, on a card. Skipped without one. This file imports no jax, so it also runs on a
+"""The CUDA kernels (LUT likelihood with and without the sub-bin lerp, its
+normaliser tables, unique-window LUT likelihood with its key kernel, mega
+step) against their plain PyTorch versions, on a card. Skipped without one. This file imports no jax, so it also runs on a
 GPU machine without the JAX package's dependencies:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -142,6 +142,15 @@ def test_range_past_the_table_cap_stays_analytic(cuda, num_beams):
     want = lut_log_weights_reference(q, lut, parts, obs, row_map=row_map)
     assert float((got - want).abs().max()) <= 1e-3
     assert torch.equal(q(lut, parts, obs, row_map=row_map), got) and q.dedup_launch_count == 1
+    # the sub-bin lerp past the cap, and at a range that is not an integer
+    for max_range_px in (2000, 198.4):
+        qs, lut, parts, obs, row_map = _case(rng, _beams(num_beams), max_range_px, True, 4000,
+                                             cuda, subbin=True, dedup_slots=8, block=64)
+        assert qs.subbin_table_entries == 0
+        got = qs.launch(lut, parts, obs, row_map)
+        want = lut_log_weights_reference(qs, lut, parts, obs, row_map=row_map)
+        assert float((got - want).abs().max()) <= 1e-3
+        assert torch.equal(qs(lut, parts, obs, row_map=row_map), got)
     step, lut, parts, logw, noise, obs = _mega_case(rng, num_beams, 2000, 4000, cuda)
     scalars = torch.tensor([0.04, 0.03, 0.0, 0.81, 0, 0, 0, 0], dtype=torch.float32, device=cuda)
     out_p, out_w = torch.empty_like(parts), torch.empty_like(logw)
@@ -187,7 +196,8 @@ def test_norm_table_kernel_matches_plain_and_analytic(cuda, max_range_px):
 
 def test_subbin_kernel_on_whole_bin_headings_equals_table_kernel(cuda):
     """At headings on a whole bin the lerp's fraction is 0, so K3 reads
-    K1's entries: its analytic normaliser must give the table's bits."""
+    K1's entries: the sub-bin table's integer nodes must give the integer
+    table's bits."""
     rng = np.random.default_rng(34)
     for num_beams in (60, 1080):
         q, lut, parts, obs, row_map = _case(rng, _beams(num_beams), 200, True, 6000, cuda)
@@ -202,8 +212,41 @@ def test_subbin_kernel_on_whole_bin_headings_equals_table_kernel(cuda):
         got = qs(lut, parts, obs, row_map=row_map)
         want = q(lut, parts, obs, row_map=row_map)
         torch.cuda.synchronize()
+        assert qs.subbin_table_launch_count == 1
         assert bool((want != -1e4).any())
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("max_range_px", [200, 238, 400])
+def test_subbin_table_kernel_matches_plain_and_the_integer_table(cuda, max_range_px):
+    """The sub-bin table K3 reads: within 2e-6 of its plain version (CUDA
+    expf/logf and torch's differ by an ulp; the segment coefficients come
+    from those values in double), its integer nodes bit for bit the
+    integer table of the same range, and read at any range within 1e-6 of
+    the analytic device function (the table's 5.1e-7 budget and an ulp)."""
+    from monte_carlo_localization_tpu_torch.ops._cuda_build import load_library
+    from monte_carlo_localization_tpu_torch.ops.lut_query import (
+        MAX_SUBBIN_ENTRIES,
+        SUBBIN_STEPS,
+        subbin_log_norm,
+        subbin_norm_table,
+    )
+
+    lib = load_library().libs["lut_likelihood"]
+    assert lib.mcl_max_subbin_entries() == MAX_SUBBIN_ENTRIES
+    assert lib.mcl_subbin_steps() == SUBBIN_STEPS
+    rng = np.random.default_rng(35)
+    qs = _case(rng, _beams(60), max_range_px, False, 8, cuda, subbin=True)[0]
+    q = _case(rng, _beams(60), max_range_px, False, 8, cuda)[0]
+    table = qs.subbin_table(cuda)
+    assert qs.subbin_table_launch_count == 1 and qs.subbin_table(cuda) is table
+    plain = subbin_norm_table(qs, cuda)
+    assert table.shape == plain.shape == (SUBBIN_STEPS * max_range_px + 1, 4)
+    assert float((table - plain).abs().max()) <= 2e-6
+    assert torch.equal(table[::SUBBIN_STEPS, 0], q.norm_table(cuda)[:, 0])
+    d = torch.rand(100_000, device=cuda) * max_range_px
+    d[:1000] *= 1e-3  # the first segment, past the short term's jump at 0
+    assert float((subbin_log_norm(table, d) - qs.launch_log_norm(d)[:, 0]).abs().max()) <= 1e-6
 
 
 @pytest.mark.parametrize("compact", [False, True], ids=["dense", "row_map"])
@@ -260,6 +303,70 @@ def test_dedup_kernel_equals_lut_kernel(cuda, kind, subbin):
     assert int(q.last_overflow) == int(overflow)
     blocks = -(-n // 160)
     assert int(overflow) == {"converged": 0, "uniform": blocks}.get(kind, int(overflow))
+
+
+@pytest.mark.parametrize("key64", [False, True], ids=["keys32", "keys64"])
+@pytest.mark.parametrize("n", [1, 161, 100_000])
+def test_dedup_kernel_equals_lut_kernel_at_edge_counts(cuda, n, key64):
+    """One particle, a chunk and one more, and config #4's count: bit for
+    bit the LUT kernel, with 32-bit and 64-bit keys, and the overflow
+    count of dedup_plan on the same cloud."""
+    from monte_carlo_localization_tpu_torch.ops.lut_query import dedup_plan
+
+    rng = np.random.default_rng(n)
+    for subbin in (False, True):
+        q, lut, _, obs, row_map = _case(rng, _beams(60), 200, True, 8, cuda, subbin=subbin,
+                                        dedup_slots=16, block=160)
+        parts = torch.from_numpy(_cloud(rng, "mixed", n)).to(cuda)
+        if n == 1:
+            parts[0] = torch.tensor([OX + 1.0, OY + 1.0, 0.3], device=cuda)
+        got = q.launch_dedup(lut, parts, obs, row_map, key64=key64)
+        want = q.launch(lut, parts, obs, row_map)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert int(q.last_overflow) == int(dedup_plan(q, parts, row_map, q.launched_slots)[3])
+        assert q.key_launch_count == q.dedup_launch_count == 1
+
+
+@pytest.mark.parametrize("kind", ["random", "compact_row_map", "off_map"])
+def test_window_key_kernel_equals_plain_version(cuda, kind):
+    from monte_carlo_localization_tpu_torch.ops.lut_query import dedup_keys, window_keys
+
+    rng = np.random.default_rng(len(kind))
+    for subbin in (False, True):
+        q, lut, parts, _, row_map = _case(rng, _beams(60), 200, kind == "compact_row_map", 5000,
+                                          cuda, subbin=subbin, dedup_slots=16)
+        if kind == "random":
+            parts[:, 0].clamp_(OX + 0.05, OX + W * RES - 0.05)
+            parts[:, 1].clamp_(OY + 0.05, OY + H * RES - 0.05)
+        for key64 in (False, True):
+            keys, starts, fracs, overflow = q.launch_window_keys(lut, parts, row_map, key64=key64)
+            want = window_keys(q, parts, row_map, torch.int64 if key64 else torch.int32)
+            torch.cuda.synchronize()
+            assert keys.dtype == (torch.int64 if key64 else torch.int32)
+            assert torch.equal(keys, want[0]) and torch.equal(starts, want[1])
+            assert torch.equal(keys.to(torch.int64), dedup_keys(q, parts, row_map))
+            assert (fracs is None) == (not subbin) and (fracs is None or torch.equal(fracs, want[2]))
+            assert int(overflow) == 0
+            assert bool((starts < 0).any()) == (kind != "random")
+
+
+def test_dedup_shared_memory_opt_in_holds_in_any_order(cuda):
+    """The persistent kernel opts each instantiation into all the shared
+    memory a block may have: a launch that needs past 48 KB (1080 u16
+    beams, 16 slots in two buffers) after one that needs little, and
+    two queries of one instantiation in turns, all launch and give the LUT
+    kernel's bits."""
+    rng = np.random.default_rng(13)
+    big = _case(rng, _beams(1080), 400, True, 4000, cuda, dedup_slots=16, block=64)
+    big2 = _case(rng, _beams(1080), 400, False, 3000, cuda, dedup_slots=8, block=96)
+    small = _case(rng, _beams(60), 200, False, 4000, cuda, dedup_slots=4, block=64)
+    assert big[0].slot_entries * 2 * 16 * 2 > 48 * 1024
+    for q, lut, parts, obs, row_map in (small, big, small, big2, big, big2, small):
+        got = q(lut, parts, obs, row_map=row_map)
+        want = q.launch(lut, parts, obs, row_map)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 def test_dedup_u16_1080_beams_needs_opt_in_shared_memory(cuda):
