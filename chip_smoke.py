@@ -526,16 +526,18 @@ def dedup_compare(q, lut, parts, obs, row_map, what: str) -> dict:
     check(int(q.last_overflow) == int(overflow),
           f"{what}: kernel counts {int(q.last_overflow)} overflowed blocks, plain {int(overflow)}")
     keys, starts, fracs, _ = q.launch_window_keys(lut, parts, row_map)
-    want = window_keys(q, parts, row_map, keys.dtype)
+    want = window_keys(q, parts, row_map)
+    key_err = max(float((keys.to(torch.int64) - want[0].to(torch.int64)).abs().max()),
+                  float((starts - want[1]).abs().max()),
+                  0.0 if fracs is None else float((fracs - want[2]).abs().max()))
     check(torch.equal(keys, want[0]) and torch.equal(starts, want[1])
           and (fracs is None or torch.equal(fracs, want[2])),
-          f"{what}: window_key_kernel differs from its plain version")
+          f"{what}: window_key_kernel differs from its plain version by {key_err}")
     check(torch.equal(keys.to(torch.int64), dedup_keys(q, parts, row_map)),
           f"{what}: window keys differ from dedup_plan's")
     return dict(max_abs_err=err, overflowed_blocks=int(overflow),
                 blocks=-(-parts.shape[0] // q.block), slots=q.launched_slots,
-                off_map=int((plain == -1e4).sum()), key_bits=32 if keys.dtype == torch.int32 else 64,
-                keys="torch.equal")
+                off_map=int((plain == -1e4).sum()), key_max_abs_err=key_err)
 
 
 def dedup_times(q, lut, parts, obs, row_map, n_on: int) -> dict:
@@ -571,7 +573,9 @@ def dedup_times(q, lut, parts, obs, row_map, n_on: int) -> dict:
 def phase_dedup_vs_plain(device) -> dict:
     """K4/K5 at 100k particles on a random 200 x 200 LUT: converged,
     uniform and mixed clouds, with the sub-bin lerp, u16 and a row map,
-    and 1080 beams (u16 windows past the 48 KB shared-memory default)."""
+    and 1080 beams (u16 windows past the 48 KB shared-memory default).
+    Timed: the 60-beam converged and uniform clouds and both 1080-beam
+    ones."""
     import torch
 
     from monte_carlo_localization_tpu_torch.ops.lut_query import (
@@ -589,7 +593,7 @@ def phase_dedup_vs_plain(device) -> dict:
         (60, 200, False, False, ("converged", "uniform", "mixed")),
         (60, 200, False, True, ("converged", "mixed")),
         (60, 400, True, False, ("mixed",)),
-        (1080, 400, False, True, ("mixed",)),
+        (1080, 400, False, True, ("converged", "mixed")),
     ):
         beams = headline_beams(num_beams)
         dtype = np.uint8 if max_range_px <= 254 else np.uint16
@@ -622,11 +626,15 @@ def phase_dedup_vs_plain(device) -> dict:
                               cloud=kind, window_bytes=q.info["window_bytes"], **res_c))
             if num_beams == 60 and not compact and kind in ("converged", "uniform") and not subbin:
                 times[f"{n}x60 {kind}"] = dedup_times(q, lut, parts, obs, row_map, n - res_c["off_map"])
+            if num_beams == 1080:  # u16 windows: the largest slots
+                times[f"{n}x1080 {kind}, u16, subbin"] = dedup_times(
+                    q, lut, parts, obs, row_map, n - res_c["off_map"])
         del lut, row_map, parts
         torch.cuda.empty_cache()
     emit("dedup_vs_plain", t0, tol=KERNEL_TOL, slots=DEDUP_SLOTS, block=160, cases=cases,
          synthetic_lut_times=times)
-    return dict(max_abs_err=max(c["max_abs_err"] for c in cases), times=times)
+    return dict(max_abs_err=max(c["max_abs_err"] for c in cases), times=times,
+                key_max_abs_err=max(c["key_max_abs_err"] for c in cases))
 
 
 def phase_config1(device) -> dict:
@@ -1666,7 +1674,7 @@ def main() -> int:
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": None,
             "sector_bytes": c["sector_bytes"], "sector_bound_ms": c["sector_bound_ms"],
             "k1_ms_same_cloud": c["k1_device_ms"], "plan_ms": c["plan_device_ms"],
-            "plan_device_kernels": c["plan_device_kernels"], "key_bits": c["key_bits"],
+            "plan_device_kernels": c["plan_device_kernels"],
             "overflowed_blocks": c["overflowed_blocks"],
             "synthetic_times": dedup_plain["times"] if name == "dedup_K4" else None,
         })
@@ -1719,7 +1727,8 @@ def main() -> int:
             "source": "monte_carlo_localization_tpu_torch/csrc/lut_dedup.cu",
             "replaces": "monte_carlo_localization_tpu/ops/pallas_lut.py:951-978",
             "launches": sum(c["key_launches"] for c in conv.values()),
-            "max_abs_err": 0.0,  # keys, starts and fractions torch.equal their plain version
+            "max_abs_err": max([dedup_plain["key_max_abs_err"]]
+                               + [c["key_max_abs_err"] for c in conv.values()]),
             **{k: conv["dedup_K4"]["key_kernel"][k] for k in keys[2:]},
             "library_ms": None,
             "plan_ms": conv["dedup_K4"]["plan_device_ms"],

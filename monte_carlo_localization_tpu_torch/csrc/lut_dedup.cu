@@ -23,27 +23,25 @@
 //   - window_key_kernel computes every particle's window once with K1's
 //     address math (beam_model.cuh particle_window): its start in the LUT
 //     (-1 off the map, the off-map flag), its fractional bin with the
-//     sub-bin lerp, and its key, in 32 bits where the LUT's subrows fit
-//     (basement_fixed's 1,669,064 rows x 6 subrows, Spielberg's 3.4 M x 6)
-//     and 64 bits otherwise. It zeroes the overflow count;
+//     sub-bin lerp, and its 32-bit key. A key past 2^31 - 1 would need a
+//     LUT of more than 2^31 subrows of 512 B, over 1 TB: no card holds
+//     one, and the wrapper refuses it. The kernel zeroes the overflow
+//     count;
 //   - torch.sort(keys, stable=True): the sort stays a library sort, as the
 //     JAX package leaves argsort to XLA; 32-bit keys halve its radix
 //     passes;
-//   - lut_dedup_kernel, a persistent grid (at most as many blocks as fit
-//     the card at once) that walks over the chunks. For each it ranks
-//     the chunk's distinct keys by a block scan of "differs from the
-//     previous key" (ballot and popc), fills its S slots, counts the
-//     chunk if it overflows, and stages the slot windows with
-//     cp.async.bulk (1-D TMA, one contiguous window per copy) on an
-//     mbarrier. A block that walks over several chunks keeps two buffers
-//     and stages chunk c + 1 into the one chunk c - 1 used while it sums
-//     chunk c; where one buffer a block lets every chunk have a block of
-//     its own (config #4: 625 chunks of 160), the launcher takes that
-//     grid instead, as a second buffer would only cap the grid below the
-//     chunks and leave a tail of blocks summing two. The beam stage and
-//     the normaliser table are staged once per block, not per chunk. A
-//     slot stages the eps - 1 + span entries a window can reach from its
-//     subrow (16 B rounded), not the TPU's (8, 128)-rounded window.
+//   - lut_dedup_kernel, one block per chunk. It ranks the chunk's distinct
+//     keys by a block scan of "differs from the previous key" (ballot and
+//     popc), fills its S slots, counts the chunk if it overflows, and
+//     stages the slot windows with cp.async.bulk (1-D TMA, one contiguous
+//     window per copy) on an mbarrier; the beams and the normaliser table
+//     are staged while the copies land. A slot stages the eps - 1 + span
+//     entries a window can reach from its subrow (16 B rounded), not the
+//     TPU's (8, 128)-rounded window. A persistent form that walked over
+//     chunks and staged chunk c + 1 while it summed chunk c measured
+//     31-44% slower on an H100 where it took two buffers (1080 u16 beams,
+//     PERF.md): the second buffer cut the blocks an SM from 3 to 2, and
+//     the other resident blocks hide the copies of a block that waits.
 //
 // Each particle's beams are read through group_rounds, K1's own round
 // loop, beam sum and table: from the staged slot at
@@ -59,6 +57,7 @@
 // particles x 60 beams both are operation-bound; the sort, not the
 // reads, is what dedup adds.
 
+#include <climits>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -73,8 +72,12 @@ using mcl::Model;
 using mcl::Params;
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = kWarp * kWarpsPerBlock;
-constexpr int kAlign = 16;   // cp.async.bulk: 16 B multiples at 16 B aligned addresses
-constexpr int kMaxBuffers = 2;  // chunk c + 1 stages while chunk c sums
+constexpr int kAlign = 16;  // cp.async.bulk: 16 B multiples at 16 B aligned addresses
+// Blocks an SM the kernel is compiled for: a register budget of 51. Left
+// to itself ptxas gave the 60-beam form 32 registers and it ran 9-27%
+// slower than at 47 (PERF.md); 5 an SM also hold config #4's 625 chunks
+// of 160 at once on 132 SMs.
+constexpr int kMinBlocksPerSm = 5;
 
 __host__ __device__ inline size_t align16(size_t b) { return (b + kAlign - 1) / kAlign * kAlign; }
 
@@ -124,12 +127,13 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
 // Per particle: start = row * row_stride + b0 (-1 off the map), key =
 // start >> log2(eps) (0 off the map), and the fractional bin with the
 // sub-bin lerp. Thread 0 zeroes the overflow count of the launch.
-template <typename K, bool kSubbin>
+template <bool kSubbin>
 __global__ void window_key_kernel(const float* __restrict__ particles, int64_t n,
                                   const int32_t* __restrict__ row_map, int64_t row_stride,
                                   int eps_shift, int base, int t_bins, int height, int width,
-                                  Params p, K* __restrict__ keys, int64_t* __restrict__ starts,
-                                  float* __restrict__ fracs, int32_t* __restrict__ overflow) {
+                                  Params p, int32_t* __restrict__ keys,
+                                  int64_t* __restrict__ starts, float* __restrict__ fracs,
+                                  int32_t* __restrict__ overflow) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i == 0) *overflow = 0;
   if (i >= n) return;
@@ -138,7 +142,7 @@ __global__ void window_key_kernel(const float* __restrict__ particles, int64_t n
                                                 particles[3 * i + 2], p.ox, p.oy, row_map,
                                                 base, t_bins, height, width, p, &w);
   const int64_t start = on ? w.row * row_stride + w.b0 : -1;
-  keys[i] = on ? static_cast<K>(start >> eps_shift) : K(0);
+  keys[i] = on ? static_cast<int32_t>(start >> eps_shift) : 0;
   starts[i] = start;
   if (kSubbin) fracs[i] = on ? w.frac : 0.0f;
 }
@@ -150,13 +154,11 @@ struct DedupArgs {
   const T* lut;
   const int64_t* starts;  // per particle, -1 off the map
   const float* fracs;     // per particle, with the sub-bin lerp
-  const void* keys;       // sorted keys, int32 or int64 (key64)
-  int key64;
+  const int32_t* keys;    // sorted keys
   const int64_t* perm;    // sorted position -> particle
   int64_t n;
   int block;              // B: particles per chunk
   int slots;              // S
-  int buffers;            // 1, or 2 where a block walks over several chunks
   int slot_ents;          // entries staged per slot
   int eps;
   const float* obs_px;
@@ -169,19 +171,13 @@ struct DedupArgs {
   int32_t* overflow;
 };
 
-template <typename T>
-__device__ __forceinline__ int64_t key_at(const DedupArgs<T>& a, int64_t i) {
-  return a.key64 ? static_cast<const int64_t*>(a.keys)[i]
-                 : static_cast<int64_t>(static_cast<const int32_t*>(a.keys)[i]);
-}
-
 // The plan of one chunk of ``count`` sorted particles from ``first``: the
 // first S distinct keys into ``slot_keys`` (ascending), how many into
 // *used, and one count into overflow when the chunk has more. The whole
 // block calls it; it ends synchronized.
 template <typename T>
 __device__ void plan_chunk(const DedupArgs<T>& a, int64_t first, int count,
-                           int64_t* slot_keys, int* s_warp, int* used) {
+                           int32_t* slot_keys, int* s_warp, int* used) {
   const int tid = threadIdx.x;
   const int lane = tid % kWarp;
   const int warp = tid / kWarp;
@@ -189,10 +185,10 @@ __device__ void plan_chunk(const DedupArgs<T>& a, int64_t first, int count,
   for (int base = 0; base < count; base += kThreads) {
     const int k = base + tid;
     bool fresh = false;
-    int64_t key = 0;
+    int32_t key = 0;
     if (k < count) {
-      key = key_at(a, first + k);
-      fresh = k == 0 || key != key_at(a, first + k - 1);
+      key = a.keys[first + k];
+      fresh = k == 0 || key != a.keys[first + k - 1];
     }
     const unsigned mask = __ballot_sync(kFullMask, fresh);
     if (lane == 0) s_warp[warp] = __popc(mask);
@@ -217,25 +213,25 @@ __device__ void plan_chunk(const DedupArgs<T>& a, int64_t first, int count,
 }
 
 // One thread: the copies of a chunk's ``used`` slot windows into ``dst``,
-// completing on ``bar``. The block's generic reads of ``dst`` (the chunk
-// before last) ended at a __syncthreads before this.
+// completing on ``bar``.
 template <typename T>
-__device__ void stage_chunk(const DedupArgs<T>& a, const int64_t* slot_keys, int used,
+__device__ void stage_chunk(const DedupArgs<T>& a, const int32_t* slot_keys, int used,
                             unsigned char* dst, uint64_t* bar) {
   const uint32_t bytes = static_cast<uint32_t>(a.slot_ents * sizeof(T));
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   mbar_expect(bar, bytes * used);
   for (int sl = 0; sl < used; ++sl) {
-    bulk_copy(dst + static_cast<size_t>(sl) * bytes, a.lut + slot_keys[sl] * a.eps, bytes, bar);
+    bulk_copy(dst + static_cast<size_t>(sl) * bytes,
+              a.lut + static_cast<int64_t>(slot_keys[sl]) * a.eps, bytes, bar);
   }
 }
 
 template <typename T, Model kModel, int kGroup>
-__global__ void __launch_bounds__(kThreads) lut_dedup_kernel(DedupArgs<T> a) {
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm) lut_dedup_kernel(DedupArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ __align__(8) uint64_t s_bar[kMaxBuffers];
+  __shared__ __align__(8) uint64_t s_bar;
   __shared__ int s_warp[kWarpsPerBlock];
-  __shared__ int s_used[kMaxBuffers];
+  __shared__ int s_used;
   constexpr int kGroups = kThreads / kGroup;
   constexpr bool kSubTable = kModel == Model::kLerped;
   const Params& p = a.p;
@@ -243,95 +239,66 @@ __global__ void __launch_bounds__(kThreads) lut_dedup_kernel(DedupArgs<T> a) {
   const int lane = tid % kWarp;
   const int lig = tid % kGroup;
   const int g = tid / kGroup;
-  const int64_t chunks = (a.n + a.block - 1) / a.block;
-  const size_t slot_bytes = static_cast<size_t>(a.slot_ents) * sizeof(T);
-  const size_t buf_bytes = slot_bytes * a.slots;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * a.block;
+  const int count = static_cast<int>(min(static_cast<int64_t>(a.block), a.n - first));
+  const size_t win_bytes = static_cast<size_t>(a.slot_ents) * sizeof(T) * a.slots;
   const int entries = a.table ? a.table_entries : 0;
-  const int nbuf = a.buffers;
-  // [windows: nbuf x S slots][beam stage + table][slot keys: nbuf x S]
-  unsigned char* s_win = smem;
-  const mcl::BeamStage s = mcl::stage_beams(reinterpret_cast<float2*>(smem + nbuf * buf_bytes),
-                                            a.obs_px, a.offsets, a.r, a.table, entries, p,
-                                            kSubTable);
-  int64_t* s_keys = reinterpret_cast<int64_t*>(
-      smem + align16(nbuf * buf_bytes + mcl::stage_bytes(a.r, entries, kSubTable)));
+  // [windows: S slots][beam stage + table][slot keys: S]
+  const T* wins = reinterpret_cast<const T*>(smem);
+  int32_t* s_keys = reinterpret_cast<int32_t*>(
+      smem + align16(win_bytes + mcl::stage_bytes(a.r, entries, kSubTable)));
   if (tid == 0) {
-    for (int b = 0; b < nbuf; ++b) mbar_init(&s_bar[b]);
+    mbar_init(&s_bar);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  plan_chunk(a, first, count, s_keys, s_warp, &s_used);
+  const int used = s_used;
+  if (tid == 0) stage_chunk(a, s_keys, used, smem, &s_bar);
+  const mcl::BeamStage s = mcl::stage_beams(reinterpret_cast<float2*>(smem + win_bytes),
+                                            a.obs_px, a.offsets, a.r, a.table, entries, p,
+                                            kSubTable);
   __syncthreads();
+  mbar_wait(&s_bar, 0);
 
-  auto count_of = [&](int64_t c) {
-    return static_cast<int>(min(static_cast<int64_t>(a.block), a.n - c * a.block));
-  };
-  int64_t c = blockIdx.x;  // the launcher keeps the grid <= chunks
-  plan_chunk(a, c * a.block, count_of(c), s_keys, s_warp, &s_used[0]);
-  if (tid == 0) stage_chunk(a, s_keys, s_used[0], s_win, &s_bar[0]);
-  uint32_t parity = 0;  // bit b: the phase buffer b waits for next
-  for (int b = 0; c < chunks; b = (b + 1) % nbuf) {
-    const int64_t next = c + gridDim.x;
-    if (nbuf == 2 && next < chunks) {
-      const int nb = b ^ 1;
-      plan_chunk(a, next * a.block, count_of(next), s_keys + nb * a.slots, s_warp, &s_used[nb]);
-      if (tid == 0) {
-        stage_chunk(a, s_keys + nb * a.slots, s_used[nb], s_win + nb * buf_bytes, &s_bar[nb]);
-      }
-    }
-    const int used = s_used[b];
-    const int64_t* keys = s_keys + b * a.slots;
-    const T* wins = reinterpret_cast<const T*>(s_win + b * buf_bytes);
-    const int64_t first = c * a.block;
-    const int count = count_of(c);
-    mbar_wait(&s_bar[b], (parity >> b) & 1u);
-    parity ^= 1u << b;
-
-    // a pass gives each group up to kGroup consecutive particles of the
-    // chunk; lane i of a group finds particle i's window
-    for (int base = 0; base < count; base += kGroups * kGroup) {
-      const int left = count - base;
-      const int per = min(kGroup, (left + kGroups - 1) / kGroups);
-      const int mine_n = max(0, min(per, left - g * per));
-      const T* win = nullptr;
-      float frac = 0.0f;
-      int64_t src = -1;
-      if (lig < mine_n) {
-        const int64_t i = first + base + g * per + lig;
-        src = a.perm[i];
-        const int64_t start = a.starts[src];
-        if (start >= 0) {
-          if (mcl::lerps(kModel)) frac = a.fracs[src];
-          const int64_t key = key_at(a, i);
-          int lo = 0, hi = used;  // the slot keys ascend
-          while (lo < hi) {
-            const int mid = (lo + hi) >> 1;
-            if (keys[mid] < key) {
-              lo = mid + 1;
-            } else {
-              hi = mid;
-            }
+  // a pass gives each group up to kGroup consecutive particles of the
+  // chunk; lane i of a group finds particle i's window
+  for (int base = 0; base < count; base += kGroups * kGroup) {
+    const int left = count - base;
+    const int per = min(kGroup, (left + kGroups - 1) / kGroups);
+    const int mine_n = max(0, min(per, left - g * per));
+    const T* win = nullptr;
+    float frac = 0.0f;
+    int64_t src = -1;
+    if (lig < mine_n) {
+      const int64_t i = first + base + g * per + lig;
+      src = a.perm[i];
+      const int64_t start = a.starts[src];
+      if (start >= 0) {
+        if (mcl::lerps(kModel)) frac = a.fracs[src];
+        const int32_t key = a.keys[i];
+        int lo = 0, hi = used;  // the slot keys ascend
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (s_keys[mid] < key) {
+            lo = mid + 1;
+          } else {
+            hi = mid;
           }
-          win = lo < used && keys[lo] == key
-                    ? wins + static_cast<int64_t>(lo) * a.slot_ents + (start & (a.eps - 1))
-                    : a.lut + start;
         }
+        win = lo < used && s_keys[lo] == key
+                  ? wins + static_cast<int64_t>(lo) * a.slot_ents + (start & (a.eps - 1))
+                  : a.lut + start;
       }
-      const float mine = mcl::group_rounds<kGroup, kModel>(win, frac, mine_n, s, a.r, lane, p);
-      if (lig < mine_n) a.out[src] = mine;
     }
-    __syncthreads();  // buffer b is free for the chunk after next
-    if (nbuf == 1 && next < chunks) {
-      plan_chunk(a, next * a.block, count_of(next), s_keys, s_warp, &s_used[0]);
-      if (tid == 0) stage_chunk(a, s_keys, s_used[0], s_win, &s_bar[0]);
-    }
-    c = next;
+    const float mine = mcl::group_rounds<kGroup, kModel>(win, frac, mine_n, s, a.r, lane, p);
+    if (lig < mine_n) a.out[src] = mine;
   }
 }
 
 // The kernel's dynamic shared memory: the windows (16 B multiples), the
-// stage, 16 B aligned, and the slot keys, for ``buffers`` chunks.
-size_t smem_bytes(int r, int table_entries, bool sub_table, int slots, size_t slot_bytes,
-                  int buffers) {
-  return buffers * slots * (slot_bytes + sizeof(int64_t)) +
+// stage, 16 B aligned, and the slot keys.
+size_t smem_bytes(int r, int table_entries, bool sub_table, int slots, size_t slot_bytes) {
+  return slots * (slot_bytes + sizeof(int32_t)) +
          align16(mcl::stage_bytes(r, table_entries, sub_table));
 }
 
@@ -354,8 +321,8 @@ auto with_kernel(int r, Model model, F f) {
   }
 }
 
-// The most slots of ``slot_ents`` entries whose two buffers fit the
-// card's opt-in shared memory beside the stage.
+// The most slots of ``slot_ents`` entries that fit the card's opt-in
+// shared memory beside the stage.
 template <typename T>
 int max_slots(int r, int slot_ents, int table_entries, int subbin) {
   int dev = 0, optin = 0;
@@ -372,77 +339,50 @@ int max_slots(int r, int slot_ents, int table_entries, int subbin) {
   const size_t head = align16(mcl::stage_bytes(r, table_entries, sub_table));
   const size_t room = static_cast<size_t>(optin) - attr.sharedSizeBytes;
   if (room <= head) return 0;
-  const size_t per_slot =
-      kMaxBuffers * (static_cast<size_t>(slot_ents) * sizeof(T) + sizeof(int64_t));
+  const size_t per_slot = static_cast<size_t>(slot_ents) * sizeof(T) + sizeof(int32_t);
   return static_cast<int>((room - head) / per_slot);
 }
 
 template <typename T>
-int launch(const T* lut, const int64_t* starts, const float* fracs, const void* keys,
-           int key64, const int64_t* perm, int64_t n, int block, int slots, int slot_ents,
-           int eps, const float* obs_px, const int32_t* offsets, int r, int subbin,
-           const float* consts, const float* table, int table_entries, float* out,
-           int32_t* overflow, void* stream) {
+int launch(const T* lut, const int64_t* starts, const float* fracs, const int32_t* keys,
+           const int64_t* perm, int64_t n, int block, int slots, int slot_ents, int eps,
+           const float* obs_px, const int32_t* offsets, int r, int subbin, const float* consts,
+           const float* table, int table_entries, float* out, int32_t* overflow,
+           void* stream) {
   if (n <= 0) return 0;
   const Params p = mcl::params_from(consts);
-  if (slots < 1 || block < 1 || (slot_ents * static_cast<int>(sizeof(T))) % kAlign != 0 ||
-      eps <= 0 || (eps & (eps - 1)) != 0 || (subbin && fracs == nullptr) ||
+  const int64_t chunks = block > 0 ? (n + block - 1) / block : 0;
+  if (slots < 1 || block < 1 || chunks > INT_MAX ||
+      (slot_ents * static_cast<int>(sizeof(T))) % kAlign != 0 || eps <= 0 ||
+      (eps & (eps - 1)) != 0 || (subbin && fracs == nullptr) ||
       (table != nullptr && !mcl::table_fits(subbin, table_entries, p))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  DedupArgs<T> a{lut, starts, fracs, keys, key64, perm, n, block, slots, 1, slot_ents, eps,
-                 obs_px, offsets, r, reinterpret_cast<const float2*>(table), table_entries,
-                 p, out, overflow};
+  const DedupArgs<T> a{lut, starts, fracs, keys, perm, n, block, slots, slot_ents, eps,
+                       obs_px, offsets, r, reinterpret_cast<const float2*>(table),
+                       table_entries, p, out, overflow};
   const Model model = mcl::model_of(subbin, table != nullptr);
-  const int64_t chunks = (n + block - 1) / block;
+  const size_t smem = smem_bytes(r, table ? table_entries : 0, model == Model::kLerped, slots,
+                                 static_cast<size_t>(slot_ents) * sizeof(T));
   return with_kernel<T>(r, model, [&](auto kernel) {
-    // one buffer where that grid holds every chunk at once, else two
-    int resident = 0;
-    size_t smem = 0;
-    for (a.buffers = 1; a.buffers <= kMaxBuffers; ++a.buffers) {
-      smem = smem_bytes(r, table ? table_entries : 0, model == Model::kLerped, slots,
-                        static_cast<size_t>(slot_ents) * sizeof(T), a.buffers);
-      const cudaError_t err = mcl::resident_blocks(kernel, smem, kThreads, &resident);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      if (chunks <= resident || a.buffers == kMaxBuffers) break;
-    }
-    const unsigned grid = static_cast<unsigned>(chunks < resident ? chunks : resident);
-    kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+    int resident = 0;  // asked for its opt-in into the shared memory the launch needs
+    const cudaError_t err = mcl::resident_blocks(kernel, smem, kThreads, &resident);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<static_cast<unsigned>(chunks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        a);
     return static_cast<int>(cudaGetLastError());
   });
-}
-
-template <typename K>
-int launch_keys(const float* particles, int64_t n, const int32_t* row_map, int64_t row_stride,
-                int eps_shift, int base, int t_bins, int height, int width, int subbin,
-                const Params& p, K* keys, int64_t* starts, float* fracs, int32_t* overflow,
-                void* stream) {
-  const int64_t grid = (n + kThreads - 1) / kThreads;
-  const unsigned blocks = static_cast<unsigned>(grid > 0 ? grid : 1);  // n = 0 zeroes overflow
-  auto s = static_cast<cudaStream_t>(stream);
-  if (subbin) {
-    window_key_kernel<K, true><<<blocks, kThreads, 0, s>>>(particles, n, row_map, row_stride,
-                                                           eps_shift, base, t_bins, height,
-                                                           width, p, keys, starts, fracs,
-                                                           overflow);
-  } else {
-    window_key_kernel<K, false><<<blocks, kThreads, 0, s>>>(particles, n, row_map, row_stride,
-                                                            eps_shift, base, t_bins, height,
-                                                            width, p, keys, starts, fracs,
-                                                            overflow);
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// keys (n,) int32 (key64 = 0) or int64, starts (n,) int64, fracs (n,)
-// float32 (with subbin), overflow (1,) int32 zeroed.
+// keys (n,) int32, starts (n,) int64, fracs (n,) float32 (with subbin),
+// overflow (1,) int32 zeroed.
 int mcl_window_keys(const float* particles, int64_t n, const int32_t* row_map,
                     int64_t row_stride, int eps, int base, int t_bins, int height, int width,
-                    int subbin, int key64, const float* consts, void* keys, int64_t* starts,
+                    int subbin, const float* consts, int32_t* keys, int64_t* starts,
                     float* fracs, int32_t* overflow, void* stream) {
   if (n < 0 || eps <= 0 || (eps & (eps - 1)) != 0 || row_stride % eps != 0 ||
       (subbin && fracs == nullptr)) {
@@ -450,23 +390,30 @@ int mcl_window_keys(const float* particles, int64_t n, const int32_t* row_map,
   }
   const Params p = mcl::params_from(consts);
   const int shift = __builtin_ctz(static_cast<unsigned>(eps));
-  return key64 ? launch_keys(particles, n, row_map, row_stride, shift, base, t_bins, height,
-                             width, subbin, p, static_cast<int64_t*>(keys), starts, fracs,
-                             overflow, stream)
-               : launch_keys(particles, n, row_map, row_stride, shift, base, t_bins, height,
-                             width, subbin, p, static_cast<int32_t*>(keys), starts, fracs,
-                             overflow, stream);
+  const int64_t grid = (n + kThreads - 1) / kThreads;
+  const unsigned blocks = static_cast<unsigned>(grid > 0 ? grid : 1);  // n = 0 zeroes overflow
+  auto s = static_cast<cudaStream_t>(stream);
+  if (subbin) {
+    window_key_kernel<true><<<blocks, kThreads, 0, s>>>(particles, n, row_map, row_stride,
+                                                        shift, base, t_bins, height, width,
+                                                        p, keys, starts, fracs, overflow);
+  } else {
+    window_key_kernel<false><<<blocks, kThreads, 0, s>>>(particles, n, row_map, row_stride,
+                                                         shift, base, t_bins, height, width,
+                                                         p, keys, starts, fracs, overflow);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
-#define MCL_DEDUP_ENTRY(NAME, T)                                                       \
-  int NAME(const T* lut, const int64_t* starts, const float* fracs, const void* keys,  \
-           int key64, const int64_t* perm, int64_t n, int block, int slots,           \
-           int slot_ents, int eps, const float* obs_px, const int32_t* offsets, int r, \
-           int subbin, const float* consts, const float* table, int table_entries,    \
-           float* out, int32_t* overflow, void* stream) {                             \
-    return launch<T>(lut, starts, fracs, keys, key64, perm, n, block, slots, slot_ents, \
-                     eps, obs_px, offsets, r, subbin, consts, table, table_entries, out, \
-                     overflow, stream);                                                \
+#define MCL_DEDUP_ENTRY(NAME, T)                                                         \
+  int NAME(const T* lut, const int64_t* starts, const float* fracs, const int32_t* keys, \
+           const int64_t* perm, int64_t n, int block, int slots, int slot_ents, int eps,  \
+           const float* obs_px, const int32_t* offsets, int r, int subbin,                \
+           const float* consts, const float* table, int table_entries, float* out,        \
+           int32_t* overflow, void* stream) {                                             \
+    return launch<T>(lut, starts, fracs, keys, perm, n, block, slots, slot_ents, eps,     \
+                     obs_px, offsets, r, subbin, consts, table, table_entries, out,       \
+                     overflow, stream);                                                   \
   }
 
 MCL_DEDUP_ENTRY(mcl_lut_dedup_u8, uint8_t)

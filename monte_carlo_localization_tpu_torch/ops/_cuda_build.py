@@ -121,16 +121,16 @@ def _bind(libs: dict[str, ctypes.CDLL]) -> None:
     dedup = libs["lut_dedup"]
     dedup.mcl_window_keys.restype = i32
     # particles, n, row_map, row_stride, eps, base, t_bins, height, width,
-    # subbin, key64, consts, keys, starts, fracs, overflow, stream
-    dedup.mcl_window_keys.argtypes = [p, i64, p, i64, i32, i32, i32, i32, i32, i32, i32,
+    # subbin, consts, keys, starts, fracs, overflow, stream
+    dedup.mcl_window_keys.argtypes = [p, i64, p, i64, i32, i32, i32, i32, i32, i32,
                                       p, p, p, p, p, p]
     for name in ("mcl_lut_dedup_u8", "mcl_lut_dedup_u16"):
         fn = getattr(dedup, name)
         fn.restype = i32
-        # lut, starts, fracs, keys, key64, perm, n, block, slots, slot_ents,
-        # eps, obs_px, offsets, r, subbin, consts, table, table_entries, out,
+        # lut, starts, fracs, keys, perm, n, block, slots, slot_ents, eps,
+        # obs_px, offsets, r, subbin, consts, table, table_entries, out,
         # overflow, stream
-        fn.argtypes = [p, p, p, p, i32, p, i64, i32, i32, i32, i32, p, p, i32, i32, p, p,
+        fn.argtypes = [p, p, p, p, p, i64, i32, i32, i32, i32, p, p, i32, i32, p, p,
                        i32, p, p, p]
     dedup.mcl_lut_dedup_max_slots.restype = i32
     # r, slot_ents, itemsize, table_entries, subbin

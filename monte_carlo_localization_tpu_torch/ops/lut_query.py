@@ -531,19 +531,26 @@ class LUTQuery:
             self.launch_count += 1
         return out
 
-    def launch_window_keys(self, lut_flat, particles, row_map=None, key64: bool = False):
+    def _check_key_range(self, lut_flat) -> None:
+        """Window keys are 32-bit: a LUT of more than 2^31 - 1 subrows of
+        ``eps`` entries (over 1 TB) would need more, and no card holds
+        one."""
+        if lut_flat.numel() // self.eps > INT32_MAX:
+            raise ValueError(
+                f"a LUT of {lut_flat.numel() // self.eps} subrows has window keys past int32"
+            )
+
+    def launch_window_keys(self, lut_flat, particles, row_map=None):
         """Run ``window_key_kernel`` (``csrc/lut_dedup.cu``), the dedup
-        plan's address math: (keys (N,) int32, or int64 where the LUT has
-        more than 2^31 - 1 subrows or ``key64`` asks for them, starts (N,)
-        int64 (-1 off the map), fracs (N,) float32 with ``subbin`` else
-        None, overflow (1,) int32 zeroed). :func:`window_keys` is its plain
-        version."""
+        plan's address math: (keys (N,) int32, starts (N,) int64 (-1 off
+        the map), fracs (N,) float32 with ``subbin`` else None, overflow
+        (1,) int32 zeroed). :func:`window_keys` is its plain version."""
         from monte_carlo_localization_tpu_torch.ops._cuda_build import load_library
 
+        self._check_key_range(lut_flat)
         self._check_inputs(lut_flat, particles, None, row_map)
         dev, n = particles.device, particles.shape[0]
-        key64 = key64 or lut_flat.numel() // self.eps > INT32_MAX
-        keys = torch.empty(n, dtype=torch.int64 if key64 else torch.int32, device=dev)
+        keys = torch.empty(n, dtype=torch.int32, device=dev)
         starts = torch.empty(n, dtype=torch.int64, device=dev)
         fracs = torch.empty(n, dtype=torch.float32, device=dev) if self.subbin else None
         overflow = torch.empty(1, dtype=torch.int32, device=dev)
@@ -553,7 +560,7 @@ class LUTQuery:
             err = built.libs["lut_dedup"].mcl_window_keys(
                 particles.data_ptr(), n, None if row_map is None else row_map.data_ptr(),
                 self.row_stride, self.eps, self.base, self.t_bins, self.height, self.width,
-                int(self.subbin), int(key64), ctypes.addressof(self._consts), keys.data_ptr(),
+                int(self.subbin), ctypes.addressof(self._consts), keys.data_ptr(),
                 starts.data_ptr(), None if fracs is None else fracs.data_ptr(),
                 overflow.data_ptr(), stream,
             )
@@ -564,24 +571,23 @@ class LUTQuery:
         self.key_launch_count += 1
         return keys, starts, fracs, overflow
 
-    def plan_dedup(self, lut_flat, particles, row_map=None, key64: bool = False):
+    def plan_dedup(self, lut_flat, particles, row_map=None):
         """The unique-window kernel's plan on a card: the window keys, then
         a stable library sort of them. Returns (sorted keys, perm, starts,
         fracs, overflow)."""
-        keys, starts, fracs, overflow = self.launch_window_keys(lut_flat, particles, row_map, key64)
+        keys, starts, fracs, overflow = self.launch_window_keys(lut_flat, particles, row_map)
         keys, perm = torch.sort(keys, stable=True)
         return keys, perm, starts, fracs, overflow
 
-    def launch_dedup(self, lut_flat, particles, obs_px, row_map=None,
-                     key64: bool = False) -> torch.Tensor:
+    def launch_dedup(self, lut_flat, particles, obs_px, row_map=None) -> torch.Tensor:
         """Run ``csrc/lut_dedup.cu`` (K4/K5) after :meth:`plan_dedup`;
         raises on any input it does not take. S is clamped to what fits
-        the card's shared memory twice over (``launched_slots``). Keys are
-        32-bit where the LUT's subrows fit, or with ``key64`` 64-bit."""
+        the card's shared memory (``launched_slots``)."""
         from monte_carlo_localization_tpu_torch.ops._cuda_build import load_library
 
         if self.dedup_slots <= 0:
             raise ValueError("launch_dedup needs dedup_slots > 0")
+        self._check_key_range(lut_flat)
         want_dtype = self._check_inputs(lut_flat, particles, obs_px, row_map)
         if lut_flat.data_ptr() % STAGE_ALIGN:
             raise ValueError(f"lut_flat must start on a {STAGE_ALIGN} B boundary")
@@ -598,7 +604,7 @@ class LUTQuery:
             raise RuntimeError(
                 f"no dedup slot of {self.slot_entries * itemsize} B fits the card's shared memory"
             )
-        keys, perm, starts, fracs, overflow = self.plan_dedup(lut_flat, particles, row_map, key64)
+        keys, perm, starts, fracs, overflow = self.plan_dedup(lut_flat, particles, row_map)
         fn = lib.mcl_lut_dedup_u8 if want_dtype == torch.uint8 else lib.mcl_lut_dedup_u16
         n = particles.shape[0]
         out = torch.empty(n, dtype=torch.float32, device=dev)
@@ -606,12 +612,11 @@ class LUTQuery:
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(
                 lut_flat.data_ptr(), starts.data_ptr(),
-                None if fracs is None else fracs.data_ptr(), keys.data_ptr(),
-                int(keys.dtype == torch.int64), perm.data_ptr(), n, self.block, slots,
-                self.slot_entries, self.eps, obs_px.data_ptr(), self.beam_offsets.data_ptr(),
-                self.num_beams, int(self.subbin), ctypes.addressof(self._consts),
-                None if table is None else table.data_ptr(), entries,
-                out.data_ptr(), overflow.data_ptr(), stream,
+                None if fracs is None else fracs.data_ptr(), keys.data_ptr(), perm.data_ptr(),
+                n, self.block, slots, self.slot_entries, self.eps, obs_px.data_ptr(),
+                self.beam_offsets.data_ptr(), self.num_beams, int(self.subbin),
+                ctypes.addressof(self._consts), None if table is None else table.data_ptr(),
+                entries, out.data_ptr(), overflow.data_ptr(), stream,
             )
         if err != 0:
             raise RuntimeError(
@@ -965,16 +970,16 @@ def dedup_keys(q: LUTQuery, particles, row_map=None) -> torch.Tensor:
     )
 
 
-def window_keys(q: LUTQuery, particles, row_map=None, key_dtype=torch.int32):
+def window_keys(q: LUTQuery, particles, row_map=None):
     """Plain version of ``window_key_kernel`` (``csrc/lut_dedup.cu``):
-    (keys (N,) ``key_dtype``, the window's flat start // eps and 0 off the
-    map; starts (N,) int64, -1 off the map; fracs (N,) float32 with
-    ``q.subbin`` else None)."""
+    (keys (N,) int32, the window's flat start // eps and 0 off the map;
+    starts (N,) int64, -1 off the map; fracs (N,) float32 with
+    ``q.subbin`` else None). Raises where a key is past int32."""
     row, b0, frac, oob = window_start(q, particles, row_map)
     start = row * q.row_stride + b0.to(torch.int64)
-    if key_dtype == torch.int32 and bool((start // q.eps > INT32_MAX).any()):
-        raise ValueError("window keys past 2^31 - 1 need int64")
-    keys = torch.where(oob, 0, start // q.eps).to(key_dtype)
+    if bool((start // q.eps > INT32_MAX).any()):
+        raise ValueError("window keys past 2^31 - 1 do not fit int32")
+    keys = torch.where(oob, 0, start // q.eps).to(torch.int32)
     starts = torch.where(oob, -1, start)
     fracs = None if frac is None else torch.where(oob, 0.0, frac)
     return keys, starts, fracs

@@ -305,12 +305,11 @@ def test_dedup_kernel_equals_lut_kernel(cuda, kind, subbin):
     assert int(overflow) == {"converged": 0, "uniform": blocks}.get(kind, int(overflow))
 
 
-@pytest.mark.parametrize("key64", [False, True], ids=["keys32", "keys64"])
 @pytest.mark.parametrize("n", [1, 161, 100_000])
-def test_dedup_kernel_equals_lut_kernel_at_edge_counts(cuda, n, key64):
+def test_dedup_kernel_equals_lut_kernel_at_edge_counts(cuda, n):
     """One particle, a chunk and one more, and config #4's count: bit for
-    bit the LUT kernel, with 32-bit and 64-bit keys, and the overflow
-    count of dedup_plan on the same cloud."""
+    bit the LUT kernel, and the overflow count of dedup_plan on the same
+    cloud."""
     from monte_carlo_localization_tpu_torch.ops.lut_query import dedup_plan
 
     rng = np.random.default_rng(n)
@@ -320,7 +319,7 @@ def test_dedup_kernel_equals_lut_kernel_at_edge_counts(cuda, n, key64):
         parts = torch.from_numpy(_cloud(rng, "mixed", n)).to(cuda)
         if n == 1:
             parts[0] = torch.tensor([OX + 1.0, OY + 1.0, 0.3], device=cuda)
-        got = q.launch_dedup(lut, parts, obs, row_map, key64=key64)
+        got = q.launch_dedup(lut, parts, obs, row_map)
         want = q.launch(lut, parts, obs, row_map)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
@@ -339,29 +338,28 @@ def test_window_key_kernel_equals_plain_version(cuda, kind):
         if kind == "random":
             parts[:, 0].clamp_(OX + 0.05, OX + W * RES - 0.05)
             parts[:, 1].clamp_(OY + 0.05, OY + H * RES - 0.05)
-        for key64 in (False, True):
-            keys, starts, fracs, overflow = q.launch_window_keys(lut, parts, row_map, key64=key64)
-            want = window_keys(q, parts, row_map, torch.int64 if key64 else torch.int32)
-            torch.cuda.synchronize()
-            assert keys.dtype == (torch.int64 if key64 else torch.int32)
-            assert torch.equal(keys, want[0]) and torch.equal(starts, want[1])
-            assert torch.equal(keys.to(torch.int64), dedup_keys(q, parts, row_map))
-            assert (fracs is None) == (not subbin) and (fracs is None or torch.equal(fracs, want[2]))
-            assert int(overflow) == 0
-            assert bool((starts < 0).any()) == (kind != "random")
+        keys, starts, fracs, overflow = q.launch_window_keys(lut, parts, row_map)
+        want = window_keys(q, parts, row_map)
+        torch.cuda.synchronize()
+        assert keys.dtype == torch.int32
+        assert torch.equal(keys, want[0]) and torch.equal(starts, want[1])
+        assert torch.equal(keys.to(torch.int64), dedup_keys(q, parts, row_map))
+        assert (fracs is None) == (not subbin) and (fracs is None or torch.equal(fracs, want[2]))
+        assert int(overflow) == 0
+        assert bool((starts < 0).any()) == (kind != "random")
 
 
 def test_dedup_shared_memory_opt_in_holds_in_any_order(cuda):
-    """The persistent kernel opts each instantiation into all the shared
-    memory a block may have: a launch that needs past 48 KB (1080 u16
-    beams, 16 slots in two buffers) after one that needs little, and
-    two queries of one instantiation in turns, all launch and give the LUT
-    kernel's bits."""
+    """The dedup kernel opts each instantiation into all the shared memory
+    a block may have: a launch that needs past 48 KB (1080 u16 beams, 16
+    slots beside the beam stage and the table) after one that needs
+    little, and two queries of one instantiation in turns, all launch and
+    give the LUT kernel's bits."""
     rng = np.random.default_rng(13)
     big = _case(rng, _beams(1080), 400, True, 4000, cuda, dedup_slots=16, block=64)
     big2 = _case(rng, _beams(1080), 400, False, 3000, cuda, dedup_slots=8, block=96)
     small = _case(rng, _beams(60), 200, False, 4000, cuda, dedup_slots=4, block=64)
-    assert big[0].slot_entries * 2 * 16 * 2 > 48 * 1024
+    assert big[0].slot_entries * 2 * 16 + 1080 * 8 + big[0].table_entries * 8 > 48 * 1024
     for q, lut, parts, obs, row_map in (small, big, small, big2, big, big2, small):
         got = q(lut, parts, obs, row_map=row_map)
         want = q.launch(lut, parts, obs, row_map)

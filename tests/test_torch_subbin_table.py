@@ -259,13 +259,19 @@ def test_window_keys_are_the_plans_keys_in_32_bits(kind, subbin):
 
 
 def test_window_keys_past_32_bits_need_int64():
-    """A compact LUT with more than 2^31 - 1 subrows has keys past int32."""
+    """A compact LUT with more than 2^31 - 1 subrows would have keys past
+    int32 (dedup_plan's int64 keys show them). Such a LUT is over 1 TB and
+    fits no card: the plain version and the wrappers refuse it."""
     q = _query(120, dedup_slots=8)
     parts = _cloud(np.random.default_rng(3), "random", q, 64)
     row_map = torch.full((H * W,), 900_000_000, dtype=torch.int32)
     row_map[::2] = 7
-    with pytest.raises(ValueError, match="int64"):
+    with pytest.raises(ValueError, match="int32"):
         tlut.window_keys(q, parts, row_map)
-    keys, starts, _ = tlut.window_keys(q, parts, row_map, key_dtype=torch.int64)
-    assert torch.equal(keys, tlut.dedup_keys(q, parts, row_map))
-    assert int(keys.max()) > tlut.INT32_MAX
+    assert int(tlut.dedup_keys(q, parts, row_map).max()) > tlut.INT32_MAX
+    huge = torch.zeros(1, dtype=torch.uint8).expand((tlut.INT32_MAX + 1) * q.eps)
+    obs = torch.zeros(q.num_beams)
+    with pytest.raises(ValueError, match="int32"):
+        q.launch_window_keys(huge, parts, row_map)
+    with pytest.raises(ValueError, match="int32"):
+        q.launch_dedup(huge, parts, obs, row_map)
