@@ -637,6 +637,55 @@ def phase_dedup_vs_plain(device) -> dict:
                 key_max_abs_err=max(c["key_max_abs_err"] for c in cases))
 
 
+def knife_edge_ranges(res: float, max_range_px: int, count: int, seed: int = 0) -> np.ndarray:
+    """``count`` float32 ranges in meters: every half-pixel knife edge
+    (k + 0.5) * res of [0, max_range_px] and its neighbours up to 2 ulp
+    away, the rest uniform over 0..1.05 max range (past it the index
+    clips)."""
+    half = ((np.arange(max_range_px + 1) + 0.5) * res).astype(np.float32)
+    up, down = [half], [half]
+    for _ in range(2):
+        up.append(np.nextafter(up[-1], np.float32(np.inf)))
+        down.append(np.nextafter(down[-1], np.float32(0)))
+    edge = np.concatenate(up + down[1:])
+    rng = np.random.default_rng(seed)
+    rest = rng.uniform(0.0, 1.05 * max_range_px * res, count - edge.size).astype(np.float32)
+    return np.concatenate([edge, rest])
+
+
+def phase_division(device) -> dict:
+    """``SensorModel.to_pixel_index`` on the card against the CPU, bit
+    for bit, on 10^6 ranges with every half-pixel knife edge (config #1's
+    0.05 m map and 12 m range: 240 px). Beside it, the same count for the
+    expression the port used before, a division by a Python number, which
+    CUDA torch runs as a multiply by the reciprocal; and the share of
+    raw quotients in which that multiply and the division differ."""
+    import torch
+
+    from monte_carlo_localization_tpu_torch import MCLConfig
+    from monte_carlo_localization_tpu_torch.models.sensor import SensorModel
+
+    t0 = time.perf_counter()
+    res = 0.05
+    m = MCLConfig().max_range_px(res)
+    ranges = torch.from_numpy(knife_edge_ranges(res, m, 1_000_000))
+    cards = ranges.to(device)
+    got = SensorModel.create(m, res, device=device).to_pixel_index(cards).cpu()
+    want = SensorModel.create(m, res, device="cpu").to_pixel_index(ranges)
+    differing = int((got != want).sum())
+
+    def reciprocal_form(r):  # the expression before the repair
+        px = torch.nan_to_num(r / res, nan=float(m), posinf=float(m), neginf=0.0)
+        return torch.floor(torch.clamp(px, 0.0, float(m)) + 0.5).to(torch.int32)
+
+    before = int((reciprocal_form(cards).cpu() != reciprocal_form(ranges)).sum())
+    quotients = float(((cards / res).cpu() != ranges / res).float().mean())
+    check(differing == 0, f"to_pixel_index differs between card and CPU on {differing} ranges")
+    emit("division", t0, ranges=ranges.numel(), max_range_px=m, differing=differing,
+         differing_reciprocal_form=before, reciprocal_quotients_off=quotients)
+    return dict(differing=differing, differing_reciprocal_form=before)
+
+
 def phase_config1(device) -> dict:
     import torch
 
@@ -1567,7 +1616,14 @@ def phase_probes(device) -> dict:
             m = measure(call)
             m.update(bound(m["bytes"], m["f32_ops"], m["f64_ops"]))
             timed[name].append(m)
-    emit("probes", t0, passed=list(calls), launches=launches, calls=timed)
+    # the calls redesigned against their library call: both times, and
+    # the launch the wrapper chose (cluster size or grid)
+    redesigned = [
+        {k: m[k] for k in ("label", "ms", "library_ms", "shape")}
+        for name in ("scratch", "smem_roundtrip", "cumsum", "mega_parts") for m in timed[name]
+        if name != "mega_parts" or " roll " in m["label"]
+    ]
+    emit("probes", t0, passed=list(calls), launches=launches, redesigned=redesigned, calls=timed)
     return dict(launches=launches, timed=timed)
 
 
@@ -1575,7 +1631,7 @@ def probe_entries(probes: dict) -> list[dict]:
     """The kernels-line entries of the four probe kernels."""
     timed, launches = probes["timed"], probes["launches"]
     keys = ("ms", "time_source", "wrapper_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-            "rows_off")
+            "rows_off", "shape")
     src = "monte_carlo_localization_tpu_torch/csrc/probes.cu"
 
     def entry(name, kernel, replaces, head, others):
@@ -1592,7 +1648,7 @@ def probe_entries(probes: dict) -> list[dict]:
         entry("probe_philox_normals", "philox_normals", "tools/mega_probe.py:97",
               timed["rng"][0], []),
         entry("probe_staged_writes", "staged_writes", "tools/mega_probe.py:155, 303",
-              timed["scratch"][0], timed["smem_roundtrip"]),
+              timed["scratch"][0], timed["scratch"][1:] + timed["smem_roundtrip"]),
         entry("probe_scan_resample", "scan_resample",
               "tools/mega_probe.py:127, 238, 369, 380, 401, 423, 436, 487, 526, 567",
               timed["mega_ops"][0], scans),
@@ -1642,6 +1698,7 @@ def main() -> int:
          so={k: str(v.relative_to(REPO)) for k, v in built.paths.items()}, ptxas=ptxas,
          mega_grid_blocks=grids, sms=torch.cuda.get_device_properties(0).multi_processor_count)
 
+    phase_division(device)
     lut_plain = phase_kernel_vs_plain(device)
     table = phase_norm_table(device)
     dedup_plain = phase_dedup_vs_plain(device)

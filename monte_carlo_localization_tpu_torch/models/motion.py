@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from monte_carlo_localization_tpu_torch.utils.geometry import normalize_angle
+from monte_carlo_localization_tpu_torch.utils.geometry import div, normalize_angle
 
 
 def reconstruct_velocity(action: torch.Tensor):
@@ -16,7 +16,7 @@ def reconstruct_velocity(action: torch.Tensor):
     dth = action[..., 2]
     afwd = torch.abs(fwd)
 
-    dt_moving = torch.where(afwd < 0.1, afwd / 1.0, afwd / 5.0)
+    dt_moving = torch.where(afwd < 0.1, div(afwd, 1.0), div(afwd, 5.0))
     dt_moving = torch.clamp(dt_moving, 0.001, 0.1)
     has_fwd = afwd > 0.001
     dt = torch.where(has_fwd, dt_moving, 0.01)

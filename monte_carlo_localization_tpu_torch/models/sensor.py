@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from monte_carlo_localization_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from monte_carlo_localization_tpu_torch.utils.geometry import div
 
 _LOG_TINY = 1e-35  # guards log(0) for impossible table entries
 
@@ -98,7 +99,7 @@ class SensorModel:
         non-negative values). NaN and +inf go to the max bin.
         """
         m = float(self.max_range_px)
-        px = ranges_m / self.resolution
+        px = div(ranges_m, self.resolution)
         px = torch.nan_to_num(px, nan=m, posinf=m, neginf=0.0)
         px = torch.clamp(px, 0.0, m)
         return torch.floor(px + 0.5).to(torch.int32)
@@ -144,8 +145,8 @@ class SensorModel:
 
         sq2 = math.sqrt(2.0) * self.sigma_hit
         gauss_sum = 0.5 * (
-            torch.special.erf((m - d_px + 0.5) / sq2)
-            - torch.special.erf((-d_px - 0.5) / sq2)
+            torch.special.erf(div(m - d_px + 0.5, sq2))
+            - torch.special.erf(div(-d_px - 0.5, sq2))
         )
         norm = (
             self.z_hit * gauss_sum

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from monte_carlo_localization_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from monte_carlo_localization_tpu_torch.utils.geometry import div
 
 LANE = 128
 SUB = 512  # bytes of one TPU DMA subrow; fixes the LUT's row padding
@@ -57,6 +58,7 @@ MAX_TABLE_ENTRIES = 1024
 # per pixel for an integer max_range_px of 1..1023, else analytic
 SUBBIN_STEPS = 2
 MAX_SUBBIN_ENTRIES = SUBBIN_STEPS * (MAX_TABLE_ENTRIES - 1) + 1
+RSQRT_PI = 0.56418958354775628695  # 1 / sqrt(pi): beam_model.cuh kRsqrtPi
 INT32_MAX = 2**31 - 1
 
 
@@ -761,9 +763,8 @@ def fleet_window_start(q: LUTQuery, particles, tables: FleetTables, row_map=None
         maps = tables.map_of[tables.member_base + member].to(torch.int64)
     else:
         maps = tables.member_base + member
-    res = torch.tensor(q.resolution, dtype=torch.float32, device=dev)
-    gx = ((particles[:, 0] - tables.origin_x[maps]) / res).to(torch.int32)
-    gy = ((particles[:, 1] - tables.origin_y[maps]) / res).to(torch.int32)
+    gx = div(particles[:, 0] - tables.origin_x[maps], q.resolution).to(torch.int32)
+    gy = div(particles[:, 1] - tables.origin_y[maps], q.resolution).to(torch.int32)
     h, w = tables.dims[maps, 0], tables.dims[maps, 1]
     oob = (gx < 0) | (gx >= w) | (gy < 0) | (gy >= h)
     cell = (
@@ -787,12 +788,10 @@ def window_start(q: LUTQuery, particles, row_map=None):
     frac (N,) float32 or None without ``subbin``, oob (N,) bool). Off the
     map, row and b0 are those of the nearest cell."""
     x, y, theta = particles[:, 0], particles[:, 1], particles[:, 2]
-    # divide by a tensor on the particles' device: CUDA torch divides by a
-    # Python number as a multiply by its reciprocal, which truncates to
-    # another cell than the kernels' IEEE division at knife edges
-    res = torch.tensor(q.resolution, dtype=torch.float32, device=particles.device)
-    gx = ((x - q.origin_x) / res).to(torch.int32)  # truncates
-    gy = ((y - q.origin_y) / res).to(torch.int32)
+    # IEEE division, as the kernels: a reciprocal multiply truncates to
+    # another cell at knife edges
+    gx = div(x - q.origin_x, q.resolution).to(torch.int32)  # truncates
+    gy = div(y - q.origin_y, q.resolution).to(torch.int32)
     oob = (gx < 0) | (gx >= q.width) | (gy < 0) | (gy >= q.height)
     cell = (
         gy.clamp(0, q.height - 1).to(torch.int64) * q.width
@@ -814,7 +813,7 @@ def _log_norm(q: LUTQuery, d: torch.Tensor) -> torch.Tensor:
     """log of the beam model's normaliser at expected range ``d`` (float32,
     already clipped to ``max_range_px``)."""
     m = q.m
-    gauss_sum = 0.5 * (_erf_as((m - d + 0.5) / q.sq2) - _erf_as((-d - 0.5) / q.sq2))
+    gauss_sum = 0.5 * (_erf_as(div(m - d + 0.5, q.sq2)) - _erf_as(div(-d - 0.5, q.sq2)))
     norm = (
         q.z_hit * gauss_sum
         + torch.where(d > 0, q.z_short * (d + 1.0), 0.0)
@@ -827,7 +826,7 @@ def _log_norm(q: LUTQuery, d: torch.Tensor) -> torch.Tensor:
 def _log_norm_right(q: LUTQuery, d: torch.Tensor) -> torch.Tensor:
     """log of the normaliser with the short-return term on: at d > 0 the
     bits of :func:`_log_norm`, at d = 0 its limit from the right."""
-    gauss_sum = 0.5 * (_erf_as((q.m - d + 0.5) / q.sq2) - _erf_as((-d - 0.5) / q.sq2))
+    gauss_sum = 0.5 * (_erf_as(div(q.m - d + 0.5, q.sq2)) - _erf_as(div(-d - 0.5, q.sq2)))
     return torch.log(q.z_hit * gauss_sum + q.z_short * (d + 1.0) + q.z_max + q.z_rand)
 
 
@@ -860,11 +859,11 @@ def subbin_norm_table(q: LUTQuery, device: torch.device | str = "cpu") -> torch.
     v0 = _log_norm_right(q, d[:-1])
     f32 = lambda x: float(np.float32(x))  # noqa: E731  the kernel's float32 constants
 
-    def slope(dd, vv):
+    def slope(dd, vv):  # log_norm_slope of csrc/beam_model.cuh, in double
         dd, sq2 = dd.double(), f32(q.sq2)
-        u_lo = (dd + 0.5) / sq2
-        u_hi = (f32(q.m) - dd + 0.5) / sq2
-        dgauss = (torch.exp(-u_lo * u_lo) - torch.exp(-u_hi * u_hi)) / (math.sqrt(math.pi) * sq2)
+        u_lo = div(dd + 0.5, sq2)
+        u_hi = div(f32(q.m) - dd + 0.5, sq2)
+        dgauss = RSQRT_PI / sq2 * (torch.exp(-u_lo * u_lo) - torch.exp(-u_hi * u_hi))
         return (f32(q.z_hit) * dgauss + f32(q.z_short)) / torch.exp(vv.double())
 
     a1 = -h * slope(d[1:], v[1:])

@@ -9,12 +9,14 @@ kernel here computes what its probe computes, designed for the card:
   (``probe_smem``).
 - :meth:`Probes.philox_normals`: Philox4x32-10 normals by Box-Muller,
   the stream running on across blocks (``probe_rng``).
-- :meth:`Probes.staged_writes`: every block writes its slice of a staging
-  buffer, and the block that draws the last grid-wide ticket reads it all
-  back (``probe_scratch``, ``probe_smem_roundtrip``).
+- :meth:`Probes.staged_writes`: the CTAs of a thread-block cluster write
+  their steps' slices into rank 0's shared memory, which reads them all
+  back after one cluster barrier (``probe_scratch``,
+  ``probe_smem_roundtrip``); at most :data:`MAX_STAGED` floats.
 - :meth:`Probes.scan_resample`: the mega step's prologue and its parts
   (``probe_cumsum``, ``probe_mega_ops``, ``probe_mega_parts``,
-  ``probe_mega_bisect``), chosen by ``part`` (:data:`SCAN_PARTS`).
+  ``probe_mega_bisect``), chosen by ``part`` (:data:`SCAN_PARTS`), each
+  part its own kernel instantiation and launch shape.
 
 A :class:`Probes` object launches the kernel on CUDA tensors (adding one
 to its ``launch_count`` entry) and runs the plain version on CPU tensors.
@@ -22,6 +24,7 @@ to its ``launch_count`` entry) and runs the plain version on CPU tensors.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -30,6 +33,7 @@ import torch
 SCAN_PARTS = {"scan": 0, "lanes": 1, "roll": 2, "ge_sum": 3, "gather": 4, "col": 5,
               "front": 6, "full": 7}
 MAX_SCAN = 1024 * 8  # elements of one probe_scan_resample block
+MAX_STAGED = 227 * 1024 // 4  # floats of staged writes: one CTA's shared memory
 PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 _MASK32 = 0xFFFFFFFF
@@ -182,7 +186,6 @@ class Probes:
     def __init__(self):
         self.launch_count = dict(gather_rows=0, philox_normals=0, staged_writes=0,
                                  scan_resample=0)
-        self._tickets: dict[torch.device, torch.Tensor] = {}  # staged_writes' grid ticket
 
     def gather_rows(self, hbm: torch.Tensor, y0: torch.Tensor) -> torch.Tensor:
         """``out[s] = hbm[y0[s]]``: hbm (rows, lanes) float32 with lanes a
@@ -228,26 +231,43 @@ class Probes:
         return (out, bits) if with_bits else out
 
     def staged_writes(self, steps: int, per_step: int, a: float, b: float, c: float,
-                      add: float, device) -> torch.Tensor:
-        """Blocks 0..steps-1 each write ``a*i + b*s + c`` for s < per_step
-        into a staging buffer; the last block to finish reads it all back
-        plus ``add``. Returns the flat (steps * per_step,) read-back."""
+                      add: float, device, one_cta: bool = False) -> torch.Tensor:
+        """Steps 0..steps-1 each write ``a*i + b*s + c`` for s < per_step
+        into a scratch in shared memory, read back plus ``add``. Returns
+        the flat (steps * per_step,) read-back; at most :data:`MAX_STAGED`
+        floats."""
+        if steps < 1 or per_step < 1 or steps * per_step > MAX_STAGED:
+            raise ValueError(f"steps * per_step = {steps} * {per_step}; the kernel takes "
+                             f"1..{MAX_STAGED} floats (one CTA's shared memory)")
         device = torch.device(device)
         if device.type == "cpu":
             return staged_writes_reference(steps, per_step, a, b, c, add, device)
         built, lib = _lib()
-        stage = torch.empty(steps * per_step, dtype=torch.float32, device=device)
-        # zeroed once: the block that draws the last ticket resets it
-        ticket = self._tickets.get(device)
-        if ticket is None:
-            ticket = self._tickets[device] = torch.zeros(1, dtype=torch.int32, device=device)
-        out = torch.empty_like(stage)
+        out = torch.empty(steps * per_step, dtype=torch.float32, device=device)
         with torch.cuda.device(device):
-            err = lib.mcl_probe_staged_writes(steps, per_step, a, b, c, add, stage.data_ptr(),
-                                              ticket.data_ptr(), out.data_ptr(), _stream(device))
+            err = lib.mcl_probe_staged_writes(steps, per_step, a, b, c, add, int(one_cta),
+                                              out.data_ptr(), _stream(device))
         _check(built, err, "probe_staged_writes")
         self.launch_count["staged_writes"] += 1
         return out
+
+    def staged_shape(self, steps: int, per_step: int, one_cta: bool = False) -> dict:
+        """The staged-writes launch at this size: cluster size, threads a
+        CTA, dynamic shared memory bytes."""
+        built, lib = _lib()
+        shape = (ctypes.c_int * 3)()
+        _check(built, lib.mcl_probe_staged_shape(steps, per_step, int(one_cta), shape),
+               "probe_staged_writes shape")
+        return dict(cluster=shape[0], threads=shape[1], smem=shape[2])
+
+    def scan_shape(self, part: str, n: int) -> dict:
+        """The launch of ``part`` over n elements: grid, threads a block,
+        elements a thread, dynamic shared memory bytes."""
+        built, lib = _lib()
+        shape = (ctypes.c_int * 4)()
+        _check(built, lib.mcl_probe_scan_shape(SCAN_PARTS[part], n, shape),
+               "probe_scan_resample shape")
+        return dict(grid=shape[0], threads=shape[1], per=shape[2], smem=shape[3])
 
     def scan_resample(self, part: str, w=None, g=None, parts=None, u0: float = 0.0,
                       lanes: int = 128):

@@ -6,9 +6,8 @@ elementwise ops over all rays, on the map's device.
 
 Queries are (Q, 3) float32 world-space (x, y, absolute ray angle);
 results are (Q,) float32 ranges in meters. World-to-grid casts truncate
-toward zero like the reference's ``static_cast<int>``. Divisions take a
-tensor divisor on the queries' device: CUDA torch divides by a Python
-number as a multiply by its reciprocal, not as IEEE division.
+toward zero like the reference's ``static_cast<int>``. Divisions go
+through ``utils/geometry.py`` ``div`` (IEEE on the card too).
 """
 
 from __future__ import annotations
@@ -16,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from monte_carlo_localization_tpu_torch.mapping.grid_map import GridMap
+from monte_carlo_localization_tpu_torch.utils.geometry import div
 
 # The reference's cast_ray returns ``step * resolution`` with the 0-based
 # step of the check after advancing, one cell short of the crossing; the
@@ -38,7 +38,6 @@ def cast_rays_dda(grid_map: GridMap, queries: torch.Tensor) -> torch.Tensor:
     occupied cell, else ``max_range_meters``."""
     gm = grid_map
     res = gm.resolution
-    res_t = torch.tensor(res, dtype=queries.dtype, device=queries.device)
     occ = gm.occupied.reshape(-1)
     x0, y0, ang = queries[:, 0], queries[:, 1], queries[:, 2]
     dx = torch.cos(ang) * res
@@ -48,8 +47,8 @@ def cast_rays_dda(grid_map: GridMap, queries: torch.Tensor) -> torch.Tensor:
     for step in range(gm.max_range_px):
         cx = x0 + dx * float(step + 1)
         cy = y0 + dy * float(step + 1)
-        gx = ((cx - gm.origin_x) / res_t).to(torch.int32)
-        gy = ((cy - gm.origin_y) / res_t).to(torch.int32)
+        gx = div(cx - gm.origin_x, res).to(torch.int32)
+        gy = div(cy - gm.origin_y, res).to(torch.int32)
         oob, idx = _cells(gm, gx, gy)
         blocked = oob | occ[idx]
         hit = torch.where((hit == sentinel) & blocked, step, hit)
@@ -72,9 +71,8 @@ def cast_rays_sphere(
     res = gm.resolution
     max_px = float(gm.max_range_px)
     clearance = gm.clearance.reshape(-1)
-    res_t = torch.tensor(res, dtype=queries.dtype, device=queries.device)
-    px0 = (queries[:, 0] - gm.origin_x) / res_t
-    py0 = (queries[:, 1] - gm.origin_y) / res_t
+    px0 = div(queries[:, 0] - gm.origin_x, res)
+    py0 = div(queries[:, 1] - gm.origin_y, res)
     ux = torch.cos(queries[:, 2])
     uy = torch.sin(queries[:, 2])
     t = torch.zeros_like(px0)

@@ -83,6 +83,7 @@ class Call:
     work: tuple[float, float, float]  # bytes moved, float32 ops, float64 ops
     max_abs_err: float  # kernel against plain over every entry (0.0 on the CPU)
     rows_off: float = 0.0  # share of ancestor rows that differ from the plain version
+    shape: dict | None = None  # the launch chosen (the card only)
 
 
 def _t(a, device) -> torch.Tensor:
@@ -168,34 +169,39 @@ def probe_cumsum(pr: Probes, device) -> list[Call]:
     err = _vs_plain(out, scan_resample_reference("scan", w=x), "cumsum", rtol=2e-5)
     n = x.numel()
     lib_out = torch.empty_like(out)
-    return [Call("scan_resample", "cumsum (scan)", lambda: pr.scan_resample("scan", w=x),
-                 lambda: scan_resample_reference("scan", w=x),
-                 lambda: torch.cumsum(x.reshape(-1), 0, out=lib_out), (8 * n, 0, n), err)]
+    return [_scan_call(pr, "cumsum (scan)", "scan", (8 * n, 0, n), err,
+                       library=lambda: torch.cumsum(x.reshape(-1), 0, out=lib_out), w=x)]
 
 
-def _staged(pr, device, label, steps, per_step, a, b, c, add, want) -> Call:
-    out = pr.staged_writes(steps, per_step, a, b, c, add, device)
-    np.testing.assert_array_equal(out.cpu().numpy(), want.reshape(-1))
+def _staged(pr, device, label, steps, per_step, a, b, c, add, want) -> list[Call]:
     plain = staged_writes_reference(steps, per_step, a, b, c, add, device)
-    err = _vs_plain(out, plain, label)
     n = steps * per_step
     lib_out = torch.empty_like(plain)
-    return Call("staged_writes", label,
-                lambda: pr.staged_writes(steps, per_step, a, b, c, add, device),
-                lambda: staged_writes_reference(steps, per_step, a, b, c, add, device),
-                lambda: lib_out.copy_(plain), (4 * n, 3 * n, 0), err)
+    calls = []
+    for one_cta in (False, True) if torch.device(device).type == "cuda" else (False,):
+        out = pr.staged_writes(steps, per_step, a, b, c, add, device, one_cta=one_cta)
+        np.testing.assert_array_equal(out.cpu().numpy(), want.reshape(-1))
+        err = _vs_plain(out, plain, label)
+        calls.append(Call(
+            "staged_writes", label + (" (one CTA)" if one_cta else ""),
+            lambda one_cta=one_cta: pr.staged_writes(steps, per_step, a, b, c, add, device,
+                                                     one_cta=one_cta),
+            lambda: staged_writes_reference(steps, per_step, a, b, c, add, device),
+            lambda: lib_out.copy_(plain), (4 * n, 3 * n, 0), err,
+            shape=pr.staged_shape(steps, per_step, one_cta) if out.is_cuda else None))
+    return calls
 
 
 def probe_scratch(pr: Probes, device) -> list[Call]:
-    """8 blocks each write a (128,) row of i + 1; the last reads all 8."""
+    """8 steps each write a (128,) row of i + 1; the last reads all 8."""
     want = np.tile(np.arange(1, 9, dtype=np.float32)[:, None], (1, 128))
-    return [_staged(pr, device, "scratch", 8, 128, 1.0, 0.0, 1.0, 0.0, want)]
+    return _staged(pr, device, "scratch", 8, 128, 1.0, 0.0, 1.0, 0.0, want)
 
 
 def probe_smem_roundtrip(pr: Probes, device) -> list[Call]:
-    """32 blocks each write 8 scalars (8i + s) * 2; read back plus one."""
+    """32 steps each write 8 scalars (8i + s) * 2; read back plus one."""
     want = np.arange(256, dtype=np.float32) * 2.0 + 1.0
-    return [_staged(pr, device, "smem_roundtrip", 32, 8, 16.0, 2.0, 0.0, 1.0, want)]
+    return _staged(pr, device, "smem_roundtrip", 32, 8, 16.0, 2.0, 0.0, 1.0, want)
 
 
 def _mega_inputs(scale: float, with_g: bool = False):
@@ -223,8 +229,11 @@ def _want_prologue(w: np.ndarray, parts: np.ndarray) -> np.ndarray:
 
 
 def _scan_call(pr, label, part, work, err, library=None, rows_off=0.0, **kw) -> Call:
+    ref = next(t for t in (kw.get("w"), kw.get("g"), kw.get("parts")) if t is not None)
+    n = kw["w"].numel() if "w" in kw else ref.shape[0]
     return Call("scan_resample", label, lambda: pr.scan_resample(part, **kw),
-                lambda: scan_resample_reference(part, **kw), library, work, err, rows_off)
+                lambda: scan_resample_reference(part, **kw), library, work, err, rows_off,
+                shape=pr.scan_shape(part, n) if ref.is_cuda else None)
 
 
 def _gather_library(g, parts):
@@ -363,7 +372,7 @@ def measure(call: Call) -> dict:
         plain_ms=event_ms(call.plain, iters=10),
         library_ms=None if call.library is None else graph_ms(call.library),
         bytes=call.work[0], f32_ops=call.work[1], f64_ops=call.work[2],
-        max_abs_err=call.max_abs_err, rows_off=call.rows_off,
+        max_abs_err=call.max_abs_err, rows_off=call.rows_off, shape=call.shape,
     )
 
 
@@ -400,7 +409,8 @@ def main(argv=None) -> int:
                 lib = "-" if m["library_ms"] is None else f"{m['library_ms']:.5f}"
                 print(f"  {call.label:44s} kernel {m['ms']:.5f} ms, library {lib} (CUDA graphs); "
                       f"wrapper {m['wrapper_ms']:.4f}, plain {m['plain_ms']:.4f}; "
-                      f"max abs err {m['max_abs_err']:.3g}, rows off {m['rows_off']:.4f}")
+                      f"max abs err {m['max_abs_err']:.3g}, rows off {m['rows_off']:.4f}; "
+                      f"launch {m['shape']}")
     return 1 if failed else 0
 
 

@@ -3,8 +3,9 @@ from monte_carlo_localization_tpu_torch.utils.device import (
     resolve_device,
 )
 from monte_carlo_localization_tpu_torch.utils.geometry import (
+    div,
     normalize_angle,
     trajectory_rmse,
 )
 
-__all__ = ["DEFAULT_DEVICE", "resolve_device", "normalize_angle", "trajectory_rmse"]
+__all__ = ["DEFAULT_DEVICE", "resolve_device", "div", "normalize_angle", "trajectory_rmse"]

@@ -1,10 +1,30 @@
 """Geometry helpers: angle wrapping (tensors or numpy) and trajectory RMSE
-(numpy), as in the JAX package's ``utils/geometry.py``."""
+(numpy), as in the JAX package's ``utils/geometry.py``; and :func:`div`,
+the port's one way to divide a tensor by a Python number."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+# 0-d divisors by (value, dtype, device): made once, so a division on the
+# card costs no host-to-device copy after the first
+_DIVISORS: dict[tuple[float, torch.dtype, torch.device], torch.Tensor] = {}
+
+
+def div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` as an IEEE division on every device. CUDA torch divides a
+    tensor by a Python number (or a 0-d CPU tensor) as a multiply by its
+    reciprocal, which differs from the quotient in the last bit on a
+    fifth of float32 inputs; the CPU and the kernels divide. So the
+    divisor is a 0-d tensor of ``x``'s result type on ``x``'s device."""
+    dtype = torch.result_type(x, c)
+    key = (float(c), dtype, x.device)
+    d = _DIVISORS.get(key)
+    if d is None:
+        d = _DIVISORS[key] = torch.tensor(c, dtype=dtype, device=x.device)
+    return x / d
 
 
 def normalize_angle(angle):

@@ -6,6 +6,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -55,3 +56,14 @@ def test_bound_is_the_larger_of_bytes_and_operations():
     mega = chip_smoke.mega_bound(4000, 4000, 60, 1)
     assert mega["f32_ops"] > 4000 * 60 * chip_smoke.OPS_PER_BEAM_TABLED
     assert mega["f64_ops"] == 4000 * 60 + 7 * 4000
+
+
+def test_knife_edge_ranges_hold_every_half_pixel_and_its_neighbours():
+    r = chip_smoke.knife_edge_ranges(0.05, 240, 10_000, seed=1)
+    assert r.dtype == np.float32 and r.shape == (10_000,)
+    half = ((np.arange(241) + 0.5) * 0.05).astype(np.float32)
+    up1 = np.nextafter(half, np.float32(np.inf))
+    down2 = np.nextafter(np.nextafter(half, np.float32(0)), np.float32(0))
+    for edge in (half, up1, down2):
+        assert np.isin(edge, r).all()
+    assert r.min() >= 0 and r.max() <= 1.05 * 240 * 0.05

@@ -772,3 +772,164 @@ def test_probe_scan_resample_sizes_and_refusals(cuda):
     with pytest.raises(ValueError, match="dtype"):
         pr.gather_rows(torch.ones((4, 8), dtype=torch.float64, device=cuda),
                        torch.zeros(2, dtype=torch.int32, device=cuda))
+
+
+def _knife_edges(res: float, max_px: int, seed: int, extra: int = 20000) -> np.ndarray:
+    half = ((np.arange(max_px + 1) + 0.5) * res).astype(np.float32)
+    up, down = np.nextafter(half, np.float32(np.inf)), np.nextafter(half, np.float32(0))
+    rest = np.random.default_rng(seed).uniform(0, 1.05 * max_px * res, extra).astype(np.float32)
+    return np.concatenate([half, up, down, rest])
+
+
+def test_division_sites_on_the_card_are_the_cpu_bits(cuda, monkeypatch):
+    """Every division by a Python number in the port runs as IEEE
+    division on the card: ``div`` itself, ``to_pixel_index`` on
+    half-pixel knife edges, ``reconstruct_velocity`` with afwd over
+    [0, 1], and the quotients the plain normaliser and the analytic
+    sensor model hand to erf, each ``torch.equal`` to the CPU."""
+    from monte_carlo_localization_tpu_torch.models import sensor as sensor_mod
+    from monte_carlo_localization_tpu_torch.models.motion import reconstruct_velocity
+    from monte_carlo_localization_tpu_torch.models.sensor import SensorModel
+    from monte_carlo_localization_tpu_torch.ops import lut_query
+    from monte_carlo_localization_tpu_torch.utils.geometry import div
+
+    res, m = 0.05, 240
+    r = torch.from_numpy(_knife_edges(res, m, 0))
+    for c in (res, 5.0, 8.0 * 2**0.5):
+        assert torch.equal(div(r.to(cuda), c).cpu(), div(r, c))
+        assert torch.equal(div(r.double().to(cuda), c).cpu(), div(r.double(), c))
+    assert torch.equal(SensorModel.create(m, res, device=cuda).to_pixel_index(r.to(cuda)).cpu(),
+                       SensorModel.create(m, res, device="cpu").to_pixel_index(r))
+    rng = np.random.default_rng(1)
+    n = 20000
+    fwd = (rng.uniform(0, 1, n) * rng.choice([-1, 1], n)).astype(np.float32)
+    act = torch.from_numpy(np.stack([fwd, np.zeros(n, np.float32),
+                                     rng.uniform(-0.5, 0.5, n).astype(np.float32)], 1))
+    for got, want in zip(reconstruct_velocity(act.to(cuda)), reconstruct_velocity(act)):
+        assert torch.equal(got.cpu(), want)
+
+    def recorder(module, name):
+        seen, real = [], getattr(module, name)
+
+        def record(x, *args, **kwargs):
+            seen.append(x.cpu())
+            return real(x, *args, **kwargs)
+
+        monkeypatch.setattr(module, name, record)
+        return seen
+
+    beams = np.linspace(-2.3, 2.3, 60).astype(np.float32)
+    t = suggest_theta_bins(beams)
+    q = LUTQuery(t, beams, height=8, width=8, resolution=res, origin_x=0.0, origin_y=0.0,
+                 max_range_px=m, row_stride=required_row_stride(t, beams, 1), z_hit=0.8,
+                 z_short=0.01, z_max=0.07, z_rand=0.12, sigma_hit=8.0, inv_squash=1 / 2.2,
+                 device="cpu")
+    d = torch.clamp(torch.from_numpy(_knife_edges(1.0, m, 2)) - 0.5, 0, m)
+    seen = recorder(lut_query, "_erf_as")
+    for fn in (lut_query._log_norm, lut_query._log_norm_right):
+        fn(q, d.to(cuda))
+        fn(q, d)
+    assert len(seen) == 8
+    for k in (0, 1, 4, 5):
+        assert torch.equal(seen[k], seen[k + 2])
+    seen = recorder(sensor_mod.torch.special, "erf")
+    rd = torch.from_numpy(rng.integers(0, m + 1, (2, 16, 60)).astype(np.float32))
+    s_card, s_cpu = SensorModel.create(m, res, device=cuda), SensorModel.create(m, res, device="cpu")
+    s_card.log_prob_analytic(rd[0].to(cuda), rd[1].to(cuda))
+    s_cpu.log_prob_analytic(rd[0], rd[1])
+    assert torch.equal(seen[0], seen[2]) and torch.equal(seen[1], seen[3])
+
+
+STAGED_ARGS = (0.37, -1.3, 2.1, 0.5)  # a, b, c, add: FMA contraction would show
+
+
+@pytest.mark.parametrize("per_step", (1, 8, 128, 1000))
+@pytest.mark.parametrize("steps", (1, 7, 8, 9, 32, 100))
+def test_staged_writes_kernel_bits(cuda, steps, per_step):
+    """The cluster kernel is bit-equal to its plain version at every
+    size one CTA's shared memory holds, and refuses the others."""
+    from monte_carlo_localization_tpu_torch.ops.probes import (
+        MAX_STAGED,
+        Probes,
+        staged_writes_reference,
+    )
+
+    pr = Probes()
+    if steps * per_step > MAX_STAGED:
+        with pytest.raises(ValueError, match="shared memory"):
+            pr.staged_writes(steps, per_step, *STAGED_ARGS, cuda)
+        return
+    got = pr.staged_writes(steps, per_step, *STAGED_ARGS, cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), staged_writes_reference(steps, per_step, *STAGED_ARGS))
+    assert pr.launch_count["staged_writes"] == 1
+    shape = pr.staged_shape(steps, per_step)
+    assert shape["cluster"] == min(steps, 8) and shape["smem"] >= 4 * steps * per_step
+
+
+def test_staged_writes_twice_on_two_streams_and_in_a_graph(cuda):
+    """Nothing outlives a launch: two launches in a row, launches on two
+    streams at once and replays of a captured cluster launch all give the
+    plain version's bits."""
+    from monte_carlo_localization_tpu_torch.ops.probes import Probes, staged_writes_reference
+
+    pr = Probes()
+    cases = [(8, 128, 1.0, 0.0, 1.0, 0.0), (32, 8, 16.0, 2.0, 0.0, 1.0),
+             (9, 1000, *STAGED_ARGS)]
+    wants = [staged_writes_reference(*c) for c in cases]
+    for c, want in zip(cases, wants):
+        first, second = pr.staged_writes(*c, cuda), pr.staged_writes(*c, cuda)
+        assert torch.equal(first.cpu(), want) and torch.equal(second.cpu(), want)
+    streams = torch.cuda.Stream(), torch.cuda.Stream()
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for _ in range(20):
+        for k, s in zip((0, 2), streams):
+            with torch.cuda.stream(s):
+                outs.append((k, pr.staged_writes(*cases[k], cuda)))
+    torch.cuda.synchronize()
+    for k, out in outs:
+        assert torch.equal(out.cpu(), wants[k])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = [pr.staged_writes(*c, cuda) for c in cases]
+    for _ in range(3):
+        for out in captured:
+            out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for out, want in zip(captured, wants):
+            assert torch.equal(out.cpu(), want)
+
+
+@pytest.mark.parametrize("n", [1, 5, 1000, 4095, 4096, 8192, "misaligned"])
+def test_scan_roll_col_kernels_bits(cuda, n):
+    """scan, roll and col bit-equal to their plain versions on the card at
+    one to 8192 elements, and on a base 4 B off a 16 B boundary (w[1:] of
+    a 4097-float buffer): the scalar path of the same kernels. The f64
+    sums of uniform(0.1, 1) floats are exact at n <= 8192, so any order
+    gives the plain scan's bits."""
+    from monte_carlo_localization_tpu_torch.ops.probes import Probes, scan_resample_reference
+
+    pr = Probes()
+    rng = np.random.default_rng(7)
+    to = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+    if n == "misaligned":
+        w = to(rng.uniform(0.1, 1.0, 4097).astype(np.float32))[1:]
+        parts = to(rng.normal(size=3 * 4096 + 1).astype(np.float32))[1:].view(4096, 3)
+        assert w.data_ptr() % 16 == 4 and parts.data_ptr() % 16 == 4
+        assert w.is_contiguous() and parts.is_contiguous()
+    else:
+        w = to(rng.uniform(0.1, 1.0, n).astype(np.float32))
+        parts = to(rng.normal(size=(n, 3)).astype(np.float32))
+    for part, kw in (("scan", dict(w=w)), ("roll", dict(w=w)), ("col", dict(parts=parts))):
+        got = pr.scan_resample(part, **kw)
+        assert torch.equal(got, scan_resample_reference(part, **kw)), part
+        if part != "col":
+            assert torch.equal(got.cpu(), scan_resample_reference(part, w=w.cpu())), part
+    assert pr.launch_count["scan_resample"] == 3
+    if n == 4096:
+        assert pr.scan_shape("scan", n) == dict(grid=1, threads=512, per=8, smem=0)
+        assert pr.scan_shape("roll", n) == dict(grid=8, threads=128, per=4, smem=0)
+        assert pr.scan_shape("col", n) == dict(grid=8, threads=128, per=4, smem=0)

@@ -25,6 +25,7 @@ import torch
 import jax
 
 from monte_carlo_localization_tpu_torch.ops.probes import (
+    MAX_STAGED,
     Probes,
     gather_rows_reference,
     philox4x32_10_reference,
@@ -239,3 +240,48 @@ def test_probe_fails_when_kernel_and_plain_disagree(probe, plain, monkeypatch):
     monkeypatch.setattr(tprobe, plain, drifted)
     with pytest.raises(tprobe.ProbeFailure):
         tprobe.PROBES[probe](Probes(), torch.device("cpu"))
+
+
+STAGED_STEPS = (1, 7, 8, 9, 32, 100)
+STAGED_PER_STEP = (1, 8, 128, 1000)
+
+
+@pytest.mark.parametrize("per_step", STAGED_PER_STEP)
+@pytest.mark.parametrize("steps", STAGED_STEPS)
+def test_staged_writes_reference_is_the_formula(steps, per_step):
+    """out[i * P + s] = ((a*i + b*s) + c) + add in float32, rounded step
+    by step as the kernel rounds it (no FMA)."""
+    a, b, c, add = 0.37, -1.3, 2.1, 0.5
+    got = staged_writes_reference(steps, per_step, a, b, c, add)
+    f32 = np.float32
+    i = np.arange(steps, dtype=np.float32)[:, None]
+    s = np.arange(per_step, dtype=np.float32)[None, :]
+    want = ((f32(a) * i + f32(b) * s) + f32(c)) + f32(add)
+    np.testing.assert_array_equal(got.numpy(), want.reshape(-1))
+
+
+def test_staged_writes_refuses_what_one_cta_cannot_hold():
+    """The scratch is one CTA's shared memory (227 KB): the wrapper
+    refuses a larger call before it looks at the device, so the CPU
+    refuses it too."""
+    pr = Probes()
+    assert pr.staged_writes(1, MAX_STAGED, 1.0, 0.0, 0.0, 0.0, "cpu").numel() == MAX_STAGED
+    for steps, per_step in ((1, MAX_STAGED + 1), (100, 1000), (0, 8), (8, 0)):
+        with pytest.raises(ValueError, match="shared memory"):
+            pr.staged_writes(steps, per_step, 1.0, 0.0, 0.0, 0.0, "cpu")
+    assert pr.launch_count["staged_writes"] == 0
+
+
+@pytest.mark.parametrize("n", [1, 5, 1000, 4095, 4096, 8192])
+def test_scan_roll_col_references_at_the_kernel_sizes(n):
+    """The plain scan (float64 sums rounded once), roll and column math at
+    the sizes the CUDA tests hold the kernels to."""
+    rng = np.random.default_rng(n)
+    w = rng.uniform(0.1, 1.0, n).astype(np.float32)
+    parts = rng.normal(size=(n, 3)).astype(np.float32)
+    scan = scan_resample_reference("scan", w=_t(w))
+    np.testing.assert_array_equal(scan.numpy(), np.cumsum(w.astype(np.float64)).astype(np.float32))
+    np.testing.assert_array_equal(scan_resample_reference("roll", w=_t(w)).numpy(), np.roll(w, 1))
+    th = parts[:, 2]
+    np.testing.assert_allclose(scan_resample_reference("col", parts=_t(parts)).numpy(),
+                               np.sin(th) + th * np.float32(0.5), rtol=1e-6, atol=1e-6)
