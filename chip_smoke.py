@@ -1601,6 +1601,7 @@ def phase_probes(device) -> dict:
 
     from monte_carlo_localization_tpu_torch.ops.probes import Probes
     from monte_carlo_localization_tpu_torch.tools.mega_probe import PROBES, measure
+    from monte_carlo_localization_tpu_torch.utils.timing import graph_ms
 
     t0 = time.perf_counter()
     pr = Probes()
@@ -1617,13 +1618,20 @@ def phase_probes(device) -> dict:
             m.update(bound(m["bytes"], m["f32_ops"], m["f64_ops"]))
             timed[name].append(m)
     # the calls redesigned against their library call: both times, and
-    # the launch the wrapper chose (cluster size or grid)
+    # the launch the wrapper chose (grid, threads, shared memory)
     redesigned = [
         {k: m[k] for k in ("label", "ms", "library_ms", "shape")}
         for name in ("scratch", "smem_roundtrip", "cumsum", "mega_parts") for m in timed[name]
         if name != "mega_parts" or " roll " in m["label"]
     ]
-    emit("probes", t0, passed=list(calls), launches=launches, redesigned=redesigned, calls=timed)
+    # the least a graph node costs on this card, for the launch-bound
+    # probes: a kernel (a PyTorch fill of one float) and a memcpy node (a
+    # copy of one float, the node the staged writes' library call is)
+    one, other = torch.zeros(1, device=device), torch.ones(1, device=device)
+    floors = dict(kernel_node_ms=graph_ms(lambda: one.fill_(1.0)),
+                  memcpy_node_ms=graph_ms(lambda: one.copy_(other)))
+    emit("probes", t0, passed=list(calls), launches=launches, redesigned=redesigned,
+         **floors, calls=timed)
     return dict(launches=launches, timed=timed)
 
 
@@ -1648,7 +1656,7 @@ def probe_entries(probes: dict) -> list[dict]:
         entry("probe_philox_normals", "philox_normals", "tools/mega_probe.py:97",
               timed["rng"][0], []),
         entry("probe_staged_writes", "staged_writes", "tools/mega_probe.py:155, 303",
-              timed["scratch"][0], timed["scratch"][1:] + timed["smem_roundtrip"]),
+              timed["scratch"][0], timed["smem_roundtrip"]),
         entry("probe_scan_resample", "scan_resample",
               "tools/mega_probe.py:127, 238, 369, 380, 401, 423, 436, 487, 526, 567",
               timed["mega_ops"][0], scans),

@@ -164,10 +164,10 @@ def _bind(libs: dict[str, ctypes.CDLL]) -> None:
         "mcl_probe_philox_normals": [u32, u32, i64, p, p, p],
         # k0, k1, calls, words, stream
         "mcl_probe_curand_philox": [u32, u32, i32, p, p],
-        # steps, per_step, a, b, c, add, one_cta, out, stream
-        "mcl_probe_staged_writes": [i32, i32, f32, f32, f32, f32, i32, p, p],
-        # steps, per_step, one_cta, shape (cluster, threads, smem)
-        "mcl_probe_staged_shape": [i32, i32, i32, p],
+        # steps, per_step, a, b, c, add, out, stream
+        "mcl_probe_staged_writes": [i32, i32, f32, f32, f32, f32, p, p],
+        # steps, per_step, shape (threads, smem)
+        "mcl_probe_staged_shape": [i32, i32, p],
         # part, w, g, parts, n, lanes, u0, out_a, out_b, stream
         "mcl_probe_scan_resample": [i32, p, p, p, i32, i32, f32, p, p, p],
         # part, n, shape (grid, threads, per, smem)

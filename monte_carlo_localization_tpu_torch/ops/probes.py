@@ -9,9 +9,8 @@ kernel here computes what its probe computes, designed for the card:
   (``probe_smem``).
 - :meth:`Probes.philox_normals`: Philox4x32-10 normals by Box-Muller,
   the stream running on across blocks (``probe_rng``).
-- :meth:`Probes.staged_writes`: the CTAs of a thread-block cluster write
-  their steps' slices into rank 0's shared memory, which reads them all
-  back after one cluster barrier (``probe_scratch``,
+- :meth:`Probes.staged_writes`: one block writes every step's slice into
+  its shared memory and reads them all back (``probe_scratch``,
   ``probe_smem_roundtrip``); at most :data:`MAX_STAGED` floats.
 - :meth:`Probes.scan_resample`: the mega step's prologue and its parts
   (``probe_cumsum``, ``probe_mega_ops``, ``probe_mega_parts``,
@@ -231,7 +230,7 @@ class Probes:
         return (out, bits) if with_bits else out
 
     def staged_writes(self, steps: int, per_step: int, a: float, b: float, c: float,
-                      add: float, device, one_cta: bool = False) -> torch.Tensor:
+                      add: float, device) -> torch.Tensor:
         """Steps 0..steps-1 each write ``a*i + b*s + c`` for s < per_step
         into a scratch in shared memory, read back plus ``add``. Returns
         the flat (steps * per_step,) read-back; at most :data:`MAX_STAGED`
@@ -245,20 +244,20 @@ class Probes:
         built, lib = _lib()
         out = torch.empty(steps * per_step, dtype=torch.float32, device=device)
         with torch.cuda.device(device):
-            err = lib.mcl_probe_staged_writes(steps, per_step, a, b, c, add, int(one_cta),
-                                              out.data_ptr(), _stream(device))
+            err = lib.mcl_probe_staged_writes(steps, per_step, a, b, c, add, out.data_ptr(),
+                                              _stream(device))
         _check(built, err, "probe_staged_writes")
         self.launch_count["staged_writes"] += 1
         return out
 
-    def staged_shape(self, steps: int, per_step: int, one_cta: bool = False) -> dict:
-        """The staged-writes launch at this size: cluster size, threads a
-        CTA, dynamic shared memory bytes."""
+    def staged_shape(self, steps: int, per_step: int) -> dict:
+        """The staged-writes launch at this size: one block of ``threads``
+        with ``smem`` bytes of dynamic shared memory."""
         built, lib = _lib()
-        shape = (ctypes.c_int * 3)()
-        _check(built, lib.mcl_probe_staged_shape(steps, per_step, int(one_cta), shape),
+        shape = (ctypes.c_int * 2)()
+        _check(built, lib.mcl_probe_staged_shape(steps, per_step, shape),
                "probe_staged_writes shape")
-        return dict(cluster=shape[0], threads=shape[1], smem=shape[2])
+        return dict(grid=1, threads=shape[0], smem=shape[1])
 
     def scan_shape(self, part: str, n: int) -> dict:
         """The launch of ``part`` over n elements: grid, threads a block,

@@ -173,35 +173,30 @@ def probe_cumsum(pr: Probes, device) -> list[Call]:
                        library=lambda: torch.cumsum(x.reshape(-1), 0, out=lib_out), w=x)]
 
 
-def _staged(pr, device, label, steps, per_step, a, b, c, add, want) -> list[Call]:
+def _staged(pr, device, label, steps, per_step, a, b, c, add, want) -> Call:
+    out = pr.staged_writes(steps, per_step, a, b, c, add, device)
+    np.testing.assert_array_equal(out.cpu().numpy(), want.reshape(-1))
     plain = staged_writes_reference(steps, per_step, a, b, c, add, device)
+    err = _vs_plain(out, plain, label)
     n = steps * per_step
     lib_out = torch.empty_like(plain)
-    calls = []
-    for one_cta in (False, True) if torch.device(device).type == "cuda" else (False,):
-        out = pr.staged_writes(steps, per_step, a, b, c, add, device, one_cta=one_cta)
-        np.testing.assert_array_equal(out.cpu().numpy(), want.reshape(-1))
-        err = _vs_plain(out, plain, label)
-        calls.append(Call(
-            "staged_writes", label + (" (one CTA)" if one_cta else ""),
-            lambda one_cta=one_cta: pr.staged_writes(steps, per_step, a, b, c, add, device,
-                                                     one_cta=one_cta),
-            lambda: staged_writes_reference(steps, per_step, a, b, c, add, device),
-            lambda: lib_out.copy_(plain), (4 * n, 3 * n, 0), err,
-            shape=pr.staged_shape(steps, per_step, one_cta) if out.is_cuda else None))
-    return calls
+    return Call("staged_writes", label,
+                lambda: pr.staged_writes(steps, per_step, a, b, c, add, device),
+                lambda: staged_writes_reference(steps, per_step, a, b, c, add, device),
+                lambda: lib_out.copy_(plain), (4 * n, 3 * n, 0), err,
+                shape=pr.staged_shape(steps, per_step) if out.is_cuda else None)
 
 
 def probe_scratch(pr: Probes, device) -> list[Call]:
     """8 steps each write a (128,) row of i + 1; the last reads all 8."""
     want = np.tile(np.arange(1, 9, dtype=np.float32)[:, None], (1, 128))
-    return _staged(pr, device, "scratch", 8, 128, 1.0, 0.0, 1.0, 0.0, want)
+    return [_staged(pr, device, "scratch", 8, 128, 1.0, 0.0, 1.0, 0.0, want)]
 
 
 def probe_smem_roundtrip(pr: Probes, device) -> list[Call]:
     """32 steps each write 8 scalars (8i + s) * 2; read back plus one."""
     want = np.arange(256, dtype=np.float32) * 2.0 + 1.0
-    return _staged(pr, device, "smem_roundtrip", 32, 8, 16.0, 2.0, 0.0, 1.0, want)
+    return [_staged(pr, device, "smem_roundtrip", 32, 8, 16.0, 2.0, 0.0, 1.0, want)]
 
 
 def _mega_inputs(scale: float, with_g: bool = False):
@@ -229,8 +224,8 @@ def _want_prologue(w: np.ndarray, parts: np.ndarray) -> np.ndarray:
 
 
 def _scan_call(pr, label, part, work, err, library=None, rows_off=0.0, **kw) -> Call:
-    ref = next(t for t in (kw.get("w"), kw.get("g"), kw.get("parts")) if t is not None)
-    n = kw["w"].numel() if "w" in kw else ref.shape[0]
+    ref = kw.get("w", kw.get("g", kw.get("parts")))
+    n = ref.numel() if "w" in kw else ref.shape[0]
     return Call("scan_resample", label, lambda: pr.scan_resample(part, **kw),
                 lambda: scan_resample_reference(part, **kw), library, work, err, rows_off,
                 shape=pr.scan_shape(part, n) if ref.is_cuda else None)
