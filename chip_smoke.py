@@ -6,11 +6,13 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``csrc/`` (one nvcc per source,
-in parallel), holds each against its plain PyTorch version on the card
-(the LUT likelihood with and without the sub-bin lerp and on the shapes
-its lane layout makes edge cases, its normaliser and sub-bin tables, the
-unique-window kernel and its key kernel at 100k particles, the mega step
-on each side of its small-n choice), replays the config #1 golden
+in parallel), holds ``to_pixel_index`` on the card to the CPU bit for bit
+on 10^6 half-pixel knife-edge ranges, holds each kernel against its
+plain PyTorch version on the card (the LUT likelihood with and without
+the sub-bin lerp and on the shapes its lane layout makes edge cases,
+its normaliser and sub-bin tables, the unique-window kernel and its key
+kernel at 100k particles, the mega step on each side of its small-n
+choice), replays the config #1 golden
 trace through ``ParticleFilter`` on the classic step and on the mega step
 (``pallas_mega``), drives the mega step at 4000 x 1080 on the same map,
 replays the config #4 golden trace on basement_fixed (compact LUT, built
@@ -653,7 +655,7 @@ def knife_edge_ranges(res: float, max_range_px: int, count: int, seed: int = 0) 
     return np.concatenate([edge, rest])
 
 
-def phase_division(device) -> dict:
+def phase_division(device) -> None:
     """``SensorModel.to_pixel_index`` on the card against the CPU, bit
     for bit, on 10^6 ranges with every half-pixel knife edge (config #1's
     0.05 m map and 12 m range: 240 px). Beside it, the same count for the
@@ -683,7 +685,6 @@ def phase_division(device) -> dict:
     check(differing == 0, f"to_pixel_index differs between card and CPU on {differing} ranges")
     emit("division", t0, ranges=ranges.numel(), max_range_px=m, differing=differing,
          differing_reciprocal_form=before, reciprocal_quotients_off=quotients)
-    return dict(differing=differing, differing_reciprocal_form=before)
 
 
 def phase_config1(device) -> dict:
