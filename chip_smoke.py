@@ -23,7 +23,13 @@ unique-window kernel (``pallas_dedup_slots``, once with
 the 4000-particle x 1080-beam Spielberg headline shape, holds the fleet
 form of the LUT kernel against its plain version, runs config #5 (a
 ``FleetFilter`` of 64 cars x 4000 particles over 4 maps, bench.py
-``bench_fleet``'s counterpart) and runs the probes of
+``bench_fleet``'s counterpart), drives the single-filter runtime through
+the port's command line (``cli.main``: config #1 replayed one correction
+per scan with a sink and a checkpoint, chained with and without the mega
+step, resumed from a checkpoint; the u16 golden trace on basement_fixed;
+ten seconds of ``live`` with async chunked corrections), replays config
+#1 through an ``MCLNode`` with Augmented-MCL injection and times its
+``profile_phases``, and runs the probes of
 ``tools/mega_probe.py`` through their Hopper kernels. Each phase prints
 one JSON line with its own seconds; any failure raises and exits
 non-zero. The last two lines are the kernel report and ``{"ok": true,
@@ -44,6 +50,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -691,14 +698,14 @@ def phase_config1(device) -> dict:
     import torch
 
     from monte_carlo_localization_tpu_torch import MCLConfig, ParticleFilter, load_map
-    from monte_carlo_localization_tpu_torch.runtime import load_trace, replay_chained
+    from monte_carlo_localization_tpu_torch.runtime import Trace, replay_chained
 
     t0 = time.perf_counter()
     trace = REPO / "traces" / "config1_map_1753950572.npz"
     gm = load_map(REPO / "maps" / "map_1753950572.yaml", device=device)
     cfg = MCLConfig(max_particles=N_PARTICLES, angle_step=18)
     pf = ParticleFilter(gm, cfg)
-    pf.set_beam_angles(load_trace(trace)["beam_angles"][:: cfg.angle_step])
+    pf.set_beam_angles(Trace.load(trace).beam_angles[:: cfg.angle_step])
     t_setup = time.perf_counter() - t0
     pf.likelihood.launch_count = pf.likelihood.table_launch_count = 0
     res = replay_chained(pf, trace, chunk=64)
@@ -965,13 +972,12 @@ def phase_mega_vs_plain(device) -> dict:
 
 
 def trace_inputs(pf, trace):
-    from monte_carlo_localization_tpu_torch.runtime import load_trace, trace_actions
+    from monte_carlo_localization_tpu_torch.runtime import Trace, trace_actions
 
-    tr = load_trace(trace)
+    t = Trace.load(trace)
     stride = pf.config.angle_step
-    scans = np.ascontiguousarray(tr["scan_ranges"][:, ::stride], dtype=np.float32)
-    actions = trace_actions(tr["odom_t"], tr["odom_twist"], tr["scan_t"])
-    return tr, actions, scans
+    scans = np.ascontiguousarray(t.scan_ranges[:, ::stride], dtype=np.float32)
+    return vars(t), trace_actions(t.odom_t, t.odom_twist, t.scan_t), scans
 
 
 def phase_config1_mega(device, classic_rate: float) -> dict:
@@ -1664,6 +1670,264 @@ def probe_entries(probes: dict) -> list[dict]:
     ]
 
 
+# --- the single-filter runtime and the command line -------------------
+CLI_RMSE_MAX = CONFIG1_RMSE_MAX  # m, config #1 through the CLI, per correction and chained
+# m, 1.5x the 0.0427 m the JAX engine records on the u16 golden trace
+# (BENCHES.md, "u16 (long-range) LUT family")
+U16_RMSE_MAX = 0.064
+U16_MAX_RANGE = 25.6  # m: 507 px on basement_fixed, u16 LUT entries
+LIVE_POSE_TOL = 0.15  # m, the live run's last harvested pose vs the truth at its scan
+INJECT_RMSE_MAX = CONFIG1_RMSE_MAX  # m, config #1 replayed with Augmented-MCL injection
+LIVE_SECONDS = 10.0  # seconds of the config #1 trace fed in real time
+LIVE_CHUNK = 4
+RESUME_SCANS = 50  # scans replayed after resuming from a checkpoint
+CONFIG1_MAP = "maps/map_1753950572.yaml"
+CONFIG1_TRACE = "traces/config1_map_1753950572.npz"
+
+
+def run_cli(argv: list[str]):
+    """``cli.main(argv)`` in this process, with its node recorded: returns
+    (the JSON line it printed, the node). The node times its first
+    ``on_scan`` (the LUT build) and keeps the trace index of the latest
+    scan behind each async dispatch."""
+    import contextlib
+    import io
+
+    from monte_carlo_localization_tpu_torch import cli
+
+    made = []
+
+    class Recording(cli.MCLNode):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.lut_build_s = None
+            self.scans_seen = 0
+            self.dispatch_scans = []
+            made.append(self)
+
+        def on_scan(self, *a, **k):
+            first = not self.lidar_initialized
+            t0 = time.perf_counter()
+            super().on_scan(*a, **k)
+            if first:
+                self.lut_build_s = time.perf_counter() - t0
+            self.scans_seen += 1
+
+        def _enqueue_dispatch(self, pose_dev, t_mono, count):
+            self.dispatch_scans.append(self.scans_seen - 1)
+            super()._enqueue_dispatch(pose_dev, t_mono, count)
+
+    out = io.StringIO()
+    saved, cli.MCLNode = cli.MCLNode, Recording
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+    finally:
+        cli.MCLNode = saved
+    check(rc == 0 and len(made) == 1, f"cli {argv[0]} returned {rc} with {len(made)} nodes")
+    return json.loads(out.getvalue().strip().splitlines()[-1]), made[0]
+
+
+def node_updates(node, steps: int):
+    """``steps`` synchronous ``MCLNode.update`` ticks 40 ms apart on the
+    node's latest scan (each reads its pose back), for ``chain_profile``."""
+    def run():
+        for _ in range(steps):
+            node._last_update_time = 0.0
+            node.update(now=0.04)
+    return run
+
+
+def lut_counts(node) -> dict:
+    q, mega = node.filter.likelihood, node.filter.mega
+    return dict(lut_loglik_kernel=q.launch_count, log_norm_kernel=q.table_launch_count,
+                mega_step_kernel=0 if mega is None else mega.mega.launch_count)
+
+
+def trace_slice(trace, first: int, last: int, path: Path) -> Path:
+    """Scans first..last-1 of a trace with the odometry and truth of their
+    time window, written to ``path``."""
+    from monte_carlo_localization_tpu_torch.runtime import Trace
+
+    lo, hi = trace.scan_t[first], trace.scan_t[last - 1]
+    od = (trace.odom_t >= lo) & (trace.odom_t <= hi)
+    tt = (trace.truth_t >= lo) & (trace.truth_t <= hi)
+    return Trace(odom_t=trace.odom_t[od], odom_pose=trace.odom_pose[od],
+                 odom_twist=trace.odom_twist[od], scan_t=trace.scan_t[first:last],
+                 scan_ranges=trace.scan_ranges[first:last], beam_angles=trace.beam_angles,
+                 truth_t=trace.truth_t[tt], truth_pose=trace.truth_pose[tt],
+                 map_name=trace.map_name).save(path)
+
+
+def phase_cli_replay(device, tmp: Path) -> dict:
+    """``cli replay`` of config #1: one correction per scan through the
+    tracker with a JSONL sink and a checkpoint; chained, with and without
+    ``pallas_mega``; a resume from a checkpoint written after 450 scans
+    for the last RESUME_SCANS."""
+    import torch
+
+    from monte_carlo_localization_tpu_torch.runtime import Trace, load_state
+
+    t0 = time.perf_counter()
+    common = ["--device", str(device), "--map", str(REPO / CONFIG1_MAP),
+              "--particles", str(N_PARTICLES)]
+    trace = str(REPO / CONFIG1_TRACE)
+    mega_cfg = tmp / "mega.yaml"
+    mega_cfg.write_text("pallas_mega: true\n")
+    runs = {}
+    for name, extra in (
+        ("per_correction", ["--record-out", str(tmp / "run.jsonl"),
+                            "--checkpoint-out", str(tmp / "run.npz")]),
+        ("chained", ["--chained"]),
+        ("chained_mega", ["--chained", "--config", str(mega_cfg)]),
+    ):
+        out, node = run_cli(["replay", *common, "--trace", trace, "--init", "truth", *extra])
+        counts = lut_counts(node)
+        k = out["corrections"]
+        check(np.isfinite(node.inferred_pose).all(), f"cli replay {name}: non-finite pose")
+        check(out["rmse_xy_m"] <= CLI_RMSE_MAX,
+              f"cli replay {name}: RMSE {out['rmse_xy_m']} m > {CLI_RMSE_MAX}")
+        kernel = "mega_step_kernel" if name == "chained_mega" else "lut_loglik_kernel"
+        check(counts[kernel] == k, f"cli replay {name}: {counts[kernel]} {kernel} launches "
+              f"for {k} corrections")
+        if name == "chained_mega":
+            check(counts["lut_loglik_kernel"] == 0, "the mega replay launched the LUT kernel")
+        runs[name] = dict(**out, launches=counts,
+                          launches_per_correction={c: n / k for c, n in counts.items()},
+                          lut_build_s=node.lut_build_s)
+        if name == "per_correction":
+            runs[name]["profile_20_updates"] = chain_profile(node_updates(node, 20), 20)
+        del node
+    events = (tmp / "run.jsonl").read_text().splitlines()
+    poses = sum(json.loads(e)["topic"] == "pose" for e in events)
+    check(poses == runs["per_correction"]["corrections"],
+          f"the sink got {poses} poses for {runs['per_correction']['corrections']} corrections")
+    state, meta = load_state(tmp / "run.npz", device=device)
+    check(bool(torch.isfinite(state.particles).all()) and meta["iters"] > 0,
+          "the replay's checkpoint does not load")
+
+    tr = Trace.load(trace)
+    k = len(tr.scan_t)
+    head = trace_slice(tr, 0, k - RESUME_SCANS, tmp / "head.npz")
+    tail = trace_slice(tr, k - RESUME_SCANS, k, tmp / "tail.npz")
+    run_cli(["replay", *common, "--trace", str(head), "--checkpoint-out", str(tmp / "head_ck.npz")])
+    out, node = run_cli(["replay", *common, "--trace", str(tail), "--resume-from",
+                         str(tmp / "head_ck.npz")])
+    check(out["corrections"] == RESUME_SCANS - 1 and np.isfinite(out["rmse_xy_m"]),
+          f"the resumed replay ran {out['corrections']} corrections, RMSE {out['rmse_xy_m']}")
+    runs["resumed"] = dict(**out, launches=lut_counts(node), iters=node.iters)
+    del node
+    torch.cuda.empty_cache()
+    emit("cli_replay", t0, rmse_max_m=CLI_RMSE_MAX, sink_events=len(events), runs=runs)
+    return runs
+
+
+def phase_u16_basement(device, tmp: Path) -> dict:
+    """The u16 golden trace: ``cli replay --chained --init truth
+    --max-range 25.6`` on basement_fixed, 4000 particles x 60 beams on the
+    compact u16 LUT (507 px), built here."""
+    import torch
+
+    t0 = time.perf_counter()
+    out, node = run_cli(["replay", "--device", str(device), "--chained", "--init", "truth",
+                         "--max-range", str(U16_MAX_RANGE),
+                         "--map", str(REPO / "maps" / "basement_fixed.map.yaml"),
+                         "--trace", str(REPO / "traces" / "u16_basement.npz"),
+                         "--particles", str(N_PARTICLES)])
+    gm, counts = node.filter.grid_map, lut_counts(node)
+    lut, row_map = gm.range_lut, gm.lut_row_map
+    check(lut.dtype == torch.uint16 and row_map is not None and gm.max_range_px > 254,
+          f"u16_basement should take the compact u16 LUT ({lut.dtype}, {gm.max_range_px} px)")
+    check(counts["lut_loglik_kernel"] == out["corrections"] == 500,
+          f"{counts['lut_loglik_kernel']} LUT launches for {out['corrections']} corrections")
+    check(out["rmse_xy_m"] <= U16_RMSE_MAX, f"u16_basement RMSE {out['rmse_xy_m']} m > {U16_RMSE_MAX}")
+    tr, actions, scans = trace_inputs(node.filter, REPO / "traces" / "u16_basement.npz")
+    s0 = node.filter.init_pose(tr["truth_pose"][0], seed=3)
+    prof = chain_profile(lambda: node.filter.step_many(s0, actions[:20], scans[:20]), 20)
+    res = dict(**out, launches=counts, max_range_px=gm.max_range_px, lut="compact uint16",
+               lut_rows=lut.numel() // gm.row_stride, row_stride=gm.row_stride,
+               lut_bytes=lut.numel() * lut.element_size(),
+               row_map_bytes=row_map.numel() * row_map.element_size(),
+               lut_build_and_upload_s=node.lut_build_s, jax_engine_rmse_xy_m=0.0427,
+               profile_20_steps=prof)
+    del node, gm, lut, row_map, s0
+    torch.cuda.empty_cache()
+    emit("u16_basement", t0, rmse_max_m=U16_RMSE_MAX, **res)
+    return res
+
+
+def phase_live(device, tmp: Path) -> dict:
+    """``cli live`` of config #1 for LIVE_SECONDS with ``--async-correction
+    --live-chunk 4``: the LiveRunner's thread ticks at 100 Hz while this
+    thread feeds the trace in real time. Gates: a correction, and the last
+    harvested pose within LIVE_POSE_TOL of the truth at its scan's time."""
+    import torch
+
+    from monte_carlo_localization_tpu_torch.runtime import Trace
+
+    t0 = time.perf_counter()
+    out, node = run_cli(["live", "--device", str(device), "--map", str(REPO / CONFIG1_MAP),
+                         "--trace", str(REPO / CONFIG1_TRACE), "--particles", str(N_PARTICLES),
+                         "--duration", str(LIVE_SECONDS), "--async-correction",
+                         "--live-chunk", str(LIVE_CHUNK)])
+    check(out["corrections"] >= 1, "the live run harvested no correction")
+    harvested = len(node.dispatch_scans) - len(node._inflight_q)
+    scan = node.dispatch_scans[harvested - 1]
+    tr = Trace.load(REPO / CONFIG1_TRACE)
+    t_scan = float(tr.scan_t[scan])
+    truth = np.array([np.interp(t_scan, tr.truth_t, tr.truth_pose[:, i]) for i in range(2)])
+    err = float(np.hypot(*(node.inferred_pose[:2] - truth)))
+    check(err <= LIVE_POSE_TOL, f"live: last pose {err} m from the truth at {t_scan} s "
+          f"> {LIVE_POSE_TOL}")
+    res = dict(**out, live_chunk=LIVE_CHUNK, particles=N_PARTICLES, last_pose_err_m=err,
+               last_pose_scan_t=t_scan, dispatches=len(node.dispatch_scans),
+               launches=lut_counts(node), lut_build_s=node.lut_build_s)
+    del node
+    torch.cuda.empty_cache()
+    emit("live", t0, pose_tol_m=LIVE_POSE_TOL, **res)
+    return res
+
+
+def phase_inject(device) -> dict:
+    """An ``MCLNode`` with ``auto_reinit=True, reinit_mode="inject"``
+    replays config #1, one correction per scan; then ``profile_phases``
+    of its filter."""
+    import torch
+
+    from monte_carlo_localization_tpu_torch import MCLConfig, load_map
+    from monte_carlo_localization_tpu_torch.runtime import MCLNode, Trace, trace_actions
+
+    t0 = time.perf_counter()
+    tr = Trace.load(REPO / CONFIG1_TRACE)
+    gm = load_map(REPO / CONFIG1_MAP, device=device)
+    cfg = MCLConfig(max_particles=N_PARTICLES, angle_step=18, auto_reinit=True,
+                    reinit_mode="inject")
+    node = MCLNode(gm, cfg)
+    node.on_scan(tr.scan_ranges[0], beam_angles=tr.beam_angles)
+    q = node.filter.likelihood
+    q.launch_count = q.table_launch_count = 0
+    node.initialize_pose(tr.truth_pose[0])
+    res = node.replay(tr)
+    launches = q.launch_count
+    check(np.isfinite(res.poses).all(), "inject replay gave non-finite poses")
+    check(launches == res.corrections, f"{launches} LUT launches for {res.corrections} corrections")
+    check(res.rmse_xy <= INJECT_RMSE_MAX, f"inject replay RMSE {res.rmse_xy} m > {INJECT_RMSE_MAX}")
+    actions = trace_actions(tr.odom_t, tr.odom_twist, tr.scan_t)
+    stats = node.filter.profile_phases(node.state, actions[1],
+                                       tr.scan_ranges[1, :: cfg.angle_step], iters=20)
+    per = {k: getattr(stats, k) / stats.measurement_count
+           for k in ("resampling_time", "motion_model_time", "sensor_model_time",
+                     "total_mcl_time")}
+    out = dict(corrections=res.corrections, rmse_xy_m=res.rmse_xy, rmse_theta_rad=res.rmse_theta,
+               updates_per_s=res.updates_per_sec, inject_steps=node.inject_steps,
+               auto_reinits=node.auto_reinits, lut_launches=launches,
+               profile_phases_ms=per)
+    del node, gm
+    torch.cuda.empty_cache()
+    emit("inject", t0, rmse_max_m=INJECT_RMSE_MAX, particles=N_PARTICLES, **out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1722,6 +1986,12 @@ def main() -> int:
     head = phase_headline(device)
     fleet_plain = phase_fleet_vs_plain(device)
     config5 = phase_config5(device, mega1["classic_kernels_per_correction"])
+    # the single-filter runtime through the port's command line
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        cli_runs = phase_cli_replay(device, Path(tmp))
+        u16 = phase_u16_basement(device, Path(tmp))
+        live = phase_live(device, Path(tmp))
+    inject = phase_inject(device)
     probes = phase_probes(device)
     keys = ("launches", "max_abs_err", "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")
     k3 = config4["k3"]
@@ -1755,6 +2025,15 @@ def main() -> int:
             "sector_bytes": head["sector_bytes"], "sector_bound_ms": head["sector_bound_ms"],
             "config1_launches": config1["launches"],
             "config4_launches": config4["k1_launches"],
+            # the runtime's paths: cli replay (per correction, chained, the
+            # resumed tail), u16_basement, live, the inject replay
+            "runtime_launches": {
+                **{f"cli_{k}": v["launches"]["lut_loglik_kernel"] for k, v in cli_runs.items()
+                   if k != "chained_mega"},
+                "u16_basement": u16["launches"]["lut_loglik_kernel"],
+                "live": live["launches"]["lut_loglik_kernel"],
+                "inject": inject["lut_launches"],
+            },
             "synthetic_times": lut_plain["times"]["K1"],
         },
         {
@@ -1813,6 +2092,8 @@ def main() -> int:
             "bound_ms": mega1["bound_ms"],
             "bound_by": mega1["bound_by"],
             "library_ms": None,
+            "runtime_launches": {
+                "cli_chained_mega": cli_runs["chained_mega"]["launches"]["mega_step_kernel"]},
             "grid_blocks": mega1["grid_blocks"], "phase1": mega1["phase1"],
             "phase_device_ms": mega1["phase_device_ms"],
             "synthetic_times": mega_plain["times"],

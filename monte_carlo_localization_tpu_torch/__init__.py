@@ -10,6 +10,11 @@ on a card and as its plain PyTorch version on the CPU; with
 correction as one launch of the mega-step kernel (``csrc/mega_step.cu``). ``GridMap.from_numpy`` and ``MCLState.from_numpy`` /
 ``MCLState.to_numpy`` carry a map (with its LUT buffer) and a particle
 cloud across from the JAX package, so both can run on the same inputs.
+
+``runtime`` holds the single-filter node (``MCLNode``: the dual-rate
+tracker, sinks, checkpoints, Augmented-MCL re-localization) and its live
+scheduler (``LiveRunner``); ``python -m monte_carlo_localization_tpu_torch.cli``
+is the command line (``make-trace``, ``replay``, ``live``, ``info``).
 """
 
 from monte_carlo_localization_tpu_torch.config import MCLConfig, load_config
@@ -20,6 +25,7 @@ from monte_carlo_localization_tpu_torch.filter import (
     mega_supported,
 )
 from monte_carlo_localization_tpu_torch.mapping import GridMap, load_map
+from monte_carlo_localization_tpu_torch.runtime import LiveRunner, MCLNode, Trace
 
 __all__ = [
     "MCLConfig",
@@ -30,4 +36,7 @@ __all__ = [
     "ParticleFilter",
     "MegaStepper",
     "mega_supported",
+    "MCLNode",
+    "LiveRunner",
+    "Trace",
 ]

@@ -150,7 +150,7 @@ def resolve_raycast_method(method: str) -> str:
     if method in UNPORTED_RAYCAST_METHODS:
         raise NotImplementedError(
             f"raycast_method={method!r} is not ported to PyTorch yet; see "
-            "ROADMAP.md (queue 1, item 11: ops/raycast.py)"
+            "ROADMAP.md queue 1, item 6 (ops/raycast.py)"
         )
     raise ValueError(f"Unknown raycast method: {method!r}")
 

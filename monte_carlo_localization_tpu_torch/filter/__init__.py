@@ -3,6 +3,7 @@ from monte_carlo_localization_tpu_torch.filter.core import (
     ParticleFilter,
     build_lut_likelihood,
     expected_pose,
+    inject_uniform,
     mcl_step,
 )
 from monte_carlo_localization_tpu_torch.filter.mega import MegaStepper, mega_supported
@@ -16,6 +17,7 @@ __all__ = [
     "ParticleFilter",
     "build_lut_likelihood",
     "expected_pose",
+    "inject_uniform",
     "mcl_step",
     "MegaStepper",
     "mega_supported",

@@ -4,12 +4,17 @@
     systematic resample -> motion -> fused LUT likelihood
     -> log-quality and max-shift normalization -> weighted-mean pose
 
+With ``inject_fraction`` (Augmented MCL) each particle is replaced, after
+motion and before the likelihood, by a uniform free-space draw with that
+probability.
+
 PyTorch runs eagerly, so a step is a sequence of device launches with no
 host synchronization; :meth:`ParticleFilter.step_many` chains K of them.
 Random draws come from a ``torch.Generator`` carried in the state. The
 streams differ from jax.random's, so :func:`mcl_step` also takes the
-resample offset ``u0`` and the motion noise from outside (the parity
-tests feed the JAX package's own draws).
+resample offset ``u0``, the motion noise and the injection's mask
+uniforms and poses from outside (the parity tests feed the JAX package's
+own draws).
 """
 
 from __future__ import annotations
@@ -32,7 +37,8 @@ from monte_carlo_localization_tpu_torch.ops.lut_query import (
     suggest_theta_bins,
 )
 from monte_carlo_localization_tpu_torch.ops.resample import resample_indices
-from monte_carlo_localization_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from monte_carlo_localization_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device, upload
+from monte_carlo_localization_tpu_torch.utils.timing import TimingStats, call_ms
 
 
 @dataclass(frozen=True)
@@ -103,6 +109,7 @@ def correct(
     exact_dt_heuristic: bool = True,
     u0=None,
     noise: torch.Tensor | None = None,
+    inject=None,
 ):
     """One MCL correction of (N, 3) particles, or of a fleet's (F, N, 3)
     with per-member actions (F, 3) and scans: the same launches serve
@@ -114,7 +121,8 @@ def correct(
     the observed ranges in pixels; the pose comes from the new particles
     and weights. ``u0`` (systematic resampling offset, one per member)
     and ``noise`` (N(0, 1) motion noise shaped like the particles)
-    replace the generator's draws when given.
+    replace the generator's draws when given. ``inject`` (proposal ->
+    proposal) runs between motion and the likelihood.
     """
     idx = resample_indices(
         log_weights, method=resample_method, generator=generator, u0=u0
@@ -133,6 +141,8 @@ def correct(
         generator=generator,
         noise=noise,
     )
+    if inject is not None:
+        proposal = inject(proposal)
     log_w = likelihood_fn(proposal, obs_px)
     # log(mean_i w_i) before the shift: linear space underflows at 1080 beams
     log_quality = torch.logsumexp(log_w, dim=-1) - math.log(log_w.shape[-1])
@@ -140,18 +150,60 @@ def correct(
     return proposal, log_w, log_quality.to(torch.float32), expected_pose(proposal, log_w)
 
 
+def inject_uniform(
+    proposal: torch.Tensor,
+    fraction: float,
+    grid_map: GridMap,
+    generator: torch.Generator,
+    mask_u: torch.Tensor | None = None,
+    injected: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Augmented-MCL injection (Probabilistic Robotics §8.3; JAX
+    ``filter/core.py:173-179``): each of the N particles becomes its row
+    of ``injected`` (N, 3), uniform free-space poses from
+    :func:`initialize_global`, where its mask uniform ``mask_u`` (N,) is
+    below ``fraction``. Both are drawn from ``generator`` (poses first)
+    unless given. The fraction is rounded to float32 on the host, as the
+    JAX step's traced scalar is."""
+    n = proposal.shape[0]
+    if injected is None:
+        injected, _ = initialize_global(generator, grid_map, n, dtype=proposal.dtype)
+    if mask_u is None:
+        mask_u = torch.rand(n, generator=generator, device=proposal.device)
+    if injected.shape != proposal.shape or mask_u.shape != (n,):
+        raise ValueError(
+            f"injected {tuple(injected.shape)} / mask_u {tuple(mask_u.shape)} do not "
+            f"fit {tuple(proposal.shape)} particles"
+        )
+    replace = mask_u < float(np.float32(fraction))
+    return torch.where(replace[:, None], injected, proposal)
+
+
 def mcl_step(
     state: MCLState,
     action: torch.Tensor,
     obs_px: torch.Tensor,
     likelihood_fn,
+    *,
+    inject_fraction: float | None = None,
+    grid_map: GridMap | None = None,
+    mask_u: torch.Tensor | None = None,
+    injected: torch.Tensor | None = None,
     **kwargs,
 ) -> tuple[MCLState, torch.Tensor]:
     """One MCL correction (:func:`correct`) of a single filter. Returns
-    (new_state, inferred_pose)."""
+    (new_state, inferred_pose). With ``inject_fraction`` (not None) the
+    proposal goes through :func:`inject_uniform` on ``grid_map``, with
+    the draws ``mask_u`` and ``injected`` when given; None draws nothing
+    more than the plain step."""
+    inject = None
+    if inject_fraction is not None:
+        def inject(proposal):
+            return inject_uniform(proposal, inject_fraction, grid_map, state.generator,
+                                  mask_u, injected)
     proposal, log_w, log_quality, pose = correct(
         state.particles, state.log_weights, state.generator, action, obs_px,
-        likelihood_fn, **kwargs,
+        likelihood_fn, inject=inject, **kwargs,
     )
     new_state = MCLState(
         particles=proposal, log_weights=log_w, generator=state.generator,
@@ -315,11 +367,7 @@ class ParticleFilter:
         gm = self.grid_map
         return self.likelihood(gm.range_lut, particles, obs_px, row_map=gm.lut_row_map)
 
-    def _obs_px(self, observed_m) -> torch.Tensor:
-        obs = torch.as_tensor(observed_m, dtype=torch.float32, device=self.device)
-        return self.sensor.to_pixel_index(obs).to(torch.float32)
-
-    def _step(self, state, action, obs_px, u0, noise):
+    def _step(self, state, action, obs_px, u0=None, noise=None, **inject):
         cfg = self.config
         return mcl_step(
             state, action, obs_px, self._likelihood_fn,
@@ -332,6 +380,8 @@ class ParticleFilter:
             exact_dt_heuristic=cfg.exact_dt_heuristic,
             u0=u0,
             noise=noise,
+            grid_map=self.grid_map,
+            **inject,
         )
 
     def _require_beams(self) -> None:
@@ -339,15 +389,23 @@ class ParticleFilter:
             raise RuntimeError("beam_angles not set — call set_beam_angles() first")
 
     def step(
-        self, state: MCLState, action, observed_m, u0=None, noise=None
+        self, state: MCLState, action, observed_m, inject_fraction: float | None = None,
+        u0=None, noise=None, mask_u=None, injected=None,
     ) -> tuple[MCLState, torch.Tensor]:
-        """One MCL correction, launched without waiting for the device.
-        Optional draws: ``u0`` (scalar) and ``noise`` (N, 3)."""
+        """One MCL correction, launched without waiting for the device
+        (host inputs go up through pinned memory). ``inject_fraction``:
+        Augmented-MCL injection for this correction (None: the plain
+        step, whose draws it leaves as they are). Optional draws: ``u0``
+        (scalar), ``noise`` (N, 3), and with injection ``mask_u`` (N,) and
+        ``injected`` (N, 3)."""
         self._require_beams()
-        action = torch.as_tensor(action, dtype=torch.float32, device=self.device)
-        if noise is not None:
-            noise = torch.as_tensor(noise, dtype=torch.float32, device=self.device)
-        return self._step(state, action, self._obs_px(observed_m), u0, noise)
+        opt = {k: None if v is None else upload(v, self.device)
+               for k, v in dict(u0=u0, noise=noise, mask_u=mask_u, injected=injected).items()}
+        if inject_fraction is None and (mask_u is not None or injected is not None):
+            raise ValueError("mask_u and injected need an inject_fraction")
+        obs_px = self.sensor.to_pixel_index(upload(observed_m, self.device)).to(torch.float32)
+        return self._step(state, upload(action, self.device), obs_px,
+                          inject_fraction=inject_fraction, **opt)
 
     def step_many(
         self, state: MCLState, actions, observed_m, u0=None, noise=None
@@ -357,23 +415,24 @@ class ParticleFilter:
         ``u0`` (K,) and ``noise`` (K, N, 3). Returns (state, poses (K, 3)).
         With ``pallas_mega`` each correction is one mega-step launch."""
         self._require_beams()
-        actions = torch.as_tensor(actions, dtype=torch.float32, device=self.device)
-        obs_px = self._obs_px(observed_m)
+        actions = upload(actions, self.device)
+        observed_m = upload(observed_m, self.device)
         k = actions.shape[0]
-        if obs_px.shape[0] != k:
-            raise ValueError(f"{k} actions but {obs_px.shape[0]} scans")
+        if observed_m.shape[0] != k:
+            raise ValueError(f"{k} actions but {observed_m.shape[0]} scans")
         if u0 is not None:
-            u0 = torch.as_tensor(u0, dtype=torch.float32, device=self.device)
+            u0 = upload(u0, self.device)
             if u0.shape != (k,):
                 raise ValueError(f"u0 shape {tuple(u0.shape)} != ({k},)")
         if noise is not None:
-            noise = torch.as_tensor(noise, dtype=torch.float32, device=self.device)
+            noise = upload(noise, self.device)
             if noise.shape != (k, state.num_particles, 3):
                 raise ValueError(
                     f"noise shape {tuple(noise.shape)} != ({k}, {state.num_particles}, 3)"
                 )
         if self.mega is not None:
             return self.mega.step_many(state, actions, observed_m, u0=u0, noise=noise)
+        obs_px = self.sensor.to_pixel_index(observed_m).to(torch.float32)
         poses = []
         for i in range(k):
             state, pose = self._step(
@@ -388,3 +447,46 @@ class ParticleFilter:
         """log mean (squashed) measurement likelihood of the latest
         correction, before the max-shift: Augmented MCL's w_avg."""
         return float(state.log_quality)
+
+    def profile_phases(self, state: MCLState, action, observed_m,
+                       iters: int = 20) -> TimingStats:
+        """Per-phase times of one correction, the analogue of the
+        reference's TimingStats printout (reference src/utils.cpp:105-125)
+        and of the JAX filter's ``profile_phases``: resample (with the row
+        gather), motion, the production likelihood (the LUT kernel on a
+        card) and the whole step, each run ``iters`` times on the same
+        inputs after a warm-up, timed between CUDA events on a card (the
+        host clock on the CPU). Each field holds the total ms over
+        ``iters`` runs; ``measurement_count`` is ``iters``. ``state`` is
+        not advanced (its generator is)."""
+        self._require_beams()
+        cfg = self.config
+        action = upload(action, self.device)
+        obs_px = self.sensor.to_pixel_index(upload(observed_m, self.device)).to(torch.float32)
+        gen = state.generator
+        dispersion = (cfg.motion_dispersion_x, cfg.motion_dispersion_y,
+                      cfg.motion_dispersion_theta)
+
+        def resample():
+            idx = resample_indices(state.log_weights, method=cfg.resample_method,
+                                   generator=gen)
+            return state.particles[idx]
+
+        proposal = resample()
+
+        def motion():
+            return motion_model(
+                proposal, action, dispersion_x=dispersion[0], dispersion_y=dispersion[1],
+                dispersion_theta=dispersion[2], exact_dt_heuristic=cfg.exact_dt_heuristic,
+                generator=gen,
+            )
+
+        moved = motion()
+        stats = TimingStats(measurement_count=iters)
+        stats.resampling_time = call_ms(resample, iters, self.device) * iters
+        stats.motion_model_time = call_ms(motion, iters, self.device) * iters
+        stats.sensor_model_time = call_ms(
+            lambda: self._likelihood_fn(moved, obs_px), iters, self.device) * iters
+        stats.total_mcl_time = call_ms(
+            lambda: self._step(state, action, obs_px), iters, self.device) * iters
+        return stats

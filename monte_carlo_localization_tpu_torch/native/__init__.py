@@ -1,5 +1,5 @@
-"""Host C++/OpenMP builders (EDT, range LUTs), compiled at first use and
-loaded with ctypes.
+"""Host C++/OpenMP builders (EDT, range LUTs) and the reference-exact DDA
+ray caster, compiled at first use and loaded with ctypes.
 
 The source is this package's own ``mcl_native.cpp``, a copy of the JAX
 package's ``monte_carlo_localization_tpu/native/mcl_native.cpp``, so the
@@ -7,8 +7,9 @@ builders agree bit for bit (the parity tests hold the dense and compact
 LUTs equal) while the port reads no file of the JAX package. The ``.so``
 goes into this package's ``_build/`` directory, keyed by the source
 hash. Without a C++ toolchain
-the EDT and the dense LUT builder return None and callers use numpy; the
-compact builder has no numpy route and its callers raise.
+the EDT, the dense LUT builder and the ray caster return None and callers
+use numpy or torch; the compact builder has no numpy route and its
+callers raise.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
 _LIB_FAILED = False
 
+_I8P = ctypes.POINTER(ctypes.c_int8)
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _U16P = ctypes.POINTER(ctypes.c_uint16)
 _I32P = ctypes.POINTER(ctypes.c_int32)
@@ -54,6 +56,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.mcl_native_version.restype = ctypes.c_int
     lib.mcl_native_version.argtypes = []
     lib.mcl_edt.restype = None
+    lib.mcl_cast_rays.restype = None
+    lib.mcl_cast_rays.argtypes = [
+        _I8P, ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_double,
+        ctypes.c_double, ctypes.c_int, ctypes.c_double, _F32P, ctypes.c_long,
+        _F32P, ctypes.c_int,
+    ]
     lib.mcl_edt.argtypes = [_U8P, ctypes.c_int, ctypes.c_int, _F32P]
     for name, outp in (
         ("mcl_build_range_lut", _U8P),
@@ -167,5 +175,38 @@ def native_build_compact_range_lut(
         occupied.ctypes.data_as(_U8P), h, w, int(t_bins), int(max_range_px),
         row_map.ctypes.data_as(_I32P), int(row_stride),
         out.ctypes.data_as(_U16P if u16 else _U8P),
+    )
+    return out
+
+
+def native_cast_rays(
+    occupancy: np.ndarray,
+    origin_x: float,
+    origin_y: float,
+    resolution: float,
+    max_range_px: int,
+    max_range_meters: float,
+    queries: np.ndarray,
+    num_threads: int = 0,
+) -> np.ndarray | None:
+    """(Q,) float32 reference-exact DDA ranges (meters) of (Q, 3) float32
+    queries (x, y, angle) on an int8 occupancy grid, or None without the
+    library."""
+    lib = _load()
+    if lib is None:
+        return None
+    occupancy = np.ascontiguousarray(occupancy, dtype=np.int8)
+    queries = np.ascontiguousarray(queries, dtype=np.float32)
+    if occupancy.ndim != 2 or queries.ndim != 2 or queries.shape[1] != 3:
+        raise ValueError(
+            f"occupancy {occupancy.shape} must be (H, W), queries {queries.shape} (Q, 3)"
+        )
+    h, w = occupancy.shape
+    out = np.empty((queries.shape[0],), dtype=np.float32)
+    lib.mcl_cast_rays(
+        occupancy.ctypes.data_as(_I8P), h, w, float(origin_x), float(origin_y),
+        float(resolution), int(max_range_px), float(max_range_meters),
+        queries.ctypes.data_as(_F32P), queries.shape[0],
+        out.ctypes.data_as(_F32P), int(num_threads),
     )
     return out

@@ -13,9 +13,9 @@ batches the maps, the LUT holds one tight block per map, and
 ``map_assignment`` lets many members share a map's block (64 cars over 4
 circuits store 4 blocks, not 64).
 
-Not ported: a mesh or particle axis (torch.distributed, ROADMAP item 14)
-and the other raycast methods (ROADMAP item 11). They raise; the filter
-never runs another path.
+Not ported: a mesh or particle axis (torch.distributed, ROADMAP.md queue
+1, item 8) and the other raycast methods (item 6). They raise; the
+filter never runs another path.
 """
 
 from __future__ import annotations
@@ -159,7 +159,7 @@ class FleetFilter:
         if mesh is not None or particle_axis is not None:
             raise NotImplementedError(
                 "FleetFilter over a device mesh (mesh / particle_axis) is not "
-                "ported yet; see ROADMAP.md item 14 (torch.distributed)"
+                "ported yet; see ROADMAP.md queue 1, item 8 (torch.distributed)"
             )
         cfg = config or MCLConfig()
         cfg = cfg.replace(raycast_method=resolve_raycast_method(cfg.raycast_method))

@@ -1,16 +1,49 @@
+from monte_carlo_localization_tpu_torch.runtime.checkpoint import (
+    load_fleet_state,
+    load_state,
+    save_fleet_state,
+    save_state,
+)
 from monte_carlo_localization_tpu_torch.runtime.converge import ConvergeResult, converge_global
-from monte_carlo_localization_tpu_torch.runtime.replay import (
-    ReplayResult,
-    load_trace,
-    replay_chained,
+from monte_carlo_localization_tpu_torch.runtime.loop import LiveRunner
+from monte_carlo_localization_tpu_torch.runtime.node import MCLNode, ReplayResult
+from monte_carlo_localization_tpu_torch.runtime.replay import replay_chained
+from monte_carlo_localization_tpu_torch.runtime.sinks import (
+    CallbackSink,
+    JsonlSink,
+    NpzSink,
+    Sink,
+)
+from monte_carlo_localization_tpu_torch.runtime.trace import (
+    HostRaycaster,
+    Trace,
+    TraceReader,
+    TraceWriter,
+    synthesize_trace,
     trace_actions,
 )
+from monte_carlo_localization_tpu_torch.runtime.tracker import OdometryTracker
 
 __all__ = [
-    "ConvergeResult",
+    "OdometryTracker",
+    "MCLNode",
     "ReplayResult",
-    "converge_global",
-    "load_trace",
-    "replay_chained",
+    "LiveRunner",
+    "Sink",
+    "CallbackSink",
+    "JsonlSink",
+    "NpzSink",
+    "Trace",
+    "TraceReader",
+    "TraceWriter",
+    "synthesize_trace",
     "trace_actions",
+    "HostRaycaster",
+    "save_state",
+    "load_state",
+    "save_fleet_state",
+    "load_fleet_state",
+    "ConvergeResult",
+    "converge_global",
+    "replay_chained",
 ]

@@ -8,6 +8,7 @@ instead of running on the CPU.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 DEFAULT_DEVICE = "cuda"
@@ -24,3 +25,19 @@ def resolve_device(device: torch.device | str) -> torch.device:
             "on the CPU"
         )
     return dev
+
+
+def upload(x, device: torch.device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``x`` (array, number or tensor) as a ``dtype`` tensor on ``device``.
+    A host value goes to a card through pinned memory without waiting: a
+    plain host-to-device copy synchronizes the stream, and with it every
+    correction still in flight."""
+    if isinstance(x, torch.Tensor):
+        if x.device == device:
+            return x.to(dtype)
+        t = x.to(dtype)
+    else:
+        t = torch.tensor(np.asarray(x), dtype=dtype)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

@@ -1,6 +1,7 @@
-"""Geometry helpers: angle wrapping (tensors or numpy) and trajectory RMSE
-(numpy), as in the JAX package's ``utils/geometry.py``; and :func:`div`,
-the port's one way to divide a tensor by a Python number."""
+"""Geometry helpers: angle wrapping (tensors or numpy); quaternion <-> yaw,
+the lidar -> base_link offset and trajectory RMSE (numpy), as in the JAX
+package's ``utils/geometry.py``; and :func:`div`, the port's one way to
+divide a tensor by a Python number."""
 
 from __future__ import annotations
 
@@ -32,6 +33,30 @@ def normalize_angle(angle):
     if isinstance(angle, torch.Tensor):
         return torch.atan2(torch.sin(angle), torch.cos(angle))
     return np.arctan2(np.sin(angle), np.cos(angle))
+
+
+def quaternion_to_yaw(qx: float, qy: float, qz: float, qw: float) -> float:
+    """Z-axis rotation extracted from a quaternion (reference src/utils.cpp:26-32)."""
+    siny_cosp = 2.0 * (qw * qz + qx * qy)
+    cosy_cosp = 1.0 - 2.0 * (qy * qy + qz * qz)
+    return float(np.arctan2(siny_cosp, cosy_cosp))
+
+
+def yaw_to_quaternion(yaw: float) -> tuple[float, float, float, float]:
+    """Pure-Z rotation quaternion (x, y, z, w) (reference src/utils.cpp:35-40)."""
+    half = 0.5 * yaw
+    return (0.0, 0.0, float(np.sin(half)), float(np.cos(half)))
+
+
+def apply_vehicle_offset(pose, forward_offset: float) -> np.ndarray:
+    """lidar -> base_link: move a (3,) pose or (N, 3) poses back by
+    ``forward_offset`` along the heading (reference src/utils.cpp:60-70)."""
+    pose = np.asarray(pose)
+    theta = pose[..., 2]
+    out = pose.copy()
+    out[..., 0] = pose[..., 0] - forward_offset * np.cos(theta)
+    out[..., 1] = pose[..., 1] - forward_offset * np.sin(theta)
+    return out
 
 
 def trajectory_rmse(times, poses, truth_t, truth_pose):

@@ -1,5 +1,14 @@
-"""Timers for work on the card, shared by ``chip_smoke.py`` and
-``tools/mega_probe.py``.
+"""Timers for work on the card, shared by ``chip_smoke.py``,
+``tools/mega_probe.py`` and the filter's ``profile_phases``; and the
+runtime's accounting, as in the JAX package's ``utils/timing.py``.
+
+- :class:`TimingStats` and :class:`Stopwatch`: the reference's per-phase
+  accumulators and its printed breakdown (reference
+  include/particle_filter_cpp/utils.hpp:49-61, src/utils.cpp:93-125).
+- :class:`device_trace`: a ``torch.profiler`` session around a block that
+  writes a Chrome trace (the JAX package's ``jax.profiler`` trace).
+- :func:`call_ms`: milliseconds per call of ``fn`` on a device, CUDA
+  events on a card and the host clock on the CPU.
 
 - :func:`event_ms`: CUDA events around back-to-back Python calls (what a
   caller pays per call; host-bound where the call's kernels are shorter
@@ -16,8 +25,123 @@ from __future__ import annotations
 
 import statistics
 import time
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Callable
 
 import torch
+
+
+@dataclass
+class TimingStats:
+    total_mcl_time: float = 0.0  # ms accumulators, as in the reference
+    ray_casting_time: float = 0.0
+    sensor_model_time: float = 0.0
+    motion_model_time: float = 0.0
+    resampling_time: float = 0.0
+    query_prep_time: float = 0.0
+    measurement_count: int = 0
+
+    def reset(self) -> None:
+        self.total_mcl_time = 0.0
+        self.ray_casting_time = 0.0
+        self.sensor_model_time = 0.0
+        self.motion_model_time = 0.0
+        self.resampling_time = 0.0
+        self.query_prep_time = 0.0
+        self.measurement_count = 0
+
+    @property
+    def avg_total_ms(self) -> float:
+        if self.measurement_count == 0:
+            return 0.0
+        return self.total_mcl_time / self.measurement_count
+
+    def print_stats(self, logger: Callable[[str], None] = print) -> None:
+        """Same layout as reference src/utils.cpp:105-125."""
+        if self.measurement_count == 0:
+            return
+        n = self.measurement_count
+        avg_total = self.total_mcl_time / n
+        rows = [
+            ("Ray casting", self.ray_casting_time / n),
+            ("Sensor eval", self.sensor_model_time / n),
+            ("Query prep", self.query_prep_time / n),
+            ("Motion model", self.motion_model_time / n),
+            ("Resampling", self.resampling_time / n),
+        ]
+        logger(f"=== PERFORMANCE STATS (last {n} iterations) ===")
+        hz = 1000.0 / avg_total if avg_total > 0 else float("inf")
+        logger(f"Total MCL:        {avg_total:.6f} ms/iter ({hz:.2f} Hz)")
+        for name, avg in rows:
+            pct = 100.0 * avg / avg_total if avg_total > 0 else 0.0
+            logger(f"{name + ':':<18}{avg:.6f} ms/iter ({pct:.2f}%)")
+        logger("=====================================")
+
+
+class Stopwatch:
+    """Context manager accumulating wall ms into a TimingStats attribute.
+    Work on the card is counted only up to where the block waits for it
+    (the node's synchronous update reads its pose back inside)."""
+
+    def __init__(self, stats: TimingStats, attr: str):
+        self.stats = stats
+        self.attr = attr
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt_ms = (time.perf_counter() - self._t0) * 1000.0
+        setattr(self.stats, self.attr, getattr(self.stats, self.attr) + dt_ms)
+        return False
+
+
+class device_trace:
+    """A ``torch.profiler`` session (CPU, and CUDA where a card is present)
+    around a block; on exit it writes ``trace.json`` (Chrome trace format,
+    for chrome://tracing or ui.perfetto.dev) into ``log_dir``::
+
+        with device_trace("/tmp/mcl_trace"):
+            state, pose = pf.step(state, action, scan)
+    """
+
+    def __init__(self, log_dir: str | Path, log: Callable[[str], None] = print):
+        self.log_dir = Path(log_dir)
+        self.log = log
+        self._prof = None
+
+    def __enter__(self) -> "device_trace":
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        self._prof = profile(activities=activities)
+        self._prof.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        prof, self._prof = self._prof, None
+        prof.__exit__(*exc)
+        self.log_dir.mkdir(parents=True, exist_ok=True)
+        path = self.log_dir / "trace.json"
+        prof.export_chrome_trace(str(path))
+        self.log(f"device trace written to {path}")
+
+
+def call_ms(fn, iters: int, device: torch.device) -> float:
+    """Milliseconds per call of ``fn`` over ``iters`` calls after one
+    warm-up: :func:`event_ms` on a card, the host clock on the CPU (where
+    every call returns finished)."""
+    if device.type == "cuda":
+        return event_ms(fn, iters)
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / iters
 
 
 def event_ms(fn, iters: int = 50) -> float:

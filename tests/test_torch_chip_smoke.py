@@ -2,6 +2,7 @@
 prints no result and imports nothing of JAX; its bounds count the
 operations the kernels' beam term needs."""
 
+import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -67,3 +68,18 @@ def test_knife_edge_ranges_hold_every_half_pixel_and_its_neighbours():
     for edge in (half, up1, down2):
         assert np.isin(edge, r).all()
     assert r.min() >= 0 and r.max() <= 1.05 * 240 * 0.05
+
+
+@pytest.mark.parametrize("phase, constant, value", [
+    ("phase_cli_replay", "CLI_RMSE_MAX", 0.075),
+    ("phase_u16_basement", "U16_RMSE_MAX", 0.064),
+    ("phase_live", "LIVE_POSE_TOL", 0.15),
+    ("phase_inject", "INJECT_RMSE_MAX", 0.075),
+])
+def test_runtime_phases_gate_on_their_constants(phase, constant, value):
+    """The runtime phases' gates read their thresholds from the module's
+    constants, not from literals in the phase."""
+    assert getattr(chip_smoke, constant) == value
+    src = inspect.getsource(getattr(chip_smoke, phase))
+    assert f"<= {constant}" in src
+    assert str(value) not in src

@@ -1,0 +1,129 @@
+"""The port's command line against the JAX package's on a tiny map: the
+same subcommands print the same JSON keys (``info`` and ``make-trace``
+the same values), the port's checkpoint round trip runs through the CLI,
+each option not ported yet exits non-zero naming its ROADMAP item, and
+the default device is the card."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import yaml
+from PIL import Image
+
+from monte_carlo_localization_tpu import cli as jcli
+from monte_carlo_localization_tpu_torch import cli
+from monte_carlo_localization_tpu_torch.runtime import Trace
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True)
+def _one_thread_private_lut_cache(monkeypatch, tmp_path):
+    torch.set_num_threads(1)
+    monkeypatch.setenv("MCL_LUT_CACHE", str(tmp_path / "lut_cache"))
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """A small boxed world as PNG+YAML and a 1 s trace of it (from the JAX CLI)."""
+    d = tmp_path_factory.mktemp("cli_world")
+    img = np.full((70, 90), 254, np.uint8)
+    img[:3, :] = img[-3:, :] = img[:, :3] = img[:, -3:] = 0
+    img[30:40, 40:52] = 0
+    Image.fromarray(img).save(d / "world.png")
+    (d / "world.yaml").write_text(yaml.dump(dict(
+        image="world.png", resolution=0.05, origin=[-0.5, 0.25, 0.0], negate=0,
+        occupied_thresh=0.65, free_thresh=0.196)))
+    trace = d / "jax.npz"
+    assert jcli.main(["make-trace", "--map", str(d / "world.yaml"), "--out", str(trace),
+                      "--duration", "1", "--beams", "60"]) == 0
+    return dict(map=str(d / "world.yaml"), trace=str(trace), dir=d)
+
+
+def _json(capsys, main, argv) -> dict:
+    capsys.readouterr()
+    assert main(argv) == 0
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def test_make_trace_and_info_match_jax(world, capsys, tmp_path):
+    out = tmp_path / "port"
+    capsys.readouterr()
+    assert cli.main(["make-trace", "--device", "cpu", "--map", world["map"], "--out", str(out),
+                     "--duration", "1", "--beams", "60"]) == 0
+    line = capsys.readouterr().out
+    assert line.startswith(f"wrote {out}.npz: 25 scans x 60 beams, 100 odom msgs")
+    a, b = Trace.load(f"{out}.npz"), Trace.load(world["trace"])
+    np.testing.assert_array_equal(a.scan_ranges, b.scan_ranges)
+    np.testing.assert_array_equal(a.truth_pose, b.truth_pose)
+    for path in (world["map"], world["trace"]):
+        assert _json(capsys, cli.main, ["info", "--device", "cpu", path]) == \
+            _json(capsys, jcli.main, ["info", path])
+
+
+def test_replay_and_live_print_the_jax_keys(world, capsys, tmp_path):
+    common = ["--map", world["map"], "--trace", world["trace"], "--particles", "64",
+              "--angle-step", "2"]
+    rec, ck = str(tmp_path / "run.jsonl"), str(tmp_path / "ck.npz")
+    port = _json(capsys, cli.main, ["replay", "--device", "cpu", *common, "--record-out", rec,
+                                    "--checkpoint-out", ck])
+    jax_out = _json(capsys, jcli.main, ["replay", *common, "--raycast", "lut",
+                                        "--record-out", str(tmp_path / "jax.jsonl")])
+    assert sorted(port) == sorted(jax_out)
+    assert port["corrections"] == jax_out["corrections"] == 24
+    assert port["beams"] == jax_out["beams"] == 30 and port["map"] == jax_out["map"] == "world"
+    topics = {json.loads(ln)["topic"] for ln in Path(rec).read_text().splitlines()}
+    assert topics == {"tf", "odom", "pose", "particles"}
+
+    chained = _json(capsys, cli.main, ["replay", "--device", "cpu", *common, "--chained",
+                                       "--resume-from", ck, "--profile-dir",
+                                       str(tmp_path / "prof")])
+    assert sorted(chained) == sorted(set(jax_out) - {"record_out"})
+    assert chained["corrections"] == 25 and np.isfinite(chained["rmse_xy_m"])
+    assert (tmp_path / "prof" / "trace.json").exists()
+
+    live = ["live", *common, "--duration", "0.3", "--async-correction", "--live-chunk", "2"]
+    port_live = _json(capsys, cli.main, [live[0], "--device", "cpu", *live[1:]])
+    jax_live = _json(capsys, jcli.main, [*live, "--raycast", "lut"])
+    assert sorted(port_live) == sorted(jax_live)
+
+
+UNPORTED = [
+    (["baseline", "--trace", "T"], "item 9"),
+    (["bench"], "item 1"),
+    (["export-bag", "--trace", "T", "--out", "o"], "item 5"),
+    (["import-bag", "--bag", "b", "--out", "o"], "item 5"),
+    (["replay", "--trace", "T", "--viz-out", "v"], "item 5"),
+    (["live", "--trace", "T", "--serve", "0"], "item 5"),
+    (["replay", "--trace", "T", "--raycast", "sphere"], "item 6"),
+    (["replay", "--trace", "T", "--raycast", "dda"], "item 6"),
+    (["live", "--trace", "T", "--raycast", "lut"], "item 6"),
+]
+
+
+@pytest.mark.parametrize("argv, item", UNPORTED, ids=[" ".join(a[:1] + a[-2:-1]) for a, _ in UNPORTED])
+def test_unported_options_exit_with_their_roadmap_item(world, argv, item):
+    if argv[0] not in ("bench", "export-bag", "import-bag"):
+        argv = [argv[0], "--device", "cpu", "--map", world["map"], *argv[1:]]
+    with pytest.raises(SystemExit) as e:
+        cli.main(argv)
+    assert e.value.code not in (0, None)
+    msg = str(e.value.code)
+    assert "not ported" in msg and f"ROADMAP.md queue 1, {item}" in msg, msg
+
+
+def test_default_device_is_the_card(world):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device runs")
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        cli.main(["info", world["map"]])
+    res = subprocess.run(
+        [sys.executable, "-m", "monte_carlo_localization_tpu_torch.cli", "replay", "--map",
+         world["map"], "--trace", world["trace"]],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0 and "device='cpu'" in res.stderr

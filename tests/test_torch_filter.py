@@ -201,6 +201,14 @@ def test_package_imports_without_jax():
     code = (
         "import sys, monte_carlo_localization_tpu_torch as m\n"
         "import monte_carlo_localization_tpu_torch.runtime, "
+        "monte_carlo_localization_tpu_torch.cli, "
+        "monte_carlo_localization_tpu_torch.runtime.node, "
+        "monte_carlo_localization_tpu_torch.runtime.loop, "
+        "monte_carlo_localization_tpu_torch.runtime.checkpoint, "
+        "monte_carlo_localization_tpu_torch.runtime.trace, "
+        "monte_carlo_localization_tpu_torch.runtime.sinks, "
+        "monte_carlo_localization_tpu_torch.runtime.tracker, "
+        "monte_carlo_localization_tpu_torch.utils.validation, "
         "monte_carlo_localization_tpu_torch.ops._cuda_build, "
         "monte_carlo_localization_tpu_torch.ops.mega_step, "
         "monte_carlo_localization_tpu_torch.filter.mega, "

@@ -441,11 +441,11 @@ def test_validation_errors_mirror_jax(name):
 
 def test_unported_fleet_paths_raise():
     _, gm = _map_pair(MAP_SPECS[0])
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
         FleetFilter(gm, 2, MCLConfig(max_particles=64), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
         FleetFilter(gm, 2, MCLConfig(max_particles=64), particle_axis="p")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
         FleetFilter(gm, 2, MCLConfig(max_particles=64, raycast_method="lut"))
     with pytest.raises(ValueError, match="single member"):
         FleetFilter(gm, 2, MCLConfig(max_particles=64, pallas_dedup_slots=4), beam_angles=BEAMS)
