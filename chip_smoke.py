@@ -7,7 +7,11 @@ Run from the root of a checkout, with no arguments:
 
 It builds the port's CUDA kernels from ``csrc/`` (one nvcc per source,
 in parallel), holds ``to_pixel_index`` on the card to the CPU bit for bit
-on 10^6 half-pixel knife-edge ranges, holds each kernel against its
+on 10^6 half-pixel knife-edge ranges, holds the range-LUT sweep kernel
+``torch.equal`` to its plain version (config #1's map, a Spielberg crop
+in u8 and u16, all of Spielberg) and LUTs built on the card ``torch.equal``
+to the native host builder (basement_fixed u8 and u16, config #5's
+member compact LUTs), holds each kernel against its
 plain PyTorch version on the card (the LUT likelihood with and without
 the sub-bin lerp and on the shapes its lane layout makes edge cases,
 its normaliser and sub-bin tables, the unique-window kernel and its key
@@ -15,8 +19,7 @@ kernel at 100k particles, the mega step on each side of its small-n
 choice), replays the config #1 golden
 trace through ``ParticleFilter`` on the classic step and on the mega step
 (``pallas_mega``), drives the mega step at 4000 x 1080 on the same map,
-replays the config #4 golden trace on basement_fixed (compact LUT, built
-here) with and without ``pallas_subbin`` from 15 replay seeds, runs
+replays the config #4 golden trace on basement_fixed (compact LUT) with and without ``pallas_subbin`` from 15 replay seeds, runs
 config #4 global localization at 100k particles with and without the
 unique-window kernel (``pallas_dedup_slots``, once with
 ``pallas_dedup_matmul``) and 15 more start poses without it, drives
@@ -29,8 +32,11 @@ per scan with a sink and a checkpoint, chained with and without the mega
 step, resumed from a checkpoint; the u16 golden trace on basement_fixed;
 ten seconds of ``live`` with async chunked corrections), replays config
 #1 through an ``MCLNode`` with Augmented-MCL injection and times its
-``profile_phases``, and runs the probes of
-``tools/mega_probe.py`` through their Hopper kernels. Each phase prints
+``profile_phases``, replays config #1 under the ``lut``, ``sphere`` and
+``dda`` methods and drives the Spielberg headline under ``lut``, and runs
+the probes of ``tools/mega_probe.py`` through their Hopper kernels. Every
+LUT is built on the card by the sweep kernel, and each path that builds
+one is gated on its launches. Each phase prints
 one JSON line with its own seconds; any failure raises and exits
 non-zero. The last two lines are the kernel report and ``{"ok": true,
 "device": {...}}``. It imports nothing of JAX and needs no network.
@@ -243,6 +249,284 @@ def mega_bound(n: int, n_on: int, r: int, itemsize: int) -> dict:
     f64 = n_on * r + 7 * n  # beam sums, the CDF and the moment sums
     f32 = n * (OPS_PER_PARTICLE_K6 + 2 * math.ceil(math.log2(n))) + n_on * r * OPS_PER_BEAM_TABLED
     return bound(b, f32, f64)
+
+
+# ---- the range-LUT builds (csrc/range_lut_sweep.cu) ------------------------
+
+# float32 operations per (cell, physical bin) of the shear sweep: the add,
+# the occupied select, the multiply, the subtract, the two clips, the +0.5
+# and the conversion (every cell is swept, whether its row is stored or not)
+OPS_PER_SWEEP_ENTRY = 8
+LUT_CROP = 400  # cells a side of the Spielberg crop held against the plain sweep
+SWEEP_LAUNCHES: dict[str, int] = {}  # main-path sweep launches, by phase
+
+
+def sweep_reset() -> None:
+    """Set the sweep kernel's count to 0 before a path builds its LUT."""
+    from monte_carlo_localization_tpu_torch.ops.range_lut_sweep import sweep
+
+    sweep.launch_count = 0
+
+
+def lut_built_on_card(what: str, gm) -> dict:
+    """The route, seconds and sweep launches of the LUT ``gm`` carries,
+    built since :func:`sweep_reset`: the path's LUT must come from the
+    sweep kernel on the card."""
+    from monte_carlo_localization_tpu_torch.ops.range_lut_sweep import sweep
+
+    n = sweep.launch_count
+    check(gm.lut_route == "kernel" and n > 0,
+          f"{what}: LUT built by {gm.lut_route!r} with {n} sweep launches (want the kernel)")
+    SWEEP_LAUNCHES[what] = SWEEP_LAUNCHES.get(what, 0) + n
+    lut = gm.range_lut
+    return dict(lut_route=gm.lut_route, lut_build_s=gm.lut_build_s, sweep_launches=n,
+                lut_bytes=lut.numel() * lut.element_size())
+
+
+def sweep_bound(cells: int, stride: int, rel_bytes: int, stored_rows: int, itemsize: int,
+                compact: bool) -> dict:
+    """One LUT build by the sweep: the occupancy grid (and a compact LUT's
+    row map) read once, the groups' drift tables (``rel_bytes``) and per-bin
+    step and bin, the LUT entries it stores written once;
+    OPS_PER_SWEEP_ENTRY operations per (cell, bin)."""
+    read = cells + (4 * cells if compact else 0) + rel_bytes + 8 * stride
+    written = stored_rows * stride * itemsize
+    out = bound(read + written, cells * stride * OPS_PER_SWEEP_ENTRY, 0.0)
+    out.update(write_bytes=written, write_bound_ms=written / HBM_BYTES_PER_S * 1e3)
+    return out
+
+
+def lut_geometry(beams: np.ndarray, max_range_px: int):
+    """(T, row stride, itemsize) of the fused likelihood's LUT for a beam set."""
+    from monte_carlo_localization_tpu_torch.mapping.range_lut import lut_dtype
+    from monte_carlo_localization_tpu_torch.ops.lut_query import (
+        required_row_stride,
+        suggest_theta_bins,
+    )
+
+    itemsize = lut_dtype(max_range_px).itemsize
+    t = suggest_theta_bins(beams)
+    return t, required_row_stride(t, beams, itemsize), itemsize
+
+
+def sweep_vs_plain(what: str, occ, t: int, stride: int, max_range_px: int,
+                   compact: bool) -> dict:
+    """One build by the kernel and by the plain sweep on the same card
+    inputs, held ``torch.equal``; the kernel's device ms per launch, the
+    plain build's seconds and the build's bound."""
+    import torch
+
+    from monte_carlo_localization_tpu_torch.mapping import clearance_field
+    from monte_carlo_localization_tpu_torch.mapping.range_lut import lut_dtype
+    from monte_carlo_localization_tpu_torch.mapping.range_lut_device import (
+        FAR_ROW_MARGIN,
+        build_compact_range_lut_device,
+        build_range_lut_device,
+        compact_row_map,
+        shear_groups,
+    )
+    from monte_carlo_localization_tpu_torch.ops.range_lut_sweep import sweep
+
+    h, w = occ.shape
+    dt = lut_dtype(max_range_px)
+    if compact:
+        clr = clearance_field(occ.cpu().numpy(), max_range_px + FAR_ROW_MARGIN + 2)
+        rows = int(compact_row_map(clr, max_range_px)[1].size)
+
+        def build(plain=False):
+            return build_compact_range_lut_device(occ, clr, t, max_range_px, stride,
+                                                  lut_dtype=dt, plain=plain)[0]
+    else:
+        rows = h * w
+
+        def build(plain=False):
+            return build_range_lut_device(occ, t, max_range_px, stride, plain=plain)
+    groups = shear_groups(h, w, t, stride)
+    launches = len(groups)
+    before = sweep.launch_count
+    got = build()
+    torch.cuda.synchronize()
+    check(sweep.launch_count - before == launches, f"{what}: {sweep.launch_count - before} "
+          f"sweep launches for {launches} bin groups")
+    t0 = time.perf_counter()
+    want = build(plain=True)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    equal = torch.equal(got, want)
+    diff = 0 if equal else max(  # in chunks: an int32 copy of a 10 GB LUT would not fit
+        int((a.to(torch.int32) - b.to(torch.int32)).abs().max())
+        for a, b in zip(got.view(-1).split(1 << 28), want.view(-1).split(1 << 28)))
+    check(equal, f"{what}: sweep kernel != plain sweep (max |diff| {diff})")
+    del want
+    dev = device_ms(build, "range_lut_sweep_kernel", iters=2)
+    sweep.launch_count = before  # comparison launches do not count
+    bnd = sweep_bound(h * w, stride, sum(g.rel.nbytes for g in groups), rows, dt.itemsize,
+                      compact)
+    return dict(map=f"{h}x{w}", t_bins=t, row_stride=stride, max_range_px=max_range_px,
+                lut=("compact " if compact else "dense ") + str(got.dtype), rows=rows,
+                equal=equal, max_abs_err=float(diff), launches_per_build=launches,
+                ms=dev["ms"], time_source=dev["source"], build_device_ms=dev["ms"] * launches,
+                plain_ms=plain_s * 1e3 / launches, plain_build_s=plain_s,
+                bound_ms=bnd["bound_ms"] / launches, bound_by=bnd["bound_by"],
+                build_bound_ms=bnd["bound_ms"], write_bytes=bnd["write_bytes"],
+                write_bound_ms=bnd["write_bound_ms"])
+
+
+def card_vs_native(what: str, gm, attach) -> dict:
+    """``attach(gm, backend)`` on the card (the sweep kernel) and through
+    the native host builder (then uploaded): both LUTs ``torch.equal``,
+    with each build's seconds."""
+    import torch
+
+    card = attach(gm, "auto")
+    check(card.lut_route == "kernel", f"{what}: the card build took {card.lut_route!r}")
+    host = attach(gm, "native")
+    for field in ("range_lut", "lut_row_map", "lut_member_base", "lut_row_map_base"):
+        a, b = getattr(card, field), getattr(host, field)
+        check((a is None and b is None) or torch.equal(a, b),
+              f"{what}: {field} of the card build != the native build")
+    lut = card.range_lut
+    nbytes = lut.numel() * lut.element_size()
+    out = dict(lut=("compact " if card.lut_row_map is not None else "dense ") + str(lut.dtype),
+               lut_bytes=nbytes, equal=True, card_build_s=card.lut_build_s,
+               native_build_and_upload_s=host.lut_build_s,
+               write_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    del card, host
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lut_build(device) -> dict:
+    """The sweep kernel against its plain version (``torch.equal``) on
+    config #1's map (dense u8, stride T and padded), a 400 x 400 crop of
+    Spielberg (compact u8, and compact u16 at 25.6 m) and the whole of
+    Spielberg at the headline geometry (compact u8, 1080 beams: the
+    kernel's times); full-size card LUTs against the native host builder
+    on basement_fixed (compact u8, past 2^31 bytes) and at the u16
+    golden trace's 25.6 m (compact u16), and config #5's four maps through
+    ``with_member_compact_luts``."""
+    import torch
+
+    from monte_carlo_localization_tpu_torch import load_map
+    from monte_carlo_localization_tpu_torch.parallel import stack_maps
+    from monte_carlo_localization_tpu_torch.runtime import Trace
+
+    t0 = time.perf_counter()
+    plain = {}
+    gm1 = load_map(REPO / CONFIG1_MAP, device=device)
+    beams1 = Trace.load(REPO / CONFIG1_TRACE).beam_angles[::18]
+    t1, s1, _ = lut_geometry(beams1, gm1.max_range_px)
+    plain["config1_dense_T"] = sweep_vs_plain("config #1 dense, stride T", gm1.occupied, t1, t1,
+                                              gm1.max_range_px, False)
+    plain["config1_dense_padded"] = sweep_vs_plain("config #1 dense, padded", gm1.occupied, t1,
+                                                   s1, gm1.max_range_px, False)
+    spiel = load_map(REPO / "maps" / "Spielberg_map.yaml", device=device)
+    beams = headline_beams(1080)
+    free = spiel.free_cells[: spiel.num_free].float().median(dim=0).values.long().tolist()
+    r0 = min(max(free[0] - LUT_CROP // 2, 0), spiel.height - LUT_CROP)
+    c0 = min(max(free[1] - LUT_CROP // 2, 0), spiel.width - LUT_CROP)
+    crop = spiel.occupied[r0:r0 + LUT_CROP, c0:c0 + LUT_CROP].contiguous()
+    for name, range_m in (("crop_compact_u8", 12.0), ("crop_compact_u16", U16_MAX_RANGE)):
+        mrp = int(range_m / spiel.resolution)
+        t, stride, _ = lut_geometry(beams, mrp)
+        plain[name] = sweep_vs_plain(f"Spielberg crop {name}", crop, t, stride, mrp, True)
+    t, stride, _ = lut_geometry(beams, spiel.max_range_px)
+    head = sweep_vs_plain("Spielberg compact u8 (headline)", spiel.occupied, t, stride,
+                          spiel.max_range_px, True)
+    plain["spielberg_compact_u8"] = head
+    del spiel, crop
+    torch.cuda.empty_cache()
+
+    native = {}
+    for name, yaml_name, trace, range_m in (
+        ("basement_u8", "basement_fixed.map.yaml", "config4_basement_fixed.npz", 12.0),
+        ("basement_u16", "basement_fixed.map.yaml", "u16_basement.npz", U16_MAX_RANGE),
+    ):
+        gm = load_map(REPO / "maps" / yaml_name, max_range_meters=range_m, device=device)
+        b = Trace.load(REPO / "traces" / trace).beam_angles[::18]
+        t, stride, itemsize = lut_geometry(b, gm.max_range_px)
+        native[name] = card_vs_native(
+            name, gm, lambda g, be: g.with_compact_range_lut(t, stride, backend=be))
+        native[name].update(max_range_px=gm.max_range_px, t_bins=t, row_stride=stride)
+        del gm
+    check(native["basement_u8"]["lut_bytes"] > 2**31, "basement's compact LUT should pass 2^31 B")
+    maps = [load_map(REPO / "maps" / name, device=device) for name in CONFIG5_MAPS]
+    t, stride, itemsize = lut_geometry(headline_beams(60), maps[0].max_range_px)
+    eps = 512 // itemsize
+    native["config5_member_compact"] = card_vs_native(
+        "config #5 member compact", stack_maps(maps),
+        lambda g, be: g.with_member_compact_luts(t, stride, eps, backend=be))
+    del maps
+    torch.cuda.empty_cache()
+    emit("lut_build", t0, hbm_bytes_per_s=HBM_BYTES_PER_S, kernel_vs_plain=plain,
+         card_vs_native=native)
+    return dict(max_abs_err=max(v["max_abs_err"] for v in plain.values()),
+                **{k: head[k] for k in ("ms", "time_source", "plain_ms", "bound_ms", "bound_by",
+                                         "build_device_ms", "build_bound_ms", "write_bound_ms",
+                                         "plain_build_s")})
+
+
+def phase_methods(device) -> dict:
+    """The ``lut``, ``sphere`` and ``dda`` likelihood methods: config #1
+    through ``cli replay --chained --raycast <method>`` (gated as config
+    #1), then the headline shape (Spielberg 4000 x 1080) under ``lut`` on
+    its dense 1440-bin LUT built on the card, 50 chained corrections."""
+    import torch
+
+    from monte_carlo_localization_tpu_torch import MCLConfig, ParticleFilter, load_map
+    from monte_carlo_localization_tpu_torch.ops.raycast import cast_rays_lut
+
+    t0 = time.perf_counter()
+    runs = {}
+    for method in ("lut", "sphere", "dda"):
+        sweep_reset()
+        t1 = time.perf_counter()
+        out, node = run_cli(["replay", "--device", str(device), "--map", str(REPO / CONFIG1_MAP),
+                             "--trace", str(REPO / CONFIG1_TRACE), "--particles", str(N_PARTICLES),
+                             "--init", "truth", "--chained", "--raycast", method])
+        pf = node.filter
+        check(pf.config.raycast_method == method and pf.likelihood is None,
+              f"--raycast {method} ran {pf.config.raycast_method}")
+        check(np.isfinite(node.inferred_pose).all(), f"--raycast {method}: non-finite pose")
+        check(out["rmse_xy_m"] <= METHODS_RMSE_MAX,
+              f"--raycast {method}: RMSE {out['rmse_xy_m']} m > {METHODS_RMSE_MAX}")
+        runs[method] = dict(**out, seconds=time.perf_counter() - t1)
+        if method == "lut":
+            runs[method].update(lut_built_on_card("methods_config1_lut", pf.grid_map))
+        del node, pf
+
+    gm = load_map(REPO / "maps" / "Spielberg_map.yaml", device=device)
+    sweep_reset()
+    pf = ParticleFilter(gm, MCLConfig(max_particles=N_PARTICLES, raycast_method="lut"))
+    lut = lut_built_on_card("methods_headline_lut", pf.grid_map)
+    check(lut["lut_bytes"] == gm.height * gm.width * 1440,
+          f"the headline lut method's LUT has {lut['lut_bytes']} B")
+    beams = headline_beams(1080)
+    pf.set_beam_angles(beams)
+    pose = _nearest_free_pose(gm, _center_pose(gm))
+    beams_t = torch.as_tensor(beams, device=device)
+    q = torch.stack([torch.full_like(beams_t, float(pose[0])),
+                     torch.full_like(beams_t, float(pose[1])), float(pose[2]) + beams_t], 1)
+    scan = cast_rays_lut(pf.grid_map, q).cpu().numpy()
+    chain = 50
+    actions = np.tile(np.float32([0.05, 0.0, 0.01]), (chain, 1))
+    scans = np.tile(scan, (chain, 1))
+    state, _ = pf.step_many(pf.init_pose(pose, seed=1), actions[:5], scans[:5])  # warm-up
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    state, poses = pf.step_many(state, actions, scans)
+    torch.cuda.synchronize()
+    rate = chain / (time.perf_counter() - t2)
+    poses = poses.cpu().numpy()
+    check(np.isfinite(poses).all(), "the headline lut method gave non-finite poses")
+    drift = float(np.linalg.norm(poses[-1, :2] - pose[:2]))
+    emit("methods", t0, rmse_max_m=METHODS_RMSE_MAX, config1=runs,
+         headline_lut=dict(particles=N_PARTICLES, beams=1080, theta_bins=1440, **lut,
+                           corrections=chain, chained_updates_per_s=rate,
+                           drift_from_start_m=drift))
+    del pf, gm, state
+    torch.cuda.empty_cache()
+    return runs
 
 
 def synthetic_case(rng, beams, max_range_px, compact, n, device, **opts):
@@ -705,8 +989,10 @@ def phase_config1(device) -> dict:
     gm = load_map(REPO / "maps" / "map_1753950572.yaml", device=device)
     cfg = MCLConfig(max_particles=N_PARTICLES, angle_step=18)
     pf = ParticleFilter(gm, cfg)
+    sweep_reset()
     pf.set_beam_angles(Trace.load(trace).beam_angles[:: cfg.angle_step])
     t_setup = time.perf_counter() - t0
+    built = lut_built_on_card("config1_replay", pf.grid_map)
     pf.likelihood.launch_count = pf.likelihood.table_launch_count = 0
     res = replay_chained(pf, trace, chunk=64)
     launches, table_launches = pf.likelihood.launch_count, pf.likelihood.table_launch_count
@@ -717,8 +1003,7 @@ def phase_config1(device) -> dict:
     check(res.rmse_xy <= CONFIG1_RMSE_MAX, f"config #1 RMSE {res.rmse_xy} m > {CONFIG1_RMSE_MAX}")
     emit("config1_replay", t0, setup_s=t_setup, particles=N_PARTICLES,
          beams=int(pf.beam_angles.shape[0]), lut=("compact " if pf.grid_map.lut_row_map is not None else "dense ") + str(pf.grid_map.range_lut.dtype),
-         lut_bytes=pf.grid_map.range_lut.numel() * pf.grid_map.range_lut.element_size(),
-         corrections=res.corrections, launches=launches, table_fills=table_launches,
+         **built, corrections=res.corrections, launches=launches, table_fills=table_launches,
          rmse_xy_m=res.rmse_xy,
          rmse_theta_rad=res.rmse_theta, chained_updates_per_s=res.updates_per_sec)
     del pf, gm
@@ -754,21 +1039,15 @@ def phase_headline(device) -> dict:
     t_map = time.perf_counter() - t0
     pf = ParticleFilter(gm, MCLConfig(max_particles=N_PARTICLES))
     beams = headline_beams(1080)
+    sweep_reset()
     t1 = time.perf_counter()
-    pf.set_beam_angles(beams)  # builds the compact LUT on the host, uploads it
+    pf.set_beam_angles(beams)  # builds the compact LUT on the card
     torch.cuda.synchronize()
     t_lut = time.perf_counter() - t1
+    built = lut_built_on_card("headline_spielberg", pf.grid_map)
     lut, row_map = pf.grid_map.range_lut, pf.grid_map.lut_row_map
     check(row_map is not None, "Spielberg should take the row-compacted LUT")
     lut_bytes = lut.numel() * lut.element_size()
-    # the upload alone: the same number of bytes from pageable host memory
-    host = torch.ones(lut.numel(), dtype=lut.dtype)
-    t2 = time.perf_counter()
-    dev_copy = host.to(device)
-    torch.cuda.synchronize()
-    t_upload = time.perf_counter() - t2
-    del host, dev_copy
-    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
 
     free = gm.free_cells[: gm.num_free].float().cpu().numpy()
@@ -819,8 +1098,9 @@ def phase_headline(device) -> dict:
                     sectors=cloud_reads(pf.likelihood, parts, row_map)[1])
     emit("headline_spielberg", t0, particles=N_PARTICLES, beams=1080, lut="compact u8",
          lut_rows=lut.numel() // pf.grid_map.row_stride, row_stride=pf.grid_map.row_stride,
-         lut_bytes=lut_bytes, map_load_s=t_map, lut_build_and_upload_s=t_lut,
-         lut_upload_only_s=t_upload, launches=launches,
+         lut_bytes=lut_bytes, map_load_s=t_map, set_beam_angles_s=t_lut,
+         lut_build_s=built["lut_build_s"], lut_route=built["lut_route"],
+         sweep_launches=built["sweep_launches"], launches=launches,
          chained_updates_per_s=chain / t_chain, per_step_updates_per_s=30 / t_steps,
          drift_from_start_m=drift, max_abs_err=err, kernel_device_ms=kernel_ms,
          kernel_time_source=dev["source"], wrapper_ms=wrapper_ms, plain_ms=plain_ms, **bnd,
@@ -1107,10 +1387,12 @@ def phase_config4_replay(device):
     pf = ParticleFilter(gm, cfg)
     tr, actions, scans = trace_inputs(pf, trace)
     beams = tr["beam_angles"][:: cfg.angle_step]
+    sweep_reset()
     t1 = time.perf_counter()
-    pf.set_beam_angles(beams)  # builds the compact LUT on the host, uploads it
+    pf.set_beam_angles(beams)  # builds the compact LUT on the card
     torch.cuda.synchronize()
     t_lut = time.perf_counter() - t1
+    built = lut_built_on_card("config4_replay", pf.grid_map)
     gm = pf.grid_map
     check(gm.lut_row_map is not None, "basement_fixed should take the row-compacted LUT")
     pf_sub = ParticleFilter(gm, cfg.replace(pallas_subbin=True))
@@ -1172,8 +1454,8 @@ def phase_config4_replay(device):
             for name, f in (("default", pf), ("subbin", pf_sub))}
     emit("config4_replay", t0, map="basement_fixed", particles=N_PARTICLES, beams=len(beams),
          lut="compact " + str(lut.dtype), lut_rows=lut.numel() // gm.row_stride,
-         row_stride=gm.row_stride, lut_bytes=lut.numel() * lut.element_size(),
-         lut_build_and_upload_s=t_lut, corrections_per_replay=500, seeds=list(CONFIG4_SEEDS),
+         row_stride=gm.row_stride, set_beam_angles_s=t_lut, **built,
+         corrections_per_replay=500, seeds=list(CONFIG4_SEEDS),
          runs=runs, k3_on_basement=k3,
          profile_20_steps=prof)
     del pf, pf_sub, state, parts
@@ -1498,10 +1780,12 @@ def phase_config5(device, classic_kernels: float) -> dict:
     beams = headline_beams(r)
     ff = FleetFilter(stack_maps(maps), f, MCLConfig(max_particles=n, lut_theta_bins=720),
                      map_assignment=asg)
+    sweep_reset()
     t1 = time.perf_counter()
-    ff.set_beam_angles(beams)  # builds the tight member LUTs on the host, uploads them
+    ff.set_beam_angles(beams)  # builds the tight member LUTs on the card
     torch.cuda.synchronize()
     t_lut = time.perf_counter() - t1
+    built = lut_built_on_card("config5_fleet", ff.map)
     gm, q = ff.map, ff.likelihood
     check(gm.lut_row_map is None and gm.lut_member_base is not None,
           "config #5 should take tight dense member LUTs")
@@ -1583,7 +1867,9 @@ def phase_config5(device, classic_kernels: float) -> dict:
     emit("config5_fleet", t0, maps=[m.name for m in maps], fleet=f, particles=n, beams=r,
          map_assignment="arange(64) % 4", lut="tight dense " + str(gm.range_lut.dtype),
          lut_bytes=lut_bytes, lut_row_stride=gm.row_stride, lut_theta_bins=gm.lut_theta_bins,
-         member_cells=cells, lut_build_and_upload_s=t_lut, corrections=n_corr,
+         member_cells=cells, set_beam_angles_s=t_lut, lut_build_s=built["lut_build_s"],
+         lut_route=built["lut_route"], sweep_launches=built["sweep_launches"],
+         corrections=n_corr,
          fleet_launches=launches,
          chained_fleet_steps_per_s=chained,
          chained_member_updates_per_s=[x * f for x in chained],
@@ -1678,6 +1964,7 @@ U16_RMSE_MAX = 0.064
 U16_MAX_RANGE = 25.6  # m: 507 px on basement_fixed, u16 LUT entries
 LIVE_POSE_TOL = 0.15  # m, the live run's last harvested pose vs the truth at its scan
 INJECT_RMSE_MAX = CONFIG1_RMSE_MAX  # m, config #1 replayed with Augmented-MCL injection
+METHODS_RMSE_MAX = CONFIG1_RMSE_MAX  # m, config #1 under --raycast lut, sphere and dda
 LIVE_SECONDS = 10.0  # seconds of the config #1 trace fed in real time
 LIVE_CHUNK = 4
 RESUME_SCANS = 50  # scans replayed after resuming from a checkpoint
@@ -1781,8 +2068,10 @@ def phase_cli_replay(device, tmp: Path) -> dict:
         ("chained", ["--chained"]),
         ("chained_mega", ["--chained", "--config", str(mega_cfg)]),
     ):
+        sweep_reset()
         out, node = run_cli(["replay", *common, "--trace", trace, "--init", "truth", *extra])
         counts = lut_counts(node)
+        built = lut_built_on_card(f"cli_{name}", node.filter.grid_map)
         k = out["corrections"]
         check(np.isfinite(node.inferred_pose).all(), f"cli replay {name}: non-finite pose")
         check(out["rmse_xy_m"] <= CLI_RMSE_MAX,
@@ -1794,7 +2083,7 @@ def phase_cli_replay(device, tmp: Path) -> dict:
             check(counts["lut_loglik_kernel"] == 0, "the mega replay launched the LUT kernel")
         runs[name] = dict(**out, launches=counts,
                           launches_per_correction={c: n / k for c, n in counts.items()},
-                          lut_build_s=node.lut_build_s)
+                          first_scan_s=node.lut_build_s, **built)
         if name == "per_correction":
             runs[name]["profile_20_updates"] = chain_profile(node_updates(node, 20), 20)
         del node
@@ -1829,12 +2118,14 @@ def phase_u16_basement(device, tmp: Path) -> dict:
     import torch
 
     t0 = time.perf_counter()
+    sweep_reset()
     out, node = run_cli(["replay", "--device", str(device), "--chained", "--init", "truth",
                          "--max-range", str(U16_MAX_RANGE),
                          "--map", str(REPO / "maps" / "basement_fixed.map.yaml"),
                          "--trace", str(REPO / "traces" / "u16_basement.npz"),
                          "--particles", str(N_PARTICLES)])
     gm, counts = node.filter.grid_map, lut_counts(node)
+    built = lut_built_on_card("u16_basement", gm)
     lut, row_map = gm.range_lut, gm.lut_row_map
     check(lut.dtype == torch.uint16 and row_map is not None and gm.max_range_px > 254,
           f"u16_basement should take the compact u16 LUT ({lut.dtype}, {gm.max_range_px} px)")
@@ -1846,9 +2137,8 @@ def phase_u16_basement(device, tmp: Path) -> dict:
     prof = chain_profile(lambda: node.filter.step_many(s0, actions[:20], scans[:20]), 20)
     res = dict(**out, launches=counts, max_range_px=gm.max_range_px, lut="compact uint16",
                lut_rows=lut.numel() // gm.row_stride, row_stride=gm.row_stride,
-               lut_bytes=lut.numel() * lut.element_size(),
                row_map_bytes=row_map.numel() * row_map.element_size(),
-               lut_build_and_upload_s=node.lut_build_s, jax_engine_rmse_xy_m=0.0427,
+               first_scan_s=node.lut_build_s, **built, jax_engine_rmse_xy_m=0.0427,
                profile_20_steps=prof)
     del node, gm, lut, row_map, s0
     torch.cuda.empty_cache()
@@ -1866,11 +2156,13 @@ def phase_live(device, tmp: Path) -> dict:
     from monte_carlo_localization_tpu_torch.runtime import Trace
 
     t0 = time.perf_counter()
+    sweep_reset()
     out, node = run_cli(["live", "--device", str(device), "--map", str(REPO / CONFIG1_MAP),
                          "--trace", str(REPO / CONFIG1_TRACE), "--particles", str(N_PARTICLES),
                          "--duration", str(LIVE_SECONDS), "--async-correction",
                          "--live-chunk", str(LIVE_CHUNK)])
     check(out["corrections"] >= 1, "the live run harvested no correction")
+    built = lut_built_on_card("live", node.filter.grid_map)
     harvested = len(node.dispatch_scans) - len(node._inflight_q)
     scan = node.dispatch_scans[harvested - 1]
     tr = Trace.load(REPO / CONFIG1_TRACE)
@@ -1881,7 +2173,7 @@ def phase_live(device, tmp: Path) -> dict:
           f"> {LIVE_POSE_TOL}")
     res = dict(**out, live_chunk=LIVE_CHUNK, particles=N_PARTICLES, last_pose_err_m=err,
                last_pose_scan_t=t_scan, dispatches=len(node.dispatch_scans),
-               launches=lut_counts(node), lut_build_s=node.lut_build_s)
+               launches=lut_counts(node), first_scan_s=node.lut_build_s, **built)
     del node
     torch.cuda.empty_cache()
     emit("live", t0, pose_tol_m=LIVE_POSE_TOL, **res)
@@ -1903,7 +2195,9 @@ def phase_inject(device) -> dict:
     cfg = MCLConfig(max_particles=N_PARTICLES, angle_step=18, auto_reinit=True,
                     reinit_mode="inject")
     node = MCLNode(gm, cfg)
+    sweep_reset()
     node.on_scan(tr.scan_ranges[0], beam_angles=tr.beam_angles)
+    built = lut_built_on_card("inject", node.filter.grid_map)
     q = node.filter.likelihood
     q.launch_count = q.table_launch_count = 0
     node.initialize_pose(tr.truth_pose[0])
@@ -1920,7 +2214,7 @@ def phase_inject(device) -> dict:
                      "total_mcl_time")}
     out = dict(corrections=res.corrections, rmse_xy_m=res.rmse_xy, rmse_theta_rad=res.rmse_theta,
                updates_per_s=res.updates_per_sec, inject_steps=node.inject_steps,
-               auto_reinits=node.auto_reinits, lut_launches=launches,
+               auto_reinits=node.auto_reinits, lut_launches=launches, **built,
                profile_phases_ms=per)
     del node, gm
     torch.cuda.empty_cache()
@@ -1936,7 +2230,8 @@ def main() -> int:
         return 2
     csrc = REPO / "monte_carlo_localization_tpu_torch" / "csrc"
     if not all((csrc / f).exists() for f in ("lut_likelihood.cu", "lut_dedup.cu", "mega_step.cu",
-                                             "probes.cu", "beam_model.cuh")):
+                                             "probes.cu", "range_lut_sweep.cu",
+                                             "beam_model.cuh")):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
@@ -1957,7 +2252,8 @@ def main() -> int:
     t0 = time.perf_counter()
     built = load_library()
     check(native.available(), "the native C++ LUT builder did not build (g++ with OpenMP)")
-    check(set(built.libs) == {"lut_likelihood", "lut_dedup", "mega_step", "probes"},
+    check(set(built.libs) == {"lut_likelihood", "lut_dedup", "mega_step", "probes",
+                              "range_lut_sweep"},
           f"built {sorted(built.libs)}")
     keep = ("== ", "Compiling entry", "registers", "smem", "spill")
     ptxas = [ln.strip() for ln in built.log.splitlines() if any(k in ln for k in keep)]
@@ -1972,6 +2268,7 @@ def main() -> int:
          mega_grid_blocks=grids, sms=torch.cuda.get_device_properties(0).multi_processor_count)
 
     phase_division(device)
+    lut_build = phase_lut_build(device)
     lut_plain = phase_kernel_vs_plain(device)
     table = phase_norm_table(device)
     dedup_plain = phase_dedup_vs_plain(device)
@@ -1992,6 +2289,7 @@ def main() -> int:
         u16 = phase_u16_basement(device, Path(tmp))
         live = phase_live(device, Path(tmp))
     inject = phase_inject(device)
+    phase_methods(device)
     probes = phase_probes(device)
     keys = ("launches", "max_abs_err", "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")
     k3 = config4["k3"]
@@ -2108,6 +2406,19 @@ def main() -> int:
             "library_ms": None,
             "sector_bytes": config5["sector_bytes"], "sector_bound_ms": config5["sector_bound_ms"],
             "config5_launches": config5["launches"],
+        },
+        {
+            "name": "range_lut_sweep",
+            "route": "cuda",
+            "source": "monte_carlo_localization_tpu_torch/csrc/range_lut_sweep.cu",
+            "replaces": "monte_carlo_localization_tpu/mapping/range_lut_device.py:35 (XLA lax.scan)",
+            "launches": sum(SWEEP_LAUNCHES.values()),
+            **{k: lut_build[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None,
+            "shape": "Spielberg 2000 x 2000, compact u8, 1080-beam geometry (per launch)",
+            **{k: lut_build[k] for k in ("build_device_ms", "build_bound_ms", "write_bound_ms",
+                                         "plain_build_s", "time_source")},
+            "launches_by_phase": SWEEP_LAUNCHES,
         },
         *probe_entries(probes),
     ]}), flush=True)

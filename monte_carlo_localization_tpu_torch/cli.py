@@ -6,11 +6,15 @@ Subcommands:
   replay      run a recorded trace through the engine, report RMSE/rates
   live        replay a trace in REAL TIME through the dual-rate LiveRunner
   make-trace  synthesize a golden trace by driving a simulated car in a map
-  info        inspect a map or trace file
+  info        inspect a map or trace file (``--lut``: build the map's range
+              LUT and print its route and seconds)
+
+``--raycast`` takes every method of the JAX package: ``auto`` and
+``lut_pallas`` (the fused LUT kernel), ``lut``, ``sphere`` and ``dda``.
 
 Not ported yet, each exiting non-zero with the ROADMAP.md item that
 brings it: ``baseline``, ``bench``, ``export-bag``, ``import-bag``,
-``replay --viz-out``, ``live --serve`` and ``--raycast sphere|dda|lut``.
+``replay --viz-out`` and ``live --serve``.
 
 Map resolution: ``--map`` accepts either a path to a ROS-style map YAML or
 a bare name resolved against ``--map-dir``.
@@ -30,11 +34,7 @@ from pathlib import Path
 
 import numpy as np
 
-from monte_carlo_localization_tpu_torch.config import (
-    MCLConfig,
-    load_config,
-    resolve_raycast_method,
-)
+from monte_carlo_localization_tpu_torch.config import MCLConfig, load_config
 from monte_carlo_localization_tpu_torch.mapping import load_map
 from monte_carlo_localization_tpu_torch.runtime import (
     JsonlSink,
@@ -85,10 +85,6 @@ def _load_cfg(args) -> MCLConfig:
     if getattr(args, "angle_step", None) is not None:
         overrides["angle_step"] = args.angle_step
     if getattr(args, "raycast", None):
-        try:
-            resolve_raycast_method(args.raycast)
-        except NotImplementedError as e:  # a method not ported yet
-            raise SystemExit(str(e)) from e
         overrides["raycast_method"] = args.raycast
     if getattr(args, "resample", None):
         overrides["resample_method"] = args.resample
@@ -171,6 +167,9 @@ def cmd_replay(args) -> int:
             res = run(trace)
     else:
         res = run(trace)
+    lut_map = node.filter.grid_map
+    if lut_map.lut_route:
+        log(f"range LUT built by {lut_map.lut_route} in {lut_map.lut_build_s:.3f} s")
     if args.checkpoint_out:
         _checkpoint(node, args.checkpoint_out)
     node.close_sinks()
@@ -262,20 +261,23 @@ def cmd_info(args) -> int:
         )
     else:
         gm = _resolve_map(str(p), args.map_dir, 12.0, args.device)
-        print(
-            json.dumps(
-                dict(
-                    kind="map",
-                    name=gm.name,
-                    height=gm.height,
-                    width=gm.width,
-                    resolution=gm.resolution,
-                    origin=[float(gm.origin_x), float(gm.origin_y), float(gm.origin_yaw)],
-                    free_cells=int(gm.free_cells.shape[-2]),
-                    max_range_px=gm.max_range_px,
-                )
-            )
+        out = dict(
+            kind="map",
+            name=gm.name,
+            height=gm.height,
+            width=gm.width,
+            resolution=gm.resolution,
+            origin=[float(gm.origin_x), float(gm.origin_y), float(gm.origin_yaw)],
+            free_cells=int(gm.free_cells.shape[-2]),
+            max_range_px=gm.max_range_px,
         )
+        if args.lut:
+            # the `lut` method's dense LUT, built where the map lives
+            gm = gm.with_range_lut(args.lut_theta_bins, use_cache=False)
+            out.update(lut_theta_bins=gm.lut_theta_bins, lut_route=gm.lut_route,
+                       lut_build_s=gm.lut_build_s,
+                       lut_bytes=gm.range_lut.numel() * gm.range_lut.element_size())
+        print(json.dumps(out))
     return 0
 
 
@@ -405,6 +407,10 @@ def build_parser() -> argparse.ArgumentParser:
     inf = sub.add_parser("info", parents=[device])
     inf.add_argument("path")
     inf.add_argument("--map-dir", default=None)
+    inf.add_argument("--lut", action="store_true",
+                     help="build the map's dense range LUT (on the card with --device "
+                     "cuda) and print which route built it and its seconds")
+    inf.add_argument("--lut-theta-bins", type=int, default=1440, dest="lut_theta_bins")
     inf.set_defaults(fn=cmd_info)
 
     return ap

@@ -36,10 +36,6 @@ VESTIGIAL_KEYS = frozenset(
     }
 )
 
-# Raycast methods of the JAX package that the port does not run yet.
-UNPORTED_RAYCAST_METHODS = ("sphere", "dda", "lut")
-
-
 @dataclass(frozen=True)
 class MCLConfig:
     """All engine parameters; field for field the JAX package's MCLConfig."""
@@ -81,8 +77,9 @@ class MCLConfig:
     use_parallel_raycasting: bool = True
     num_threads: int = 0
     # "auto" and "lut_pallas" both select the fused LUT likelihood (the
-    # CUDA kernel on a card, its plain PyTorch version on the CPU);
-    # "lut" / "sphere" / "dda" are not ported yet (ROADMAP.md).
+    # CUDA kernel on a card, its plain PyTorch version on the CPU); "lut"
+    # reads a dense lut_theta_bins LUT per ray, "sphere" and "dda" march
+    # every ray (filter/core.py sensor_update_px).
     raycast_method: str = "auto"
     sphere_march_iters: int = 48
     lut_theta_bins: int = 1440
@@ -142,16 +139,14 @@ def resolve_raycast_method(method: str) -> str:
 
     ``"auto"`` and ``"lut_pallas"`` resolve to ``"lut_pallas"`` on every
     device: the likelihood wrapper picks the CUDA kernel or its plain
-    version from the tensors' device. The JAX package's other methods
-    raise ``NotImplementedError``; anything else raises ``ValueError``.
+    version from the tensors' device (the JAX package resolves ``auto``
+    to ``lut`` on its CPU backend). ``"lut"``, ``"sphere"`` and ``"dda"``
+    pass through; anything else raises ``ValueError``.
     """
     if method in ("auto", "lut_pallas"):
         return "lut_pallas"
-    if method in UNPORTED_RAYCAST_METHODS:
-        raise NotImplementedError(
-            f"raycast_method={method!r} is not ported to PyTorch yet; see "
-            "ROADMAP.md queue 1, item 6 (ops/raycast.py)"
-        )
+    if method in ("lut", "sphere", "dda"):
+        return method
     raise ValueError(f"Unknown raycast method: {method!r}")
 
 

@@ -1,8 +1,12 @@
 """The MCL correction in PyTorch, as in the JAX package's
 ``filter/core.py``:
 
-    systematic resample -> motion -> fused LUT likelihood
+    systematic resample -> motion -> likelihood
     -> log-quality and max-shift normalization -> weighted-mean pose
+
+The likelihood is the fused LUT kernel (``raycast_method`` ``lut_pallas``,
+the default) or :func:`sensor_update`: a ray cast per (particle, beam) by
+``sphere``, ``dda`` or ``lut`` and the beam model, analytic or tabled.
 
 With ``inject_fraction`` (Augmented MCL) each particle is replaced, after
 motion and before the likelihood, by a uniform free-space draw with that
@@ -20,6 +24,7 @@ own draws).
 from __future__ import annotations
 
 import math
+import warnings
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -36,6 +41,7 @@ from monte_carlo_localization_tpu_torch.ops.lut_query import (
     required_row_stride,
     suggest_theta_bins,
 )
+from monte_carlo_localization_tpu_torch.ops.raycast import cast_rays, lut_expected_px
 from monte_carlo_localization_tpu_torch.ops.resample import resample_indices
 from monte_carlo_localization_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device, upload
 from monte_carlo_localization_tpu_torch.utils.timing import TimingStats, call_ms
@@ -94,6 +100,47 @@ def expected_pose(particles: torch.Tensor, log_weights: torch.Tensor) -> torch.T
     s = torch.sum(w * torch.sin(particles[..., 2]), dim=-1)
     c = torch.sum(w * torch.cos(particles[..., 2]), dim=-1)
     return torch.stack([x, y, torch.atan2(s, c)], dim=-1)
+
+
+def sensor_update_px(
+    particles: torch.Tensor,
+    obs_px: torch.Tensor,
+    beam_angles: torch.Tensor,
+    grid_map: GridMap,
+    sensor: SensorModel,
+    raycast_method: str = "sphere",
+    sphere_march_iters: int = 48,
+    sensor_mode: str = "analytic",
+) -> torch.Tensor:
+    """Log likelihood per particle (JAX ``sensor_update``) of a scan
+    binned by ``sensor.to_pixel_index``: particles (..., N, 3), obs_px
+    (..., R) -> (..., N). Ray angle = particle heading + beam angle from
+    the particle's position (particles live in the laser frame). Under
+    ``lut`` with the analytic model the expected ranges come from the LUT
+    in pixels (:func:`lut_expected_px`, no query matrix); otherwise every
+    (particle, beam) pair is cast by ``raycast_method`` and scored in
+    ``sensor_mode``. On a batched map the leading axis is the map."""
+    obs = obs_px[..., None, :]
+    if raycast_method == "lut" and sensor_mode == "analytic":
+        logp = sensor.log_prob_analytic(obs, lut_expected_px(grid_map, particles, beam_angles))
+        return sensor.inv_squash_factor * torch.sum(logp, dim=-1)
+    *lead, n, _ = particles.shape
+    r = beam_angles.shape[0]
+    queries = torch.stack([
+        particles[..., 0:1].expand(*lead, n, r),
+        particles[..., 1:2].expand(*lead, n, r),
+        particles[..., 2:3] + beam_angles,
+    ], dim=-1).reshape(*lead, n * r, 3)
+    ranges = cast_rays(grid_map, queries, method=raycast_method,
+                       num_iters=sphere_march_iters).reshape(*lead, n, r)
+    return sensor.log_likelihood_px(obs, ranges, mode=sensor_mode)
+
+
+def sensor_update(particles, observed_m, beam_angles, grid_map, sensor, **kwargs) -> torch.Tensor:
+    """:func:`sensor_update_px` of a scan in meters, the JAX
+    ``sensor_update`` signature."""
+    obs_px = sensor.to_pixel_index(observed_m).to(torch.float32)
+    return sensor_update_px(particles, obs_px, beam_angles, grid_map, sensor, **kwargs)
 
 
 def correct(
@@ -225,10 +272,11 @@ def _resolve_dedup_slots(cfg: MCLConfig) -> int:
     return max(cfg.pallas_dedup_slots, 0)
 
 
-def lut_query_kwargs(grid_map: GridMap, cfg: MCLConfig) -> dict:
+def lut_query_kwargs(grid_map: GridMap, cfg: MCLConfig, row_stride: int = 0) -> dict:
     """The map and beam-model arguments of :class:`LUTQuery` (and of
-    ``MegaStep``) for a map with its kernel LUT attached. A batched map's
-    origins go to each query call instead."""
+    ``MegaStep``) for a map with its kernel LUT attached, or whose LUT
+    will have ``row_stride``. A batched map's origins go to each query
+    call instead."""
     return dict(
         height=grid_map.height,
         width=grid_map.width,
@@ -236,7 +284,7 @@ def lut_query_kwargs(grid_map: GridMap, cfg: MCLConfig) -> dict:
         origin_x=0.0 if grid_map.is_batched else grid_map.origin_x,
         origin_y=0.0 if grid_map.is_batched else grid_map.origin_y,
         max_range_px=grid_map.max_range_px,
-        row_stride=grid_map.row_stride,
+        row_stride=row_stride or grid_map.row_stride,
         z_hit=cfg.z_hit,
         z_short=cfg.z_short,
         z_max=cfg.z_max,
@@ -248,24 +296,21 @@ def lut_query_kwargs(grid_map: GridMap, cfg: MCLConfig) -> dict:
     )
 
 
-def build_lut_likelihood(
+def lut_likelihood_query(
     grid_map: GridMap, beam_angles: np.ndarray, cfg: MCLConfig, num_members: int = 1
-) -> tuple[GridMap, LUTQuery]:
-    """Attach the LUT the fused likelihood reads (dense, or row-compacted
-    past ``MCL_LUT_DENSE_MAX``; tight per-map blocks for a batched map)
-    and build the query for this beam set and ``num_members`` fleet
-    members, with the config's ``pallas_subbin``, ``pallas_dedup_slots``
-    and ``pallas_dedup_matmul`` (the last ignored without slots, as in the
-    JAX filter). Returns (grid_map_with_lut, query). An unsupported beam
-    geometry raises."""
+) -> LUTQuery:
+    """The fused likelihood's query for this beam set and ``num_members``
+    fleet members, with the config's ``pallas_subbin``,
+    ``pallas_dedup_slots`` and ``pallas_dedup_matmul`` (the last ignored
+    without slots, as in the JAX filter). An unsupported beam geometry
+    raises ``ValueError`` here, before any LUT is built."""
     dtype = lut_dtype(grid_map.max_range_px)
     beams = np.asarray(beam_angles, np.float32)
     t = suggest_theta_bins(beams)
     stride = required_row_stride(t, beams, itemsize=dtype.itemsize)
-    grid_map = grid_map.with_kernel_lut(t, stride, dtype.itemsize)
     slots = _resolve_dedup_slots(cfg)
-    query = LUTQuery(
-        grid_map.lut_theta_bins, beams, **lut_query_kwargs(grid_map, cfg),
+    return LUTQuery(
+        t, beams, **lut_query_kwargs(grid_map, cfg, stride),
         subbin=cfg.pallas_subbin,
         dedup_slots=slots,
         dedup_matmul=cfg.pallas_dedup_matmul and slots > 0,
@@ -273,18 +318,35 @@ def build_lut_likelihood(
         num_members=num_members,
         per_member_maps=grid_map.is_batched,
     )
+
+
+def build_lut_likelihood(
+    grid_map: GridMap, beam_angles: np.ndarray, cfg: MCLConfig, num_members: int = 1
+) -> tuple[GridMap, LUTQuery]:
+    """:func:`lut_likelihood_query` and the LUT it reads attached to the
+    map (dense, or row-compacted past ``MCL_LUT_DENSE_MAX``; tight per-map
+    blocks for a batched map). Returns (grid_map_with_lut, query)."""
+    query = lut_likelihood_query(grid_map, beam_angles, cfg, num_members)
+    grid_map = grid_map.with_kernel_lut(query.t_bins, query.row_stride, query.lut_dtype.itemsize)
     return grid_map, query
 
 
 class ParticleFilter:
     """Single-filter facade: owns the map, config, sensor model and the
-    fused likelihood. Everything lives on ``device`` (default: the map's).
+    likelihood. Everything lives on ``device`` (default: the map's).
 
-    With ``config.pallas_mega`` (dense-LUT maps only) ``step_many`` runs
-    each correction as one launch of the mega step (``filter/mega.py``);
+    ``raycast_method`` ``auto`` (the default) and ``lut_pallas`` run the
+    fused LUT kernel on a LUT matched to the beam set, attached by
+    :meth:`set_beam_angles`; an auto-selected kernel on a beam set it
+    cannot serve (a geometry ``ValueError``) falls back to ``lut`` with a
+    warning, as the JAX filter does. ``lut`` attaches the dense
+    ``lut_theta_bins`` LUT at construction; ``sphere`` and ``dda`` cast
+    every ray (:func:`sensor_update_px`). With ``config.pallas_mega``
+    (``lut_pallas`` on dense-LUT maps only) ``step_many`` runs each
+    correction as one launch of the mega step (``filter/mega.py``);
     ``step`` stays the classic correction. ``pallas_subbin`` and
-    ``pallas_dedup_slots`` select the likelihood's K3 and K4/K5 forms on
-    the classic correction (the mega step refuses them).
+    ``pallas_dedup_slots`` select the fused likelihood's K3 and K4/K5
+    forms on the classic correction (the mega step refuses them).
     """
 
     def __init__(
@@ -295,6 +357,7 @@ class ParticleFilter:
         device: torch.device | str | None = None,
     ):
         cfg = config or MCLConfig()
+        self._auto_raycast = cfg.raycast_method == "auto"
         cfg = cfg.replace(raycast_method=resolve_raycast_method(cfg.raycast_method))
         if cfg.resample_method not in ("systematic", "multinomial"):
             raise ValueError(f"Unknown resample method: {cfg.resample_method!r}")
@@ -305,6 +368,8 @@ class ParticleFilter:
         self.config = cfg
         self.device = torch.device(device) if device is not None else grid_map.device
         self.grid_map = grid_map.to(self.device)
+        if cfg.raycast_method == "lut":
+            self.grid_map = self.grid_map.with_range_lut(cfg.lut_theta_bins)
         self.sensor = SensorModel.create(
             max_range_px=grid_map.max_range_px,
             resolution=grid_map.resolution,
@@ -317,34 +382,53 @@ class ParticleFilter:
             device=self.device,
         )
         self.beam_angles: torch.Tensor | None = None
-        self.likelihood: LUTQuery | None = None
+        self.likelihood: LUTQuery | None = None  # the fused query under lut_pallas
         self.mega = None  # a MegaStepper once beams are set, with pallas_mega
         if beam_angles is not None:
             self.set_beam_angles(beam_angles)
 
     def set_beam_angles(self, beam_angles: np.ndarray) -> None:
-        """Set the (downsampled) beam angles; attaches the LUT matched to
-        this beam set and rebuilds the likelihood query."""
+        """Set the (downsampled) beam angles. Under ``lut_pallas`` this
+        attaches the LUT matched to this beam set and rebuilds the fused
+        query (and the mega stepper)."""
         beams = np.asarray(beam_angles, np.float32)
-        self.grid_map, self.likelihood = build_lut_likelihood(
-            self.grid_map, beams, self.config
-        )
-        if self.config.pallas_mega:
+        if self.config.raycast_method == "lut_pallas":
+            self._attach_fused(beams)
+        self.beam_angles = torch.as_tensor(beams, device=self.device)
+
+    def _attach_fused(self, beams: np.ndarray) -> None:
+        cfg = self.config
+        try:
+            query = lut_likelihood_query(self.grid_map, beams, cfg)
+        except ValueError as e:
+            if not self._auto_raycast:
+                raise
+            # an auto-selected kernel on a beam geometry it cannot serve
+            # (e.g. two beams in one theta bin): the XLA-style lut path
+            warnings.warn(
+                f"auto raycast: lut_pallas unsupported here ({e}); falling back to 'lut'",
+                stacklevel=3,
+            )
+            self.config = cfg.replace(raycast_method="lut")
+            self.grid_map = self.grid_map.with_range_lut(cfg.lut_theta_bins)
+            self.likelihood = self.mega = None
+            return
+        self.grid_map = self.grid_map.with_kernel_lut(
+            query.t_bins, query.row_stride, query.lut_dtype.itemsize)
+        self.likelihood = query
+        if cfg.pallas_mega:
             from monte_carlo_localization_tpu_torch.filter.mega import (
                 MegaStepper,
                 mega_supported,
             )
 
-            if not mega_supported(self.grid_map, self.config):
+            if not mega_supported(self.grid_map, cfg):
                 raise ValueError(
                     "pallas_mega needs a dense-LUT single map on the "
                     "analytic/systematic path (the compact LUT's row_map "
                     "gather cannot live in-kernel — see ops/pallas_mega.py)"
                 )
-            self.mega = MegaStepper(
-                self.grid_map, beams, self.config, self.config.max_particles, self.sensor
-            )
-        self.beam_angles = torch.as_tensor(beams, device=self.device)
+            self.mega = MegaStepper(self.grid_map, beams, cfg, cfg.max_particles, self.sensor)
 
     def _generator(self, seed: int | None) -> torch.Generator:
         gen = torch.Generator(device=self.device)
@@ -364,8 +448,14 @@ class ParticleFilter:
         return MCLState(particles=particles, log_weights=log_w, generator=gen)
 
     def _likelihood_fn(self, particles: torch.Tensor, obs_px: torch.Tensor) -> torch.Tensor:
-        gm = self.grid_map
-        return self.likelihood(gm.range_lut, particles, obs_px, row_map=gm.lut_row_map)
+        gm, cfg = self.grid_map, self.config
+        if self.likelihood is not None:
+            return self.likelihood(gm.range_lut, particles, obs_px, row_map=gm.lut_row_map)
+        return sensor_update_px(
+            particles, obs_px, self.beam_angles, gm, self.sensor,
+            raycast_method=cfg.raycast_method, sphere_march_iters=cfg.sphere_march_iters,
+            sensor_mode=cfg.sensor_model_mode,
+        )
 
     def _step(self, state, action, obs_px, u0=None, noise=None, **inject):
         cfg = self.config
@@ -385,7 +475,7 @@ class ParticleFilter:
         )
 
     def _require_beams(self) -> None:
-        if self.likelihood is None:
+        if self.beam_angles is None:
             raise RuntimeError("beam_angles not set — call set_beam_angles() first")
 
     def step(
@@ -458,7 +548,8 @@ class ParticleFilter:
         inputs after a warm-up, timed between CUDA events on a card (the
         host clock on the CPU). Each field holds the total ms over
         ``iters`` runs; ``measurement_count`` is ``iters``. ``state`` is
-        not advanced (its generator is)."""
+        not advanced (its generator is). Under ``sphere``, ``dda`` and
+        ``lut`` the likelihood phase is :func:`sensor_update_px`."""
         self._require_beams()
         cfg = self.config
         action = upload(action, self.device)

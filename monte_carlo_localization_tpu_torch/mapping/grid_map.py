@@ -7,8 +7,12 @@ initialization) is ``occupancy == 0``; rays stop at ``occupancy > 50``;
 the origin yaw is stored but ignored by grid <-> world transforms.
 
 A :class:`GridMap` holds its arrays as tensors on one device, chosen by
-the ``device`` argument of its constructors (default: the card). Map and LUT
-preprocessing runs on the host (numpy, native C++) and is uploaded once.
+the ``device`` argument of its constructors (default: the card). Map
+preprocessing (clearance, free cells) runs on the host and is uploaded
+once. A map on the card builds its range LUTs there with the shear-sweep
+kernel (``mapping/range_lut_device.py``), so only the occupancy grid and a
+compact LUT's row map cross PCIe; a CPU map takes the native C++ host
+builder, or the sweep's plain version where that is unavailable.
 
 A batched (fleet) map, made by ``parallel.stack_maps``, has a leading map
 axis on every grid, per-map origins and free-cell counts as tensors, and
@@ -21,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Any
@@ -30,6 +35,14 @@ import torch
 import yaml
 
 from monte_carlo_localization_tpu_torch.mapping.edt import clearance_field
+from monte_carlo_localization_tpu_torch.mapping.range_lut import lut_dtype
+from monte_carlo_localization_tpu_torch.mapping.range_lut_device import (
+    FAR_ROW_MARGIN,
+    build_compact_range_lut_device,
+    build_range_lut_device,
+    compact_row_map,
+    torch_lut_dtype,
+)
 from monte_carlo_localization_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 OCC_FREE = 0
@@ -88,6 +101,10 @@ class GridMap:
     member_dims: torch.Tensor | None = None
     lut_member_base: torch.Tensor | None = None
     lut_row_map_base: torch.Tensor | None = None
+    # how the attached LUT was built ("kernel", "native", "plain"; "" when
+    # it came from from_numpy) and the build's wall seconds
+    lut_route: str = ""
+    lut_build_s: float = 0.0
 
     @property
     def device(self) -> torch.device:
@@ -204,22 +221,58 @@ class GridMap:
                 "per-map LUTs (with_member_luts / with_member_compact_luts)"
             )
 
+    def _lut_route(self, backend: str) -> str:
+        """Where a LUT of this map is built: ``"kernel"`` (the sweep
+        kernel, on the card), ``"native"`` (the host C++ builder, then
+        uploaded) or ``"plain"`` (the sweep's plain version on the CPU).
+        ``backend``: ``"auto"`` builds on the map's device (the native
+        builder on a CPU map when it is available); ``"device"`` always on
+        the map's device; ``"native"`` always on the host."""
+        from monte_carlo_localization_tpu_torch import native
+
+        if backend not in ("auto", "device", "native"):
+            raise ValueError(f"unknown LUT backend {backend!r} (auto | device | native)")
+        if backend == "native":
+            if not native.available():
+                raise RuntimeError("native LUT builder unavailable (no C++ toolchain)")
+            return "native"
+        if self.device.type == "cuda":
+            return "kernel"
+        return "native" if backend == "auto" and native.available() else "plain"
+
+    def _with_lut(self, route: str, t0: float, **fields) -> "GridMap":
+        """A copy with the LUT fields set and the build's route and seconds
+        (a card build is waited for, so the seconds are its own)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return dataclasses.replace(self, **fields, lut_route=route,
+                                   lut_build_s=time.perf_counter() - t0)
+
+    def _host_occupied(self) -> np.ndarray:
+        return self.occupied.cpu().numpy()
+
     def with_range_lut(
         self,
         t_bins: int | None = None,
         use_cache: bool = True,
         row_stride: int = 0,
+        backend: str = "auto",
     ) -> "GridMap":
-        """A copy with the dense angle-quantized range LUT attached, built
-        on the host and uploaded once. With ``row_stride > t_bins`` each row
-        is padded with angle-wraparound content."""
+        """A copy with the dense angle-quantized range LUT attached. A map
+        on the card builds it there with the sweep kernel; a CPU map takes
+        the native host builder (with its disk cache unless ``use_cache``
+        is False) or, without one, the sweep's plain version (``backend``:
+        :meth:`_lut_route`). With ``row_stride > t_bins`` each row is
+        padded with angle-wraparound content. A batched map gets one
+        stacked LUT of every map at the common padded shape, (M * H * W *
+        row_stride,) entries (the fleet's ``lut`` method, JAX
+        ``grid_map.py:150-166``)."""
         from monte_carlo_localization_tpu_torch.mapping.range_lut import (
             DEFAULT_THETA_BINS,
             build_range_lut,
             cached_range_lut,
         )
 
-        self._require_single("with_range_lut")
         t = t_bins or DEFAULT_THETA_BINS
         stride = row_stride or t
         if stride < t:
@@ -227,30 +280,56 @@ class GridMap:
         if (
             self.range_lut is not None
             and self.lut_row_map is None
+            and self.lut_member_base is None
             and self.lut_theta_bins == t
             and self.row_stride == stride
         ):
             return self
-        build = cached_range_lut if use_cache else build_range_lut
-        lut = build(self.occupied.cpu().numpy(), t, self.max_range_px, row_stride=stride)
-        return dataclasses.replace(
-            self,
-            range_lut=_upload(np.asarray(lut).reshape(-1), self.device),
+        route = self._lut_route(backend)
+        t0 = time.perf_counter()
+        dtype = torch_lut_dtype(self.max_range_px)
+        cells = self.height * self.width
+        occ = self.occupied.reshape(-1, self.height, self.width)
+        if route == "native":
+            build = cached_range_lut if use_cache else build_range_lut
+            host = self._host_occupied().reshape(occ.shape)
+            lut = np.concatenate([
+                np.asarray(build(host[i], t, self.max_range_px, backend="native",
+                                 row_stride=stride)).reshape(-1)
+                for i in range(host.shape[0])
+            ])
+            lut = _upload(lut, self.device)
+        else:
+            lut = torch.empty(occ.shape[0] * cells * stride, dtype=dtype, device=self.device)
+            for i in range(occ.shape[0]):
+                build_range_lut_device(occ[i], t, self.max_range_px, stride, out=lut,
+                                       row_base=i * cells)
+        return self._with_lut(
+            route, t0,
+            range_lut=lut,
             lut_row_map=None,
+            lut_member_base=None,
+            lut_row_map_base=None,
             lut_theta_bins=t,
             lut_row_stride=stride if stride != t else 0,
         )
 
-    def with_compact_range_lut(self, t_bins: int, row_stride: int = 0) -> "GridMap":
+    def _compact_rows(self, occupied: np.ndarray):
+        """(clearance with headroom, row_map, row_cells) of one map: the
+        stored clearance is clipped at max_range_px + 1, which saturates
+        the far-row test, so it is recomputed."""
+
+        clearance = clearance_field(occupied, self.max_range_px + FAR_ROW_MARGIN + 2)
+        return (clearance, *compact_row_map(clearance, self.max_range_px))
+
+    def with_compact_range_lut(self, t_bins: int, row_stride: int = 0,
+                               backend: str = "auto") -> "GridMap":
         """A copy with the row-compacted range LUT attached (giant maps,
         e.g. Spielberg): cells with clearance >= max_range share one
         constant far row; the rest get real rows through ``lut_row_map``.
-        Built on the host by the native C++ builder, uploaded once."""
-        from monte_carlo_localization_tpu_torch.mapping.range_lut import lut_dtype
-        from monte_carlo_localization_tpu_torch.mapping.range_lut_device import (
-            FAR_ROW_MARGIN,
-            compact_row_map,
-        )
+        Built where :meth:`_lut_route` says: the sweep kernel for a map on
+        the card (only the occupancy grid and the row map go up), the
+        native builder for a CPU map, else the sweep's plain version."""
         from monte_carlo_localization_tpu_torch.native import (
             native_build_compact_range_lut,
         )
@@ -264,25 +343,23 @@ class GridMap:
             and self.row_stride == stride
         ):
             return self
-        occupied = self.occupied.cpu().numpy()
-        # the stored clearance is clipped at max_range_px + 1, which
-        # saturates the far-row test: recompute with headroom
-        clearance = clearance_field(
-            occupied, self.max_range_px + FAR_ROW_MARGIN + 2
-        )
-        row_map, _ = compact_row_map(clearance, self.max_range_px)
-        lut = native_build_compact_range_lut(
-            occupied, t_bins, self.max_range_px, row_map, stride,
-            dtype=lut_dtype(self.max_range_px),
-        )
-        if lut is None:
-            raise RuntimeError(
-                "the compact range LUT needs the native builder (g++ with "
-                "OpenMP), which is unavailable"
+        route = self._lut_route(backend)
+        t0 = time.perf_counter()
+        occupied = self._host_occupied()
+        clearance, row_map, _ = self._compact_rows(occupied)
+        if route == "native":
+            lut = _upload(native_build_compact_range_lut(
+                occupied, t_bins, self.max_range_px, row_map, stride,
+                dtype=lut_dtype(self.max_range_px),
+            ).reshape(-1), self.device)
+        else:
+            lut, _ = build_compact_range_lut_device(
+                self.occupied, clearance, t_bins, self.max_range_px, stride,
+                lut_dtype=lut_dtype(self.max_range_px),
             )
-        return dataclasses.replace(
-            self,
-            range_lut=_upload(lut.reshape(-1), self.device),
+        return self._with_lut(
+            route, t0,
+            range_lut=lut,
             lut_row_map=_upload(row_map, self.device),
             lut_theta_bins=t_bins,
             lut_row_stride=stride if stride != t_bins else 0,
@@ -311,13 +388,16 @@ class GridMap:
         row_stride: int,
         subrow_entries: int,
         use_cache: bool = True,
+        backend: str = "auto",
     ) -> "GridMap":
         """Batched maps: attach tight dense per-map LUTs (the JAX
-        ``GridMap.with_member_luts``). Each map's LUT is built on the host
-        at its true shape (``member_dims``) and the blocks are concatenated
-        into one flat buffer; ``lut_member_base`` holds each block's start
-        in ``subrow_entries``-entry (512 B) subrows. Memory is the sum of
-        the true map areas."""
+        ``GridMap.with_member_luts``). Each map's LUT is built at its true
+        shape (``member_dims``) into one flat buffer, on the card by the
+        sweep kernel (each block in place at its row), on the CPU by the
+        native builder or the plain sweep (:meth:`_lut_route`);
+        ``lut_member_base`` holds each block's start in
+        ``subrow_entries``-entry (512 B) subrows. Memory is the sum of the
+        true map areas."""
         from monte_carlo_localization_tpu_torch.mapping.range_lut import (
             build_range_lut,
             cached_range_lut,
@@ -332,24 +412,35 @@ class GridMap:
             and self.row_stride == row_stride
         ):
             return self
-        occupied = self.occupied.cpu().numpy()
+        route = self._lut_route(backend)
+        t0 = time.perf_counter()
         dims = self._member_dims_np()
-        build = cached_range_lut if use_cache else build_range_lut
         spe = row_stride // subrow_entries  # subrows per LUT row
-        blocks, bases, at = [], np.zeros(self.num_maps, np.int64), 0
-        for i, (h, w) in enumerate(dims.tolist()):
-            bases[i] = at
-            lut = build(occupied[i, :h, :w], t_bins, self.max_range_px, row_stride=row_stride)
-            blocks.append(np.asarray(lut).reshape(-1))
-            at += h * w * spe
+        bases = np.zeros(self.num_maps, np.int64)
+        bases[1:] = np.cumsum(dims[:, 0] * dims[:, 1])[:-1] * spe
+        at = int((dims[:, 0] * dims[:, 1]).sum()) * spe
         if at > np.iinfo(np.int32).max:
             raise ValueError(
                 f"tight fleet LUT subrow index ({at}) overflows int32; use "
                 "fewer or smaller maps"
             )
-        return dataclasses.replace(
-            self,
-            range_lut=_upload(np.concatenate(blocks), self.device),
+        if route == "native":
+            occupied = self._host_occupied()
+            build = cached_range_lut if use_cache else build_range_lut
+            lut = _upload(np.concatenate([
+                np.asarray(build(occupied[i, :h, :w], t_bins, self.max_range_px,
+                                 backend="native", row_stride=row_stride)).reshape(-1)
+                for i, (h, w) in enumerate(dims.tolist())
+            ]), self.device)
+        else:
+            lut = torch.empty(at * subrow_entries, dtype=torch_lut_dtype(self.max_range_px),
+                              device=self.device)
+            for i, (h, w) in enumerate(dims.tolist()):
+                build_range_lut_device(self.occupied[i, :h, :w], t_bins, self.max_range_px,
+                                       row_stride, out=lut, row_base=int(bases[i]) // spe)
+        return self._with_lut(
+            route, t0,
+            range_lut=lut,
             lut_row_map=None,
             lut_row_map_base=None,
             lut_theta_bins=t_bins,
@@ -358,19 +449,15 @@ class GridMap:
         )
 
     def with_member_compact_luts(
-        self, t_bins: int, row_stride: int, subrow_entries: int
+        self, t_bins: int, row_stride: int, subrow_entries: int, backend: str = "auto"
     ) -> "GridMap":
         """Batched maps: attach row-compacted tight per-map LUTs (the JAX
-        ``GridMap.with_member_compact_luts``), built on the host by the
-        native C++ builder for u8 and u16. Map i's cell maps through
-        ``lut_row_map[lut_row_map_base[i] + cell]`` to its block-local
-        compact row (row 0 the block's far row), and the block starts at
-        subrow ``lut_member_base[i]``."""
-        from monte_carlo_localization_tpu_torch.mapping.range_lut import lut_dtype
-        from monte_carlo_localization_tpu_torch.mapping.range_lut_device import (
-            FAR_ROW_MARGIN,
-            compact_row_map,
-        )
+        ``GridMap.with_member_compact_luts``), u8 and u16. Map i's cell
+        maps through ``lut_row_map[lut_row_map_base[i] + cell]`` to its
+        block-local compact row (row 0 the block's far row), and the block
+        starts at subrow ``lut_member_base[i]``. On the card every block
+        is swept in place into one buffer pre-filled with max_range_px;
+        on the CPU the native builder (or the plain sweep) builds each."""
         from monte_carlo_localization_tpu_torch.native import (
             native_build_compact_range_lut,
         )
@@ -385,37 +472,47 @@ class GridMap:
             and self.row_stride == row_stride
         ):
             return self
-        occupied = self.occupied.cpu().numpy()
+        route = self._lut_route(backend)
+        t0 = time.perf_counter()
+        occupied = self._host_occupied()
         dims = self._member_dims_np()
         dtype = lut_dtype(self.max_range_px)
         spe = row_stride // subrow_entries
         m = self.num_maps
-        blocks, rmaps = [], []
+        # pass 1 (host): each map's clearance and row map, so the block
+        # bases are known before any LUT entry exists
+        members = []
         bases, rmap_bases = np.zeros(m, np.int64), np.zeros(m, np.int64)
         at = rat = 0
         for i, (h, w) in enumerate(dims.tolist()):
-            occ_i = occupied[i, :h, :w]
-            clearance = clearance_field(occ_i, self.max_range_px + FAR_ROW_MARGIN + 2)
-            row_map_i, cells_i = compact_row_map(clearance, self.max_range_px)
+            clearance, row_map_i, cells_i = self._compact_rows(occupied[i, :h, :w])
+            members.append((clearance, row_map_i))
             bases[i], rmap_bases[i] = at, rat
             at += (len(cells_i) + 1) * spe
             rat += h * w
-            lut_i = native_build_compact_range_lut(
-                occ_i, t_bins, self.max_range_px, row_map_i, row_stride, dtype=dtype
-            )
-            if lut_i is None:
-                raise RuntimeError(
-                    "compact per-map LUTs need the native builder (g++ with "
-                    "OpenMP), which is unavailable"
-                )
-            blocks.append(lut_i.reshape(-1))
-            rmaps.append(row_map_i)
         if at > np.iinfo(np.int32).max or rat > np.iinfo(np.int32).max:
             raise ValueError("compact fleet LUT index overflows int32; use fewer or smaller maps")
-        return dataclasses.replace(
-            self,
-            range_lut=_upload(np.concatenate(blocks), self.device),
-            lut_row_map=_upload(np.concatenate(rmaps), self.device, np.int32),
+        # pass 2: every member's [far, rows...] block at its base
+        if route == "native":
+            lut = _upload(np.concatenate([
+                native_build_compact_range_lut(
+                    occupied[i, :h, :w], t_bins, self.max_range_px, members[i][1],
+                    row_stride, dtype=dtype,
+                ).reshape(-1)
+                for i, (h, w) in enumerate(dims.tolist())
+            ]), self.device)
+        else:
+            lut = torch.full((at * subrow_entries,), self.max_range_px,
+                             dtype=torch_lut_dtype(self.max_range_px), device=self.device)
+            for i, (h, w) in enumerate(dims.tolist()):
+                build_compact_range_lut_device(
+                    self.occupied[i, :h, :w], members[i][0], t_bins, self.max_range_px,
+                    row_stride, out=lut, row_base=int(bases[i]) // spe, lut_dtype=dtype,
+                )
+        return self._with_lut(
+            route, t0,
+            range_lut=lut,
+            lut_row_map=_upload(np.concatenate([r for _, r in members]), self.device, np.int32),
             lut_theta_bins=t_bins,
             lut_row_stride=row_stride if row_stride != t_bins else 0,
             lut_member_base=_upload(bases, self.device, np.int32),

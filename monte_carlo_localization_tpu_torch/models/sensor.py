@@ -113,17 +113,27 @@ class SensorModel:
         """Per-particle squashed log likelihood of the (R,) scan against
         (..., R) expected ranges in meters: ``"table"`` gathers from the
         log LUT, ``"analytic"`` evaluates the same mixture in closed form."""
+        obs_px = self.to_pixel_index(observed_m).to(torch.float32)
+        return self.log_likelihood_px(obs_px, expected_m, mode)
+
+    def log_likelihood_px(
+        self,
+        obs_px: torch.Tensor,
+        expected_m: torch.Tensor,
+        mode: str = "analytic",
+    ) -> torch.Tensor:
+        """:meth:`log_likelihood` of an observation already binned by
+        :meth:`to_pixel_index` (float32 pixel indices, broadcast against
+        ``expected_m``)."""
+        exp_px = self.to_pixel_index(expected_m)
         if mode == "table":
             w = self.max_range_px + 1
-            obs_idx = self.to_pixel_index(observed_m).to(torch.int64)
-            exp_idx = self.to_pixel_index(expected_m).to(torch.int64)
-            logp = self.log_table.reshape(-1)[obs_idx * w + exp_idx]
+            idx = obs_px.to(torch.int64) * w + exp_px.to(torch.int64)
+            logp = self.log_table.reshape(-1)[idx]
             return self.inv_squash_factor * torch.sum(logp, dim=-1)
         if mode != "analytic":
             raise ValueError(f"Unknown sensor mode: {mode!r}")
-        obs_px = self.to_pixel_index(observed_m).to(torch.float32)
-        exp_px = self.to_pixel_index(expected_m).to(torch.float32)
-        logp = self.log_prob_analytic(obs_px, exp_px)
+        logp = self.log_prob_analytic(obs_px, exp_px.to(torch.float32))
         return self.inv_squash_factor * torch.sum(logp, dim=-1)
 
     def log_prob_analytic(self, r_px: torch.Tensor, d_px: torch.Tensor) -> torch.Tensor:

@@ -178,6 +178,15 @@ def _bind(libs: dict[str, ctypes.CDLL]) -> None:
         fn.restype = i32
         fn.argtypes = argtypes
 
+    sweep = libs["range_lut_sweep"]
+    for name in ("mcl_range_lut_sweep_u8", "mcl_range_lut_sweep_u16"):
+        fn = getattr(sweep, name)
+        fn.restype = i32
+        # occupied, rel, step_len, bins, row_map, p_len, q_len, b_count,
+        # p_stride, q_stride, forward, maxr, row_stride, row_base, out, stream
+        fn.argtypes = [p, p, p, p, p, i32, i32, i32, i64, i64, i32, ctypes.c_float, i64,
+                       i64, p, p]
+
 
 def load_library() -> BuiltLibrary:
     """The kernel libraries, built from the checkout's sources if needed.

@@ -13,9 +13,15 @@ batches the maps, the LUT holds one tight block per map, and
 ``map_assignment`` lets many members share a map's block (64 cars over 4
 circuits store 4 blocks, not 64).
 
+The ``sphere``, ``dda`` and ``lut`` methods (``filter/core.py``
+``sensor_update_px``) run over the member axis too, on a shared map or
+on a stacked map of one map per member (the JAX fleet vmaps
+``mcl_step`` over both); ``lut`` reads a stacked dense LUT
+(``GridMap.with_range_lut`` of the batched map). ``map_assignment``
+needs ``lut_pallas``, as in the JAX fleet.
+
 Not ported: a mesh or particle axis (torch.distributed, ROADMAP.md queue
-1, item 8) and the other raycast methods (item 6). They raise; the
-filter never runs another path.
+1, item 8). It raises; the filter never runs another path.
 """
 
 from __future__ import annotations
@@ -28,7 +34,11 @@ import numpy as np
 import torch
 
 from monte_carlo_localization_tpu_torch.config import MCLConfig, resolve_raycast_method
-from monte_carlo_localization_tpu_torch.filter.core import build_lut_likelihood, correct
+from monte_carlo_localization_tpu_torch.filter.core import (
+    build_lut_likelihood,
+    correct,
+    sensor_update_px,
+)
 from monte_carlo_localization_tpu_torch.filter.init import initialize_pose
 from monte_carlo_localization_tpu_torch.mapping.grid_map import OCC_OCCUPIED, GridMap
 from monte_carlo_localization_tpu_torch.models.sensor import SensorModel
@@ -174,7 +184,7 @@ class FleetFilter:
         self.map_assignment = None
         if map_assignment is not None:
             asg = np.asarray(map_assignment, np.int32)
-            if not grid_map.is_batched:
+            if cfg.raycast_method != "lut_pallas" or not grid_map.is_batched:
                 raise ValueError(
                     "map_assignment requires raycast_method='lut_pallas' "
                     "and a stacked (batched) grid_map"
@@ -194,6 +204,8 @@ class FleetFilter:
         self.fleet_size = int(fleet_size)
         self.device = torch.device(device) if device is not None else grid_map.device
         self.map = grid_map.to(self.device)
+        if cfg.raycast_method == "lut":
+            self.map = self.map.with_range_lut(cfg.lut_theta_bins)
         self.sensor = SensorModel.create(
             max_range_px=grid_map.max_range_px,
             resolution=grid_map.resolution,
@@ -216,12 +228,14 @@ class FleetFilter:
             self.set_beam_angles(beam_angles)
 
     def set_beam_angles(self, beam_angles: np.ndarray) -> None:
-        """Set the beam angles; attaches the LUT for this beam set (tight
-        per-map blocks on a stacked map) and builds the fleet query."""
+        """Set the beam angles; under ``lut_pallas`` this attaches the LUT
+        for this beam set (tight per-map blocks on a stacked map) and
+        builds the fleet query."""
         beams = np.asarray(beam_angles, np.float32)
-        self.map, self.likelihood = build_lut_likelihood(
-            self.map, beams, self.config, num_members=self.fleet_size
-        )
+        if self.config.raycast_method == "lut_pallas":
+            self.map, self.likelihood = build_lut_likelihood(
+                self.map, beams, self.config, num_members=self.fleet_size
+            )
         self.beam_angles = torch.as_tensor(beams, device=self.device)
 
     def _generator(self, seed: int | None) -> torch.Generator:
@@ -265,7 +279,13 @@ class FleetFilter:
         return FleetState(particles=particles, log_weights=log_w, generator=gen)
 
     def _likelihood_fn(self, particles: torch.Tensor, obs_px: torch.Tensor) -> torch.Tensor:
-        gm, (f, n) = self.map, particles.shape[:2]
+        gm, (f, n), cfg = self.map, particles.shape[:2], self.config
+        if self.likelihood is None:
+            return sensor_update_px(
+                particles, obs_px, self.beam_angles, gm, self.sensor,
+                raycast_method=cfg.raycast_method, sphere_march_iters=cfg.sphere_march_iters,
+                sensor_mode=cfg.sensor_model_mode,
+            )
         fleet = {}
         if gm.is_batched:
             fleet = dict(
@@ -279,7 +299,7 @@ class FleetFilter:
         return logw.view(f, n)
 
     def _require_beams(self) -> None:
-        if self.likelihood is None:
+        if self.beam_angles is None:
             raise RuntimeError("beam_angles not set — call set_beam_angles() first")
 
     def _as(self, x, shape: tuple, name: str) -> torch.Tensor | None:

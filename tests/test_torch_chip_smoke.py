@@ -1,6 +1,7 @@
 """``chip_smoke.py`` on a machine without a card: it refuses to run,
 prints no result and imports nothing of JAX; its bounds count the
-operations the kernels' beam term needs."""
+operations the kernels' beam term needs and the bytes a LUT build
+moves; a path's LUT must come from the sweep kernel."""
 
 import inspect
 import subprocess
@@ -75,6 +76,7 @@ def test_knife_edge_ranges_hold_every_half_pixel_and_its_neighbours():
     ("phase_u16_basement", "U16_RMSE_MAX", 0.064),
     ("phase_live", "LIVE_POSE_TOL", 0.15),
     ("phase_inject", "INJECT_RMSE_MAX", 0.075),
+    ("phase_methods", "METHODS_RMSE_MAX", 0.075),
 ])
 def test_runtime_phases_gate_on_their_constants(phase, constant, value):
     """The runtime phases' gates read their thresholds from the module's
@@ -83,3 +85,35 @@ def test_runtime_phases_gate_on_their_constants(phase, constant, value):
     src = inspect.getsource(getattr(chip_smoke, phase))
     assert f"<= {constant}" in src
     assert str(value) not in src
+
+
+@pytest.mark.parametrize("compact", [False, True], ids=["dense", "compact"])
+def test_sweep_bound_counts_each_input_once_and_the_stored_rows(compact):
+    cells, stride, rel, rows = 2000 * 2000, 3072, 3_000_000, 3_000_000
+    b = chip_smoke.sweep_bound(cells, stride, rel, rows, 1, compact)
+    written = rows * stride
+    assert b["write_bytes"] == written
+    assert b["bytes"] == cells * (5 if compact else 1) + rel + 8 * stride + written
+    assert b["f32_ops"] == cells * stride * chip_smoke.OPS_PER_SWEEP_ENTRY
+    assert b["write_bound_ms"] == pytest.approx(written / chip_smoke.HBM_BYTES_PER_S * 1e3)
+    assert b["bound_by"] == "bytes" and b["bound_ms"] >= b["write_bound_ms"]
+    # a map of mostly far cells sweeps every cell but stores few rows
+    assert chip_smoke.sweep_bound(cells, stride, rel, 1000, 1, compact)["bound_by"] == "operations"
+
+
+def test_a_path_lut_must_come_from_the_sweep_kernel(monkeypatch):
+    from types import SimpleNamespace
+
+    from monte_carlo_localization_tpu_torch.ops.range_lut_sweep import sweep
+
+    monkeypatch.setattr(chip_smoke, "SWEEP_LAUNCHES", {})
+    lut = torch.zeros(8, dtype=torch.uint8)
+    chip_smoke.sweep_reset()
+    with pytest.raises(RuntimeError, match="want the kernel"):
+        chip_smoke.lut_built_on_card("x", SimpleNamespace(lut_route="native", lut_build_s=1.0,
+                                                          range_lut=lut))
+    monkeypatch.setattr(sweep, "launch_count", 4)
+    got = chip_smoke.lut_built_on_card("y", SimpleNamespace(lut_route="kernel", lut_build_s=0.5,
+                                                            range_lut=lut))
+    assert got == dict(lut_route="kernel", lut_build_s=0.5, sweep_launches=4, lut_bytes=8)
+    assert chip_smoke.SWEEP_LAUNCHES == {"y": 4}

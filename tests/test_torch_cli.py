@@ -1,8 +1,9 @@
 """The port's command line against the JAX package's on a tiny map: the
 same subcommands print the same JSON keys (``info`` and ``make-trace``
 the same values), the port's checkpoint round trip runs through the CLI,
-each option not ported yet exits non-zero naming its ROADMAP item, and
-the default device is the card."""
+``--raycast lut|sphere|dda`` replays as the JAX CLI does, ``info --lut``
+names the LUT's route, each option not ported yet exits non-zero naming
+its ROADMAP item, and the default device is the card."""
 
 import json
 import subprocess
@@ -93,6 +94,24 @@ def test_replay_and_live_print_the_jax_keys(world, capsys, tmp_path):
     assert sorted(port_live) == sorted(jax_live)
 
 
+@pytest.mark.parametrize("method", ["lut", "sphere", "dda"])
+def test_replay_runs_every_raycast_method(world, capsys, method):
+    common = ["--map", world["map"], "--trace", world["trace"], "--particles", "64",
+              "--angle-step", "4", "--raycast", method, "--chained"]
+    port = _json(capsys, cli.main, ["replay", "--device", "cpu", *common])
+    jax_out = _json(capsys, jcli.main, ["replay", *common])
+    assert sorted(port) == sorted(jax_out)
+    assert port["corrections"] == jax_out["corrections"] == 25
+    assert np.isfinite(port["rmse_xy_m"]) and port["rmse_xy_m"] < 0.15
+
+
+def test_info_lut_names_its_route(world, capsys):
+    out = _json(capsys, cli.main, ["info", "--device", "cpu", world["map"], "--lut",
+                                   "--lut-theta-bins", "90"])
+    assert out["lut_route"] in ("native", "plain") and out["lut_build_s"] >= 0
+    assert out["lut_bytes"] == out["height"] * out["width"] * 90 and out["lut_theta_bins"] == 90
+
+
 UNPORTED = [
     (["baseline", "--trace", "T"], "item 9"),
     (["bench"], "item 1"),
@@ -100,9 +119,6 @@ UNPORTED = [
     (["import-bag", "--bag", "b", "--out", "o"], "item 5"),
     (["replay", "--trace", "T", "--viz-out", "v"], "item 5"),
     (["live", "--trace", "T", "--serve", "0"], "item 5"),
-    (["replay", "--trace", "T", "--raycast", "sphere"], "item 6"),
-    (["replay", "--trace", "T", "--raycast", "dda"], "item 6"),
-    (["live", "--trace", "T", "--raycast", "lut"], "item 6"),
 ]
 
 

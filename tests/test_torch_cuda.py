@@ -934,3 +934,134 @@ def test_scan_roll_col_kernels_bits(cuda, n):
         assert pr.scan_shape("scan", n) == dict(grid=1, threads=512, per=8, smem=0)
         assert pr.scan_shape("roll", n) == dict(grid=8, threads=128, per=4, smem=0)
         assert pr.scan_shape("col", n) == dict(grid=8, threads=128, per=4, smem=0)
+
+
+SWEEP_CASES = [  # (h, w, t, stride, max_range_px, compact)
+    (146, 288, 90, 90, 240, False), (146, 288, 90, 1024, 240, False),
+    (200, 160, 120, 1024, 60, True), (200, 160, 120, 1536, 400, True),
+    (64, 64, 64, 512, 300, False),
+]
+
+
+def _sweep_occ(h, w, seed):
+    rng = np.random.default_rng(seed)
+    occ = np.zeros((h, w), bool)
+    occ[[0, -1], :] = occ[:, [0, -1]] = True
+    for _ in range(6):
+        r, c = rng.integers(4, h - 12), rng.integers(4, w - 12)
+        occ[r:r + rng.integers(2, 9), c:c + rng.integers(2, 9)] = True
+    return occ
+
+
+@pytest.mark.parametrize("h, w, t, stride, mrp, compact", SWEEP_CASES,
+                         ids=[f"{c[0]}x{c[1]}-T{c[2]}-s{c[3]}-{c[4]}px-{'compact' if c[5] else 'dense'}"
+                              for c in SWEEP_CASES])
+def test_range_lut_sweep_kernel_equals_plain(cuda, h, w, t, stride, mrp, compact):
+    """The sweep kernel bit for bit its plain version on the card and on
+    the CPU (dense and compact, u8 and u16, stride T and padded)."""
+    from monte_carlo_localization_tpu_torch.mapping import clearance_field
+    from monte_carlo_localization_tpu_torch.mapping.range_lut_device import (
+        build_compact_range_lut_device,
+        build_range_lut_device,
+        shear_groups,
+    )
+    from monte_carlo_localization_tpu_torch.ops.range_lut_sweep import sweep
+
+    occ = _sweep_occ(h, w, h + stride)
+    dev_occ = torch.from_numpy(occ).to(cuda)
+    before = sweep.launch_count
+    if compact:
+        clr = clearance_field(occ, mrp + 4)
+        dt = np.uint8 if mrp <= 254 else np.uint16
+
+        def build(o, plain=False):
+            return build_compact_range_lut_device(o, clr, t, mrp, stride, lut_dtype=dt,
+                                                  plain=plain)[0]
+    else:
+        def build(o, plain=False):
+            return build_range_lut_device(o, t, mrp, stride, plain=plain)
+    got = build(dev_occ)
+    torch.cuda.synchronize()
+    assert sweep.launch_count - before == len(shear_groups(h, w, t, stride))
+    assert torch.equal(got, build(dev_occ, plain=True))
+    assert torch.equal(got.cpu(), build(torch.from_numpy(occ)))
+
+
+def test_range_lut_sweep_member_blocks_in_one_buffer(cuda):
+    """Two members' compact blocks written in place at their row bases
+    through GridMap.with_member_compact_luts equal the native route."""
+    from monte_carlo_localization_tpu_torch.mapping import map_from_occupancy
+    from monte_carlo_localization_tpu_torch.parallel import stack_maps
+
+    maps = [map_from_occupancy(np.where(_sweep_occ(h, w, h), 100, 0).astype(np.int8),
+                               resolution=0.05, max_range_meters=mr, device=cuda)
+            for h, w, mr in ((120, 90, 3.0), (80, 140, 3.0))]
+    fleet = stack_maps(maps)
+    card = fleet.with_member_compact_luts(90, 1024, 512)
+    host = fleet.with_member_compact_luts(90, 1024, 512, backend="native")
+    assert card.lut_route == "kernel" and host.lut_route == "native"
+    for field in ("range_lut", "lut_row_map", "lut_member_base", "lut_row_map_base"):
+        assert torch.equal(getattr(card, field), getattr(host, field)), field
+    dense = fleet.with_member_luts(90, 1024, 512)
+    assert torch.equal(dense.range_lut,
+                       fleet.with_member_luts(90, 1024, 512, backend="native").range_lut)
+
+
+def test_range_lut_sweep_raises_without_its_library(cuda, monkeypatch):
+    """A map on the card never falls back to the host builder: a missing
+    kernel library or a failed build raises."""
+    from monte_carlo_localization_tpu_torch.mapping import map_from_occupancy
+    from monte_carlo_localization_tpu_torch.ops import _cuda_build
+
+    gm = map_from_occupancy(np.where(_sweep_occ(64, 64, 1), 100, 0).astype(np.int8),
+                            resolution=0.05, max_range_meters=2.0, device=cuda)
+    built = _cuda_build.load_library()
+    libs = {k: v for k, v in built.libs.items() if k != "range_lut_sweep"}
+    monkeypatch.setattr(_cuda_build, "load_library",
+                        lambda: _cuda_build.BuiltLibrary(libs, built.paths, 0.0, ""))
+    with pytest.raises(RuntimeError, match="range_lut_sweep kernel library was not built"):
+        gm.with_range_lut(90)
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_cuda_build, "load_library", no_nvcc)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        gm.with_compact_range_lut(90, 512)
+
+
+@pytest.mark.parametrize("method", ["lut", "sphere", "dda"])
+def test_methods_on_the_card_match_the_cpu(cuda, method):
+    """sphere, dda and lut on the card against the CPU on the same draws:
+    poses within 1e-3 and 99% of rows within 1e-4 (cos/sin may differ by
+    an ulp between the two, which can move a grazing ray by one cell)."""
+    from monte_carlo_localization_tpu_torch import MCLConfig, MCLState, ParticleFilter
+    from monte_carlo_localization_tpu_torch.mapping import map_from_occupancy
+    from monte_carlo_localization_tpu_torch.ops.raycast import cast_rays_dda
+
+    occ = np.where(_sweep_occ(120, 160, 3), 100, 0).astype(np.int8)
+    cfg = MCLConfig(max_particles=512, raycast_method=method, lut_theta_bins=360)
+    beams = _beams(60)
+    pfs = {d: ParticleFilter(map_from_occupancy(occ, resolution=0.05, max_range_meters=4.0,
+                                                device=d), cfg, beam_angles=beams)
+           for d in ("cpu", cuda)}
+    if method == "lut":
+        assert pfs[cuda].grid_map.lut_route == "kernel"
+        assert torch.equal(pfs[cuda].grid_map.range_lut.cpu(), pfs["cpu"].grid_map.range_lut)
+    truth = np.float32([3.0, 2.5, 0.4])
+    bt = torch.from_numpy(beams)
+    q = torch.stack([torch.full_like(bt, 3.0), torch.full_like(bt, 2.5), 0.4 + bt], 1)
+    scans = np.stack([cast_rays_dda(pfs["cpu"].grid_map, q).numpy()] * 3)
+    rng = np.random.default_rng(5)
+    parts = (truth + rng.normal(0, 0.1, (512, 3))).astype(np.float32)
+    u0 = rng.uniform(size=3).astype(np.float32)
+    noise = rng.normal(size=(3, 512, 3)).astype(np.float32)
+    actions = np.float32([[0.03, 0.0, 0.01]] * 3)
+    out = {}
+    for d, pf in pfs.items():
+        st = MCLState.from_numpy(parts, np.zeros(512, np.float32), seed=0, device=d)
+        st, poses = pf.step_many(st, actions, scans, u0=u0, noise=noise)
+        out[d] = (poses.cpu().numpy(), st.particles.cpu().numpy())
+    np.testing.assert_allclose(out[cuda][0], out["cpu"][0], rtol=0, atol=1e-3)
+    rows = np.all(np.abs(out[cuda][1] - out["cpu"][1]) <= 1e-4, axis=1)
+    assert rows.mean() >= 0.99, rows.mean()

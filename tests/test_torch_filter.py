@@ -139,13 +139,6 @@ def test_config_file_loads_like_jax():
     assert load_config(path).__dict__ == j_load_config(path).__dict__
 
 
-@pytest.mark.parametrize("method", ["sphere", "dda", "lut"])
-def test_unported_options_raise(small_map, method):
-    gm = small_map
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ParticleFilter(gm, MCLConfig(raycast_method=method))
-
-
 def test_kernel_options_build_and_mega_refuses_them(small_map, beams60, clutter_map):
     for opts, want in (
         (dict(pallas_subbin=True), (True, 0, False)),

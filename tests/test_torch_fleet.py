@@ -445,8 +445,6 @@ def test_unported_fleet_paths_raise():
         FleetFilter(gm, 2, MCLConfig(max_particles=64), mesh=object())
     with pytest.raises(NotImplementedError, match="queue 1, item 8"):
         FleetFilter(gm, 2, MCLConfig(max_particles=64), particle_axis="p")
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        FleetFilter(gm, 2, MCLConfig(max_particles=64, raycast_method="lut"))
     with pytest.raises(ValueError, match="single member"):
         FleetFilter(gm, 2, MCLConfig(max_particles=64, pallas_dedup_slots=4), beam_angles=BEAMS)
     with pytest.raises(ValueError, match="map_assignment requires"):
