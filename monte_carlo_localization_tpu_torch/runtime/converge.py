@@ -34,9 +34,10 @@ def converge_global(pf, scan_m, truth, *, seed: int, chunk: int = 5,
     ``tol_m`` or ``max_updates`` corrections have run."""
     scans = np.tile(np.asarray(scan_m, np.float32), (chunk, 1))
     actions = np.zeros((chunk, 3), np.float32)
-    q = pf.likelihood
+    q = pf.likelihood  # None under the sphere, dda and lut methods
+    dedup = q is not None and q.dedup_slots > 0
     state = pf.init_global(seed=seed)
-    blocks = math.ceil(state.num_particles / q.block)
+    blocks = math.ceil(state.num_particles / q.block) if dedup else 0
     poses, shares = [], []
     updates, err = None, math.inf
     t0 = time.perf_counter()
@@ -44,7 +45,7 @@ def converge_global(pf, scan_m, truth, *, seed: int, chunk: int = 5,
         state, p = pf.step_many(state, actions, scans)
         p = p.cpu().numpy()  # the chunk's one readback
         poses.append(p)
-        if q.dedup_slots > 0:
+        if dedup:
             shares.append(int(q.last_overflow) / blocks)
         err = float(math.hypot(p[-1, 0] - truth[0], p[-1, 1] - truth[1]))
         if err < tol_m:

@@ -230,6 +230,22 @@ def test_step_with_injection_and_profile_phases(pair, method):
     assert stats.measurement_count == 2 and stats.sensor_model_time > 0
 
 
+def test_global_localization_runs_under_every_method(pair):
+    """``converge_global`` (config #4's loop) drives a filter of any
+    method: the cloud from ``init_global`` reaches the scan's pose."""
+    from monte_carlo_localization_tpu_torch.runtime import converge_global
+
+    jm, tm = pair
+    truth = np.float32([1.1, 1.3, 0.4])
+    for method in ("lut", "sphere"):
+        pf = ParticleFilter(tm, MCLConfig(max_particles=2000, raycast_method=method,
+                                          lut_theta_bins=360), beam_angles=BEAMS)
+        res = converge_global(pf, _truth_scan(jm, truth), truth, seed=0, chunk=5,
+                              max_updates=20)
+        assert res.overflow_share == () and np.isfinite(res.poses).all()
+        assert res.updates is not None and res.err_m < 0.5, (method, res.updates, res.err_m)
+
+
 def _member_draws(keys, n):
     u0, noise = [], []
     for key in keys:
