@@ -372,26 +372,61 @@ def sweep_vs_plain(what: str, occ, t: int, stride: int, max_range_px: int,
                 write_bound_ms=bnd["write_bound_ms"])
 
 
-def card_vs_native(what: str, gm, attach) -> dict:
-    """``attach(gm, backend)`` on the card (the sweep kernel) and through
-    the native host builder (then uploaded): both LUTs ``torch.equal``,
+def native_lut(gm) -> np.ndarray:
+    """The native host builder's flat LUT for the one ``gm`` carries
+    (dense or compact, one map or tight member blocks), built from the
+    map's occupancy and, for a compact LUT, its row map: the oracle of a
+    card build. Checks that the member blocks start at the bases the card
+    build recorded."""
+    from monte_carlo_localization_tpu_torch.mapping.range_lut import build_range_lut, lut_dtype
+    from monte_carlo_localization_tpu_torch.native import native_build_compact_range_lut
+
+    occ = gm.occupied.cpu().numpy()
+    t, stride, mrp = gm.lut_theta_bins, gm.row_stride, gm.max_range_px
+    if gm.is_batched:
+        blocks = [occ[i, :h, :w] for i, (h, w) in enumerate(gm.member_dims.tolist())]
+    else:
+        blocks = [occ]
+    row_map = None if gm.lut_row_map is None else gm.lut_row_map.cpu().numpy()
+    out, cell0 = [], 0
+    for o in blocks:
+        if row_map is None:
+            out.append(build_range_lut(o, t, mrp, backend="native", row_stride=stride))
+        else:
+            out.append(native_build_compact_range_lut(o, t, mrp, row_map[cell0:cell0 + o.size],
+                                                      stride, dtype=lut_dtype(mrp)))
+        cell0 += o.size
+    if gm.is_batched:
+        eps = 512 // lut_dtype(mrp).itemsize
+        bases = np.cumsum([0] + [b.size // eps for b in out[:-1]])
+        check(np.array_equal(gm.lut_member_base.cpu().numpy(), bases),
+              "member LUT bases differ from the native blocks' starts")
+    return np.concatenate([b.reshape(-1) for b in out])
+
+
+def card_vs_native(what: str, card) -> dict:
+    """A LUT built on the card by the sweep kernel (``card``, a map that
+    carries it) against :func:`native_lut`, uploaded: ``torch.equal``,
     with each build's seconds."""
     import torch
 
-    card = attach(gm, "auto")
     check(card.lut_route == "kernel", f"{what}: the card build took {card.lut_route!r}")
-    host = attach(gm, "native")
-    for field in ("range_lut", "lut_row_map", "lut_member_base", "lut_row_map_base"):
-        a, b = getattr(card, field), getattr(host, field)
-        check((a is None and b is None) or torch.equal(a, b),
-              f"{what}: {field} of the card build != the native build")
+    t0 = time.perf_counter()
+    host = native_lut(card)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = torch.from_numpy(host).to(card.range_lut.device)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    del host
     lut = card.range_lut
+    check(torch.equal(lut.view(-1), want), f"{what}: the card build != the native build")
     nbytes = lut.numel() * lut.element_size()
     out = dict(lut=("compact " if card.lut_row_map is not None else "dense ") + str(lut.dtype),
                lut_bytes=nbytes, equal=True, card_build_s=card.lut_build_s,
-               native_build_and_upload_s=host.lut_build_s,
+               native_build_s=native_s, upload_s=upload_s,
                write_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
-    del card, host
+    del want
     torch.cuda.empty_cache()
     return out
 
@@ -401,10 +436,12 @@ def phase_lut_build(device) -> dict:
     config #1's map (dense u8, stride T and padded), a 400 x 400 crop of
     Spielberg (compact u8, and compact u16 at 25.6 m) and the whole of
     Spielberg at the headline geometry (compact u8, 1080 beams: the
-    kernel's times); full-size card LUTs against the native host builder
-    on basement_fixed (compact u8, past 2^31 bytes) and at the u16
-    golden trace's 25.6 m (compact u16), and config #5's four maps through
-    ``with_member_compact_luts``."""
+    kernel's times) and as the ``lut`` method's dense 1440-bin LUT
+    (5.76 GB, offsets past 2^31); full-size card LUTs against the native
+    host builder on basement_fixed (compact u8, past 2^31 bytes) and at
+    the u16 golden trace's 25.6 m (compact u16), and config #5's four
+    maps at its geometry, tight member blocks compact and dense (the
+    fleet's own LUT)."""
     import torch
 
     from monte_carlo_localization_tpu_torch import load_map
@@ -434,6 +471,11 @@ def phase_lut_build(device) -> dict:
     head = sweep_vs_plain("Spielberg compact u8 (headline)", spiel.occupied, t, stride,
                           spiel.max_range_px, True)
     plain["spielberg_compact_u8"] = head
+    # the methods phase's headline LUT: ParticleFilter(raycast_method="lut")
+    # attaches the dense DEFAULT_THETA_BINS (1440) LUT at stride T
+    plain["spielberg_dense_1440"] = sweep_vs_plain(
+        "Spielberg dense, T = 1440 (the lut method's headline)", spiel.occupied, 1440, 1440,
+        spiel.max_range_px, False)
     del spiel, crop
     torch.cuda.empty_cache()
 
@@ -445,18 +487,19 @@ def phase_lut_build(device) -> dict:
         gm = load_map(REPO / "maps" / yaml_name, max_range_meters=range_m, device=device)
         b = Trace.load(REPO / "traces" / trace).beam_angles[::18]
         t, stride, itemsize = lut_geometry(b, gm.max_range_px)
-        native[name] = card_vs_native(
-            name, gm, lambda g, be: g.with_compact_range_lut(t, stride, backend=be))
+        native[name] = card_vs_native(name, gm.with_compact_range_lut(t, stride))
         native[name].update(max_range_px=gm.max_range_px, t_bins=t, row_stride=stride)
         del gm
     check(native["basement_u8"]["lut_bytes"] > 2**31, "basement's compact LUT should pass 2^31 B")
     maps = [load_map(REPO / "maps" / name, device=device) for name in CONFIG5_MAPS]
     t, stride, itemsize = lut_geometry(headline_beams(60), maps[0].max_range_px)
     eps = 512 // itemsize
+    fleet = stack_maps(maps)
     native["config5_member_compact"] = card_vs_native(
-        "config #5 member compact", stack_maps(maps),
-        lambda g, be: g.with_member_compact_luts(t, stride, eps, backend=be))
-    del maps
+        "config #5 member compact", fleet.with_member_compact_luts(t, stride, eps))
+    native["config5_member_dense"] = card_vs_native(
+        "config #5 member dense (the fleet's LUT)", fleet.with_member_luts(t, stride, eps))
+    del maps, fleet
     torch.cuda.empty_cache()
     emit("lut_build", t0, hbm_bytes_per_s=HBM_BYTES_PER_S, kernel_vs_plain=plain,
          card_vs_native=native)

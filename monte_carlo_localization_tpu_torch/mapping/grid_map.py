@@ -221,13 +221,14 @@ class GridMap:
                 "per-map LUTs (with_member_luts / with_member_compact_luts)"
             )
 
-    def _lut_route(self, backend: str) -> str:
+    def _lut_route(self, backend: str = "auto") -> str:
         """Where a LUT of this map is built: ``"kernel"`` (the sweep
         kernel, on the card), ``"native"`` (the host C++ builder, then
         uploaded) or ``"plain"`` (the sweep's plain version on the CPU).
-        ``backend``: ``"auto"`` builds on the map's device (the native
-        builder on a CPU map when it is available); ``"device"`` always on
-        the map's device; ``"native"`` always on the host."""
+        ``backend`` (the dense LUTs' option, as in the JAX package):
+        ``"auto"`` builds on the map's device (the native builder on a CPU
+        map when it is available); ``"device"`` always on the map's
+        device; ``"native"`` always on the host."""
         from monte_carlo_localization_tpu_torch import native
 
         if backend not in ("auto", "device", "native"):
@@ -322,14 +323,13 @@ class GridMap:
         clearance = clearance_field(occupied, self.max_range_px + FAR_ROW_MARGIN + 2)
         return (clearance, *compact_row_map(clearance, self.max_range_px))
 
-    def with_compact_range_lut(self, t_bins: int, row_stride: int = 0,
-                               backend: str = "auto") -> "GridMap":
+    def with_compact_range_lut(self, t_bins: int, row_stride: int = 0) -> "GridMap":
         """A copy with the row-compacted range LUT attached (giant maps,
         e.g. Spielberg): cells with clearance >= max_range share one
         constant far row; the rest get real rows through ``lut_row_map``.
-        Built where :meth:`_lut_route` says: the sweep kernel for a map on
-        the card (only the occupancy grid and the row map go up), the
-        native builder for a CPU map, else the sweep's plain version."""
+        Built by the sweep kernel for a map on the card (only the
+        occupancy grid and the row map go up), by the native builder for a
+        CPU map, else by the sweep's plain version (:meth:`_lut_route`)."""
         from monte_carlo_localization_tpu_torch.native import (
             native_build_compact_range_lut,
         )
@@ -343,7 +343,7 @@ class GridMap:
             and self.row_stride == stride
         ):
             return self
-        route = self._lut_route(backend)
+        route = self._lut_route()
         t0 = time.perf_counter()
         occupied = self._host_occupied()
         clearance, row_map, _ = self._compact_rows(occupied)
@@ -449,7 +449,7 @@ class GridMap:
         )
 
     def with_member_compact_luts(
-        self, t_bins: int, row_stride: int, subrow_entries: int, backend: str = "auto"
+        self, t_bins: int, row_stride: int, subrow_entries: int
     ) -> "GridMap":
         """Batched maps: attach row-compacted tight per-map LUTs (the JAX
         ``GridMap.with_member_compact_luts``), u8 and u16. Map i's cell
@@ -472,7 +472,7 @@ class GridMap:
             and self.row_stride == row_stride
         ):
             return self
-        route = self._lut_route(backend)
+        route = self._lut_route()
         t0 = time.perf_counter()
         occupied = self._host_occupied()
         dims = self._member_dims_np()

@@ -2,11 +2,12 @@
 package's ``mapping/range_lut.py``.
 
 For every (cell, theta bin) the LUT holds the range in pixels to the
-first obstacle, built by a shear-scan dynamic program (native C++/OpenMP,
-numpy fallback). Rows may be padded to ``row_stride`` entries with
-angle-wraparound content (entry b = bin b % T), the byte layout the fused
-likelihood reads: every beam of a particle lies inside its row, so the
-query needs no modulo per beam. The layout is the JAX package's, so one
+first obstacle, built by a shear-scan dynamic program (native C++/OpenMP;
+without a C++ toolchain the plain sweep of ``range_lut_device``). Rows
+may be padded to ``row_stride`` entries with angle-wraparound content
+(entry b = bin b % T), the byte layout the fused likelihood reads: every
+beam of a particle lies inside its row, so the query needs no modulo per
+beam. The layout is the JAX package's, so one
 LUT buffer serves both packages.
 """
 
@@ -17,6 +18,7 @@ import os
 from pathlib import Path
 
 import numpy as np
+import torch
 
 DEFAULT_THETA_BINS = 1440  # 0.25 deg
 _DEFAULT_CACHE = Path(__file__).resolve().parents[1] / "_build" / "lut_cache"
@@ -34,44 +36,6 @@ def lut_dtype(max_range_px: int) -> np.dtype:
     )
 
 
-def build_range_lut_numpy(
-    occupied: np.ndarray, t_bins: int, max_range_px: int
-) -> np.ndarray:
-    """Pure-numpy shear-scan DP (fallback and correctness oracle)."""
-    occupied = occupied.astype(bool)
-    h, w = occupied.shape
-    out = np.empty((h, w, t_bins), dtype=lut_dtype(max_range_px))
-    for t in range(t_bins):
-        theta = 2.0 * np.pi * t / t_bins
-        c, s = np.cos(theta), np.sin(theta)
-        row_axis = abs(s) >= abs(c)
-        occ_p = occupied if row_axis else occupied.T  # (P, Q)
-        p_len, q_len = occ_p.shape
-        sp = 1 if (s > 0 if row_axis else c > 0) else -1
-        denom = abs(s) if row_axis else abs(c)
-        delta = (c if row_axis else s) / denom
-        step_len = 1.0 / denom
-
-        dist = np.zeros((p_len, q_len), dtype=np.float32)
-        d_prev = np.zeros(q_len, dtype=np.float32)
-        order = range(p_len - 1, -1, -1) if sp > 0 else range(p_len)
-        qs = np.arange(q_len)
-        for p in order:
-            shift_p = np.rint(delta * sp * p)
-            shift_n = np.rint(delta * sp * (p + sp))
-            rel = int(shift_n - shift_p)
-            qn = qs + rel
-            valid = (qn >= 0) & (qn < q_len)
-            nxt = np.where(valid, d_prev[np.clip(qn, 0, q_len - 1)], 0.0)
-            d_cur = np.where(occ_p[p], 0.0, nxt + 1.0)
-            dist[p] = d_cur
-            d_prev = d_cur
-        px = np.clip(dist * step_len - 1.0, 0.0, max_range_px)
-        px_q = (px + 0.5).astype(out.dtype)
-        out[:, :, t] = px_q if row_axis else px_q.T
-    return out
-
-
 def build_range_lut(
     occupied: np.ndarray,
     t_bins: int = DEFAULT_THETA_BINS,
@@ -80,8 +44,10 @@ def build_range_lut(
     row_stride: int = 0,
 ) -> np.ndarray:
     """(H, W, row_stride or T) range-in-px LUT, u8 or u16 (max_range_px >
-    254). backend: auto | native | numpy. With ``row_stride > t_bins`` the
-    last axis is padded with angle-wraparound content."""
+    254). backend: auto | native | plain (the sweep's plain version on
+    the CPU, also the fallback of ``auto`` without a C++ toolchain). With
+    ``row_stride > t_bins`` the last axis is padded with angle-wraparound
+    content."""
     dtype = lut_dtype(max_range_px)
     h, w = occupied.shape
     nbytes = h * w * (row_stride or t_bins) * dtype.itemsize
@@ -93,6 +59,8 @@ def build_range_lut(
             f"{max_bytes / 2**30:.1f} GiB limit; reduce t_bins or set "
             "MCL_LUT_MAX_BYTES"
         )
+    if backend not in ("auto", "native", "plain"):
+        raise ValueError(f"unknown LUT backend {backend!r} (auto | native | plain)")
     lut = None
     if backend in ("auto", "native"):
         from monte_carlo_localization_tpu_torch.native import (
@@ -103,7 +71,13 @@ def build_range_lut(
         if lut is None and backend == "native":
             raise RuntimeError("native LUT builder unavailable (no C++ toolchain)")
     if lut is None:
-        lut = build_range_lut_numpy(occupied, t_bins, max_range_px)
+        from monte_carlo_localization_tpu_torch.mapping.range_lut_device import (
+            build_range_lut_device,
+        )
+
+        return build_range_lut_device(
+            torch.from_numpy(np.array(occupied, dtype=bool)), t_bins, max_range_px, row_stride
+        ).numpy()
     if row_stride and row_stride != t_bins:
         if row_stride < t_bins:
             raise ValueError(f"row_stride {row_stride} < t_bins {t_bins}")

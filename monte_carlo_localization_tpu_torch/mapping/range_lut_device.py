@@ -170,7 +170,6 @@ def build_compact_range_lut_device(
     t_bins: int,
     max_range_px: int,
     row_stride: int,
-    chunk: int = 0,  # kept for the JAX signature; one sweep per bin group
     *,
     out: torch.Tensor | None = None,
     row_base: int = 0,
@@ -187,7 +186,6 @@ def build_compact_range_lut_device(
     written in place and ``out`` returned: every member of
     ``GridMap.with_member_compact_luts`` goes into one buffer. ``plain``
     as in :func:`build_range_lut_device`."""
-    del chunk
     dtype = torch_lut_dtype(max_range_px, lut_dtype)
     itemsize = 1 if dtype == torch.uint8 else 2
     span = SPAN // itemsize  # entries of one 512 B subrow

@@ -1,8 +1,10 @@
 """``chip_smoke.py`` on a machine without a card: it refuses to run,
 prints no result and imports nothing of JAX; its bounds count the
 operations the kernels' beam term needs and the bytes a LUT build
-moves; a path's LUT must come from the sweep kernel."""
+moves; a path's LUT must come from the sweep kernel, and the oracle of
+the card builds rebuilds every kind of LUT."""
 
+import dataclasses
 import inspect
 import subprocess
 import sys
@@ -117,3 +119,33 @@ def test_a_path_lut_must_come_from_the_sweep_kernel(monkeypatch):
                                                             range_lut=lut))
     assert got == dict(lut_route="kernel", lut_build_s=0.5, sweep_launches=4, lut_bytes=8)
     assert chip_smoke.SWEEP_LAUNCHES == {"y": 4}
+
+
+def test_native_oracle_rebuilds_every_lut_kind(monkeypatch):
+    """``native_lut``, the oracle of the card builds, gives back the LUT a
+    map carries when that LUT came from the sweep (here its plain version):
+    dense and compact, one map and tight member blocks; a member block at
+    a wrong base is caught."""
+    from monte_carlo_localization_tpu_torch import native
+    from monte_carlo_localization_tpu_torch.mapping import map_from_occupancy
+    from monte_carlo_localization_tpu_torch.parallel import stack_maps
+
+    rng = np.random.default_rng(3)
+    occ = np.where(rng.random((48, 64)) < 0.05, 100, 0).astype(np.int8)
+    occ[[0, -1]], occ[:, [0, -1]] = 100, 100
+    gm = map_from_occupancy(occ, resolution=0.05, max_range_meters=0.9, device="cpu")
+    fleet = stack_maps([gm, map_from_occupancy(occ[:40, :50], resolution=0.05,
+                                               max_range_meters=0.9, device="cpu")])
+    monkeypatch.setattr(native, "available", lambda: False)
+    built = [gm.with_range_lut(90, row_stride=1024, use_cache=False),
+             gm.with_compact_range_lut(90, 1024),
+             fleet.with_member_luts(90, 1024, 512, use_cache=False),
+             fleet.with_member_compact_luts(90, 1024, 512)]
+    monkeypatch.undo()
+    for m in built:
+        assert m.lut_route == "plain"
+        np.testing.assert_array_equal(chip_smoke.native_lut(m), m.range_lut.numpy())
+    shifted = built[3].lut_member_base.clone()
+    shifted[1] += 1
+    with pytest.raises(RuntimeError, match="member LUT bases"):
+        chip_smoke.native_lut(dataclasses.replace(built[3], lut_member_base=shifted))

@@ -988,23 +988,26 @@ def test_range_lut_sweep_kernel_equals_plain(cuda, h, w, t, stride, mrp, compact
 
 
 def test_range_lut_sweep_member_blocks_in_one_buffer(cuda):
-    """Two members' compact blocks written in place at their row bases
-    through GridMap.with_member_compact_luts equal the native route."""
+    """Two members' blocks written in place at their row bases through
+    GridMap.with_member_compact_luts and with_member_luts on the card equal
+    the same fleet's LUTs on the CPU, where the native builder builds them."""
     from monte_carlo_localization_tpu_torch.mapping import map_from_occupancy
     from monte_carlo_localization_tpu_torch.parallel import stack_maps
 
-    maps = [map_from_occupancy(np.where(_sweep_occ(h, w, h), 100, 0).astype(np.int8),
-                               resolution=0.05, max_range_meters=mr, device=cuda)
-            for h, w, mr in ((120, 90, 3.0), (80, 140, 3.0))]
-    fleet = stack_maps(maps)
-    card = fleet.with_member_compact_luts(90, 1024, 512)
-    host = fleet.with_member_compact_luts(90, 1024, 512, backend="native")
-    assert card.lut_route == "kernel" and host.lut_route == "native"
-    for field in ("range_lut", "lut_row_map", "lut_member_base", "lut_row_map_base"):
-        assert torch.equal(getattr(card, field), getattr(host, field)), field
-    dense = fleet.with_member_luts(90, 1024, 512)
-    assert torch.equal(dense.range_lut,
-                       fleet.with_member_luts(90, 1024, 512, backend="native").range_lut)
+    def fleet(device):
+        return stack_maps([
+            map_from_occupancy(np.where(_sweep_occ(h, w, h), 100, 0).astype(np.int8),
+                               resolution=0.05, max_range_meters=mr, device=device)
+            for h, w, mr in ((120, 90, 3.0), (80, 140, 3.0))])
+
+    on_card, on_host = fleet(cuda), fleet("cpu")
+    for attach in (lambda g: g.with_member_compact_luts(90, 1024, 512),
+                   lambda g: g.with_member_luts(90, 1024, 512, use_cache=False)):
+        card, host = attach(on_card), attach(on_host)
+        assert card.lut_route == "kernel" and host.lut_route == "native"
+        for field in ("range_lut", "lut_row_map", "lut_member_base", "lut_row_map_base"):
+            a, b = getattr(card, field), getattr(host, field)
+            assert (a is None and b is None) or torch.equal(a.cpu(), b), field
 
 
 def test_range_lut_sweep_raises_without_its_library(cuda, monkeypatch):

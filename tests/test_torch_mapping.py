@@ -62,10 +62,10 @@ def test_dense_lut_bit_equal(max_range_meters):
     assert got.lut_row_map is None and got.row_stride == stride
     assert got.range_lut.numpy().dtype == want.dtype
     np.testing.assert_array_equal(got.range_lut.numpy(), want.reshape(-1))
-    # the numpy fallback builds the same bytes
+    # the host builder's fallback, the sweep's plain version, builds the same bytes
     occ = tm.occupied.numpy()
     np.testing.assert_array_equal(
-        build_range_lut(occ, t, tm.max_range_px, backend="numpy", row_stride=stride).reshape(-1),
+        build_range_lut(occ, t, tm.max_range_px, backend="plain", row_stride=stride).reshape(-1),
         want.reshape(-1),
     )
 

@@ -164,28 +164,55 @@ def test_shear_tables_are_the_jax_tables():
 
 
 def test_gridmap_routes_give_one_buffer(monkeypatch, tmp_path):
-    """On a CPU map the native builder is the route; ``backend="device"``
-    runs the sweep's plain version; both give the same bits, for the
-    dense, compact and both member LUTs."""
+    """On a CPU map the native builder is the route; without it (and for
+    the dense LUTs with ``backend="device"``) the sweep's plain version
+    is; both give the same bits, for the dense, compact and both member
+    LUTs."""
+    from monte_carlo_localization_tpu_torch import native
+
     monkeypatch.setenv("MCL_LUT_CACHE", str(tmp_path))
     occ = np.where(_occ((48, 64), 9), 100, 0).astype(np.int8)
     gm = map_from_occupancy(occ, resolution=0.05, max_range_meters=0.9, device="cpu")
-    for attach in (lambda g, b: g.with_range_lut(90, row_stride=1024, backend=b),
-                   lambda g, b: g.with_compact_range_lut(90, 1024, backend=b)):
-        native, plain = attach(gm, "auto"), attach(gm, "device")
-        assert (native.lut_route, plain.lut_route) == ("native", "plain")
-        assert torch.equal(native.range_lut, plain.range_lut)
-        assert native.lut_build_s >= 0 and plain.lut_build_s >= 0
     fleet = stack_maps([gm, map_from_occupancy(occ[:40, :50], resolution=0.05,
                                                max_range_meters=0.9, device="cpu")])
-    for attach in (lambda b: fleet.with_member_luts(90, 1024, 512, backend=b),
-                   lambda b: fleet.with_member_compact_luts(90, 1024, 512, backend=b)):
-        native, plain = attach("auto"), attach("device")
-        assert torch.equal(native.range_lut, plain.range_lut)
-        assert torch.equal(native.lut_member_base, plain.lut_member_base)
+    attaches = (lambda: gm.with_range_lut(90, row_stride=1024),
+                lambda: gm.with_compact_range_lut(90, 1024),
+                lambda: fleet.with_member_luts(90, 1024, 512),
+                lambda: fleet.with_member_compact_luts(90, 1024, 512))
+    built = [attach() for attach in attaches]
+    with monkeypatch.context() as m:
+        m.setattr(native, "available", lambda: False)
+        plain = [attach() for attach in attaches]
+    for got, want in zip(plain, built):
+        assert (want.lut_route, got.lut_route) == ("native", "plain")
+        assert want.lut_build_s >= 0 and got.lut_build_s >= 0
+        for field in ("range_lut", "lut_row_map", "lut_member_base", "lut_row_map_base"):
+            a, b = getattr(got, field), getattr(want, field)
+            assert (a is None and b is None) or torch.equal(a, b), field
+    device = gm.with_range_lut(90, row_stride=1024, backend="device")
+    assert device.lut_route == "plain" and torch.equal(device.range_lut, built[0].range_lut)
     stacked = fleet.with_range_lut(90, backend="device")
     assert stacked.range_lut.numel() == 2 * 48 * 64 * 90 and stacked.lut_member_base is None
     assert torch.equal(stacked.range_lut[: 48 * 64 * 90],
                        gm.with_range_lut(90, backend="device").range_lut)
     with pytest.raises(ValueError, match="unknown LUT backend"):
         gm.with_range_lut(90, backend="numpy")
+
+
+def test_host_builder_falls_back_to_the_plain_sweep(monkeypatch):
+    """Without the native library ``build_range_lut`` (``auto``) builds
+    with the sweep's plain version, the same bytes as the native builder,
+    padded rows included; ``native`` then raises."""
+    from monte_carlo_localization_tpu_torch import native
+    from monte_carlo_localization_tpu_torch.mapping.range_lut import build_range_lut
+
+    occ = _occ((40, 56), 7)
+    want = build_range_lut(occ, 90, 300, backend="native", row_stride=1024)
+    monkeypatch.setattr(native, "native_build_range_lut", lambda *a, **k: None)
+    got = build_range_lut(occ, 90, 300, row_stride=1024)
+    assert got.dtype == want.dtype == np.uint16 and got.shape == (40, 56, 1024)
+    np.testing.assert_array_equal(got, want)
+    with pytest.raises(RuntimeError, match="native LUT builder unavailable"):
+        build_range_lut(occ, 90, 300, backend="native")
+    with pytest.raises(ValueError, match="unknown LUT backend"):
+        build_range_lut(occ, 90, 300, backend="numpy")
