@@ -259,6 +259,7 @@ def mega_bound(n: int, n_on: int, r: int, itemsize: int) -> dict:
 OPS_PER_SWEEP_ENTRY = 8
 LUT_CROP = 400  # cells a side of the Spielberg crop held against the plain sweep
 SWEEP_LAUNCHES: dict[str, int] = {}  # main-path sweep launches, by phase
+CARD = ""  # the card's name and power limit (nvidia-smi), printed beside the times
 
 
 def sweep_reset() -> None:
@@ -343,6 +344,8 @@ def sweep_vs_plain(what: str, occ, t: int, stride: int, max_range_px: int,
             return build_range_lut_device(occ, t, max_range_px, stride, plain=plain)
     groups = shear_groups(h, w, t, stride)
     launches = len(groups)
+    plans = [sweep.plan(*((h, w) if g.row_major else (w, h)), g.bins, dt.itemsize, max_range_px,
+                        occ.device) for g in groups]
     before = sweep.launch_count
     got = build()
     torch.cuda.synchronize()
@@ -362,9 +365,16 @@ def sweep_vs_plain(what: str, occ, t: int, stride: int, max_range_px: int,
     sweep.launch_count = before  # comparison launches do not count
     bnd = sweep_bound(h * w, stride, sum(g.rel.nbytes for g in groups), rows, dt.itemsize,
                       compact)
+    warm = sum(p["tiles"] * p["warm_lines"] for p in plans)
     return dict(map=f"{h}x{w}", t_bins=t, row_stride=stride, max_range_px=max_range_px,
                 lut=("compact " if compact else "dense ") + str(got.dtype), rows=rows,
                 equal=equal, max_abs_err=float(diff), launches_per_build=launches,
+                blocks_per_launch=[p["blocks"] for p in plans],
+                tiles_per_launch=[p["tiles"] for p in plans], tile_bytes=plans[0]["tile_bytes"],
+                chunk_lines=[p["lines"] for p in plans], slots=plans[0]["slots"],
+                threads=plans[0]["threads"],
+                warm_share=[round(p["warm_share"], 4) for p in plans],
+                warm_share_build=warm / (warm + sum(p["tiles"] * p["p_len"] for p in plans)),
                 ms=dev["ms"], time_source=dev["source"], build_device_ms=dev["ms"] * launches,
                 plain_ms=plain_s * 1e3 / launches, plain_build_s=plain_s,
                 bound_ms=bnd["bound_ms"] / launches, bound_by=bnd["bound_by"],
@@ -501,12 +511,13 @@ def phase_lut_build(device) -> dict:
         "config #5 member dense (the fleet's LUT)", fleet.with_member_luts(t, stride, eps))
     del maps, fleet
     torch.cuda.empty_cache()
-    emit("lut_build", t0, hbm_bytes_per_s=HBM_BYTES_PER_S, kernel_vs_plain=plain,
+    emit("lut_build", t0, card=CARD, hbm_bytes_per_s=HBM_BYTES_PER_S, kernel_vs_plain=plain,
          card_vs_native=native)
     return dict(max_abs_err=max(v["max_abs_err"] for v in plain.values()),
                 **{k: head[k] for k in ("ms", "time_source", "plain_ms", "bound_ms", "bound_by",
                                          "build_device_ms", "build_bound_ms", "write_bound_ms",
-                                         "plain_build_s")})
+                                         "plain_build_s", "blocks_per_launch",
+                                         "warm_share_build")})
 
 
 def phase_methods(device) -> dict:
@@ -2266,6 +2277,7 @@ def phase_inject(device) -> dict:
 
 
 def main() -> int:
+    global CARD
     import torch
 
     if not torch.cuda.is_available():
@@ -2283,6 +2295,7 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
+    CARD = card
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
@@ -2460,7 +2473,8 @@ def main() -> int:
             "library_ms": None,
             "shape": "Spielberg 2000 x 2000, compact u8, 1080-beam geometry (per launch)",
             **{k: lut_build[k] for k in ("build_device_ms", "build_bound_ms", "write_bound_ms",
-                                         "plain_build_s", "time_source")},
+                                         "plain_build_s", "time_source", "blocks_per_launch",
+                                         "warm_share_build")},
             "launches_by_phase": SWEEP_LAUNCHES,
         },
         *probe_entries(probes),

@@ -12,22 +12,46 @@
 //   px     = clip(D_p[q] * step_len[b] - 1, 0, max_range_px)
 //   lut[row(cell), bin] = (px + 0.5) truncated to u8 / u16
 //
-// One launch serves one bin group (driving axis, sweep direction): block
-// b sweeps group position b, its threads over the Q cells of a line, D
-// double-buffered in shared memory with one __syncthreads per line (the
-// shift reads the previous line's D, never the one being written).
-// Numerics are the JAX and native builders' bit for bit: the product and
-// the subtraction round separately (__fmul_rn, __fsub_rn: nvcc would
-// contract them into one FMA), the store truncates toward zero, and the
-// drift table `rel` comes from the host's float64 shear (np.rint).
+// Bound: the bytes it writes, one entry per (cell, bin): 10.3 GB for
+// Spielberg's compact u8 LUT, 3.1 ms at 3.35 TB/s. What the design does
+// about it:
 //
-// Bound: the bytes it writes, one entry per (cell, bin) (5.76 GB for
-// Spielberg's dense 1440-bin LUT: 1.7 ms at 3.35 TB/s). This first form
-// stores one byte (u8) or two (u16) per thread at row-stride distance, a
-// 32 B sector each, so it is expected 30-300x off that bound; coalescing
-// the stores (several bins per block, staged through shared memory) is a
-// later redesign's work. Offsets are 64-bit: basement's 5.13 GB compact
-// LUT already passes 2^31 bytes.
+// - A block sweeps a tile of adjacent physical bins of one group (one
+//   32 B sector of a LUT row: 32 u8 or 16 u16 bins; 16, 8 or 4 B where a
+//   grid line is too long for that in shared memory), so a cell's entries
+//   of the tile are one contiguous run of its row. A thread owns one 4 B
+//   word of a cell (4 u8 or 2 u16 bins): eight neighbouring threads write a
+//   whole sector with one store instruction. The host's tile plan cuts a
+//   group's runs of adjacent bins at multiples of the tile width; lanes
+//   outside a partial tile are computed and never stored.
+// - D is a saturated integer, one lane of the LUT's width per bin:
+//   D <- occupied ? 0 : min(D_nbr + 1, C) with C = max_range_px + 1. Every
+//   D >= C gives px = max_range_px (step_len >= 1 and the float ops round
+//   monotonically), so the entries are those of the unbounded sweep. Two
+//   lines of D live in shared memory as words, four u8 (two u16) lanes
+//   updated at once: the drift picks each lane from the word of the cell
+//   to the left, the same cell or the right by two bit selects, and
+//   "+1 unless already C" is a carry-free SWAR add.
+// - A block sweeps a chunk of lines. A chunk that starts at sweep line
+//   i0 > C starts C lines earlier with D = C everywhere and stores nothing
+//   before i0: a saturated D depends only on the C lines before it, so this
+//   warm-up is exact. Chunks give the card blocks enough to fill its SMs
+//   (a group has some 25 tiles at Spielberg); the host picks the chunk
+//   length from the SM count and the blocks an SM holds.
+// - Each line's cells (row | occupied << 31, in line order: the host
+//   transposes a column group's) are staged in shared memory by cp.async
+//   while the line before is swept, and the drift of the next line is
+//   loaded ahead into registers, so one __syncthreads a line is the only
+//   wait.
+//
+// Numerics are the JAX and native builders' bit for bit: D is exact in a
+// float (2^23 + D by its bits, less 2^23), the product and the subtraction
+// round separately (__fmul_rn, __fsub_rn: nvcc would contract them into
+// one FMA), and the truncating store is __fadd_rz(px + 0.5, 2^23), whose
+// low bits are the entry (the value of __float2uint_rz, cast to the LUT's
+// type). The drift table `rel` comes from the host's float64 shear
+// (np.rint). Offsets are 64-bit: basement's 5.13 GB compact LUT passes
+// 2^31 bytes.
 
 #include <cstdint>
 
@@ -35,46 +59,193 @@
 
 namespace {
 
-constexpr int kMaxThreads = 256;
+constexpr int kMaxThreads = 1024;
+constexpr uint32_t kOccupied = 0x80000000u;  // a cell word's flag; the low bits are its row
+constexpr uint32_t kTwo23 = 0x4B000000u;     // the bits of 2^23
+
+// Shared memory of a block: two lines of (Q + 2) cells x `words` words of
+// D (a zero cell at each end reads as "off the line") and two lines of Q
+// cell words.
+__host__ __device__ inline int64_t smem_bytes(int q_len, int words) {
+  return 8 * static_cast<int64_t>(words) * (q_len + 2) + 8 * static_cast<int64_t>(q_len);
+}
+
+__device__ __forceinline__ void cp_async_4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+
+// Start copying line p's cell words into shared memory.
+__device__ __forceinline__ void stage_line(int32_t* dst, const int32_t* __restrict__ cells,
+                                           int p, int q_len) {
+  const int32_t* src = cells + static_cast<int64_t>(p) * q_len;
+  for (int q = threadIdx.x; q < q_len; q += blockDim.x) cp_async_4(dst + q, src + q);
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Lanes of a D word: 4 of 8 bits for a u8 LUT, 2 of 16 bits for u16.
+template <typename OutT>
+struct Lanes {
+  static constexpr int kCount = 4 / sizeof(OutT);
+  static constexpr int kBits = 8 * sizeof(OutT);
+  static constexpr uint32_t kOne = sizeof(OutT) == 1 ? 0x01010101u : 0x00010001u;
+  static constexpr uint32_t kLow = kOne * ((1u << (kBits - 1)) - 1);  // all but each lane's top bit
+
+  static __device__ __forceinline__ uint32_t mask(int j) {
+    return ((1u << (kBits - 1) << 1) - 1) << (kBits * j);
+  }
+  // min(x + 1, C) in each lane, for lanes x <= C: +1 where the lane is not C
+  static __device__ __forceinline__ uint32_t sat_inc(uint32_t x, uint32_t c_word) {
+    const uint32_t ne = x ^ c_word;
+    const uint32_t top = ((ne & kLow) + kLow) | ne;  // each lane's top bit: lane != C
+    return x + ((top >> (kBits - 1)) & kOne);
+  }
+  // 2^23 + lane j of w, as float bits
+  static __device__ __forceinline__ uint32_t as_float_bits(uint32_t w, int j) {
+    return sizeof(OutT) == 1 ? __byte_perm(w, kTwo23, 0x7540 | j)
+                             : __byte_perm(w, kTwo23, 0x7400 | ((2 * j + 1) << 4) | (2 * j));
+  }
+  // the entries' low bits packed into one word
+  static __device__ __forceinline__ uint32_t pack(const uint32_t (&e)[kCount]) {
+    if constexpr (sizeof(OutT) == 1) {
+      return __byte_perm(__byte_perm(e[0], e[1], 0x0040), __byte_perm(e[2], e[3], 0x0040),
+                         0x5410);
+    } else {
+      return __byte_perm(e[0], e[1], 0x5410);
+    }
+  }
+};
+
+// The LUT entry of distance d (lane bits of 2^23 + d as a float), as the
+// bits of 2^23 + entry: the JAX builder's float32 expression, rounding
+// step by step.
+__device__ __forceinline__ uint32_t entry_bits(uint32_t d_bits, float sl, float maxr) {
+  const float d = __fsub_rn(__uint_as_float(d_bits), 8388608.0f);  // exact
+  const float px = fminf(fmaxf(__fsub_rn(__fmul_rn(d, sl), 1.0f), 0.0f), maxr);
+  return __float_as_uint(__fadd_rz(__fadd_rn(px, 0.5f), 8388608.0f));  // 2^23 + trunc
+}
+
+struct SweepArgs {
+  const int32_t* cells;  // (P, Q) row | occupied << 31, in line order
+  const int8_t* rel;     // (P, B) drift to the line before along the sweep
+  const float* step_len; // (B,)
+  const int4* tiles;     // (n_tiles,) {first group bin, base physical bin, lo lane, hi lane}
+  int n_tiles;
+  int p_len;
+  int q_len;
+  int b_count;
+  int words_log2;  // D words a cell (1 << words_log2 of them: 32, 16, 8 or 4 B)
+  int lines;       // stored lines a chunk
+  int forward;
+  int skip_row0;  // a compact LUT: row 0, the shared far row, is never written
+  int sat;        // C = max_range_px + 1
+  float maxr;
+  int vec_ok;     // a word's 4 B lie 4 B aligned in every row
+  int64_t row_stride;
+  int64_t row_base;
+};
 
 template <typename OutT>
 __global__ void __launch_bounds__(kMaxThreads)
-    range_lut_sweep_kernel(const uint8_t* __restrict__ occupied,  // cells, 0/1
-                           const int8_t* __restrict__ rel,         // (P, B)
-                           const float* __restrict__ step_len,     // (B,)
-                           const int32_t* __restrict__ bins,       // (B,) physical bins
-                           const int32_t* __restrict__ row_map,    // (cells,) or null
-                           int p_len, int q_len, int b_count, int64_t p_stride,
-                           int64_t q_stride, int forward, float maxr, int64_t row_stride,
-                           int64_t row_base, OutT* __restrict__ out) {
-  extern __shared__ float s_d[];  // 2 x q_len: the previous and the current line
-  float* prev = s_d;
-  float* cur = s_d + q_len;
-  const int b = blockIdx.x;
-  for (int q = threadIdx.x; q < q_len; q += blockDim.x) prev[q] = 0.0f;
-  __syncthreads();
-  const float sl = step_len[b];
-  const int64_t bin = bins[b];
-  for (int i = 0; i < p_len; ++i) {
-    const int p = forward ? i : p_len - 1 - i;
-    const int r = rel[static_cast<int64_t>(p) * b_count + b];
-    for (int q = threadIdx.x; q < q_len; q += blockDim.x) {
-      const int qn = q + r;
-      const float nxt = (qn >= 0 && qn < q_len) ? prev[qn] : 0.0f;
-      const int64_t cell = p * p_stride + q * q_stride;
-      const float d = occupied[cell] ? 0.0f : __fadd_rn(nxt, 1.0f);
-      cur[q] = d;
-      int64_t row = cell;
-      if (row_map != nullptr) {
-        row = row_map[cell];
-        if (row == 0) continue;  // the shared far row, pre-filled
-      }
-      const float px = fminf(fmaxf(__fsub_rn(__fmul_rn(d, sl), 1.0f), 0.0f), maxr);
-      out[(row_base + row) * row_stride + bin] =
-          static_cast<OutT>(__float2uint_rz(__fadd_rn(px, 0.5f)));
+    range_lut_sweep_kernel(const SweepArgs a, OutT* __restrict__ out) {
+  using L = Lanes<OutT>;
+  extern __shared__ __align__(16) uint32_t s_mem[];
+  const int words = 1 << a.words_log2;
+  const int padded = (a.q_len + 2) * words;
+  uint32_t* prev = s_mem;
+  uint32_t* cur = s_mem + padded;
+  int32_t* s_cells = reinterpret_cast<int32_t*>(s_mem + 2 * padded);  // 2 x Q
+
+  const int4 tile = a.tiles[blockIdx.x % a.n_tiles];
+  const int first = (blockIdx.x / a.n_tiles) * a.lines;  // first stored sweep line
+  const int last = min(first + a.lines, a.p_len);
+  const int start = max(first - a.sat, 0);  // the warm-up's first line
+  const uint32_t c_word = static_cast<uint32_t>(a.sat) * L::kOne;
+  const uint32_t init = start == 0 ? 0u : c_word;  // the sweep's own start, or saturated
+  for (int i = threadIdx.x; i < padded; i += blockDim.x) {
+    const bool pad = i < words || i >= padded - words;
+    prev[i] = pad ? 0u : init;
+    cur[i] = 0u;
+  }
+
+  // this thread's word of every cell, and its lanes' bins
+  const int w = threadIdx.x & (words - 1);
+  int col[L::kCount];  // group index of each lane's bin, -1 outside the tile
+  float sl[L::kCount];
+  bool any = false, full = true;
+#pragma unroll
+  for (int j = 0; j < L::kCount; ++j) {
+    const int lane = w * L::kCount + j;
+    const bool valid = lane >= tile.z && lane < tile.w;
+    col[j] = valid ? tile.x + lane - tile.z : -1;
+    sl[j] = valid ? a.step_len[col[j]] : 1.0f;
+    any |= valid;
+    full &= valid;
+  }
+  const bool vector_store = full && a.vec_ok;
+  const int64_t col0 = tile.y + w * L::kCount;  // the word's first entry in a row
+
+  // the drift of this thread's lanes on sweep line i (0 outside the
+  // tile), and from it the masks of the lanes that read the cell to the
+  // left (rel -1) and to the right (rel +1)
+  auto load_rel = [&](int i, int (&r)[L::kCount]) {
+    const int8_t* row = a.rel + static_cast<int64_t>(a.forward ? i : a.p_len - 1 - i) * a.b_count;
+#pragma unroll
+    for (int j = 0; j < L::kCount; ++j) r[j] = col[j] >= 0 ? __ldg(row + col[j]) : 0;
+  };
+  auto masks = [&](const int (&r)[L::kCount], uint32_t& left, uint32_t& right) {
+    left = right = 0u;
+#pragma unroll
+    for (int j = 0; j < L::kCount; ++j) {
+      left |= r[j] < 0 ? L::mask(j) : 0u;
+      right |= r[j] > 0 ? L::mask(j) : 0u;
     }
+  };
+
+  stage_line(s_cells, a.cells, a.forward ? start : a.p_len - 1 - start, a.q_len);
+  int r_next[L::kCount];
+  load_rel(start, r_next);
+  uint32_t left, right;
+  masks(r_next, left, right);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  const int items = a.q_len << a.words_log2;
+  for (int i = start; i < last; ++i) {
+    const int32_t* line = s_cells + ((i - start) & 1) * a.q_len;
+    if (i + 1 < last) {  // the next line's cells and drift load while this one is swept
+      stage_line(s_cells + ((i + 1 - start) & 1) * a.q_len, a.cells,
+                 a.forward ? i + 1 : a.p_len - 2 - i, a.q_len);
+      load_rel(i + 1, r_next);
+    }
+    const uint32_t mid = ~(left | right);
+    const bool store = i >= first && any;
+    for (int k = threadIdx.x; k < items; k += blockDim.x) {
+      const int idx = k + words;  // cell q = k >> words_log2 at padded index q + 1
+      const uint32_t nbr =
+          (prev[idx - words] & left) | (prev[idx] & mid) | (prev[idx + words] & right);
+      const uint32_t cell = static_cast<uint32_t>(line[k >> a.words_log2]);
+      const uint32_t d = (cell & kOccupied) ? 0u : L::sat_inc(nbr, c_word);
+      cur[idx] = d;
+      const uint32_t row = cell & ~kOccupied;
+      if (!store || (a.skip_row0 && row == 0)) continue;
+      uint32_t e[L::kCount];
+#pragma unroll
+      for (int j = 0; j < L::kCount; ++j) e[j] = entry_bits(L::as_float_bits(d, j), sl[j], a.maxr);
+      OutT* dst = out + (a.row_base + row) * a.row_stride + col0;
+      if (vector_store) {
+        *reinterpret_cast<uint32_t*>(dst) = L::pack(e);
+      } else {
+#pragma unroll
+        for (int j = 0; j < L::kCount; ++j) {
+          if (col[j] >= 0) dst[j] = static_cast<OutT>(e[j]);
+        }
+      }
+    }
+    masks(r_next, left, right);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();
-    float* t = prev;
+    uint32_t* t = prev;
     prev = cur;
     cur = t;
   }
@@ -100,44 +271,67 @@ cudaError_t opt_in_smem() {
 }
 
 template <typename OutT>
-int launch(const uint8_t* occupied, const int8_t* rel, const float* step_len,
-           const int32_t* bins, const int32_t* row_map, int p_len, int q_len, int b_count,
-           int64_t p_stride, int64_t q_stride, int forward, float maxr, int64_t row_stride,
-           int64_t row_base, OutT* out, void* stream) {
-  if (p_len <= 0 || q_len <= 0 || b_count <= 0) return 0;
-  const size_t smem = 2 * static_cast<size_t>(q_len) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = opt_in_smem<OutT>();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  int threads = (q_len + 31) / 32 * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  range_lut_sweep_kernel<OutT><<<b_count, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      occupied, rel, step_len, bins, row_map, p_len, q_len, b_count, p_stride, q_stride,
-      forward, maxr, row_stride, row_base, out);
+int occupancy(int threads, int q_len, int words, int* blocks) {
+  cudaError_t err = opt_in_smem<OutT>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, range_lut_sweep_kernel<OutT>, threads,
+      static_cast<size_t>(smem_bytes(q_len, words))));
+}
+
+template <typename OutT>
+int launch(const SweepArgs& a, int blocks, int threads, OutT* out, void* stream) {
+  if (a.p_len <= 0 || a.q_len <= 0 || a.n_tiles <= 0 || blocks <= 0) return 0;
+  const cudaError_t err = opt_in_smem<OutT>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = static_cast<size_t>(smem_bytes(a.q_len, 1 << a.words_log2));
+  range_lut_sweep_kernel<OutT><<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      a, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+SweepArgs make_args(const int32_t* cells, const int8_t* rel, const float* step_len,
+                    const int32_t* tiles, int n_tiles, int p_len, int q_len, int b_count,
+                    int words_log2, int lines, int forward, int skip_row0, int sat, float maxr,
+                    int vec_ok, int64_t row_stride, int64_t row_base) {
+  return SweepArgs{cells, rel, step_len, reinterpret_cast<const int4*>(tiles), n_tiles, p_len,
+                   q_len, b_count, words_log2, lines, forward, skip_row0, sat, maxr, vec_ok,
+                   row_stride, row_base};
 }
 
 }  // namespace
 
 extern "C" {
 
-int mcl_range_lut_sweep_u8(const uint8_t* occupied, const int8_t* rel, const float* step_len,
-                           const int32_t* bins, const int32_t* row_map, int p_len, int q_len,
-                           int b_count, int64_t p_stride, int64_t q_stride, int forward,
-                           float maxr, int64_t row_stride, int64_t row_base, uint8_t* out,
-                           void* stream) {
-  return launch<uint8_t>(occupied, rel, step_len, bins, row_map, p_len, q_len, b_count,
-                         p_stride, q_stride, forward, maxr, row_stride, row_base, out, stream);
+// Blocks of `threads` an SM holds for a line of q_len cells at `words`
+// words a cell (itemsize 1: u8, 2: u16); returns a CUDA error code.
+int mcl_range_lut_sweep_occupancy(int itemsize, int threads, int q_len, int words, int* blocks) {
+  return itemsize == 1 ? occupancy<uint8_t>(threads, q_len, words, blocks)
+                       : occupancy<uint16_t>(threads, q_len, words, blocks);
 }
 
-int mcl_range_lut_sweep_u16(const uint8_t* occupied, const int8_t* rel, const float* step_len,
-                            const int32_t* bins, const int32_t* row_map, int p_len, int q_len,
-                            int b_count, int64_t p_stride, int64_t q_stride, int forward,
-                            float maxr, int64_t row_stride, int64_t row_base, uint16_t* out,
+int mcl_range_lut_sweep_u8(const int32_t* cells, const int8_t* rel, const float* step_len,
+                           const int32_t* tiles, int n_tiles, int p_len, int q_len,
+                           int b_count, int words_log2, int lines, int forward, int skip_row0,
+                           int sat, float maxr, int vec_ok, int64_t row_stride,
+                           int64_t row_base, int blocks, int threads, uint8_t* out,
+                           void* stream) {
+  return launch<uint8_t>(make_args(cells, rel, step_len, tiles, n_tiles, p_len, q_len, b_count,
+                                   words_log2, lines, forward, skip_row0, sat, maxr, vec_ok,
+                                   row_stride, row_base),
+                         blocks, threads, out, stream);
+}
+
+int mcl_range_lut_sweep_u16(const int32_t* cells, const int8_t* rel, const float* step_len,
+                            const int32_t* tiles, int n_tiles, int p_len, int q_len,
+                            int b_count, int words_log2, int lines, int forward, int skip_row0,
+                            int sat, float maxr, int vec_ok, int64_t row_stride,
+                            int64_t row_base, int blocks, int threads, uint16_t* out,
                             void* stream) {
-  return launch<uint16_t>(occupied, rel, step_len, bins, row_map, p_len, q_len, b_count,
-                          p_stride, q_stride, forward, maxr, row_stride, row_base, out, stream);
+  return launch<uint16_t>(make_args(cells, rel, step_len, tiles, n_tiles, p_len, q_len,
+                                    b_count, words_log2, lines, forward, skip_row0, sat, maxr,
+                                    vec_ok, row_stride, row_base),
+                          blocks, threads, out, stream);
 }
 
 }  // extern "C"

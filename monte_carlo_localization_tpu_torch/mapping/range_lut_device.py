@@ -114,16 +114,17 @@ def _sweep_all(occupied: torch.Tensor, t_bins: int, max_range_px: int, stride: i
         sweep,
         sweep_group_reference,
     )
+    from monte_carlo_localization_tpu_torch.utils.device import upload
 
     h, w = occupied.shape
     dev = occupied.device
-    for g in shear_groups(h, w, t_bins, stride):
+    groups = shear_groups(h, w, t_bins, stride)
+    # every table goes up before the first launch: nothing waits on the card
+    tables = [(upload(g.rel, dev, torch.int8), upload(g.step_len, dev)) for g in groups]
+    for g, (rel, step_len) in zip(groups, tables):
         (sweep_group_reference if plain else sweep)(
-            occupied,
-            torch.from_numpy(np.ascontiguousarray(g.rel)).to(dev),
-            torch.from_numpy(g.step_len).to(dev),
-            torch.from_numpy(g.bins.astype(np.int32)).to(dev),
-            g.forward, g.row_major, max_range_px, out, stride, row_map, row_base,
+            occupied, rel, step_len, g.bins, g.forward, g.row_major, max_range_px, out,
+            stride, row_map, row_base,
         )
 
 

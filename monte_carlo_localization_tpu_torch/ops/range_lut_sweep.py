@@ -16,17 +16,108 @@ and ``(px + 0.5)`` truncated to the LUT's type is stored at
 ...) when the group's direction is negative, backward otherwise.
 
 :data:`sweep` launches the kernel on CUDA tensors, adding one to its
-``launch_count``, and runs the plain version on CPU tensors.
+``launch_count``, and runs the plain version on CPU tensors. The kernel
+sweeps the group in blocks of one tile of adjacent physical bins
+(:func:`tile_plan`: a 32 B piece of each LUT row) by one chunk of lines
+(:func:`chunk_lines`), keeping D saturated at ``max_range_px + 1`` so a
+chunk can start from a warm-up of that many lines; the host makes both
+plans and the cell words in line order (:func:`line_cells`).
 """
 
 from __future__ import annotations
 
+import ctypes
+import math
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-# the kernel keeps two lines of D in shared memory: 2 * Q floats of a
-# block's 227 KB (232,448 B)
-MAX_LINE_CELLS = 232_448 // 8
+# a block's shared memory on an H100 (opt-in): two lines of D at `words`
+# 4 B words a cell with a zero cell at each end, and two lines of cell
+# words (:func:`smem_bytes`, the kernel's own formula)
+SMEM_BYTES = 232_448
+LINE_WORDS = (8, 4, 2, 1)  # D words a cell: a tile of 32, 16, 8 or 4 B of a LUT row
+# the longest grid line the kernel sweeps (one word a cell)
+MAX_LINE_CELLS = (SMEM_BYTES - 16) // 16
+MAX_THREADS = 1024
+OCCUPIED = -(2**31)  # a cell word's flag (bit 31); the low bits are its LUT row
+# cost of a warm-up line against a stored line, for the chunk plan: a
+# warm-up line updates D and stores nothing, about a third of the
+# instructions of a stored one
+WARM_COST = 0.3
+
+
+def smem_bytes(q_len: int, words: int) -> int:
+    """Dynamic shared memory of a block sweeping lines of ``q_len`` cells
+    at ``words`` words a cell."""
+    return 8 * words * (q_len + 2) + 8 * q_len
+
+
+def line_words(q_len: int) -> int:
+    """D words a cell for lines of ``q_len`` cells: the widest tile whose
+    two lines fit a block's shared memory; 0 when none does."""
+    return next((w for w in LINE_WORDS if smem_bytes(q_len, w) <= SMEM_BYTES), 0)
+
+
+def tile_plan(bins: np.ndarray, lanes: int) -> np.ndarray:
+    """(n, 4) int32 tiles of a group's physical ``bins`` (ascending, as
+    ``shear_groups`` gives them) at ``lanes`` bins a tile: each row is
+    (group index of its first bin, base physical bin, lo, hi), the tile
+    holding bins ``base + lo .. base + hi - 1``, with ``base`` a multiple
+    of ``lanes``. A tile is one run of adjacent bins cut at multiples of
+    ``lanes``, so its bins are one contiguous, aligned piece of each LUT
+    row."""
+    b = np.asarray(bins, dtype=np.int64)
+    if b.size == 0:
+        return np.zeros((0, 4), np.int32)
+    cut = np.ones(b.size, bool)
+    cut[1:] = (b[1:] != b[:-1] + 1) | (b[1:] // lanes != b[:-1] // lanes)
+    first = np.nonzero(cut)[0]
+    count = np.diff(np.append(first, b.size))
+    base = b[first] // lanes * lanes
+    lo = b[first] - base
+    return np.stack([first, base, lo, lo + count], 1).astype(np.int32)
+
+
+def chunk_lines(p_len: int, n_tiles: int, sat: int, slots: int) -> int:
+    """Stored lines a chunk: the chunk count that minimises the launch's
+    waves (``n_tiles`` blocks a chunk, ``slots`` blocks resident on the
+    card at once) times a block's lines, a warm-up line (``sat`` of them
+    before every chunk but the first) costing WARM_COST of a stored one."""
+    best = (math.inf, p_len)
+    for n in range(1, min(p_len, max(1, 8 * slots // max(n_tiles, 1))) + 1):
+        lines = -(-p_len // n)
+        chunks = -(-p_len // lines)
+        warm = min(sat, (chunks - 1) * lines)
+        cost = -(-n_tiles * chunks // slots) * (lines + WARM_COST * warm)
+        if cost < best[0]:
+            best = (cost, lines)
+    return best[1]
+
+
+def warm_lines(p_len: int, lines: int, sat: int) -> int:
+    """Warm-up lines a tile's chunks sweep before they store (``sat``
+    before every chunk, fewer before one that starts closer to the
+    sweep's first line)."""
+    return sum(min(sat, first) for first in range(0, p_len, lines))
+
+
+def warm_share(p_len: int, lines: int, sat: int) -> float:
+    """Warm-up lines over all lines a launch's blocks sweep."""
+    warm = warm_lines(p_len, lines, sat)
+    return warm / (warm + p_len)
+
+
+def line_cells(occupied: torch.Tensor, row_map, row_major: bool) -> torch.Tensor:
+    """(P, Q) int32 cell words in line order: the cell's LUT row (its
+    index ``y * W + x``, or ``row_map[cell]``), with OCCUPIED set where the
+    cell is occupied; a column group's lines are the map's columns."""
+    h, w = occupied.shape
+    rows = (torch.arange(h * w, dtype=torch.int32, device=occupied.device)
+            if row_map is None else row_map)
+    cells = torch.where(occupied.reshape(-1), rows | OCCUPIED, rows).view(h, w)
+    return cells if row_major else cells.t().contiguous()
 
 
 def _store(vals: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -43,8 +134,8 @@ def sweep_group_reference(occupied, rel, step_len, bins, forward: bool, row_majo
                           row_base: int = 0) -> None:
     """Plain version of the sweep kernel, in place on ``out`` (flat LUT),
     one line at a time: ``occupied`` (H, W) bool, ``rel`` (P, B) int8,
-    ``step_len`` (B,) float32, ``bins`` (B,) int32 physical bins,
-    ``row_map`` (H*W,) int32 or None (dense)."""
+    ``step_len`` (B,) float32, ``bins`` (B,) physical bins (on any
+    device), ``row_map`` (H*W,) int32 or None (dense)."""
     w = occupied.shape[1]
     dev = occupied.device
     occ_p = occupied if row_major else occupied.t()
@@ -52,7 +143,7 @@ def sweep_group_reference(occupied, rel, step_len, bins, forward: bool, row_majo
     step = step_len[:, None]
     maxr = float(max_range_px)
     lut = (out.view(torch.int16) if out.dtype == torch.uint16 else out).view(-1, row_stride)
-    cols = bins.to(torch.int64)[None, :]
+    cols = torch.as_tensor(bins).to(device=dev, dtype=torch.int64)[None, :]
     q = torch.arange(q_len, device=dev)
     d_prev = torch.zeros((rel.shape[1], q_len), dtype=torch.float32, device=dev)
     for p in (range(p_len) if forward else range(p_len - 1, -1, -1)):
@@ -78,11 +169,14 @@ def _check(t: torch.Tensor, dtype: torch.dtype, name: str, dev: torch.device) ->
 
 class RangeLUTSweep:
     """The sweep kernel's wrapper. On CUDA tensors every call is one
-    launch, counted in ``launch_count``; on CPU tensors the plain
-    version runs. A kernel that does not build or launch raises."""
+    launch, counted in ``launch_count`` and planned by :meth:`plan`; on
+    CPU tensors the plain version runs. ``bins`` is read on the host,
+    where the tile plan is made (a CUDA tensor costs a sync). A kernel
+    that does not build or launch raises."""
 
     def __init__(self):
         self.launch_count = 0
+        self._occupancy: dict[tuple, int] = {}  # blocks an SM, by launch shape
 
     def __call__(self, occupied, rel, step_len, bins, forward: bool, row_major: bool,
                  max_range_px: int, out, row_stride: int, row_map=None,
@@ -97,19 +191,54 @@ class RangeLUTSweep:
         _check(occupied, torch.bool, "occupied", dev)
         _check(rel, torch.int8, "rel", dev)
         _check(step_len, torch.float32, "step_len", dev)
-        _check(bins, torch.int32, "bins", dev)
         _check(out, out.dtype, "out", dev)
         if row_map is not None:
             _check(row_map, torch.int32, "row_map", dev)
+        bins = np.asarray(bins.cpu() if isinstance(bins, torch.Tensor) else bins, np.int64)
         h, w = occupied.shape
         p_len, q_len = (h, w) if row_major else (w, h)
         b = rel.shape[1]
         if rel.shape != (p_len, b) or step_len.shape != (b,) or bins.shape != (b,):
             raise ValueError(f"rel {tuple(rel.shape)}, step_len {tuple(step_len.shape)} and "
                              f"bins {tuple(bins.shape)} do not fit {p_len} lines of {b} bins")
-        if q_len > MAX_LINE_CELLS:
+        itemsize = out.element_size()
+        if h * w >= 2**31:
+            raise ValueError(f"a map of {h} x {w} cells exceeds the cell words' 2^31 rows")
+        from monte_carlo_localization_tpu_torch.ops._cuda_build import load_library
+        from monte_carlo_localization_tpu_torch.utils.device import upload
+
+        plan = self.plan(p_len, q_len, bins, itemsize, max_range_px, dev)
+        lib = load_library().libs["range_lut_sweep"]
+        fn = lib.mcl_range_lut_sweep_u16 if itemsize == 2 else lib.mcl_range_lut_sweep_u8
+        cells = line_cells(occupied, row_map, row_major)
+        vec_ok = (row_stride * itemsize) % 4 == 0 and out.data_ptr() % 4 == 0
+        err = fn(cells.data_ptr(), rel.data_ptr(), step_len.data_ptr(),
+                 upload(plan["tile_table"], dev, torch.int32).data_ptr(), plan["tiles"], p_len,
+                 q_len, b, plan["words"].bit_length() - 1, plan["lines"], int(forward),
+                 int(row_map is not None), int(max_range_px) + 1, float(max_range_px),
+                 int(vec_ok), row_stride, row_base, plan["blocks"], plan["threads"],
+                 out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"range_lut_sweep launch failed: CUDA error {err} "
+                               f"({load_library().error_string(err)})")
+        self.launch_count += 1
+
+    def plan(self, p_len: int, q_len: int, bins, itemsize: int, max_range_px: int,
+             device: torch.device) -> dict:
+        """The launch of one group on ``device``: its tiles (``tile_table``,
+        ``tiles``, ``words`` a cell), ``threads`` a block, the ``slots`` an
+        SM count and occupancy give, the chunk ``lines``, ``chunks``,
+        ``blocks`` and the ``warm_share`` of swept lines. Raises
+        ``ValueError`` where a line or the range does not fit the kernel,
+        ``RuntimeError`` where its library did not build."""
+        words = line_words(q_len)
+        if not words:
             raise ValueError(f"a grid line of {q_len} cells exceeds the sweep kernel's "
                              f"{MAX_LINE_CELLS} (two lines in shared memory)")
+        sat = int(max_range_px) + 1  # D saturates here, in a lane of the LUT's width
+        if sat >= 1 << (8 * itemsize):
+            raise ValueError(f"max_range_px {max_range_px} does not fit the sweep's "
+                             f"{8 * itemsize}-bit distances (at most {(1 << 8 * itemsize) - 2})")
         from monte_carlo_localization_tpu_torch.ops._cuda_build import load_library
 
         built = load_library()
@@ -117,16 +246,24 @@ class RangeLUTSweep:
         if lib is None:
             raise RuntimeError("the range_lut_sweep kernel library was not built "
                                f"(built: {sorted(built.libs)})")
-        fn = lib.mcl_range_lut_sweep_u16 if out.dtype == torch.uint16 else lib.mcl_range_lut_sweep_u8
-        p_stride, q_stride = (w, 1) if row_major else (1, w)
-        err = fn(occupied.data_ptr(), rel.data_ptr(), step_len.data_ptr(), bins.data_ptr(),
-                 None if row_map is None else row_map.data_ptr(), p_len, q_len, b, p_stride,
-                 q_stride, int(forward), float(max_range_px), row_stride, row_base,
-                 out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"range_lut_sweep launch failed: CUDA error {err} "
-                               f"({built.error_string(err)})")
-        self.launch_count += 1
+        tiles = tile_plan(np.asarray(bins), words * 4 // itemsize)
+        threads = min(MAX_THREADS, -(-q_len * words // 32) * 32)
+        key = (itemsize, threads, q_len, words)
+        if key not in self._occupancy:
+            n = ctypes.c_int(0)
+            err = lib.mcl_range_lut_sweep_occupancy(*key, ctypes.byref(n))
+            if err != 0 or n.value < 1:
+                raise RuntimeError(f"range_lut_sweep occupancy query failed: CUDA error {err} "
+                                   f"({built.error_string(err)}), {n.value} blocks an SM")
+            self._occupancy[key] = n.value
+        slots = torch.cuda.get_device_properties(device).multi_processor_count * self._occupancy[key]
+        lines = chunk_lines(p_len, len(tiles), sat, slots)
+        chunks = -(-p_len // lines)
+        return dict(tile_table=tiles, tiles=len(tiles), words=words, tile_bytes=4 * words,
+                    threads=threads, slots=slots, lines=lines, chunks=chunks,
+                    blocks=len(tiles) * chunks, p_len=p_len,
+                    warm_lines=warm_lines(p_len, lines, sat),
+                    warm_share=warm_share(p_len, lines, sat))
 
 
 # the one wrapper the LUT builders launch through

@@ -940,6 +940,10 @@ SWEEP_CASES = [  # (h, w, t, stride, max_range_px, compact)
     (146, 288, 90, 90, 240, False), (146, 288, 90, 1024, 240, False),
     (200, 160, 120, 1024, 60, True), (200, 160, 120, 1536, 400, True),
     (64, 64, 64, 512, 300, False),
+    # config #1's unpadded stride (rows not 4 B aligned) at the largest u8
+    # range (C = 255 fills a lane); u16 at the u16 golden trace's 507 px
+    (146, 288, 1439, 1439, 254, False), (200, 160, 120, 1024, 507, True),
+    (120, 300, 90, 1024, 507, False),
 ]
 
 
@@ -985,6 +989,75 @@ def test_range_lut_sweep_kernel_equals_plain(cuda, h, w, t, stride, mrp, compact
     assert sweep.launch_count - before == len(shear_groups(h, w, t, stride))
     assert torch.equal(got, build(dev_occ, plain=True))
     assert torch.equal(got.cpu(), build(torch.from_numpy(occ)))
+
+
+def _chunk_start_occ(h, w, t, stride, mrp, device):
+    """Occupied cells (every fifth of a line) on the lines each group's
+    chunks start at, and one line before and after, in sweep order."""
+    from monte_carlo_localization_tpu_torch.mapping.range_lut_device import shear_groups
+    from monte_carlo_localization_tpu_torch.ops.range_lut_sweep import sweep
+
+    occ = np.zeros((h, w), bool)
+    itemsize = 1 if mrp <= 254 else 2
+    for g in shear_groups(h, w, t, stride):
+        p_len, q_len = (h, w) if g.row_major else (w, h)
+        plan = sweep.plan(p_len, q_len, g.bins, itemsize, mrp, device)
+        assert plan["chunks"] > 1
+        for first in range(plan["lines"], p_len, plan["lines"]):
+            for i in (first - 1, first, first + 1):
+                if 0 <= i < p_len:
+                    p = i if g.forward else p_len - 1 - i
+                    if g.row_major:
+                        occ[p, p % 5::5] = True
+                    else:
+                        occ[p % 5::5, p] = True
+    return occ
+
+
+@pytest.mark.parametrize("kind", ["chunk_starts", "chunk_starts_u16", "empty"])
+def test_range_lut_sweep_kernel_edges(cuda, kind):
+    """The redesigned kernel's edges, bit for bit its plain version:
+    occupied cells exactly at the chunk starts and one line either side,
+    in u8 and u16 (partial tiles at the runs' ends, stride 1024 for 90
+    bins); an empty map at 254 px, where every chain runs to the map's
+    edge, past C, and every warm-up starts saturated."""
+    from monte_carlo_localization_tpu_torch.mapping.range_lut_device import (
+        build_range_lut_device,
+        shear_groups,
+    )
+    from monte_carlo_localization_tpu_torch.ops.range_lut_sweep import sweep
+
+    if kind == "empty":
+        h, w, t, stride, mrp = 300, 280, 64, 512, 254
+        occ = np.zeros((h, w), bool)
+    else:
+        h, w, t, stride = 260, 300, 90, 1024
+        mrp = 20 if kind == "chunk_starts" else 300
+        occ = _chunk_start_occ(h, w, t, stride, mrp, cuda)
+    dev_occ = torch.from_numpy(occ).to(cuda)
+    before = sweep.launch_count
+    got = build_range_lut_device(dev_occ, t, mrp, stride)
+    torch.cuda.synchronize()
+    assert sweep.launch_count - before == len(shear_groups(h, w, t, stride))
+    assert torch.equal(got, build_range_lut_device(dev_occ, t, mrp, stride, plain=True))
+    if kind == "empty":
+        assert int(got.max()) == mrp  # chains saturate
+
+
+def test_range_lut_sweep_kernel_longest_line(cuda):
+    """A line of MAX_LINE_CELLS cells (one word a cell) bit for bit the
+    plain version on the CPU; one cell more is refused before launch."""
+    from monte_carlo_localization_tpu_torch.mapping.range_lut_device import build_range_lut_device
+    from monte_carlo_localization_tpu_torch.ops.range_lut_sweep import MAX_LINE_CELLS, line_words
+
+    assert line_words(MAX_LINE_CELLS) == 1
+    occ = np.zeros((4, MAX_LINE_CELLS), bool)
+    occ[1, ::997] = occ[3, 5::1301] = True
+    got = build_range_lut_device(torch.from_numpy(occ).to(cuda), 8, 20, 8)
+    assert torch.equal(got.cpu(), build_range_lut_device(torch.from_numpy(occ), 8, 20, 8))
+    with pytest.raises(ValueError, match="exceeds the sweep kernel"):
+        build_range_lut_device(torch.zeros((4, MAX_LINE_CELLS + 1), dtype=torch.bool,
+                                           device=cuda), 8, 20, 8)
 
 
 def test_range_lut_sweep_member_blocks_in_one_buffer(cuda):
