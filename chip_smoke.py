@@ -34,9 +34,19 @@ ten seconds of ``live`` with async chunked corrections), replays config
 #1 through an ``MCLNode`` with Augmented-MCL injection and times its
 ``profile_phases``, replays config #1 under the ``lut``, ``sphere`` and
 ``dda`` methods and drives the Spielberg headline under ``lut``, and runs
-the probes of ``tools/mega_probe.py`` through their Hopper kernels. Every
-LUT is built on the card by the sweep kernel, and each path that builds
-one is gated on its launches. Each phase prints
+the probes of ``tools/mega_probe.py`` through their Hopper kernels. It
+also drives config #5's workload through the fleet robot loop
+(``FleetNode``: async at depth 4 for 8 s as bench.py ``bench_fleet_live``,
+synchronous, and under a ``LiveRunner``), and the runtime's I/O on config
+#1 (``cli export-bag`` and ``import-bag`` of the golden trace, a replay of
+the imported trace, ``live --serve`` polled from a second thread, and
+``replay --viz-out`` where PIL imports); ``lut_build`` also builds a
+corridor whose rows pass the longest line the sweep kernel keeps in
+shared memory (the kernel keeps such lines' distances in global memory)
+against the native builder, and times a 2048-row hall with such rows
+against the plain sweep. Every LUT is built on
+the card, and each path that builds one is gated on the sweep kernel's
+launches. Each phase prints
 one JSON line with its own seconds; any failure raises and exits
 non-zero. The last two lines are the kernel report and ``{"ok": true,
 "device": {...}}``. It imports nothing of JAX and needs no network.
@@ -415,12 +425,13 @@ def native_lut(gm) -> np.ndarray:
 
 
 def card_vs_native(what: str, card) -> dict:
-    """A LUT built on the card by the sweep kernel (``card``, a map that
-    carries it) against :func:`native_lut`, uploaded: ``torch.equal``,
+    """A LUT built on the card (``card``, a map that carries it) by the
+    sweep kernel against :func:`native_lut`, uploaded: ``torch.equal``,
     with each build's seconds."""
     import torch
 
-    check(card.lut_route == "kernel", f"{what}: the card build took {card.lut_route!r}")
+    check(card.lut_route == "kernel", f"{what}: the card build took {card.lut_route!r}, "
+          "want 'kernel'")
     t0 = time.perf_counter()
     host = native_lut(card)
     native_s = time.perf_counter() - t0
@@ -511,6 +522,8 @@ def phase_lut_build(device) -> dict:
         "config #5 member dense (the fleet's LUT)", fleet.with_member_luts(t, stride, eps))
     del maps, fleet
     torch.cuda.empty_cache()
+    native["long_line_corridor"] = long_line_build(device)
+    plain["long_line_hall"] = long_line_hall(device)
     emit("lut_build", t0, card=CARD, hbm_bytes_per_s=HBM_BYTES_PER_S, kernel_vs_plain=plain,
          card_vs_native=native)
     return dict(max_abs_err=max(v["max_abs_err"] for v in plain.values()),
@@ -518,6 +531,98 @@ def phase_lut_build(device) -> dict:
                                          "build_device_ms", "build_bound_ms", "write_bound_ms",
                                          "plain_build_s", "blocks_per_launch",
                                          "warm_share_build")})
+
+
+LONG_LINE_MAP = dict(height=64, width=15_000)  # cells: a 750 m corridor at 0.05 m
+LONG_LINE_HALL = dict(height=2048, width=15_000)  # cells: a 102 m x 750 m hall at 0.05 m
+
+
+def long_line_plans(gm, t: int, stride: int, itemsize: int) -> list[dict]:
+    """The sweep kernel's launch plan of each bin group of ``gm``'s LUT:
+    its line length, where D lies, grid and scratch."""
+    from monte_carlo_localization_tpu_torch.mapping.range_lut_device import shear_groups
+    from monte_carlo_localization_tpu_torch.ops.range_lut_sweep import sweep
+
+    out = []
+    for g in shear_groups(gm.height, gm.width, t, stride):
+        p_len, q_len = (gm.height, gm.width) if g.row_major else (gm.width, gm.height)
+        plan = sweep.plan(p_len, q_len, g.bins, itemsize, gm.max_range_px, gm.occupied.device)
+        out.append({k: plan[k] for k in ("p_len", "global_d", "words", "tiles", "lines",
+                                        "blocks", "grid", "scratch_bytes")} | dict(q_len=q_len))
+    return out
+
+
+def long_line_build(device) -> dict:
+    """The dense LUT of a corridor whose rows (15,000 cells) pass
+    MAX_LINE_CELLS, the longest line whose distances the sweep kernel
+    keeps in shared memory, at the 60-beam geometry's T, built on the
+    card: every group through the kernel (the row groups with D in global
+    memory), held ``torch.equal`` to the native host builder's."""
+    import torch
+
+    from monte_carlo_localization_tpu_torch.mapping import corridor_world
+    from monte_carlo_localization_tpu_torch.mapping.range_lut import lut_dtype
+    from monte_carlo_localization_tpu_torch.ops.range_lut_sweep import MAX_LINE_CELLS
+
+    gm = corridor_world(**LONG_LINE_MAP, device=device)
+    check(gm.width > MAX_LINE_CELLS >= gm.height, "the corridor should have long rows only")
+    t, _, _ = lut_geometry(headline_beams(60), gm.max_range_px)
+    plans = long_line_plans(gm, t, t, lut_dtype(gm.max_range_px).itemsize)
+    check(any(p["global_d"] for p in plans) and not all(p["global_d"] for p in plans),
+          f"long lines: D in global memory for {[p['global_d'] for p in plans]} of the groups")
+    sweep_reset()
+    card = gm.with_range_lut(t, use_cache=False)
+    built = lut_built_on_card("long_line_corridor", card)
+    check(built["sweep_launches"] == len(plans),
+          f"long lines: {built['sweep_launches']} sweep launches for {len(plans)} groups")
+    out = card_vs_native("long-line corridor, dense", card)
+    out.update(map=f"{gm.height}x{gm.width}", t_bins=t, max_line_cells=MAX_LINE_CELLS,
+               lut_route=card.lut_route, sweep_launches=built["sweep_launches"], plans=plans)
+    del card, gm
+    torch.cuda.empty_cache()
+    return out
+
+
+def long_line_hall(device) -> dict:
+    """A hall of 2048 rows of 15,000 cells (box_world, 12 m range) at the
+    60-beam geometry, its compact LUT built by the kernel and by the plain
+    sweep on the card (``sweep_vs_plain``): the long rows' groups sweep
+    thousands of lines with D in global memory. Adds each mode's device
+    ms per launch."""
+    import torch
+
+    from monte_carlo_localization_tpu_torch.mapping import box_world, clearance_field
+    from monte_carlo_localization_tpu_torch.mapping.range_lut import lut_dtype
+    from monte_carlo_localization_tpu_torch.mapping.range_lut_device import (
+        FAR_ROW_MARGIN,
+        build_compact_range_lut_device,
+    )
+    from monte_carlo_localization_tpu_torch.ops.range_lut_sweep import sweep
+    from monte_carlo_localization_tpu_torch.utils.timing import profile_run
+
+    gm = box_world(**LONG_LINE_HALL, device=device)
+    t, stride, itemsize = lut_geometry(headline_beams(60), gm.max_range_px)
+    plans = long_line_plans(gm, t, stride, itemsize)
+    out = sweep_vs_plain("long-line hall, compact", gm.occupied, t, stride, gm.max_range_px,
+                         True)
+    clr = clearance_field(gm.occupied.cpu().numpy(), gm.max_range_px + FAR_ROW_MARGIN + 2)
+
+    def build():
+        return build_compact_range_lut_device(gm.occupied, clr, t, gm.max_range_px, stride,
+                                              lut_dtype=lut_dtype(gm.max_range_px))[0]
+
+    before = sweep.launch_count
+    rows, _ = profile_run(build, 2)
+    sweep.launch_count = before  # comparison launches do not count
+    for mode, tag in (("global", "true>"), ("shared", "false>")):
+        hits = [(us, n) for key, (us, n) in rows.items()
+                if "range_lut_sweep_kernel" in key and tag in key]
+        out[f"{mode}_d_ms"] = (sum(us for us, _ in hits) / 1e3 / sum(n for _, n in hits)
+                               if hits else "not measured")
+    out.update(plans=plans)
+    del gm, clr
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_methods(device) -> dict:
@@ -1938,6 +2043,170 @@ def phase_config5(device, classic_kernels: float) -> dict:
     return kernel
 
 
+FLEET_LIVE_DEPTH = 4  # bench.py bench_fleet_live: async depth 4, an 8 s window
+FLEET_LIVE_SECONDS = 8.0
+FLEET_SYNC_TICKS = 30
+FLEET_RUNNER_SECONDS = 3.0
+FLEET_WARM_S_MAX = 300.0
+# the stationary fleet's member error gate: twice config #1's RMSE gate
+# (the cars start at and keep their true poses)
+FLEET_STATIONARY_ERR_M = 2 * CONFIG1_RMSE_MAX
+
+
+def phase_fleet_live(device) -> dict:
+    """Config #5's workload through the port's ``FleetNode``, as bench.py
+    ``bench_fleet_live`` runs it: 64 cars x 4000 particles x 60 beams over
+    the four maps (map_assignment = arange(64) % 4), each car at its map's
+    best-cleared pose with a sphere-cast scan, ``async_correction`` at
+    depth 4; warm up until the first harvest, then an 8 s window. Then
+    the same workload synchronous (30 ticks at an explicit clock), the
+    kernels and idle share of 20 synchronous updates, and a LiveRunner
+    driving the async node for 3 s. Gates: a harvest, finite poses, every
+    member within ``_drift_threshold(harvested + 4)`` (bench.py's
+    divergence gate) and within FLEET_STATIONARY_ERR_M (the cars stand
+    still at their true poses), the fleet kernel launched once per
+    dispatched correction and no single-filter launch."""
+    import torch
+
+    from monte_carlo_localization_tpu_torch import MCLConfig, load_map
+    from monte_carlo_localization_tpu_torch.ops.raycast import cast_rays_sphere
+    from monte_carlo_localization_tpu_torch.parallel import stack_maps
+    from monte_carlo_localization_tpu_torch.runtime import FleetNode, LiveRunner
+
+    t0 = time.perf_counter()
+    f, n, r = CONFIG5_FLEET, N_PARTICLES, 60
+    maps = [load_map(REPO / "maps" / name, device=device) for name in CONFIG5_MAPS]
+    asg = np.arange(f, dtype=np.int32) % len(maps)
+    beams = headline_beams(r)
+    beams_t = torch.as_tensor(beams, device=device)
+    map_poses = [_nearest_free_pose(m, _center_pose(m)) for m in maps]
+    map_scans = []
+    for m, p in zip(maps, map_poses):
+        qry = torch.stack([torch.full_like(beams_t, float(p[0])),
+                           torch.full_like(beams_t, float(p[1])), float(p[2]) + beams_t], 1)
+        map_scans.append(cast_rays_sphere(m, qry, num_iters=64).cpu().numpy())
+    poses0 = np.stack([map_poses[a] for a in asg])
+    stacked = stack_maps(maps)
+
+    def make_node(async_correction: bool):
+        cfg = MCLConfig(max_particles=n, angle_step=1, async_correction=async_correction,
+                        async_depth=FLEET_LIVE_DEPTH)
+        node = FleetNode(stacked, f, cfg, map_assignment=asg, rng_seed=0)
+        sweep_reset()
+        t1 = time.perf_counter()
+        for i in range(f):  # the first scan attaches the member LUTs
+            node.on_scan(i, map_scans[asg[i]], beam_angles=beams)
+            node.on_odometry(i, *poses0[i], 0.0, 0.0, stamp=0.0)
+        torch.cuda.synchronize()
+        first_scans_s = time.perf_counter() - t1
+        node.initialize_pose(poses0)
+        q = node.filter.likelihood
+        q.fleet_launch_count = q.launch_count = 0
+        node.dispatched = 0
+        step = node._step
+
+        def counted(actions, scans):
+            node.dispatched += 1
+            return step(actions, scans)
+
+        node._step = counted
+        return node, q, first_scans_s
+
+    def member_err(poses, what, corrections):
+        check(poses is not None and bool(np.isfinite(poses).all()), f"{what}: non-finite poses")
+        err = np.linalg.norm(poses[:, :2] - poses0[:, :2], axis=1)
+        thr = _drift_threshold(corrections)
+        check(err.max() < thr, f"{what}: max member error {err.max()} m >= {thr}")
+        check(err.max() < FLEET_STATIONARY_ERR_M, f"{what}: max member error {err.max()} m "
+              f">= {FLEET_STATIONARY_ERR_M} m for cars standing at their true poses")
+        return float(err.max()), thr
+
+    def launches_match(node, q, what):
+        check(q.fleet_launch_count == node.dispatched and q.launch_count == 0,
+              f"{what}: {q.fleet_launch_count} fleet-kernel launches (and {q.launch_count} "
+              f"single) for {node.dispatched} dispatched corrections")
+
+    node, q, first_s = make_node(True)
+    built = lut_built_on_card("fleet_live", node.filter.map)
+    t1 = time.perf_counter()
+    while node.update() is None:
+        check(time.perf_counter() - t1 < FLEET_WARM_S_MAX, "fleet live: the warm-up never harvested")
+    warm_s = time.perf_counter() - t1
+    harvested, last = 0, None
+    t1 = time.perf_counter()
+    while time.perf_counter() - t1 < FLEET_LIVE_SECONDS:
+        got = node.update()
+        if got is not None:
+            last, harvested = got, harvested + 1
+    window = time.perf_counter() - t1
+    check(harvested >= 1, "fleet live harvested nothing in its window")
+    err, thr = member_err(last, "fleet live", harvested + FLEET_LIVE_DEPTH)
+    launches_match(node, q, "fleet live")
+    live = dict(harvested=harvested, window_s=window, dispatched=node.dispatched,
+                fleet_launches=q.fleet_launch_count, warmup_s=warm_s,
+                fleet_corrections_per_s=harvested / window,
+                member_corrections_per_s=harvested * f / window,
+                max_member_err_m=err, drift_threshold_m=thr, first_scans_s=first_s)
+    launches = q.fleet_launch_count
+
+    # a LiveRunner at timer_frequency drives the same async node
+    q.fleet_launch_count, node.dispatched = 0, 0
+    node._last_update_time = None
+    with LiveRunner(node) as runner:
+        time.sleep(FLEET_RUNNER_SECONDS)
+    check(runner.corrections >= 1, "the LiveRunner's fleet harvested nothing")
+    err_r, _ = member_err(node.inferred_poses, "fleet LiveRunner",
+                          live["dispatched"] + node.dispatched)
+    launches_match(node, q, "fleet LiveRunner")
+    runner_out = dict(seconds=FLEET_RUNNER_SECONDS, ticks=runner.ticks,
+                      corrections=runner.corrections, skipped_ticks=runner.skipped,
+                      dispatched=node.dispatched, fleet_launches=q.fleet_launch_count,
+                      timer_frequency=node.config.timer_frequency, max_member_err_m=err_r)
+    launches += q.fleet_launch_count
+    del node, q
+    torch.cuda.empty_cache()
+
+    # the same workload synchronous, at an explicit clock
+    node, q, first_s = make_node(False)
+    lut_built_on_card("fleet_live_sync", node.filter.map)
+    tick = {"t": 0.0}
+
+    def sync_updates(steps: int):
+        def run():
+            out = None
+            for _ in range(steps):
+                tick["t"] += 0.05
+                out = node.update(now=tick["t"])
+            return out
+        return run
+
+    node.update(now=tick["t"])
+    sync_updates(3)()  # warm
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    last = sync_updates(FLEET_SYNC_TICKS)()
+    sync_s = time.perf_counter() - t1
+    err_s, thr_s = member_err(last, "fleet sync", node.dispatched)
+    launches_match(node, q, "fleet sync")
+    sync = dict(ticks=FLEET_SYNC_TICKS, seconds=sync_s,
+                fleet_corrections_per_s=FLEET_SYNC_TICKS / sync_s,
+                member_corrections_per_s=FLEET_SYNC_TICKS * f / sync_s,
+                max_member_err_m=err_s, drift_threshold_m=thr_s, fleet_launches=node.dispatched)
+    launches += q.fleet_launch_count
+    before = q.fleet_launch_count
+    prof = chain_profile(sync_updates(20), 20)
+    # chain_profile runs its 20 updates three times: warm, profiled, timed
+    check(q.fleet_launch_count - before == 60, f"{q.fleet_launch_count - before} fleet "
+          "launches in three runs of 20 profiled updates (want 60)")
+    del node, q, maps, stacked
+    torch.cuda.empty_cache()
+    emit("fleet_live", t0, card=CARD, maps=list(CONFIG5_MAPS), fleet=f, particles=n, beams=r,
+         map_assignment="arange(64) % 4", async_depth=FLEET_LIVE_DEPTH, **built,
+         live=live, live_runner=runner_out, synchronous=sync, profile_20_sync_updates=prof,
+         fleet_launches=launches)
+    return dict(launches=launches, live=live, synchronous=sync, live_runner=runner_out)
+
+
 def phase_probes(device) -> dict:
     """The probes of tools/mega_probe.py through their Hopper kernels (the
     port's ``tools/mega_probe.py``): every probe once with the launch
@@ -2276,6 +2545,171 @@ def phase_inject(device) -> dict:
     return out
 
 
+SERVE_SECONDS = 4.0  # seconds of `cli live --serve 0` on config #1
+SERVE_POLLS = 5  # /state.json polls from a second thread, 0.5 s apart
+VIZ_EVERY = 100  # `replay --viz-out`: one frame every 100 corrections
+BAG_TIME_TOL = 2e-9  # s: times come back through integer nanoseconds
+BAG_YAW_TOL = 1e-9  # rad: headings come back through a quaternion
+# rad: beam angles come back as angle_min + k * increment from the scan's
+# float32 fields (1.7e-5 at config #1's 1080 beams, in both packages)
+BAG_BEAM_TOL = 1e-4
+
+
+def cli_json(argv: list[str]) -> dict:
+    """``cli.main(argv)`` in this process (a command with no node): the
+    JSON line it printed last."""
+    import contextlib
+    import io
+
+    from monte_carlo_localization_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    check(rc == 0, f"cli {argv[0]} returned {rc}")
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def pil_available() -> bool:
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def bag_roundtrip_errors(orig, back) -> dict:
+    """What a rosbag2 round trip may change of a trace, against its own
+    gates: scans, twists and xy are stored as they are and must come back
+    bit for bit; times, headings and beam angles within BAG_TIME_TOL,
+    BAG_YAW_TOL and BAG_BEAM_TOL."""
+    def yaw_err(a, b):
+        return float(np.abs(np.angle(np.exp(1j * (a - b)))).max())
+
+    for name in ("scan_ranges", "odom_twist"):
+        check(np.array_equal(getattr(orig, name), getattr(back, name)),
+              f"the bag round trip changed {name}")
+    for name in ("odom_pose", "truth_pose"):
+        check(np.array_equal(getattr(orig, name)[:, :2], getattr(back, name)[:, :2]),
+              f"the bag round trip changed {name} x/y")
+    errs = dict(
+        time_s=max(float(np.abs(getattr(orig, k) - getattr(back, k)).max())
+                   for k in ("odom_t", "scan_t", "truth_t")),
+        yaw_rad=max(yaw_err(orig.odom_pose[:, 2], back.odom_pose[:, 2]),
+                    yaw_err(orig.truth_pose[:, 2], back.truth_pose[:, 2])),
+        beam_angle_rad=float(np.abs(orig.beam_angles - back.beam_angles).max()),
+    )
+    check(errs["time_s"] <= BAG_TIME_TOL and errs["yaw_rad"] <= BAG_YAW_TOL
+          and errs["beam_angle_rad"] <= BAG_BEAM_TOL, f"the bag round trip moved {errs}")
+    return errs
+
+
+def phase_runtime_io(device, tmp: Path) -> dict:
+    """The runtime's I/O on config #1: ``cli export-bag`` of the golden
+    trace and ``cli import-bag`` back (the trace must come back as the
+    round trip keeps it), ``cli replay --chained`` of the imported trace
+    on the card (config #1's RMSE gate), ``cli live --serve 0`` with
+    /state.json (and /frame.png where PIL imports) polled from a second
+    thread while the loop runs, and ``replay --viz-out`` where PIL
+    imports."""
+    import threading
+    import urllib.request
+
+    import torch
+
+    from monte_carlo_localization_tpu_torch import cli
+    from monte_carlo_localization_tpu_torch.runtime import Trace
+
+    t0 = time.perf_counter()
+    pil = pil_available()
+    orig = Trace.load(REPO / CONFIG1_TRACE)
+    bag, back = tmp / "config1_bag", tmp / "config1_back.npz"
+    t1 = time.perf_counter()
+    exported = cli_json(["export-bag", "--trace", str(REPO / CONFIG1_TRACE), "--out", str(bag)])
+    imported = cli_json(["import-bag", "--bag", str(bag), "--out", str(back),
+                         "--map-name", orig.map_name])
+    bag_s = time.perf_counter() - t1
+    errs = bag_roundtrip_errors(orig, Trace.load(back))
+    common = ["--device", str(device), "--map", str(REPO / CONFIG1_MAP),
+              "--particles", str(N_PARTICLES)]
+
+    sweep_reset()
+    out, node = run_cli(["replay", *common, "--trace", str(back), "--chained"])
+    built = lut_built_on_card("runtime_io_replay", node.filter.grid_map)
+    counts = lut_counts(node)
+    check(out["rmse_xy_m"] <= CLI_RMSE_MAX,
+          f"the imported trace's replay: RMSE {out['rmse_xy_m']} m > {CLI_RMSE_MAX}")
+    check(counts["lut_loglik_kernel"] == out["corrections"],
+          f"{counts['lut_loglik_kernel']} LUT launches for {out['corrections']} corrections")
+    replay = dict(**out, launches=counts, **built)
+    del node
+
+    polls, frames, errors = [], [], []
+
+    class Polled(cli.WebViz):
+        """The viewer, polled from a second thread while the loop runs."""
+
+        def start(self):
+            super().start()
+
+            def poll():
+                try:
+                    for _ in range(SERVE_POLLS):
+                        time.sleep(0.5)
+                        with urllib.request.urlopen(self.url + "state.json", timeout=30) as rsp:
+                            polls.append(json.loads(rsp.read()))
+                        if pil:
+                            with urllib.request.urlopen(self.url + "frame.png", timeout=30) as rsp:
+                                frames.append(rsp.read()[:4])
+                except Exception as e:  # noqa: BLE001 - re-raised by the phase below
+                    errors.append(e)
+
+            self.poller = threading.Thread(target=poll, daemon=True)
+            self.poller.start()
+            return self
+
+        def close(self):
+            self.poller.join(timeout=60)
+            super().close()
+
+    saved, cli.WebViz = cli.WebViz, Polled
+    sweep_reset()
+    try:
+        out, node = run_cli(["live", *common, "--trace", str(REPO / CONFIG1_TRACE),
+                             "--duration", str(SERVE_SECONDS), "--serve", "0"])
+    finally:
+        cli.WebViz = saved
+    if errors:
+        raise errors[0]
+    check(len(polls) == SERVE_POLLS and all(np.isfinite(p["pose"]).all() for p in polls),
+          f"live --serve: {len(polls)} of {SERVE_POLLS} /state.json replies with finite poses")
+    check(frames == [b"\x89PNG"] * (SERVE_POLLS if pil else 0),
+          f"live --serve: /frame.png replies {frames}")
+    check(out["corrections"] >= 1, "live --serve harvested no correction")
+    serve = dict(**out, polls=len(polls), last_poll=polls[-1], frames=len(frames),
+                 launches=lut_counts(node), **lut_built_on_card("runtime_io_serve",
+                                                                node.filter.grid_map))
+    del node
+
+    viz = dict(rendered=False, reason="PIL does not import here: no PNG was rendered")
+    if pil:
+        sweep_reset()
+        out, node = run_cli(["replay", *common, "--trace", str(REPO / CONFIG1_TRACE),
+                             "--viz-out", str(tmp / "viz"), "--viz-every", str(VIZ_EVERY)])
+        names = sorted(p.name for p in (tmp / "viz").glob("*.png"))
+        want = -(-out["corrections"] // VIZ_EVERY)
+        check(len(names) == want + 1 and names[-1] == "trajectory.png",
+              f"replay --viz-out wrote {names} for {out['corrections']} corrections")
+        viz = dict(rendered=True, **out, frames=len(names) - 1, every=VIZ_EVERY,
+                   launches=lut_counts(node))
+        del node
+    torch.cuda.empty_cache()
+    emit("runtime_io", t0, card=CARD, pil=pil, export=exported, imported=imported,
+         bag_seconds=bag_s, roundtrip_errors=errs, replay_imported=replay, live_serve=serve,
+         viz_out=viz, rmse_max_m=CLI_RMSE_MAX)
+    return dict(replay=replay, serve=serve, viz=viz)
+
+
 def main() -> int:
     global CARD
     import torch
@@ -2339,11 +2773,13 @@ def main() -> int:
     head = phase_headline(device)
     fleet_plain = phase_fleet_vs_plain(device)
     config5 = phase_config5(device, mega1["classic_kernels_per_correction"])
+    fleet_live = phase_fleet_live(device)
     # the single-filter runtime through the port's command line
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         cli_runs = phase_cli_replay(device, Path(tmp))
         u16 = phase_u16_basement(device, Path(tmp))
         live = phase_live(device, Path(tmp))
+        runtime_io = phase_runtime_io(device, Path(tmp))
     inject = phase_inject(device)
     phase_methods(device)
     probes = phase_probes(device)
@@ -2387,6 +2823,10 @@ def main() -> int:
                 "u16_basement": u16["launches"]["lut_loglik_kernel"],
                 "live": live["launches"]["lut_loglik_kernel"],
                 "inject": inject["lut_launches"],
+                "runtime_io_replay": runtime_io["replay"]["launches"]["lut_loglik_kernel"],
+                "runtime_io_serve": runtime_io["serve"]["launches"]["lut_loglik_kernel"],
+                "runtime_io_viz": (runtime_io["viz"]["launches"]["lut_loglik_kernel"]
+                                   if runtime_io["viz"]["rendered"] else 0),
             },
             "synthetic_times": lut_plain["times"]["K1"],
         },
@@ -2458,10 +2898,12 @@ def main() -> int:
             "source": "monte_carlo_localization_tpu_torch/csrc/lut_likelihood.cu",
             "replaces": "monte_carlo_localization_tpu/ops/pallas_lut.py:835-949",
             **{k: config5[k] for k in keys},
+            "launches": config5["launches"] + fleet_live["launches"],
             "max_abs_err": max(config5["max_abs_err"], fleet_plain["max_abs_err"]),
             "library_ms": None,
             "sector_bytes": config5["sector_bytes"], "sector_bound_ms": config5["sector_bound_ms"],
             "config5_launches": config5["launches"],
+            "fleet_live_launches": fleet_live["launches"],
         },
         {
             "name": "range_lut_sweep",

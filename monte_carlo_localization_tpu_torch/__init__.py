@@ -12,9 +12,12 @@ correction as one launch of the mega-step kernel (``csrc/mega_step.cu``). ``Grid
 cloud across from the JAX package, so both can run on the same inputs.
 
 ``runtime`` holds the single-filter node (``MCLNode``: the dual-rate
-tracker, sinks, checkpoints, Augmented-MCL re-localization) and its live
-scheduler (``LiveRunner``); ``python -m monte_carlo_localization_tpu_torch.cli``
-is the command line (``make-trace``, ``replay``, ``live``, ``info``).
+tracker, sinks, checkpoints, Augmented-MCL re-localization), the fleet
+robot loop (``FleetNode``), their live scheduler (``LiveRunner``) and the
+I/O modules (PNG frames, the HTTP viewer, rosbag2 files, the optional ROS2
+bridge); ``python -m monte_carlo_localization_tpu_torch.cli`` is the
+command line (``make-trace``, ``replay``, ``live``, ``info``,
+``export-bag``, ``import-bag``).
 """
 
 from monte_carlo_localization_tpu_torch.config import MCLConfig, load_config
@@ -26,6 +29,8 @@ from monte_carlo_localization_tpu_torch.filter import (
 )
 from monte_carlo_localization_tpu_torch.mapping import GridMap, load_map
 from monte_carlo_localization_tpu_torch.runtime import LiveRunner, MCLNode, Trace
+
+__version__ = "0.1.0"  # the JAX package's version, which this port mirrors
 
 __all__ = [
     "MCLConfig",
@@ -39,4 +44,5 @@ __all__ = [
     "MCLNode",
     "LiveRunner",
     "Trace",
+    "__version__",
 ]

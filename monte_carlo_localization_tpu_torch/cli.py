@@ -8,13 +8,17 @@ Subcommands:
   make-trace  synthesize a golden trace by driving a simulated car in a map
   info        inspect a map or trace file (``--lut``: build the map's range
               LUT and print its route and seconds)
+  export-bag  trace .npz -> rosbag2 directory (sqlite3 + CDR)
+  import-bag  rosbag2 directory (or .db3) -> trace .npz
+
+``replay --viz-out DIR`` renders PNG frames (Pillow); ``live --serve PORT``
+serves the interactive viewer over HTTP (``runtime/webviz.py``).
 
 ``--raycast`` takes every method of the JAX package: ``auto`` and
 ``lut_pallas`` (the fused LUT kernel), ``lut``, ``sphere`` and ``dda``.
 
 Not ported yet, each exiting non-zero with the ROADMAP.md item that
-brings it: ``baseline``, ``bench``, ``export-bag``, ``import-bag``,
-``replay --viz-out`` and ``live --serve``.
+brings it: ``baseline`` and ``bench``.
 
 Map resolution: ``--map`` accepts either a path to a ROS-style map YAML or
 a bare name resolved against ``--map-dir``.
@@ -43,19 +47,18 @@ from monte_carlo_localization_tpu_torch.runtime import (
     NpzSink,
     Trace,
     TraceReader,
+    VizSink,
+    WebViz,
     load_state,
     save_state,
     synthesize_trace,
 )
+from monte_carlo_localization_tpu_torch.runtime.rosbag import export_bag, import_bag
 from monte_carlo_localization_tpu_torch.utils.timing import device_trace
 
 # what is not ported yet, and the ROADMAP.md item (queue 1) that brings it
 UNPORTED = {
     "bench": "item 1 (the port's benchmark, in files of its own)",
-    "export-bag": "item 5 (runtime/rosbag.py)",
-    "import-bag": "item 5 (runtime/rosbag.py)",
-    "--viz-out": "item 5 (runtime/viz.py)",
-    "--serve": "item 5 (runtime/webviz.py)",
     "baseline": "item 9 (baseline/cpu_reference.py)",
 }
 
@@ -147,8 +150,6 @@ def _checkpoint(node: MCLNode, path: str) -> None:
 
 
 def cmd_replay(args) -> int:
-    if args.viz_out:
-        raise _unported("--viz-out")
     cfg = _load_cfg(args)
     gm = _resolve_map(args.map, args.map_dir, args.max_range, args.device)
     trace = Trace.load(args.trace)
@@ -156,6 +157,8 @@ def cmd_replay(args) -> int:
     node = MCLNode(gm, cfg, log=log)
     if args.record_out:
         node.add_sink(_make_sink(args.record_out))
+    if args.viz_out:
+        node.add_sink(VizSink(gm, args.viz_out, every=args.viz_every))
     if args.resume_from:
         _resume(node, trace, args.resume_from)
     elif args.init == "truth" and trace.truth_pose is not None:
@@ -193,8 +196,6 @@ def cmd_live(args) -> int:
     their recorded wall-clock rates on the main thread while the LiveRunner
     ticks at timer_frequency on its own thread — the reference's dual-rate
     process topology."""
-    if args.serve is not None:
-        raise _unported("--serve")
     cfg = _load_cfg(args)
     gm = _resolve_map(args.map, args.map_dir, args.max_range, args.device)
     trace = Trace.load(args.trace)
@@ -205,6 +206,11 @@ def cmd_live(args) -> int:
         _resume(node, trace, args.resume_from)
     elif trace.truth_pose is not None:
         node.initialize_pose(trace.truth_pose[0])
+
+    webviz = None
+    if args.serve is not None:
+        webviz = WebViz(node, gm, port=args.serve).start()
+        print(f"# live viewer at {webviz.url}", flush=True)
 
     duration = args.duration or min(trace.duration, 10.0)
     t0 = time.monotonic()
@@ -223,6 +229,8 @@ def cmd_live(args) -> int:
                     trace.scan_ranges[ev.index], beam_angles=trace.beam_angles
                 )
         wall = time.monotonic() - t0
+    if webviz is not None:
+        webviz.close()
     if args.checkpoint_out:
         _checkpoint(node, args.checkpoint_out)
     node.close_sinks()
@@ -268,7 +276,7 @@ def cmd_info(args) -> int:
             width=gm.width,
             resolution=gm.resolution,
             origin=[float(gm.origin_x), float(gm.origin_y), float(gm.origin_yaw)],
-            free_cells=int(gm.free_cells.shape[-2]),
+            free_cells=gm.num_free_cells,
             max_range_px=gm.max_range_px,
         )
         if args.lut:
@@ -278,6 +286,42 @@ def cmd_info(args) -> int:
                        lut_build_s=gm.lut_build_s,
                        lut_bytes=gm.range_lut.numel() * gm.range_lut.element_size())
         print(json.dumps(out))
+    return 0
+
+
+def cmd_export_bag(args) -> int:
+    """Trace .npz -> rosbag2 directory (sqlite3 + CDR; no ROS install)."""
+    t = Trace.load(args.trace)
+    out = export_bag(
+        t, args.out,
+        scan_topic=args.scan_topic, odom_topic=args.odom_topic,
+        truth_topic=args.truth_topic, range_max=args.range_max,
+    )
+    print(json.dumps(dict(
+        bag=str(out),
+        scans=int(t.scan_ranges.shape[0]),
+        odom_msgs=int(len(t.odom_t)),
+        has_truth=t.truth_t is not None,
+    )))
+    return 0
+
+
+def cmd_import_bag(args) -> int:
+    """rosbag2 directory (or bare .db3) -> trace .npz for ``replay``."""
+    t = import_bag(
+        args.bag,
+        scan_topic=args.scan_topic, odom_topic=args.odom_topic,
+        truth_topic=args.truth_topic, map_name=args.map_name,
+    )
+    p = t.save(args.out)
+    print(json.dumps(dict(
+        trace=str(p),
+        scans=int(t.scan_ranges.shape[0]),
+        beams=int(t.num_beams),
+        odom_msgs=int(len(t.odom_t)),
+        has_truth=t.truth_t is not None,
+        duration_s=round(t.duration, 2),
+    )))
     return 0
 
 
@@ -322,9 +366,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     rp.add_argument("--init", choices=["truth", "global"], default="truth")
     rp.add_argument("--viz-out", default=None, dest="viz_out",
-                    help="not ported yet (ROADMAP.md queue 1, item 5)")
+                    help="directory for rendered PNG frames (RViz analogue)")
     rp.add_argument("--viz-every", type=int, default=10, dest="viz_every",
-                    help="with --viz-out: render every Nth correction")
+                    help="render every Nth correction (default 10)")
     rp.add_argument("--record-out", default=None, dest="record_out",
                     help="stream outputs to a .jsonl or .npz sink")
     rp.add_argument(
@@ -363,7 +407,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="with --async-correction: buffer K ticks and "
                     "dispatch them as one step_many(K) (1 = off)")
     lv.add_argument("--serve", type=int, default=None, metavar="PORT",
-                    help="not ported yet (ROADMAP.md queue 1, item 5)")
+                    help="serve the interactive live viewer (map + cloud "
+                    "+ pose; drag to set a pose estimate, button for "
+                    "global re-init) on this port (0 = ephemeral)")
     lv.add_argument("--checkpoint-out", default=None, dest="checkpoint_out",
                     help="write the final filter/tracker state (npz) when "
                     "the live window ends")
@@ -386,23 +432,32 @@ def build_parser() -> argparse.ArgumentParser:
     bn.add_argument("rest", nargs=argparse.REMAINDER)
     bn.set_defaults(fn=cmd_unported)
 
-    eb = sub.add_parser("export-bag", help="not ported yet (ROADMAP.md queue 1, item 5)")
+    eb = sub.add_parser(
+        "export-bag",
+        help="trace .npz -> rosbag2 directory (ros2-bag-play compatible)",
+    )
     eb.add_argument("--trace", required=True)
-    eb.add_argument("--out", required=True)
+    eb.add_argument("--out", required=True, help="bag directory to create")
     eb.add_argument("--scan-topic", default="/scan")
     eb.add_argument("--odom-topic", default="/odom")
     eb.add_argument("--truth-topic", default="/ground_truth")
     eb.add_argument("--range-max", type=float, default=30.0)
-    eb.set_defaults(fn=cmd_unported)
+    eb.set_defaults(fn=cmd_export_bag)
 
-    ib = sub.add_parser("import-bag", help="not ported yet (ROADMAP.md queue 1, item 5)")
+    ib = sub.add_parser(
+        "import-bag",
+        help="rosbag2 directory/.db3 -> trace .npz (feeds `replay`)",
+    )
     ib.add_argument("--bag", required=True)
     ib.add_argument("--out", required=True)
-    ib.add_argument("--scan-topic", default=None)
-    ib.add_argument("--odom-topic", default=None)
-    ib.add_argument("--truth-topic", default=None)
+    ib.add_argument("--scan-topic", default=None,
+                    help="default: first LaserScan topic in the bag")
+    ib.add_argument("--odom-topic", default=None,
+                    help="default: first Odometry topic in the bag")
+    ib.add_argument("--truth-topic", default=None,
+                    help="default: second Odometry topic if present")
     ib.add_argument("--map-name", default="")
-    ib.set_defaults(fn=cmd_unported)
+    ib.set_defaults(fn=cmd_import_bag)
 
     inf = sub.add_parser("info", parents=[device])
     inf.add_argument("path")

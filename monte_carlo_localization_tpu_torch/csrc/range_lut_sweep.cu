@@ -43,6 +43,15 @@
 //   while the line before is swept, and the drift of the next line is
 //   loaded ahead into registers, so one __syncthreads a line is the only
 //   wait.
+// - A line too long for two lines of D in shared memory (past 14,527
+//   cells at one word a cell) keeps them in global memory instead: each
+//   resident block owns two lines of scratch, reads its cells straight
+//   from the cell words, and the same __syncthreads orders a line's
+//   writes before the next line's reads (it orders a block's global
+//   accesses as it does its shared ones). The grid is then the blocks
+//   the card holds at once (and the scratch allows), each looping over
+//   the launch's (tile, chunk) items, so the scratch is bounded by the
+//   card, not by the map.
 //
 // Numerics are the JAX and native builders' bit for bit: D is exact in a
 // float (2^23 + D by its bits, less 2^23), the product and the subtraction
@@ -65,8 +74,9 @@ constexpr uint32_t kTwo23 = 0x4B000000u;     // the bits of 2^23
 
 // Shared memory of a block: two lines of (Q + 2) cells x `words` words of
 // D (a zero cell at each end reads as "off the line") and two lines of Q
-// cell words.
-__host__ __device__ inline int64_t smem_bytes(int q_len, int words) {
+// cell words; none where D lies in global memory.
+__host__ __device__ inline int64_t smem_bytes(int q_len, int words, bool global_d) {
+  if (global_d) return 0;
   return 8 * static_cast<int64_t>(words) * (q_len + 2) + 8 * static_cast<int64_t>(q_len);
 }
 
@@ -127,10 +137,12 @@ __device__ __forceinline__ uint32_t entry_bits(uint32_t d_bits, float sl, float 
 
 struct SweepArgs {
   const int32_t* cells;  // (P, Q) row | occupied << 31, in line order
+  uint32_t* scratch;     // global D: two lines of (Q + 2) x words a block; else null
   const int8_t* rel;     // (P, B) drift to the line before along the sweep
   const float* step_len; // (B,)
   const int4* tiles;     // (n_tiles,) {first group bin, base physical bin, lo lane, hi lane}
   int n_tiles;
+  int items;  // (tile, chunk) pairs: n_tiles x chunks
   int p_len;
   int q_len;
   int b_count;
@@ -145,115 +157,135 @@ struct SweepArgs {
   int64_t row_base;
 };
 
-template <typename OutT>
+template <typename OutT, bool kGlobalD>
 __global__ void __launch_bounds__(kMaxThreads)
     range_lut_sweep_kernel(const SweepArgs a, OutT* __restrict__ out) {
   using L = Lanes<OutT>;
   extern __shared__ __align__(16) uint32_t s_mem[];
   const int words = 1 << a.words_log2;
   const int padded = (a.q_len + 2) * words;
-  uint32_t* prev = s_mem;
-  uint32_t* cur = s_mem + padded;
-  int32_t* s_cells = reinterpret_cast<int32_t*>(s_mem + 2 * padded);  // 2 x Q
+  uint32_t* const d_base = kGlobalD ? a.scratch + static_cast<int64_t>(blockIdx.x) * 2 * padded
+                                    : s_mem;
+  int32_t* const s_cells = reinterpret_cast<int32_t*>(s_mem + 2 * padded);  // 2 x Q, shared D only
+  const int w = threadIdx.x & (words - 1);  // this thread's word of every cell
+  const int items = a.q_len << a.words_log2;
 
-  const int4 tile = a.tiles[blockIdx.x % a.n_tiles];
-  const int first = (blockIdx.x / a.n_tiles) * a.lines;  // first stored sweep line
-  const int last = min(first + a.lines, a.p_len);
-  const int start = max(first - a.sat, 0);  // the warm-up's first line
-  const uint32_t c_word = static_cast<uint32_t>(a.sat) * L::kOne;
-  const uint32_t init = start == 0 ? 0u : c_word;  // the sweep's own start, or saturated
-  for (int i = threadIdx.x; i < padded; i += blockDim.x) {
-    const bool pad = i < words || i >= padded - words;
-    prev[i] = pad ? 0u : init;
-    cur[i] = 0u;
-  }
+  for (int item = blockIdx.x; item < a.items; item += gridDim.x) {
+    uint32_t* prev = d_base;
+    uint32_t* cur = d_base + padded;
+    const int4 tile = a.tiles[item % a.n_tiles];
+    const int first = (item / a.n_tiles) * a.lines;  // first stored sweep line
+    const int last = min(first + a.lines, a.p_len);
+    const int start = max(first - a.sat, 0);  // the warm-up's first line
+    const uint32_t c_word = static_cast<uint32_t>(a.sat) * L::kOne;
+    const uint32_t init = start == 0 ? 0u : c_word;  // the sweep's own start, or saturated
+    for (int i = threadIdx.x; i < padded; i += blockDim.x) {
+      const bool pad = i < words || i >= padded - words;
+      prev[i] = pad ? 0u : init;
+      cur[i] = 0u;
+    }
 
-  // this thread's word of every cell, and its lanes' bins
-  const int w = threadIdx.x & (words - 1);
-  int col[L::kCount];  // group index of each lane's bin, -1 outside the tile
-  float sl[L::kCount];
-  bool any = false, full = true;
-#pragma unroll
-  for (int j = 0; j < L::kCount; ++j) {
-    const int lane = w * L::kCount + j;
-    const bool valid = lane >= tile.z && lane < tile.w;
-    col[j] = valid ? tile.x + lane - tile.z : -1;
-    sl[j] = valid ? a.step_len[col[j]] : 1.0f;
-    any |= valid;
-    full &= valid;
-  }
-  const bool vector_store = full && a.vec_ok;
-  const int64_t col0 = tile.y + w * L::kCount;  // the word's first entry in a row
-
-  // the drift of this thread's lanes on sweep line i (0 outside the
-  // tile), and from it the masks of the lanes that read the cell to the
-  // left (rel -1) and to the right (rel +1)
-  auto load_rel = [&](int i, int (&r)[L::kCount]) {
-    const int8_t* row = a.rel + static_cast<int64_t>(a.forward ? i : a.p_len - 1 - i) * a.b_count;
-#pragma unroll
-    for (int j = 0; j < L::kCount; ++j) r[j] = col[j] >= 0 ? __ldg(row + col[j]) : 0;
-  };
-  auto masks = [&](const int (&r)[L::kCount], uint32_t& left, uint32_t& right) {
-    left = right = 0u;
+    // this thread's lanes' bins
+    int col[L::kCount];  // group index of each lane's bin, -1 outside the tile
+    float sl[L::kCount];
+    bool any = false, full = true;
 #pragma unroll
     for (int j = 0; j < L::kCount; ++j) {
-      left |= r[j] < 0 ? L::mask(j) : 0u;
-      right |= r[j] > 0 ? L::mask(j) : 0u;
+      const int lane = w * L::kCount + j;
+      const bool valid = lane >= tile.z && lane < tile.w;
+      col[j] = valid ? tile.x + lane - tile.z : -1;
+      sl[j] = valid ? a.step_len[col[j]] : 1.0f;
+      any |= valid;
+      full &= valid;
     }
-  };
+    const bool vector_store = full && a.vec_ok;
+    const int64_t col0 = tile.y + w * L::kCount;  // the word's first entry in a row
 
-  stage_line(s_cells, a.cells, a.forward ? start : a.p_len - 1 - start, a.q_len);
-  int r_next[L::kCount];
-  load_rel(start, r_next);
-  uint32_t left, right;
-  masks(r_next, left, right);
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  __syncthreads();
-
-  const int items = a.q_len << a.words_log2;
-  for (int i = start; i < last; ++i) {
-    const int32_t* line = s_cells + ((i - start) & 1) * a.q_len;
-    if (i + 1 < last) {  // the next line's cells and drift load while this one is swept
-      stage_line(s_cells + ((i + 1 - start) & 1) * a.q_len, a.cells,
-                 a.forward ? i + 1 : a.p_len - 2 - i, a.q_len);
-      load_rel(i + 1, r_next);
-    }
-    const uint32_t mid = ~(left | right);
-    const bool store = i >= first && any;
-    for (int k = threadIdx.x; k < items; k += blockDim.x) {
-      const int idx = k + words;  // cell q = k >> words_log2 at padded index q + 1
-      const uint32_t nbr =
-          (prev[idx - words] & left) | (prev[idx] & mid) | (prev[idx + words] & right);
-      const uint32_t cell = static_cast<uint32_t>(line[k >> a.words_log2]);
-      const uint32_t d = (cell & kOccupied) ? 0u : L::sat_inc(nbr, c_word);
-      cur[idx] = d;
-      const uint32_t row = cell & ~kOccupied;
-      if (!store || (a.skip_row0 && row == 0)) continue;
-      uint32_t e[L::kCount];
+    // the drift of this thread's lanes on sweep line i (0 outside the
+    // tile), and from it the masks of the lanes that read the cell to the
+    // left (rel -1) and to the right (rel +1)
+    auto load_rel = [&](int i, int (&r)[L::kCount]) {
+      const int8_t* row =
+          a.rel + static_cast<int64_t>(a.forward ? i : a.p_len - 1 - i) * a.b_count;
 #pragma unroll
-      for (int j = 0; j < L::kCount; ++j) e[j] = entry_bits(L::as_float_bits(d, j), sl[j], a.maxr);
-      OutT* dst = out + (a.row_base + row) * a.row_stride + col0;
-      if (vector_store) {
-        *reinterpret_cast<uint32_t*>(dst) = L::pack(e);
+      for (int j = 0; j < L::kCount; ++j) r[j] = col[j] >= 0 ? __ldg(row + col[j]) : 0;
+    };
+    auto masks = [&](const int (&r)[L::kCount], uint32_t& left, uint32_t& right) {
+      left = right = 0u;
+#pragma unroll
+      for (int j = 0; j < L::kCount; ++j) {
+        left |= r[j] < 0 ? L::mask(j) : 0u;
+        right |= r[j] > 0 ? L::mask(j) : 0u;
+      }
+    };
+    // the cell words of sweep line i
+    auto line_of = [&](int i) -> const int32_t* {
+      if constexpr (kGlobalD) {
+        return a.cells + static_cast<int64_t>(a.forward ? i : a.p_len - 1 - i) * a.q_len;
       } else {
+        return s_cells + ((i - start) & 1) * a.q_len;
+      }
+    };
+
+    if constexpr (!kGlobalD) {
+      stage_line(s_cells, a.cells, a.forward ? start : a.p_len - 1 - start, a.q_len);
+    }
+    int r_next[L::kCount];
+    load_rel(start, r_next);
+    uint32_t left, right;
+    masks(r_next, left, right);
+    if constexpr (!kGlobalD) asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+
+    for (int i = start; i < last; ++i) {
+      const int32_t* line = line_of(i);
+      if (i + 1 < last) {  // the next line's cells and drift load while this one is swept
+        if constexpr (!kGlobalD) {
+          stage_line(s_cells + ((i + 1 - start) & 1) * a.q_len, a.cells,
+                     a.forward ? i + 1 : a.p_len - 2 - i, a.q_len);
+        }
+        load_rel(i + 1, r_next);
+      }
+      const uint32_t mid = ~(left | right);
+      const bool store = i >= first && any;
+      for (int k = threadIdx.x; k < items; k += blockDim.x) {
+        const int idx = k + words;  // cell q = k >> words_log2 at padded index q + 1
+        const uint32_t nbr =
+            (prev[idx - words] & left) | (prev[idx] & mid) | (prev[idx + words] & right);
+        const uint32_t cell = static_cast<uint32_t>(
+            kGlobalD ? __ldg(line + (k >> a.words_log2)) : line[k >> a.words_log2]);
+        const uint32_t d = (cell & kOccupied) ? 0u : L::sat_inc(nbr, c_word);
+        cur[idx] = d;
+        const uint32_t row = cell & ~kOccupied;
+        if (!store || (a.skip_row0 && row == 0)) continue;
+        uint32_t e[L::kCount];
 #pragma unroll
         for (int j = 0; j < L::kCount; ++j) {
-          if (col[j] >= 0) dst[j] = static_cast<OutT>(e[j]);
+          e[j] = entry_bits(L::as_float_bits(d, j), sl[j], a.maxr);
+        }
+        OutT* dst = out + (a.row_base + row) * a.row_stride + col0;
+        if (vector_store) {
+          *reinterpret_cast<uint32_t*>(dst) = L::pack(e);
+        } else {
+#pragma unroll
+          for (int j = 0; j < L::kCount; ++j) {
+            if (col[j] >= 0) dst[j] = static_cast<OutT>(e[j]);
+          }
         }
       }
+      masks(r_next, left, right);
+      if constexpr (!kGlobalD) asm volatile("cp.async.wait_all;\n" ::: "memory");
+      __syncthreads();  // this line's D before the next line reads it, in either memory
+      uint32_t* t = prev;
+      prev = cur;
+      cur = t;
     }
-    masks(r_next, left, right);
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-    __syncthreads();
-    uint32_t* t = prev;
-    prev = cur;
-    cur = t;
   }
 }
 
 // Opt the instantiation into all the dynamic shared memory a block may
 // have, once per device: the attribute holds for every later launch.
-template <typename OutT>
+template <typename OutT, bool kGlobalD>
 cudaError_t opt_in_smem() {
   static unsigned done = 0;  // a bit per device
   int dev = 0;
@@ -264,39 +296,46 @@ cudaError_t opt_in_smem() {
   int optin = 0;
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(range_lut_sweep_kernel<OutT>,
+  err = cudaFuncSetAttribute(range_lut_sweep_kernel<OutT, kGlobalD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   if (err == cudaSuccess) done |= bit;
   return err;
 }
 
-template <typename OutT>
+template <typename OutT, bool kGlobalD>
 int occupancy(int threads, int q_len, int words, int* blocks) {
-  cudaError_t err = opt_in_smem<OutT>();
+  cudaError_t err = opt_in_smem<OutT, kGlobalD>();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, range_lut_sweep_kernel<OutT>, threads,
-      static_cast<size_t>(smem_bytes(q_len, words))));
+      blocks, range_lut_sweep_kernel<OutT, kGlobalD>, threads,
+      static_cast<size_t>(smem_bytes(q_len, words, kGlobalD))));
+}
+
+template <typename OutT, bool kGlobalD>
+int launch(const SweepArgs& a, int blocks, int threads, OutT* out, void* stream) {
+  const cudaError_t err = opt_in_smem<OutT, kGlobalD>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = static_cast<size_t>(smem_bytes(a.q_len, 1 << a.words_log2, kGlobalD));
+  range_lut_sweep_kernel<OutT, kGlobalD>
+      <<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(a, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename OutT>
 int launch(const SweepArgs& a, int blocks, int threads, OutT* out, void* stream) {
-  if (a.p_len <= 0 || a.q_len <= 0 || a.n_tiles <= 0 || blocks <= 0) return 0;
-  const cudaError_t err = opt_in_smem<OutT>();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = static_cast<size_t>(smem_bytes(a.q_len, 1 << a.words_log2));
-  range_lut_sweep_kernel<OutT><<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      a, out);
-  return static_cast<int>(cudaGetLastError());
+  if (a.p_len <= 0 || a.q_len <= 0 || a.n_tiles <= 0 || a.items <= 0 || blocks <= 0) return 0;
+  return a.scratch != nullptr ? launch<OutT, true>(a, blocks, threads, out, stream)
+                              : launch<OutT, false>(a, blocks, threads, out, stream);
 }
 
-SweepArgs make_args(const int32_t* cells, const int8_t* rel, const float* step_len,
-                    const int32_t* tiles, int n_tiles, int p_len, int q_len, int b_count,
-                    int words_log2, int lines, int forward, int skip_row0, int sat, float maxr,
-                    int vec_ok, int64_t row_stride, int64_t row_base) {
-  return SweepArgs{cells, rel, step_len, reinterpret_cast<const int4*>(tiles), n_tiles, p_len,
-                   q_len, b_count, words_log2, lines, forward, skip_row0, sat, maxr, vec_ok,
-                   row_stride, row_base};
+SweepArgs make_args(const int32_t* cells, uint32_t* scratch, const int8_t* rel,
+                    const float* step_len, const int32_t* tiles, int n_tiles, int items,
+                    int p_len, int q_len, int b_count, int words_log2, int lines, int forward,
+                    int skip_row0, int sat, float maxr, int vec_ok, int64_t row_stride,
+                    int64_t row_base) {
+  return SweepArgs{cells, scratch, rel, step_len, reinterpret_cast<const int4*>(tiles), n_tiles,
+                   items, p_len, q_len, b_count, words_log2, lines, forward, skip_row0, sat,
+                   maxr, vec_ok, row_stride, row_base};
 }
 
 }  // namespace
@@ -304,33 +343,42 @@ SweepArgs make_args(const int32_t* cells, const int8_t* rel, const float* step_l
 extern "C" {
 
 // Blocks of `threads` an SM holds for a line of q_len cells at `words`
-// words a cell (itemsize 1: u8, 2: u16); returns a CUDA error code.
-int mcl_range_lut_sweep_occupancy(int itemsize, int threads, int q_len, int words, int* blocks) {
-  return itemsize == 1 ? occupancy<uint8_t>(threads, q_len, words, blocks)
-                       : occupancy<uint16_t>(threads, q_len, words, blocks);
+// words a cell (itemsize 1: u8, 2: u16), with D in shared memory or, for
+// global_d, in global memory; returns a CUDA error code.
+int mcl_range_lut_sweep_occupancy(int itemsize, int threads, int q_len, int words, int global_d,
+                                  int* blocks) {
+  if (global_d) {
+    return itemsize == 1 ? occupancy<uint8_t, true>(threads, q_len, words, blocks)
+                         : occupancy<uint16_t, true>(threads, q_len, words, blocks);
+  }
+  return itemsize == 1 ? occupancy<uint8_t, false>(threads, q_len, words, blocks)
+                       : occupancy<uint16_t, false>(threads, q_len, words, blocks);
 }
 
-int mcl_range_lut_sweep_u8(const int32_t* cells, const int8_t* rel, const float* step_len,
-                           const int32_t* tiles, int n_tiles, int p_len, int q_len,
-                           int b_count, int words_log2, int lines, int forward, int skip_row0,
-                           int sat, float maxr, int vec_ok, int64_t row_stride,
-                           int64_t row_base, int blocks, int threads, uint8_t* out,
-                           void* stream) {
-  return launch<uint8_t>(make_args(cells, rel, step_len, tiles, n_tiles, p_len, q_len, b_count,
-                                   words_log2, lines, forward, skip_row0, sat, maxr, vec_ok,
-                                   row_stride, row_base),
+// One group's sweep over `items` (tile, chunk) pairs by `blocks` blocks;
+// `scratch` (blocks x 2 x (q_len + 2) x words words) puts D in global
+// memory, null keeps it in shared memory (then blocks == items).
+int mcl_range_lut_sweep_u8(const int32_t* cells, uint32_t* scratch, const int8_t* rel,
+                           const float* step_len, const int32_t* tiles, int n_tiles, int items,
+                           int p_len, int q_len, int b_count, int words_log2, int lines,
+                           int forward, int skip_row0, int sat, float maxr, int vec_ok,
+                           int64_t row_stride, int64_t row_base, int blocks, int threads,
+                           uint8_t* out, void* stream) {
+  return launch<uint8_t>(make_args(cells, scratch, rel, step_len, tiles, n_tiles, items, p_len,
+                                   q_len, b_count, words_log2, lines, forward, skip_row0, sat,
+                                   maxr, vec_ok, row_stride, row_base),
                          blocks, threads, out, stream);
 }
 
-int mcl_range_lut_sweep_u16(const int32_t* cells, const int8_t* rel, const float* step_len,
-                            const int32_t* tiles, int n_tiles, int p_len, int q_len,
-                            int b_count, int words_log2, int lines, int forward, int skip_row0,
-                            int sat, float maxr, int vec_ok, int64_t row_stride,
-                            int64_t row_base, int blocks, int threads, uint16_t* out,
-                            void* stream) {
-  return launch<uint16_t>(make_args(cells, rel, step_len, tiles, n_tiles, p_len, q_len,
-                                    b_count, words_log2, lines, forward, skip_row0, sat, maxr,
-                                    vec_ok, row_stride, row_base),
+int mcl_range_lut_sweep_u16(const int32_t* cells, uint32_t* scratch, const int8_t* rel,
+                            const float* step_len, const int32_t* tiles, int n_tiles, int items,
+                            int p_len, int q_len, int b_count, int words_log2, int lines,
+                            int forward, int skip_row0, int sat, float maxr, int vec_ok,
+                            int64_t row_stride, int64_t row_base, int blocks, int threads,
+                            uint16_t* out, void* stream) {
+  return launch<uint16_t>(make_args(cells, scratch, rel, step_len, tiles, n_tiles, items, p_len,
+                                    q_len, b_count, words_log2, lines, forward, skip_row0, sat,
+                                    maxr, vec_ok, row_stride, row_base),
                           blocks, threads, out, stream);
 }
 

@@ -8,6 +8,11 @@ from monte_carlo_localization_tpu_torch.mapping.grid_map import (
     map_from_occupancy,
     occupancy_from_image,
 )
+from monte_carlo_localization_tpu_torch.mapping.synthetic import (
+    box_world,
+    corridor_world,
+    random_obstacle_world,
+)
 
 __all__ = [
     "GridMap",
@@ -16,4 +21,7 @@ __all__ = [
     "occupancy_from_image",
     "clearance_field",
     "euclidean_distance_transform",
+    "box_world",
+    "corridor_world",
+    "random_obstacle_world",
 ]

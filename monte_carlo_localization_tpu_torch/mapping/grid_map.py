@@ -11,8 +11,9 @@ the ``device`` argument of its constructors (default: the card). Map
 preprocessing (clearance, free cells) runs on the host and is uploaded
 once. A map on the card builds its range LUTs there with the shear-sweep
 kernel (``mapping/range_lut_device.py``), so only the occupancy grid and a
-compact LUT's row map cross PCIe; a CPU map takes the native C++ host
-builder, or the sweep's plain version where that is unavailable.
+compact LUT's row map cross PCIe (:func:`lut_route`). A CPU map takes
+the native C++ host builder, or the sweep's plain version where that is
+unavailable.
 
 A batched (fleet) map, made by ``parallel.stack_maps``, has a leading map
 axis on every grid, per-map origins and free-cell counts as tensors, and
@@ -44,6 +45,7 @@ from monte_carlo_localization_tpu_torch.mapping.range_lut_device import (
     torch_lut_dtype,
 )
 from monte_carlo_localization_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from monte_carlo_localization_tpu_torch.utils.geometry import div
 
 OCC_FREE = 0
 OCC_OCCUPIED = 100
@@ -101,8 +103,9 @@ class GridMap:
     member_dims: torch.Tensor | None = None
     lut_member_base: torch.Tensor | None = None
     lut_row_map_base: torch.Tensor | None = None
-    # how the attached LUT was built ("kernel", "native", "plain"; "" when
-    # it came from from_numpy) and the build's wall seconds
+    # how the attached LUT was built ("kernel", "native", "plain";
+    # :func:`lut_route`; "" when it came from from_numpy) and the build's
+    # wall seconds
     lut_route: str = ""
     lut_build_s: float = 0.0
 
@@ -129,6 +132,24 @@ class GridMap:
     @property
     def row_stride(self) -> int:
         return self.lut_row_stride or self.lut_theta_bins
+
+    @property
+    def num_free_cells(self) -> int:
+        """Capacity of the free-cell table (the real count for a single map)."""
+        return self.free_cells.shape[-2]
+
+    # --- coordinate transforms (reference :625-627 and :438-440) ---
+    def world_to_grid(self, x, y):
+        """World (m) -> fractional grid (col, row); a tensor divides as
+        ``utils/geometry.py`` ``div`` does, as the CPU."""
+        gx, gy = x - self.origin_x, y - self.origin_y
+        if isinstance(gx, torch.Tensor):
+            return div(gx, self.resolution), div(gy, self.resolution)
+        return gx / self.resolution, gy / self.resolution
+
+    def grid_to_world(self, row, col):
+        """Grid cell -> world (m); the cell-corner convention of reference :438-440."""
+        return col * self.resolution + self.origin_x, row * self.resolution + self.origin_y
 
     def to(self, device: torch.device | str) -> "GridMap":
         """This map with every tensor on ``device`` (itself if already)."""
@@ -222,24 +243,13 @@ class GridMap:
             )
 
     def _lut_route(self, backend: str = "auto") -> str:
-        """Where a LUT of this map is built: ``"kernel"`` (the sweep
-        kernel, on the card), ``"native"`` (the host C++ builder, then
-        uploaded) or ``"plain"`` (the sweep's plain version on the CPU).
-        ``backend`` (the dense LUTs' option, as in the JAX package):
-        ``"auto"`` builds on the map's device (the native builder on a CPU
-        map when it is available); ``"device"`` always on the map's
-        device; ``"native"`` always on the host."""
+        """:func:`lut_route` of this map."""
         from monte_carlo_localization_tpu_torch import native
 
-        if backend not in ("auto", "device", "native"):
-            raise ValueError(f"unknown LUT backend {backend!r} (auto | device | native)")
-        if backend == "native":
-            if not native.available():
-                raise RuntimeError("native LUT builder unavailable (no C++ toolchain)")
-            return "native"
-        if self.device.type == "cuda":
-            return "kernel"
-        return "native" if backend == "auto" and native.available() else "plain"
+        # ask for the native builder (its first call compiles it) only where
+        # the route can take it
+        asks = backend == "native" or (backend == "auto" and self.device.type != "cuda")
+        return lut_route(self.device.type, backend, asks and native.available())
 
     def _with_lut(self, route: str, t0: float, **fields) -> "GridMap":
         """A copy with the LUT fields set and the build's route and seconds
@@ -519,6 +529,23 @@ class GridMap:
             lut_row_map_base=_upload(rmap_bases, self.device, np.int32),
         )
 
+    def with_padded_lut(self, row_stride: int) -> "GridMap":
+        """A copy with the attached LUT padded to ``row_stride`` entries a
+        row (angle wraparound in the tail), on the LUT's device. Prefer
+        ``with_range_lut(t, row_stride=...)``, which builds the padded
+        layout directly; this re-pads an attached LUT. Idempotent for the
+        same stride."""
+        if self.range_lut is None:
+            raise ValueError("attach a range LUT first (with_range_lut)")
+        if self.lut_row_stride == row_stride:
+            return self
+        if self.lut_row_stride != 0:
+            raise ValueError("LUT already padded with a different stride")
+        t = self.lut_theta_bins
+        rows = self.range_lut.view(-1, t)
+        padded = rows.repeat(1, -(-row_stride // t))[:, :row_stride].reshape(-1)
+        return dataclasses.replace(self, range_lut=padded, lut_row_stride=row_stride)
+
     def with_kernel_lut(self, t_bins: int, row_stride: int, itemsize: int) -> "GridMap":
         """Attach the LUT the fused likelihood reads: dense when it fits
         ``MCL_LUT_DENSE_MAX`` bytes (default 2 GiB), row-compacted beyond
@@ -541,6 +568,31 @@ class GridMap:
         if dense_bytes > max_dense:
             return self.with_compact_range_lut(t_bins, row_stride)
         return self.with_range_lut(t_bins, row_stride=row_stride)
+
+
+def lut_route(device_type: str, backend: str = "auto", native_available: bool = False) -> str:
+    """Where a LUT of a map on a ``device_type`` device is built, decided
+    before any launch:
+
+    * ``"kernel"``: the sweep kernel, on the card, for every card map (a
+      grid line past ``ops/range_lut_sweep.py`` ``MAX_LINE_CELLS`` keeps
+      the kernel's distances in global memory: ``line_layout``);
+    * ``"native"``: the host C++ builder, then uploaded;
+    * ``"plain"``: the sweep's plain version on the CPU.
+
+    ``backend`` (the dense LUTs' option, as in the JAX package):
+    ``"auto"`` builds on the map's device (the native builder on a CPU map
+    when ``native_available``); ``"device"`` always on the map's device;
+    ``"native"`` always on the host."""
+    if backend not in ("auto", "device", "native"):
+        raise ValueError(f"unknown LUT backend {backend!r} (auto | device | native)")
+    if backend == "native":
+        if not native_available:
+            raise RuntimeError("native LUT builder unavailable (no C++ toolchain)")
+        return "native"
+    if device_type == "cuda":
+        return "kernel"
+    return "native" if backend == "auto" and native_available else "plain"
 
 
 def _per_map(value, batched: bool, device) -> float | torch.Tensor:

@@ -5,7 +5,7 @@ from monte_carlo_localization_tpu_torch.ops.lut_query import (
     lut_log_weights_reference,
 )
 from monte_carlo_localization_tpu_torch.ops.mega_step import MegaStep, mega_step_reference
-from monte_carlo_localization_tpu_torch.ops.raycast import cast_rays_dda, cast_rays_sphere
+from monte_carlo_localization_tpu_torch.ops.raycast import cast_rays, cast_rays_dda, cast_rays_sphere
 from monte_carlo_localization_tpu_torch.ops.resample import (
     multinomial_resample_indices,
     resample_indices,
@@ -15,6 +15,7 @@ from monte_carlo_localization_tpu_torch.ops.resample import (
 
 __all__ = [
     "LUTQuery",
+    "cast_rays",
     "cast_rays_dda",
     "cast_rays_sphere",
     "dedup_plan",

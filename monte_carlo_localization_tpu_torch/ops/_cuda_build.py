@@ -182,14 +182,14 @@ def _bind(libs: dict[str, ctypes.CDLL]) -> None:
     for name in ("mcl_range_lut_sweep_u8", "mcl_range_lut_sweep_u16"):
         fn = getattr(sweep, name)
         fn.restype = i32
-        # cells, rel, step_len, tiles, n_tiles, p_len, q_len, b_count,
-        # words_log2, lines, forward, skip_row0, sat, maxr, vec_ok,
-        # row_stride, row_base, blocks, threads, out, stream
-        fn.argtypes = [p, p, p, p, i32, i32, i32, i32, i32, i32, i32, i32, i32,
+        # cells, scratch, rel, step_len, tiles, n_tiles, items, p_len,
+        # q_len, b_count, words_log2, lines, forward, skip_row0, sat, maxr,
+        # vec_ok, row_stride, row_base, blocks, threads, out, stream
+        fn.argtypes = [p, p, p, p, p, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32,
                        ctypes.c_float, i32, i64, i64, i32, i32, p, p]
     sweep.mcl_range_lut_sweep_occupancy.restype = i32
-    # itemsize, threads, q_len, words, blocks (out)
-    sweep.mcl_range_lut_sweep_occupancy.argtypes = [i32, i32, i32, i32,
+    # itemsize, threads, q_len, words, global_d, blocks (out)
+    sweep.mcl_range_lut_sweep_occupancy.argtypes = [i32, i32, i32, i32, i32,
                                                     ctypes.POINTER(ctypes.c_int)]
 
 

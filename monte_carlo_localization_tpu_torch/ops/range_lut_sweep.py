@@ -21,7 +21,11 @@ sweeps the group in blocks of one tile of adjacent physical bins
 (:func:`tile_plan`: a 32 B piece of each LUT row) by one chunk of lines
 (:func:`chunk_lines`), keeping D saturated at ``max_range_px + 1`` so a
 chunk can start from a warm-up of that many lines; the host makes both
-plans and the cell words in line order (:func:`line_cells`).
+plans and the cell words in line order (:func:`line_cells`). Two lines of
+D sit in a block's shared memory up to ``MAX_LINE_CELLS`` cells a line;
+a longer line keeps them in a global scratch of two lines a resident
+block (:func:`line_layout`), so every grid line the card can hold is
+swept by the kernel.
 """
 
 from __future__ import annotations
@@ -38,8 +42,12 @@ import torch.nn.functional as F
 # words (:func:`smem_bytes`, the kernel's own formula)
 SMEM_BYTES = 232_448
 LINE_WORDS = (8, 4, 2, 1)  # D words a cell: a tile of 32, 16, 8 or 4 B of a LUT row
-# the longest grid line the kernel sweeps (one word a cell)
+# the longest grid line whose two lines of D fit a block's shared memory
+# (one word a cell); a longer one keeps D in global memory
 MAX_LINE_CELLS = (SMEM_BYTES - 16) // 16
+# the most global scratch a launch with D in global memory takes: it caps
+# the blocks resident at once (two lines of D each)
+SCRATCH_BYTES = 256 << 20
 MAX_THREADS = 1024
 OCCUPIED = -(2**31)  # a cell word's flag (bit 31); the low bits are its LUT row
 # cost of a warm-up line against a stored line, for the chunk plan: a
@@ -50,14 +58,29 @@ WARM_COST = 0.3
 
 def smem_bytes(q_len: int, words: int) -> int:
     """Dynamic shared memory of a block sweeping lines of ``q_len`` cells
-    at ``words`` words a cell."""
+    at ``words`` words a cell, D in shared memory."""
     return 8 * words * (q_len + 2) + 8 * q_len
+
+
+def d_bytes(q_len: int, words: int) -> int:
+    """Two lines of D for lines of ``q_len`` cells at ``words`` words a
+    cell: a block's global scratch where D lies in global memory."""
+    return 8 * words * (q_len + 2)
 
 
 def line_words(q_len: int) -> int:
     """D words a cell for lines of ``q_len`` cells: the widest tile whose
     two lines fit a block's shared memory; 0 when none does."""
     return next((w for w in LINE_WORDS if smem_bytes(q_len, w) <= SMEM_BYTES), 0)
+
+
+def line_layout(q_len: int) -> tuple[int, bool]:
+    """(D words a cell, D in global memory) of the kernel's blocks for
+    lines of ``q_len`` cells, decided from the length alone before any
+    launch: :func:`line_words` in shared memory, else the widest tile with
+    D in global memory."""
+    words = line_words(q_len)
+    return (words, False) if words else (LINE_WORDS[0], True)
 
 
 def tile_plan(bins: np.ndarray, lanes: int) -> np.ndarray:
@@ -172,7 +195,9 @@ class RangeLUTSweep:
     launch, counted in ``launch_count`` and planned by :meth:`plan`; on
     CPU tensors the plain version runs. ``bins`` is read on the host,
     where the tile plan is made (a CUDA tensor costs a sync). A kernel
-    that does not build or launch raises."""
+    that does not build or launch raises; so does a line past
+    ``MAX_LINE_CELLS``, where D goes to a global scratch, if that scratch
+    cannot be allocated."""
 
     def __init__(self):
         self.launch_count = 0
@@ -212,12 +237,17 @@ class RangeLUTSweep:
         fn = lib.mcl_range_lut_sweep_u16 if itemsize == 2 else lib.mcl_range_lut_sweep_u8
         cells = line_cells(occupied, row_map, row_major)
         vec_ok = (row_stride * itemsize) % 4 == 0 and out.data_ptr() % 4 == 0
-        err = fn(cells.data_ptr(), rel.data_ptr(), step_len.data_ptr(),
-                 upload(plan["tile_table"], dev, torch.int32).data_ptr(), plan["tiles"], p_len,
-                 q_len, b, plan["words"].bit_length() - 1, plan["lines"], int(forward),
-                 int(row_map is not None), int(max_range_px) + 1, float(max_range_px),
-                 int(vec_ok), row_stride, row_base, plan["blocks"], plan["threads"],
-                 out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        # two lines of D a resident block, freed to the stream's allocator
+        # once the launch is queued
+        scratch = (torch.empty(plan["scratch_bytes"] // 4, dtype=torch.int32, device=dev)
+                   if plan["global_d"] else None)
+        err = fn(cells.data_ptr(), None if scratch is None else scratch.data_ptr(),
+                 rel.data_ptr(), step_len.data_ptr(),
+                 upload(plan["tile_table"], dev, torch.int32).data_ptr(), plan["tiles"],
+                 plan["blocks"], p_len, q_len, b, plan["words"].bit_length() - 1, plan["lines"],
+                 int(forward), int(row_map is not None), int(max_range_px) + 1,
+                 float(max_range_px), int(vec_ok), row_stride, row_base, plan["grid"],
+                 plan["threads"], out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"range_lut_sweep launch failed: CUDA error {err} "
                                f"({load_library().error_string(err)})")
@@ -226,15 +256,16 @@ class RangeLUTSweep:
     def plan(self, p_len: int, q_len: int, bins, itemsize: int, max_range_px: int,
              device: torch.device) -> dict:
         """The launch of one group on ``device``: its tiles (``tile_table``,
-        ``tiles``, ``words`` a cell), ``threads`` a block, the ``slots`` an
-        SM count and occupancy give, the chunk ``lines``, ``chunks``,
-        ``blocks`` and the ``warm_share`` of swept lines. Raises
-        ``ValueError`` where a line or the range does not fit the kernel,
+        ``tiles``, ``words`` a cell), where D lies (``global_d``,
+        :func:`line_layout`), ``threads`` a block, the ``slots`` an SM
+        count and occupancy give (and, for D in global memory, the
+        scratch cap), the chunk ``lines``, ``chunks``, ``blocks`` (the
+        (tile, chunk) items), the ``grid`` that sweeps them (``blocks``,
+        or at most ``slots`` blocks that loop over them), its
+        ``scratch_bytes`` and the ``warm_share`` of swept lines. Raises
+        ``ValueError`` where the range does not fit the kernel,
         ``RuntimeError`` where its library did not build."""
-        words = line_words(q_len)
-        if not words:
-            raise ValueError(f"a grid line of {q_len} cells exceeds the sweep kernel's "
-                             f"{MAX_LINE_CELLS} (two lines in shared memory)")
+        words, global_d = line_layout(q_len)
         sat = int(max_range_px) + 1  # D saturates here, in a lane of the LUT's width
         if sat >= 1 << (8 * itemsize):
             raise ValueError(f"max_range_px {max_range_px} does not fit the sweep's "
@@ -248,7 +279,7 @@ class RangeLUTSweep:
                                f"(built: {sorted(built.libs)})")
         tiles = tile_plan(np.asarray(bins), words * 4 // itemsize)
         threads = min(MAX_THREADS, -(-q_len * words // 32) * 32)
-        key = (itemsize, threads, q_len, words)
+        key = (itemsize, threads, q_len, words, int(global_d))
         if key not in self._occupancy:
             n = ctypes.c_int(0)
             err = lib.mcl_range_lut_sweep_occupancy(*key, ctypes.byref(n))
@@ -257,11 +288,16 @@ class RangeLUTSweep:
                                    f"({built.error_string(err)}), {n.value} blocks an SM")
             self._occupancy[key] = n.value
         slots = torch.cuda.get_device_properties(device).multi_processor_count * self._occupancy[key]
+        if global_d:
+            slots = max(1, min(slots, SCRATCH_BYTES // d_bytes(q_len, words)))
         lines = chunk_lines(p_len, len(tiles), sat, slots)
         chunks = -(-p_len // lines)
+        blocks = len(tiles) * chunks
+        grid = min(blocks, slots) if global_d else blocks
         return dict(tile_table=tiles, tiles=len(tiles), words=words, tile_bytes=4 * words,
-                    threads=threads, slots=slots, lines=lines, chunks=chunks,
-                    blocks=len(tiles) * chunks, p_len=p_len,
+                    global_d=global_d, threads=threads, slots=slots, lines=lines, chunks=chunks,
+                    blocks=blocks, grid=grid,
+                    scratch_bytes=grid * d_bytes(q_len, words) if global_d else 0, p_len=p_len,
                     warm_lines=warm_lines(p_len, lines, sat),
                     warm_share=warm_share(p_len, lines, sat))
 

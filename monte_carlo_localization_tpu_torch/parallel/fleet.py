@@ -20,6 +20,10 @@ on a stacked map of one map per member (the JAX fleet vmaps
 (``GridMap.with_range_lut`` of the batched map). ``map_assignment``
 needs ``lut_pallas``, as in the JAX fleet.
 
+``MCLConfig.pallas_mega`` serves a single filter: a fleet ignores it and
+runs the classic fleet step, as the JAX fleet does (it never reads the
+flag), so one config file can drive both.
+
 Not ported: a mesh or particle axis (torch.distributed, ROADMAP.md queue
 1, item 8). It raises; the filter never runs another path.
 """
@@ -42,7 +46,7 @@ from monte_carlo_localization_tpu_torch.filter.core import (
 from monte_carlo_localization_tpu_torch.filter.init import initialize_pose
 from monte_carlo_localization_tpu_torch.mapping.grid_map import OCC_OCCUPIED, GridMap
 from monte_carlo_localization_tpu_torch.models.sensor import SensorModel
-from monte_carlo_localization_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from monte_carlo_localization_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device, upload
 
 
 @dataclass(frozen=True)
@@ -177,8 +181,6 @@ class FleetFilter:
             raise ValueError(f"Unknown resample method: {cfg.resample_method!r}")
         if cfg.sensor_model_mode not in ("analytic", "table"):
             raise ValueError(f"Unknown sensor model mode: {cfg.sensor_model_mode!r}")
-        if cfg.pallas_mega:
-            raise ValueError("pallas_mega serves a single filter (ParticleFilter), not a fleet")
         if fleet_size < 1:
             raise ValueError(f"fleet_size {fleet_size} < 1")
         self.map_assignment = None
@@ -305,7 +307,7 @@ class FleetFilter:
     def _as(self, x, shape: tuple, name: str) -> torch.Tensor | None:
         if x is None:
             return None
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        x = upload(x, self.device)
         if tuple(x.shape) != shape:
             raise ValueError(f"{name} shape {tuple(x.shape)} != {shape}")
         return x
@@ -329,13 +331,14 @@ class FleetFilter:
 
     def step(self, state: FleetState, actions, scans, u0=None, noise=None):
         """One correction of every member, launched without waiting for the
-        device: ``actions`` (F, 3), ``scans`` (F, R) in meters. Optional
+        device (host inputs go up through pinned memory): ``actions``
+        (F, 3), ``scans`` (F, R) in meters. Optional
         draws: ``u0`` (F,) and ``noise`` (F, N, 3). Returns (state, poses
         (F, 3))."""
         self._require_beams()
         f, n = self.fleet_size, state.particles.shape[1]
         actions = self._as(actions, (f, 3), "actions")
-        scans = torch.as_tensor(scans, dtype=torch.float32, device=self.device)
+        scans = upload(scans, self.device)
         obs_px = self.sensor.to_pixel_index(scans).to(torch.float32)
         return self._step(state, actions, obs_px, self._as(u0, (f,), "u0"),
                           self._as(noise, (f, n, 3), "noise"))
@@ -346,10 +349,10 @@ class FleetFilter:
         (K, F) and ``noise`` (K, F, N, 3). Returns (state, poses (K, F, 3))."""
         self._require_beams()
         f, n = self.fleet_size, state.particles.shape[1]
-        actions = torch.as_tensor(actions, dtype=torch.float32, device=self.device)
+        actions = upload(actions, self.device)
         k = actions.shape[0]
         actions = self._as(actions, (k, f, 3), "actions")
-        scans = torch.as_tensor(scans, dtype=torch.float32, device=self.device)
+        scans = upload(scans, self.device)
         if scans.shape[:2] != (k, f):
             raise ValueError(f"scans shape {tuple(scans.shape)} != ({k}, {f}, R)")
         obs_px = self.sensor.to_pixel_index(scans).to(torch.float32)

@@ -1,8 +1,11 @@
 """``chip_smoke.py`` on a machine without a card: it refuses to run,
 prints no result and imports nothing of JAX; its bounds count the
 operations the kernels' beam term needs and the bytes a LUT build
-moves; a path's LUT must come from the sweep kernel, and the oracle of
-the card builds rebuilds every kind of LUT."""
+moves; a path's LUT must come from the sweep kernel (the long-line
+corridor's and hall's too), and the oracle of the card
+builds rebuilds every kind of LUT; ``fleet_live`` runs bench.py's fleet
+live workload; ``runtime_io``'s bag gate passes a real round trip and
+catches a changed one."""
 
 import dataclasses
 import inspect
@@ -79,6 +82,7 @@ def test_knife_edge_ranges_hold_every_half_pixel_and_its_neighbours():
     ("phase_live", "LIVE_POSE_TOL", 0.15),
     ("phase_inject", "INJECT_RMSE_MAX", 0.075),
     ("phase_methods", "METHODS_RMSE_MAX", 0.075),
+    ("phase_runtime_io", "CLI_RMSE_MAX", 0.075),
 ])
 def test_runtime_phases_gate_on_their_constants(phase, constant, value):
     """The runtime phases' gates read their thresholds from the module's
@@ -149,3 +153,64 @@ def test_native_oracle_rebuilds_every_lut_kind(monkeypatch):
     shifted[1] += 1
     with pytest.raises(RuntimeError, match="member LUT bases"):
         chip_smoke.native_lut(dataclasses.replace(built[3], lut_member_base=shifted))
+
+
+@pytest.mark.parametrize("route", ["native", "plain", ""])
+def test_card_vs_native_checks_the_route(route):
+    from types import SimpleNamespace
+
+    with pytest.raises(RuntimeError, match="want 'kernel'"):
+        chip_smoke.card_vs_native("x", SimpleNamespace(lut_route=route))
+
+
+@pytest.mark.parametrize("name", ["LONG_LINE_MAP", "LONG_LINE_HALL"])
+def test_long_line_maps_pass_the_shared_line_limit_on_one_side(name):
+    """The corridor and the hall have rows past MAX_LINE_CELLS (the
+    kernel keeps their D in global memory) and columns within it."""
+    from monte_carlo_localization_tpu_torch.ops.range_lut_sweep import (
+        MAX_LINE_CELLS,
+        line_layout,
+    )
+
+    h, w = getattr(chip_smoke, name)["height"], getattr(chip_smoke, name)["width"]
+    assert w == 15_000 and h in (64, 2048) and h <= MAX_LINE_CELLS < w
+    assert line_layout(w)[1] and not line_layout(h)[1]
+
+
+def test_fleet_live_runs_bench_fleet_live_workload():
+    """The phase runs bench.py ``bench_fleet_live``'s defaults (async depth
+    4, an 8 s window) on config #5's maps, and its source holds the gates:
+    drift over harvested + depth corrections, twice config #1's RMSE gate
+    for the standing cars, one fleet launch per dispatch and no
+    single-filter launch."""
+    import re
+
+    bench = (REPO / "bench.py").read_text()
+    sig = re.search(r"def bench_fleet_live\(([^)]*)\)", bench).group(1)
+    assert "async_depth=4" in sig and "duration_s=8.0" in sig
+    assert (chip_smoke.FLEET_LIVE_DEPTH, chip_smoke.FLEET_LIVE_SECONDS) == (4, 8.0)
+    assert chip_smoke.CONFIG5_FLEET == 64 and len(chip_smoke.CONFIG5_MAPS) == 4
+    src = inspect.getsource(chip_smoke.phase_fleet_live)
+    assert "harvested + FLEET_LIVE_DEPTH" in src
+    assert chip_smoke.FLEET_STATIONARY_ERR_M == 2 * chip_smoke.CONFIG1_RMSE_MAX == 0.15
+    assert "err.max() < FLEET_STATIONARY_ERR_M" in src
+    assert "q.fleet_launch_count == node.dispatched and q.launch_count == 0" in src
+
+
+def test_bag_roundtrip_gate(tmp_path):
+    """``runtime_io``'s gate passes config #1's real round trip and fails
+    a trace whose scans changed."""
+    import dataclasses as dc
+
+    from monte_carlo_localization_tpu_torch.runtime.rosbag import export_bag, import_bag
+    from monte_carlo_localization_tpu_torch.runtime.trace import Trace
+
+    orig = Trace.load(REPO / chip_smoke.CONFIG1_TRACE)
+    back = import_bag(export_bag(orig, tmp_path / "bag"), map_name=orig.map_name)
+    errs = chip_smoke.bag_roundtrip_errors(orig, back)
+    assert errs["time_s"] <= chip_smoke.BAG_TIME_TOL and errs["yaw_rad"] <= chip_smoke.BAG_YAW_TOL
+    assert 0 < errs["beam_angle_rad"] <= chip_smoke.BAG_BEAM_TOL
+    scans = back.scan_ranges.copy()
+    scans[3, 7] = np.nextafter(scans[3, 7], np.float32(np.inf))
+    with pytest.raises(RuntimeError, match="changed scan_ranges"):
+        chip_smoke.bag_roundtrip_errors(orig, dc.replace(back, scan_ranges=scans))

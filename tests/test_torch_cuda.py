@@ -1045,19 +1045,68 @@ def test_range_lut_sweep_kernel_edges(cuda, kind):
 
 
 def test_range_lut_sweep_kernel_longest_line(cuda):
-    """A line of MAX_LINE_CELLS cells (one word a cell) bit for bit the
-    plain version on the CPU; one cell more is refused before launch."""
-    from monte_carlo_localization_tpu_torch.mapping.range_lut_device import build_range_lut_device
-    from monte_carlo_localization_tpu_torch.ops.range_lut_sweep import MAX_LINE_CELLS, line_words
+    """A line of MAX_LINE_CELLS cells (one word a cell, D in shared
+    memory) bit for bit the plain version on the CPU; one cell more keeps
+    D in global memory, every group still through the kernel, bit for bit
+    the same."""
+    from monte_carlo_localization_tpu_torch.mapping.range_lut_device import (
+        build_range_lut_device,
+        shear_groups,
+    )
+    from monte_carlo_localization_tpu_torch.ops.range_lut_sweep import (
+        MAX_LINE_CELLS,
+        line_words,
+        sweep,
+    )
 
     assert line_words(MAX_LINE_CELLS) == 1
+    assert not sweep.plan(4, MAX_LINE_CELLS, np.arange(2), 1, 20, cuda)["global_d"]
     occ = np.zeros((4, MAX_LINE_CELLS), bool)
     occ[1, ::997] = occ[3, 5::1301] = True
     got = build_range_lut_device(torch.from_numpy(occ).to(cuda), 8, 20, 8)
     assert torch.equal(got.cpu(), build_range_lut_device(torch.from_numpy(occ), 8, 20, 8))
-    with pytest.raises(ValueError, match="exceeds the sweep kernel"):
-        build_range_lut_device(torch.zeros((4, MAX_LINE_CELLS + 1), dtype=torch.bool,
-                                           device=cuda), 8, 20, 8)
+    assert sweep.plan(4, MAX_LINE_CELLS + 1, np.arange(2), 1, 20, cuda)["global_d"]
+    longer = np.zeros((4, MAX_LINE_CELLS + 1), bool)
+    longer[2, 7::1009] = True
+    before = sweep.launch_count
+    got = build_range_lut_device(torch.from_numpy(longer).to(cuda), 8, 20, 8)
+    assert sweep.launch_count - before == len(shear_groups(4, MAX_LINE_CELLS + 1, 8))
+    assert torch.equal(got.cpu(), build_range_lut_device(torch.from_numpy(longer), 8, 20, 8))
+
+
+@pytest.mark.parametrize("mrp", [20, 300], ids=["u8", "u16"])
+def test_range_lut_sweep_kernel_global_d(cuda, monkeypatch, mrp):
+    """Rows past MAX_LINE_CELLS (D in global memory) over enough lines for
+    chunks with warm-ups, bit for bit the plain version on the CPU; with
+    the scratch cut to one block, that block loops over every (tile,
+    chunk) item, bit for bit the same."""
+    from monte_carlo_localization_tpu_torch.mapping.range_lut_device import (
+        build_range_lut_device,
+        shear_groups,
+    )
+    from monte_carlo_localization_tpu_torch.ops import range_lut_sweep
+    from monte_carlo_localization_tpu_torch.ops.range_lut_sweep import (
+        MAX_LINE_CELLS,
+        d_bytes,
+        sweep,
+    )
+
+    h, w, t = 200, MAX_LINE_CELLS + 40, 256
+    occ = _sweep_occ(h, w, 9)
+    want = build_range_lut_device(torch.from_numpy(occ), t, mrp, t)
+    dev_occ = torch.from_numpy(occ).to(cuda)
+    rows = next(g for g in shear_groups(h, w, t, t) if g.row_major)
+    itemsize = 1 if mrp < 255 else 2
+    plan = sweep.plan(h, w, rows.bins, itemsize, mrp, cuda)
+    assert plan["global_d"] and plan["chunks"] > 1 and plan["warm_lines"] > 0
+    before = sweep.launch_count
+    got = build_range_lut_device(dev_occ, t, mrp, t)
+    assert sweep.launch_count - before == len(shear_groups(h, w, t, t))
+    assert torch.equal(got.cpu(), want)
+    monkeypatch.setattr(range_lut_sweep, "SCRATCH_BYTES", d_bytes(w, plan["words"]))
+    plan = sweep.plan(h, w, rows.bins, itemsize, mrp, cuda)
+    assert plan["grid"] == 1 < plan["blocks"]
+    assert torch.equal(build_range_lut_device(dev_occ, t, mrp, t).cpu(), want)
 
 
 def test_range_lut_sweep_member_blocks_in_one_buffer(cuda):
@@ -1141,3 +1190,92 @@ def test_methods_on_the_card_match_the_cpu(cuda, method):
     np.testing.assert_allclose(out[cuda][0], out["cpu"][0], rtol=0, atol=1e-3)
     rows = np.all(np.abs(out[cuda][1] - out["cpu"][1]) <= 1e-4, axis=1)
     assert rows.mean() >= 0.99, rows.mean()
+
+
+def test_long_lines_on_the_card_equal_the_native_builder(cuda):
+    """A card map with rows past MAX_LINE_CELLS builds by the kernel (D in
+    global memory for its rows), every group one launch, and its dense
+    and compact LUTs equal the native host builder's bit for bit."""
+    from monte_carlo_localization_tpu_torch import native
+    from monte_carlo_localization_tpu_torch.mapping import corridor_world
+    from monte_carlo_localization_tpu_torch.mapping.range_lut import build_range_lut
+    from monte_carlo_localization_tpu_torch.mapping.range_lut_device import shear_groups
+    from monte_carlo_localization_tpu_torch.native import native_build_compact_range_lut
+    from monte_carlo_localization_tpu_torch.ops.range_lut_sweep import MAX_LINE_CELLS, sweep
+
+    if not native.available():
+        pytest.skip("no C++ toolchain for the native oracle")
+    gm = corridor_world(height=24, width=MAX_LINE_CELLS + 300, corridor_half_width=6,
+                        max_range_meters=1.5, device=cuda)
+    host = gm.occupied.cpu().numpy()
+    groups = len(shear_groups(gm.height, gm.width, 90, 90))
+    before = sweep.launch_count
+    dense = gm.with_range_lut(90, use_cache=False)
+    assert dense.lut_route == "kernel" and sweep.launch_count - before == groups
+    want = build_range_lut(host, 90, gm.max_range_px, backend="native")
+    assert torch.equal(dense.range_lut.cpu(), torch.from_numpy(np.asarray(want).reshape(-1)))
+    compact = gm.with_compact_range_lut(90, 512)
+    assert compact.lut_route == "kernel"
+    want = native_build_compact_range_lut(host, 90, gm.max_range_px,
+                                          compact.lut_row_map.cpu().numpy(), 512)
+    assert torch.equal(compact.range_lut.cpu(), torch.from_numpy(want.reshape(-1)))
+
+
+def test_fleet_node_on_the_card_matches_the_cpu(cuda):
+    """A ``FleetNode`` on the card against one on the CPU, both fed the
+    same draws: poses within 1e-3 at every synchronous correction and 99%
+    of particle rows within 1e-4; the card's corrections each launch the
+    fleet kernel once."""
+    from monte_carlo_localization_tpu_torch import MCLConfig
+    from monte_carlo_localization_tpu_torch.mapping import map_from_occupancy
+    from monte_carlo_localization_tpu_torch.ops.raycast import cast_rays_dda
+    from monte_carlo_localization_tpu_torch.parallel import stack_maps
+    from monte_carlo_localization_tpu_torch.runtime import FleetNode
+
+    f, n, beams = 4, 256, _beams(60)
+    occs = [np.where(_sweep_occ(96, 112, s), 100, 0).astype(np.int8) for s in (3, 4)]
+    asg = np.arange(f, dtype=np.int32) % 2
+    poses = np.float64([[2.0, 2.2, 0.3], [3.1, 2.6, -0.4], [2.4, 3.0, 1.2], [3.5, 1.8, 2.5]])
+    cpu_maps = [map_from_occupancy(o, resolution=0.05, max_range_meters=4.0, device="cpu")
+                for o in occs]
+    scans = []
+    for i, p in enumerate(poses):
+        bt = torch.from_numpy(beams)
+        q = torch.stack([torch.full_like(bt, p[0]), torch.full_like(bt, p[1]), p[2] + bt], 1)
+        scans.append(cast_rays_dda(cpu_maps[asg[i]], q.float()).numpy())
+    rng = np.random.default_rng(9)
+    cloud = (np.repeat(poses[:, None], n, 1) + rng.normal(0, 0.05, (f, n, 3))).astype(np.float32)
+    steps = [dict(u0=rng.uniform(size=f).astype(np.float32),
+                  noise=rng.normal(size=(f, n, 3)).astype(np.float32)) for _ in range(6)]
+
+    class Draws:
+        def __init__(self):
+            self.steps = iter(steps)
+
+        def init(self, kind, seed, p):
+            return cloud, np.zeros((f, n), np.float32)
+
+        def step(self):
+            return next(self.steps)
+
+    nodes = {}
+    for d in ("cpu", cuda):
+        maps = [map_from_occupancy(o, resolution=0.05, max_range_meters=4.0, device=d)
+                for o in occs]
+        node = nodes[d] = FleetNode(stack_maps(maps), f, MCLConfig(max_particles=n),
+                                    map_assignment=asg, rng_seed=0, draws=Draws())
+        node.initialize_pose(poses)
+        for m in range(f):
+            node.on_scan(m, scans[m], beam_angles=beams)
+            node.on_odometry(m, *poses[m], 0.2, 0.1, stamp=0.0)
+        node.update(now=0.0)
+    q = nodes[cuda].filter.likelihood
+    q.fleet_launch_count = 0
+    for i in range(6):
+        got = {d: node.update(now=0.05 * (i + 1)) for d, node in nodes.items()}
+        np.testing.assert_allclose(got[cuda], got["cpu"], rtol=0, atol=1e-3)
+        rows = np.all(np.abs(nodes[cuda].state.particles.cpu().numpy()
+                             - nodes["cpu"].state.particles.numpy()) <= 1e-4, axis=2)
+        assert rows.mean() >= 0.99, (i, rows.mean())
+    assert q.fleet_launch_count == 6 and q.launch_count == 0
+    assert nodes[cuda].filter.map.lut_route == "kernel"

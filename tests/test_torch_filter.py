@@ -207,7 +207,13 @@ def test_package_imports_without_jax():
         "monte_carlo_localization_tpu_torch.filter.mega, "
         "monte_carlo_localization_tpu_torch.parallel, "
         "monte_carlo_localization_tpu_torch.ops.probes, "
-        "monte_carlo_localization_tpu_torch.tools.mega_probe\n"
+        "monte_carlo_localization_tpu_torch.tools.mega_probe, "
+        "monte_carlo_localization_tpu_torch.runtime.fleet_node, "
+        "monte_carlo_localization_tpu_torch.runtime.viz, "
+        "monte_carlo_localization_tpu_torch.runtime.webviz, "
+        "monte_carlo_localization_tpu_torch.runtime.rosbag, "
+        "monte_carlo_localization_tpu_torch.runtime.ros2_bridge, "
+        "monte_carlo_localization_tpu_torch.mapping.synthetic\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k.startswith('monte_carlo_localization_tpu.')"
         " or k == 'monte_carlo_localization_tpu')\n"

@@ -466,3 +466,36 @@ def test_fleet_launch_needs_its_tables():
     assert tables.npm == 4 and tables is tq.fleet_tables(parts, obs)  # built once per shape
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         tq.launch(lut, parts, obs, tables=tables)
+
+
+def test_fleet_ignores_pallas_mega_as_jax_does():
+    """A config with ``pallas_mega=True`` drives a fleet as the JAX fleet
+    does, which never reads the flag: the classic fleet step, equal to
+    the JAX fleet's on its draws and bit-equal to the port's fleet
+    without the flag (the flag serves a single filter only)."""
+    jm, _, pairs = _stacked(MAP_SPECS[:2])
+    f, n = 4, 96
+    asg = np.array([0, 1, 1, 0], np.int32)
+    cfg = dict(max_particles=n, raycast_method="lut_pallas")
+    jff = JFleetFilter(jm, fleet_size=f, config=JMCLConfig(**cfg, pallas_mega=True),
+                       beam_angles=BEAMS, map_assignment=asg)
+    fleets = {mega: FleetFilter(_carry(jff.map), f, MCLConfig(**cfg, pallas_mega=mega),
+                                beam_angles=BEAMS, map_assignment=asg) for mega in (True, False)}
+    poses0 = np.float32([[1.0, 1.2, 0.3], [1.5, -0.2, 0.1], [1.2, 0.4, -0.5], [1.1, 1.6, 2.0]])
+    scans = np.stack([_scan(pairs[a][0], p + 0.03) for a, p in zip(asg, poses0)])
+    js = jff.init_pose(poses0, seed=2)
+    states = {mega: FleetState.from_numpy(np.asarray(js.particles), np.asarray(js.log_weights),
+                                          seed=0, device="cpu") for mega in fleets}
+    for i in range(2):
+        actions = np.tile(np.float32([0.03, 0.0, 0.01]), (f, 1))
+        u0, noise = _jax_member_draws(js.keys, n)
+        js, jposes = jff.step(js, actions, scans)
+        out = {}
+        for mega, ff in fleets.items():
+            states[mega], out[mega] = ff.step(states[mega], actions, scans, u0=u0, noise=noise)
+        np.testing.assert_allclose(out[True].numpy(), np.asarray(jposes), rtol=0, atol=1e-3)
+        row_ok = np.all(np.abs(states[True].particles.numpy() - np.asarray(js.particles)) <= 1e-4,
+                        axis=2)
+        assert row_ok.mean() >= 0.99, f"step {i}: {row_ok.mean():.3f} rows equal"
+        assert torch.equal(out[True], out[False])
+        assert torch.equal(states[True].particles, states[False].particles)

@@ -119,3 +119,161 @@ def test_from_numpy_carries_the_jax_map():
             range_lut=np.zeros(1000, np.uint8), lut_theta_bins=90,
             lut_row_stride=1024, device="cpu",
         )
+
+
+SYNTHETIC = {
+    "box_world": dict(height=50, width=70, wall=2, origin=(0.5, -0.25, 0.0)),
+    "corridor_world": dict(height=40, width=160, corridor_half_width=8),
+    "random_obstacle_world": dict(height=90, width=110, num_obstacles=9, seed=7),
+}
+
+
+@pytest.mark.parametrize("name", list(SYNTHETIC))
+def test_synthetic_worlds_match_jax(name):
+    import monte_carlo_localization_tpu.mapping as jmapping
+    import monte_carlo_localization_tpu_torch.mapping as tmapping
+
+    kw = SYNTHETIC[name]
+    jm, tm = getattr(jmapping, name)(**kw), getattr(tmapping, name)(**kw, device="cpu")
+    for field in ("occupancy", "occupied", "permissible", "clearance", "free_cells"):
+        np.testing.assert_array_equal(getattr(tm, field).numpy(), np.asarray(getattr(jm, field)),
+                                      err_msg=field)
+    assert (tm.num_free, tm.name, tm.max_range_px, tm.resolution) == (
+        int(jm.num_free), jm.name, jm.max_range_px, jm.resolution)
+    assert (tm.origin_x, tm.origin_y) == (float(jm.origin_x), float(jm.origin_y))
+
+
+def test_grid_helpers_match_jax():
+    """``num_free_cells``, ``world_to_grid``, ``grid_to_world`` and
+    ``with_padded_lut`` of the JAX ``GridMap`` (``grid_map.py:548-596``),
+    on one map and on a stacked one."""
+    from monte_carlo_localization_tpu.parallel import stack_maps as j_stack_maps
+    from monte_carlo_localization_tpu_torch.parallel import stack_maps
+
+    jm, tm = _maps(3.0)
+    assert tm.num_free_cells == jm.num_free_cells
+    j2, t2 = _maps(3.0)
+    assert stack_maps([tm, t2]).num_free_cells == j_stack_maps([jm, j2]).num_free_cells
+    rng = np.random.default_rng(4)
+    x, y = rng.uniform(-3, 5, 16), rng.uniform(-2, 6, 16)
+    # JAX computes in float32 (its origins are float32 arrays), the port in
+    # float64 from the same float32 origins: equal to float32 rounding
+    np.testing.assert_allclose(np.stack(tm.world_to_grid(x, y)),
+                               np.stack(jm.world_to_grid(x, y)), rtol=1e-6, atol=0)
+    row, col = rng.integers(0, 72, 16), rng.integers(0, 96, 16)
+    np.testing.assert_allclose(np.stack(tm.grid_to_world(row, col)),
+                               np.stack(jm.grid_to_world(row, col)), rtol=1e-6, atol=0)
+    t, stride = 90, 256
+    jl, tl = jm.with_range_lut(t, use_cache=False), tm.with_range_lut(t, use_cache=False)
+    jp, tp = jl.with_padded_lut(stride), tl.with_padded_lut(stride)
+    np.testing.assert_array_equal(tp.range_lut.numpy(), np.asarray(jp.range_lut).reshape(-1))
+    assert tp.lut_row_stride == jp.lut_row_stride == stride and tp.row_stride == stride
+    assert tp.with_padded_lut(stride) is tp
+    with pytest.raises(ValueError, match="different stride"):
+        tp.with_padded_lut(stride + 16)
+    with pytest.raises(ValueError, match="attach a range LUT first"):
+        tm.with_padded_lut(stride)
+
+
+@pytest.mark.parametrize("device, backend, native, want", [
+    ("cuda", "auto", True, "kernel"),
+    ("cuda", "auto", False, "kernel"),
+    ("cuda", "device", False, "kernel"),
+    ("cuda", "native", True, "native"),
+    ("cpu", "auto", True, "native"),
+    ("cpu", "auto", False, "plain"),
+    ("cpu", "device", True, "plain"),
+    ("cpu", "native", True, "native"),
+])
+def test_lut_route_is_decided_before_any_launch(device, backend, native, want):
+    """Where a LUT is built is a pure function of the device type, the
+    backend and whether the native builder is there: every card map takes
+    the kernel, whatever its shape."""
+    from monte_carlo_localization_tpu_torch.mapping.grid_map import lut_route
+
+    assert lut_route(device, backend, native) == want
+
+
+def test_lut_route_refuses_what_it_cannot_build():
+    from monte_carlo_localization_tpu_torch.mapping.grid_map import lut_route
+
+    with pytest.raises(RuntimeError, match="native LUT builder unavailable"):
+        lut_route("cuda", "native", False)
+    with pytest.raises(ValueError, match="unknown LUT backend"):
+        lut_route("cuda", "host")
+
+
+@pytest.mark.parametrize("q_len, words, global_d", [
+    (64, 8, False),
+    (2000, 8, False),
+    (3300, 4, False),
+    (14_527, 1, False),
+    (14_528, 8, True),
+    (15_000, 8, True),
+    (100_000, 8, True),
+])
+def test_sweep_line_layout_is_decided_by_length(q_len, words, global_d):
+    """The sweep kernel keeps two lines of D in a block's shared memory up
+    to MAX_LINE_CELLS cells a line, and in a global scratch past it (at
+    the widest tile), decided from the line's length before any launch;
+    a scratch block's two lines fit the launch's scratch cap."""
+    from monte_carlo_localization_tpu_torch.ops.range_lut_sweep import (
+        MAX_LINE_CELLS,
+        SCRATCH_BYTES,
+        SMEM_BYTES,
+        d_bytes,
+        line_layout,
+        smem_bytes,
+    )
+
+    assert MAX_LINE_CELLS == 14_527
+    assert line_layout(q_len) == (words, global_d)
+    if global_d:
+        assert smem_bytes(q_len, 1) > SMEM_BYTES and d_bytes(q_len, words) <= SCRATCH_BYTES
+    else:
+        assert smem_bytes(q_len, words) <= SMEM_BYTES
+
+
+@pytest.mark.parametrize("compact", [False, True], ids=["dense", "compact"])
+def test_every_group_goes_through_the_sweep_wrapper(monkeypatch, compact):
+    """The device builders hand every bin group, row and column lines
+    alike, to the kernel's wrapper (never to the plain sweep directly),
+    whatever the lines' length; the LUT is bit-equal to the native
+    builder's."""
+    from monte_carlo_localization_tpu_torch import native
+    from monte_carlo_localization_tpu_torch.mapping import clearance_field
+    from monte_carlo_localization_tpu_torch.mapping.range_lut_device import (
+        FAR_ROW_MARGIN,
+        build_compact_range_lut_device,
+        build_range_lut_device,
+        compact_row_map,
+        shear_groups,
+    )
+    from monte_carlo_localization_tpu_torch.native import native_build_compact_range_lut
+    from monte_carlo_localization_tpu_torch.ops import range_lut_sweep
+
+    if not native.available():
+        pytest.skip("no C++ toolchain for the native oracle")
+    _, tm = _maps(1.2)
+    occ = tm.occupied  # 72 x 96
+    wrapped = []
+
+    def recording(occupied, rel, step_len, bins, forward, row_major, *a, **k):
+        wrapped.append(occupied.shape[1] if row_major else occupied.shape[0])
+        range_lut_sweep.sweep_group_reference(occupied, rel, step_len, bins, forward,
+                                              row_major, *a, **k)
+
+    monkeypatch.setattr(range_lut_sweep, "sweep", recording)
+    t, stride, mrp = 90, 512, tm.max_range_px
+    host = occ.numpy()
+    if compact:
+        clr = clearance_field(host, mrp + FAR_ROW_MARGIN + 2)
+        got, row_map = build_compact_range_lut_device(occ, clr, t, mrp, stride)
+        want = native_build_compact_range_lut(host, t, mrp, compact_row_map(clr, mrp)[0], stride)
+    else:
+        got = build_range_lut_device(occ, t, mrp, stride)
+        want = build_range_lut(host, t, mrp, backend="native", row_stride=stride)
+    groups = shear_groups(72, 96, t, stride)
+    assert sorted(wrapped) == sorted(96 if g.row_major else 72 for g in groups)
+    assert set(wrapped) == {72, 96}
+    np.testing.assert_array_equal(got.numpy().reshape(-1), np.asarray(want).reshape(-1))
