@@ -44,7 +44,17 @@ the imported trace, ``live --serve`` polled from a second thread, and
 corridor whose rows pass the longest line the sweep kernel keeps in
 shared memory (the kernel keeps such lines' distances in global memory)
 against the native builder, and times a 2048-row hall with such rows
-against the plain sweep. Every LUT is built on
+against the plain sweep. It runs the sharded filter
+(``parallel/sharded.py``) on config #4's global localization at 100k
+particles: over an NCCL process group of one in this process, and over
+two processes sharing the card through gloo (spawned by
+``parallel/multihost.py`` ``spawn``; NCCL refuses two ranks on one GPU),
+holding the bucketed resampler ``torch.equal`` to the all-gather and its
+overflow fallback likewise; config #5 across two processes
+(``MultiHostFleet``, 32 cars each, their own scans, the pose table
+gathered and compared with the one-process fleet on the same draws); and
+``cli baseline`` (the CPU reference harness) on config #1's trace, on
+the host CPU. Every LUT is built on
 the card, and each path that builds one is gated on the sweep kernel's
 launches. Each phase prints
 one JSON line with its own seconds; any failure raises and exits
@@ -64,6 +74,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -1623,6 +1634,19 @@ def phase_config4_replay(device):
                 subbin_table_fills=runs["subbin"]["subbin_table_fills"]), gm, beams
 
 
+def sphere_scan(gm, beams, pose) -> np.ndarray:
+    """The scan (meters) at ``pose`` by ``cast_rays_sphere`` (64
+    iterations), as bench.py makes its synthetic scans."""
+    import torch
+
+    from monte_carlo_localization_tpu_torch.ops.raycast import cast_rays_sphere
+
+    beams_t = torch.as_tensor(beams, dtype=torch.float32, device=gm.device)
+    q = torch.stack([torch.full_like(beams_t, float(pose[0])),
+                     torch.full_like(beams_t, float(pose[1])), float(pose[2]) + beams_t], 1)
+    return cast_rays_sphere(gm, q, num_iters=64).cpu().numpy()
+
+
 def converge_truths(gm, count: int) -> list[np.ndarray]:
     """The trial poses of bench.py bench_convergence: free cell centres
     drawn by default_rng(0), headings uniform; past the bench's
@@ -1649,7 +1673,6 @@ def phase_config4_converge(device, gm, beams) -> dict:
     import torch
 
     from monte_carlo_localization_tpu_torch import MCLConfig, ParticleFilter
-    from monte_carlo_localization_tpu_torch.ops.raycast import cast_rays_sphere
     from monte_carlo_localization_tpu_torch.runtime import converge_global
 
     t0 = time.perf_counter()
@@ -1662,15 +1685,8 @@ def phase_config4_converge(device, gm, beams) -> dict:
         filters[name] = f
     check(filters["dedup_K4"].likelihood.dedup_slots == DEDUP_SLOTS, "dedup filter without slots")
     check(filters["dedup_matmul_K5"].likelihood.dedup_matmul, "K5 filter without dedup_matmul")
-    beams_t = torch.as_tensor(beams, dtype=torch.float32, device=device)
-
-    def scan_at(pose):
-        q = torch.stack([torch.full_like(beams_t, float(pose[0])),
-                         torch.full_like(beams_t, float(pose[1])), float(pose[2]) + beams_t], 1)
-        return cast_rays_sphere(gm, q, num_iters=64).cpu().numpy()
-
     truths = converge_truths(gm, CONVERGE_TRIALS + CONVERGE_MORE)
-    scans = [scan_at(p) for p in truths]
+    scans = [sphere_scan(gm, beams, p) for p in truths]
     for f in filters.values():  # pay first launches outside every trial's timer
         converge_global(f, scans[0], truths[0], seed=99, max_updates=5)
     torch.cuda.synchronize()
@@ -1926,18 +1942,15 @@ def phase_config5(device, classic_kernels: float) -> dict:
     3), then 3 rounds of 20 single steps."""
     import torch
 
-    from monte_carlo_localization_tpu_torch import MCLConfig, load_map
+    from monte_carlo_localization_tpu_torch import MCLConfig
     from monte_carlo_localization_tpu_torch.ops.lut_query import fleet_window_start
     from monte_carlo_localization_tpu_torch.ops.lut_query import lut_log_weights_reference
-    from monte_carlo_localization_tpu_torch.ops.raycast import cast_rays_sphere
-    from monte_carlo_localization_tpu_torch.parallel import FleetFilter, stack_maps
+    from monte_carlo_localization_tpu_torch.parallel import FleetFilter
 
     t0 = time.perf_counter()
     f, n, r = CONFIG5_FLEET, N_PARTICLES, 60
-    maps = [load_map(REPO / "maps" / name, device=device) for name in CONFIG5_MAPS]
-    asg = np.arange(f, dtype=np.int32) % len(maps)
-    beams = headline_beams(r)
-    ff = FleetFilter(stack_maps(maps), f, MCLConfig(max_particles=n, lut_theta_bins=720),
+    maps, stacked, asg, beams, poses0, scans = config5_fleet_inputs(device)
+    ff = FleetFilter(stacked, f, MCLConfig(max_particles=n, lut_theta_bins=720),
                      map_assignment=asg)
     sweep_reset()
     t1 = time.perf_counter()
@@ -1952,16 +1965,6 @@ def phase_config5(device, classic_kernels: float) -> dict:
     cells = [int(h) * int(w) for h, w in gm.member_dims.tolist()]
     check(lut_bytes == sum(cells) * gm.row_stride * gm.range_lut.element_size(),
           f"member LUT of {lut_bytes} B is not the sum of the true map areas")
-
-    map_poses = [_nearest_free_pose(m, _center_pose(m)) for m in maps]
-    beams_t = torch.as_tensor(beams, device=device)
-    map_scans = []
-    for m, p in zip(maps, map_poses):
-        qry = torch.stack([torch.full_like(beams_t, float(p[0])), torch.full_like(beams_t, float(p[1])),
-                           float(p[2]) + beams_t], 1)
-        map_scans.append(cast_rays_sphere(m, qry, num_iters=64).cpu().numpy())
-    poses0 = np.stack([map_poses[a] for a in asg])
-    scans = np.stack([map_scans[a] for a in asg])
     action = np.zeros((f, 3), np.float32)
     actions_k = np.tile(action, (CONFIG5_CHAIN, 1, 1))
     scans_k = np.tile(scans, (CONFIG5_CHAIN, 1, 1))
@@ -2041,6 +2044,415 @@ def phase_config5(device, classic_kernels: float) -> dict:
     del ff, state, parts, maps
     torch.cuda.empty_cache()
     return kernel
+
+
+SHARDED_CHAIN = 10  # chained corrections holding bucketed against allgather
+MULTIHOST_PROCESSES = 2
+MULTIHOST_CHAINS = 4  # chains of CONFIG5_CHAIN steps: 1 warm + 3 timed
+DRAW_SEED = 5  # the card generator of the multihost member draws
+
+
+def result_line(outs: list[str]) -> dict:
+    """The ``RESULT {json}`` line that rank 0 of a spawned run printed."""
+    lines = [ln for ln in outs[0].splitlines() if ln.startswith("RESULT ")]
+    check(len(lines) == 1, f"rank 0 printed {len(lines)} result lines:\n{outs[0][-3000:]}")
+    return json.loads(lines[0][len("RESULT "):])
+
+
+def converge_on_draws(spf, scan_m, truth, seed: int, chunk: int = 5, max_updates: int = 80,
+                      tol_m: float = 0.5) -> dict:
+    """``runtime/converge.py`` ``converge_global``'s loop (chunks of 5
+    chained corrections from ``init_global(seed)``, one readback a chunk,
+    until within ``tol_m``) on draws from a card generator seeded by
+    ``seed``: u0 (chunk,) and noise (chunk, N, 3), the same in every
+    process, of which each shard takes its rows. So D = 1 and D = 2 run one
+    trajectory up to the CDF's last bits."""
+    import torch
+
+    dev, n = spf.device, spf.config.max_particles
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    scans = np.tile(np.asarray(scan_m, np.float32), (chunk, 1))
+    actions = np.zeros((chunk, 3), np.float32)
+    state = spf.init_global(seed=seed)
+    updates, err, u = None, math.inf, 0
+    t0 = time.perf_counter()
+    for u in range(chunk, max_updates + 1, chunk):
+        u0 = torch.rand((chunk,), generator=gen, device=dev)
+        noise = torch.randn((chunk, n, 3), generator=gen, device=dev)
+        state, p = spf.step_many(state, actions, scans, u0=u0, noise=noise)
+        p = p.cpu().numpy()
+        err = float(math.hypot(p[-1, 0] - truth[0], p[-1, 1] - truth[1]))
+        if err < tol_m:
+            updates = u
+            break
+    seconds = time.perf_counter() - t0
+    return dict(updates=updates, seconds=seconds, err_m=err, corrections=u,
+                chained_updates_per_s=u / seconds, state=state)
+
+
+def basement_for_sharding(device):
+    """Config #4's map and beams (the trace's 60) and its five start poses
+    with their sphere-cast scans, as ``phase_config4_converge`` makes them."""
+    from monte_carlo_localization_tpu_torch import load_map
+    from monte_carlo_localization_tpu_torch.runtime import Trace
+
+    gm = load_map(REPO / "maps" / "basement_fixed.map.yaml", device=device)
+    beams = np.asarray(Trace.load(REPO / "traces" / "config4_basement_fixed.npz").beam_angles[::18],
+                       np.float32)
+    truths = converge_truths(gm, CONVERGE_TRIALS)
+    return gm, beams, truths, [sphere_scan(gm, beams, p) for p in truths]
+
+
+def sharded_trials(spf, truths, scans) -> dict:
+    """Config #4's five global-localization trials on a sharded filter (this
+    process's shard), gated on one LUT-kernel launch a shard and correction
+    and on the kernel against its plain version on this shard's particles;
+    then 10 profiled chained corrections."""
+    import torch
+
+    from monte_carlo_localization_tpu_torch.ops.lut_query import lut_log_weights_reference
+
+    q, gm, dev = spf.likelihood, spf.map, spf.device
+    converge_on_draws(spf, scans[0], truths[0], seed=99, max_updates=5)  # first launches
+    torch.cuda.synchronize()
+    q.launch_count = 0
+    spf.overflow_reads = spf.fallbacks = 0
+    spf.comm.reset_counts()
+    trials = [converge_on_draws(spf, scan, truth, seed=100 + i)
+              for i, (truth, scan) in enumerate(zip(truths, scans))]
+    corrections = sum(t["corrections"] for t in trials)
+    launches = q.launch_count
+    check(launches == corrections,
+          f"shard {spf.shard}: {launches} LUT-kernel launches for {corrections} corrections")
+    syncs = dict(overflow_reads=spf.overflow_reads / corrections,
+                 gloo_host_copies=spf.comm.host_copies / corrections,
+                 readbacks=sum(t["corrections"] // 5 for t in trials) / corrections)
+    comm = dict(calls_per_correction=spf.comm.calls / corrections,
+                bytes_per_correction=spf.comm.bytes / corrections, fallbacks=spf.fallbacks)
+    parts = trials[-1]["state"].particles.contiguous()
+    obs = spf.sensor.to_pixel_index(torch.as_tensor(scans[-1], device=dev)).float()
+    got = q(gm.range_lut, parts, obs, row_map=gm.lut_row_map)
+    want = lut_log_weights_reference(q, gm.range_lut, parts, obs, gm.lut_row_map)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(err <= KERNEL_TOL, f"shard {spf.shard}: K2 vs plain {err} > {KERNEL_TOL}")
+    s0 = spf.init_global(seed=7)
+    zeros, tiled = np.zeros((10, 3), np.float32), np.tile(scans[0], (10, 1))
+    prof = chain_profile(lambda: spf.step_many(s0, zeros, tiled), 10)
+    return dict(
+        trials=[{k: v for k, v in t.items() if k != "state"} for t in trials],
+        converged=[i for i, t in enumerate(trials) if t["updates"] is not None],
+        corrections=corrections, k2_launches=launches, syncs_per_correction=syncs,
+        collectives=comm, k2_max_abs_err=err, k2_particles=int(parts.shape[0]),
+        profile_10_steps=prof,
+    )
+
+
+def _sharded_rank() -> None:
+    """One process of the sharded filter at D = 2 on the one card (gloo):
+    config #4's trials, ``bucketed`` against ``allgather`` over 10 chained
+    corrections on the same draws, the fringe-overflow fallback, and a
+    probe of which gloo collectives take card tensors."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from monte_carlo_localization_tpu_torch import MCLConfig
+    from monte_carlo_localization_tpu_torch.parallel import ShardedParticleFilter
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    gm, beams, truths, scans = basement_for_sharding(device)
+    n = CONFIG4_PARTICLES
+    spf = ShardedParticleFilter(gm, MCLConfig(max_particles=n), beam_angles=beams)
+    check(spf.num_devices == 2 and spf.comm.backend == "gloo", "D = 2 runs over gloo")
+    out = sharded_trials(spf, truths, scans)
+
+    runs = {}
+    for mode in ("bucketed", "allgather"):
+        f = ShardedParticleFilter(spf.map, MCLConfig(max_particles=n, sharded_resample=mode),
+                                  beam_angles=beams)  # the map's LUT is reused
+        s = f.init_global(seed=7)
+        torch.cuda.synchronize()
+        f.comm.reset_counts()
+        s, poses = f.step_many(s, np.zeros((SHARDED_CHAIN, 3), np.float32),
+                               np.tile(scans[0], (SHARDED_CHAIN, 1)))
+        whole = f.gather_state(s)
+        runs[mode] = dict(bytes=f.comm.bytes / SHARDED_CHAIN, calls=f.comm.calls / SHARDED_CHAIN,
+                          state=whole, poses=poses, fallbacks=f.fallbacks)
+    out["chain_fallbacks"] = runs["bucketed"]["fallbacks"]
+    equal = all(torch.equal(getattr(runs["bucketed"]["state"], k), getattr(runs["allgather"]["state"], k))
+                for k in ("particles", "log_weights")) and torch.equal(runs["bucketed"]["poses"],
+                                                                      runs["allgather"]["poses"])
+    check(equal, "bucketed and allgather corrections differ")
+
+    fb = {}
+    for mode, fringe in (("bucketed", 1), ("allgather", 0)):
+        f = ShardedParticleFilter(spf.map, MCLConfig(max_particles=n, sharded_resample=mode,
+                                                     sharded_fringe=fringe), beam_angles=beams)
+        whole = f.gather_state(f.init_global(seed=4))
+        lw = torch.full((n,), -80.0, device=device)
+        lw[n - n // 2:] = 0.0  # all the mass on the last shard
+        st, pose = f.step(f.place_state(dataclasses.replace(whole, log_weights=lw)),
+                          np.zeros(3, np.float32), scans[0], u0=0.5)
+        fb[mode] = (f.gather_state(st).particles, pose, f.fallbacks)
+    check(fb["bucketed"][2] == 1, "a one-slot fringe did not trip the overflow flag")
+    check(torch.equal(fb["bucketed"][0], fb["allgather"][0])
+          and torch.equal(fb["bucketed"][1], fb["allgather"][1]),
+          "the overflow fallback differs from allgather")
+
+    probe = {}
+    for name in ("all_reduce", "all_gather"):
+        x = torch.ones(4, device=device)
+        try:
+            if name == "all_reduce":
+                dist.all_reduce(x)
+                ok = bool((x == 2).all())
+            else:
+                parts = [torch.empty_like(x) for _ in range(2)]
+                dist.all_gather(parts, x)
+                ok = all(bool((p == 1).all()) for p in parts)
+            torch.cuda.synchronize()
+            probe[name] = "takes card tensors" + ("" if ok else ", wrong result")
+        except (RuntimeError, ValueError) as e:
+            probe[name] = f"refuses card tensors: {str(e).splitlines()[0][:120]}"
+    probe["send/recv"] = "not probed (collectives.py hands gloo host tensors in every call)"
+    ranks = [None] * spf.num_devices
+    dist.all_gather_object(ranks, {k: out[k] for k in ("k2_launches", "k2_max_abs_err",
+                                                       "corrections", "converged")})
+    out.update(
+        ranks=ranks,
+        bucketed_equals_allgather=equal, chained=SHARDED_CHAIN,
+        bytes_per_correction={m: r["bytes"] for m, r in runs.items()},
+        calls_per_correction={m: r["calls"] for m, r in runs.items()},
+        exchange_bytes_saved_per_correction=runs["allgather"]["bytes"] - runs["bucketed"]["bytes"],
+        fallback=dict(tripped=fb["bucketed"][2], equal_to_allgather=True),
+        gloo_card_tensors=probe,
+    )
+    if dist.get_rank() == 0:
+        print("RESULT " + json.dumps(out), flush=True)
+
+
+def phase_sharded(device) -> dict:
+    """The sharded filter (``parallel/sharded.py``) on config #4's global
+    localization at full width: 100k particles x 60 beams on basement_fixed
+    under ``lut_pallas``, its five start poses, chunks of 5 up to 80
+    updates. (a) D = 1 over an NCCL process group of one, in this process;
+    (b) D = 2 processes on this one card over gloo (NCCL refuses two ranks
+    on one GPU). The same trials must converge in both."""
+    import torch
+    import torch.distributed as dist
+
+    from monte_carlo_localization_tpu_torch import MCLConfig
+    from monte_carlo_localization_tpu_torch.parallel import ShardedParticleFilter, init_multihost
+    from monte_carlo_localization_tpu_torch.parallel.multihost import _free_port, spawn
+
+    t0 = time.perf_counter()
+    gm, beams, truths, scans = basement_for_sharding(device)
+    init_multihost(f"127.0.0.1:{_free_port()}", 1, 0, backend="nccl")
+    try:
+        spf = ShardedParticleFilter(gm, MCLConfig(max_particles=CONFIG4_PARTICLES),
+                                    beam_angles=beams)
+        check(spf.num_devices == 1 and spf.comm.backend == "nccl", "D = 1 runs over NCCL")
+        d1 = sharded_trials(spf, truths, scans)
+    finally:
+        dist.destroy_process_group()
+    del spf, gm
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    d2 = result_line(spawn("chip_smoke:_sharded_rank", 2, timeout_s=600.0))
+    d2_wall = time.perf_counter() - t1
+    check(d2["converged"] == d1["converged"] and d1["converged"],
+          f"converged trials differ: D = 1 {d1['converged']}, D = 2 {d2['converged']}")
+    emit("sharded", t0, card=CARD, map="basement_fixed", particles=CONFIG4_PARTICLES,
+         beams=len(beams), d1_nccl=d1, d2_gloo=d2, d2_spawn_wall_s=d2_wall)
+    return dict(d1=d1["k2_launches"], d2=[r["k2_launches"] for r in d2["ranks"]],
+                max_abs_err=max([d1["k2_max_abs_err"]] + [r["k2_max_abs_err"] for r in d2["ranks"]]))
+
+
+def config5_fleet_inputs(device):
+    """Config #5 as bench.py ``bench_fleet`` sets it up: the four maps,
+    ``map_assignment = arange(64) % 4``, 60 beams, each car at its map's
+    best-cleared pose with a sphere-cast scan. Returns (maps, stacked map,
+    assignment, beams, start poses (64, 3), scans (64, 60))."""
+    from monte_carlo_localization_tpu_torch import load_map
+    from monte_carlo_localization_tpu_torch.parallel import stack_maps
+
+    maps = [load_map(REPO / "maps" / name, device=device) for name in CONFIG5_MAPS]
+    asg = np.arange(CONFIG5_FLEET, dtype=np.int32) % len(maps)
+    beams = headline_beams(60)
+    map_poses = [_nearest_free_pose(m, _center_pose(m)) for m in maps]
+    map_scans = [sphere_scan(m, beams, p) for m, p in zip(maps, map_poses)]
+    poses0 = np.stack([map_poses[a] for a in asg])
+    scans = np.stack([map_scans[a] for a in asg])
+    return maps, stack_maps(maps), asg, beams, poses0, scans
+
+
+def multihost_draws(device):
+    """The member draws of the multihost chains, the same in every process:
+    per correction u0 (64,) and noise (64, 4000, 3) from a card generator."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(DRAW_SEED)
+    for _ in range(MULTIHOST_CHAINS * CONFIG5_CHAIN):
+        yield (torch.rand((CONFIG5_FLEET,), generator=gen, device=device),
+               torch.randn((CONFIG5_FLEET, N_PARTICLES, 3), generator=gen, device=device))
+
+
+def _multihost_rank() -> None:
+    """One process of config #5 across MULTIHOST_PROCESSES on the card: 32
+    members, their own scans only, chains of 10 corrections, the pose
+    table gathered."""
+    import torch
+    import torch.distributed as dist
+
+    from monte_carlo_localization_tpu_torch import MCLConfig
+    from monte_carlo_localization_tpu_torch.parallel import MultiHostFleet
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    _, stacked, asg, beams, poses0, scans = config5_fleet_inputs(device)
+    mh = MultiHostFleet(stacked, CONFIG5_FLEET, MCLConfig(max_particles=N_PARTICLES,
+                                                          lut_theta_bins=720),
+                        beam_angles=beams, map_assignment=asg)
+    mine = list(mh.local_members)
+    check(mh.process_count == MULTIHOST_PROCESSES and len(mine) == CONFIG5_FLEET // 2,
+          f"process {mh.process_index} owns members {mine}")
+    scans_local = mh.scatter_local(scans[mine])
+    actions_local = mh.scatter_local(np.zeros((len(mine), 3), np.float32))
+    state = mh.init_pose(poses0, seed=1)
+    q = mh.fleet.likelihood
+    q.fleet_launch_count = q.launch_count = 0
+    draws = multihost_draws(device)
+    rates = []
+    for _ in range(MULTIHOST_CHAINS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(CONFIG5_CHAIN):
+            u0, noise = next(draws)
+            state, poses = mh.step(state, actions_local, scans_local, u0=u0, noise=noise)
+        torch.cuda.synchronize()
+        rates.append(CONFIG5_CHAIN / (time.perf_counter() - t))
+    corrections = MULTIHOST_CHAINS * CONFIG5_CHAIN
+    launches = q.fleet_launch_count
+    check(launches == corrections and q.launch_count == 0,
+          f"process {mh.process_index}: {launches} fleet launches for {corrections} corrections")
+    table = mh.gather_poses(poses)
+    err = np.linalg.norm(table[:, :2] - poses0[:, :2], axis=1)
+    thr = _drift_threshold(corrections)
+    check(bool(np.isfinite(err).all()) and err.max() < thr,
+          f"multihost: max member error {err.max()} m >= {thr}")
+    gm = mh.fleet.map
+    obs = mh.fleet.sensor.to_pixel_index(scans_local).float()
+    fleet = dict(origins=(gm.origin_x, gm.origin_y), map_of=mh.fleet._member_map,
+                 dims=gm.member_dims, lut_bases=gm.lut_member_base,
+                 row_map_bases=gm.lut_row_map_base)
+    cmp = fleet_compare(q, gm.range_lut, state.particles.reshape(-1, 3).contiguous(), obs, None,
+                        fleet, f"multihost process {mh.process_index}", synthetic=False)
+    actions_k = np.zeros((CONFIG5_CHAIN, len(mine), 3), np.float32)
+    scans_k = scans_local.expand(CONFIG5_CHAIN, -1, -1)
+    prof = chain_profile(lambda: mh.fleet.step_many(state, actions_k, scans_k), CONFIG5_CHAIN)
+    out = dict(process=mh.process_index, members=[mine[0], mine[-1]], corrections=corrections,
+               fleet_launches=launches, chained_fleet_steps_per_s=rates,
+               chained_member_updates_per_s=[r * len(mine) for r in rates],
+               max_member_err_m=float(err.max()), drift_threshold_m=thr,
+               fleet_kernel_max_abs_err=cmp["max_abs_err"], profile_10_steps=prof,
+               table=[[float(v).hex() for v in row] for row in table])
+    outs = [None] * MULTIHOST_PROCESSES
+    dist.all_gather_object(outs, {k: out[k] for k in ("process", "fleet_launches",
+                                                      "chained_fleet_steps_per_s",
+                                                      "fleet_kernel_max_abs_err",
+                                                      "profile_10_steps")})
+    if dist.get_rank() == 0:
+        print("RESULT " + json.dumps(dict(out, ranks=outs)), flush=True)
+
+
+def phase_multihost(device) -> dict:
+    """Config #5 at full width across MULTIHOST_PROCESSES processes on this
+    card (``MultiHostFleet`` over gloo): each owns 32 of the 64 cars (4000
+    particles x 60 beams over the four maps), feeds its own members' scans,
+    runs chains of 10 corrections on member draws from a card generator and
+    gathers the (64, 3) table. The one-process ``FleetFilter`` of
+    ``phase_config5``'s setup then runs the same draws: the tables are
+    compared bit for bit (printed, not gated)."""
+    import torch
+
+    from monte_carlo_localization_tpu_torch import MCLConfig
+    from monte_carlo_localization_tpu_torch.parallel import FleetFilter
+    from monte_carlo_localization_tpu_torch.parallel.multihost import spawn
+
+    t0 = time.perf_counter()
+    res = result_line(spawn("chip_smoke:_multihost_rank", MULTIHOST_PROCESSES, timeout_s=600.0))
+    spawn_s = time.perf_counter() - t0
+    table = np.array([[float.fromhex(v) for v in row] for row in res.pop("table")], np.float32)
+    _, stacked, asg, beams, poses0, scans = config5_fleet_inputs(device)
+    ff = FleetFilter(stacked, CONFIG5_FLEET, MCLConfig(max_particles=N_PARTICLES, lut_theta_bins=720),
+                     beam_angles=beams, map_assignment=asg)
+    state = ff.init_pose(poses0, seed=1)
+    actions = np.zeros((CONFIG5_FLEET, 3), np.float32)
+    for u0, noise in multihost_draws(device):
+        state, poses = ff.step(state, actions, scans, u0=u0, noise=noise)
+    one = poses.cpu().numpy()
+    equal = bool(np.array_equal(one, table))
+    emit("multihost", t0, card=CARD, processes=MULTIHOST_PROCESSES, backend="gloo",
+         fleet=CONFIG5_FLEET, particles=N_PARTICLES, beams=60, map_assignment="arange(64) % 4",
+         spawn_wall_s=spawn_s, **res, table_equal_to_one_process=equal,
+         table_max_abs_diff=float(np.abs(one - table).max()))
+    del ff, state
+    torch.cuda.empty_cache()
+    return dict(launches=[r["fleet_launches"] for r in res["ranks"]],
+                max_abs_err=max(r["fleet_kernel_max_abs_err"] for r in res["ranks"]))
+
+
+def host_cpu() -> str:
+    """The host CPU: ``/proc/cpuinfo``'s model name, or where a sandbox
+    reports it as unknown, its vendor, family and model numbers (else
+    ``lscpu``'s model name, else the architecture), and the logical core
+    count."""
+    import platform
+
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for ln in f:
+                if not ln.strip():
+                    break  # the first processor's block
+                key, _, value = ln.partition(":")
+                info[key.strip()] = value.strip()
+    except OSError:
+        pass
+    name = info.get("model name", "unknown")
+    if name == "unknown" and "cpu family" in info:
+        name = f"{info.get('vendor_id', '')} family {info['cpu family']} model {info.get('model')}"
+    if name == "unknown":
+        try:
+            out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+            name = next((ln.split(":", 1)[1].strip() for ln in out.splitlines()
+                         if ln.startswith("Model name")), f"an unnamed {platform.machine()} CPU")
+        except (OSError, subprocess.SubprocessError):
+            name = f"an unnamed {platform.machine()} CPU"
+    return f"{name}, {os.cpu_count()} logical cores"
+
+
+BASELINE_CORRECTIONS = 30
+
+
+def phase_baseline(config1_rate: float) -> dict:
+    """``cli baseline`` on config #1's golden trace at 4000 particles: the
+    measured CPU reference harness (numpy + the native DDA caster), on
+    the host CPU, beside config #1's chained rate on the card."""
+    t0 = time.perf_counter()
+    out = cli_json(["baseline", "--map", str(REPO / "maps" / "map_1753950572.yaml"),
+                    "--trace", str(REPO / "traces" / "config1_map_1753950572.npz"),
+                    "--particles", str(N_PARTICLES), "--corrections", str(BASELINE_CORRECTIONS)])
+    check(out["corrections"] == BASELINE_CORRECTIONS and np.isfinite(out["rmse_xy_m"]),
+          f"cli baseline: {out}")
+    emit("baseline", t0, host_cpu=host_cpu(), **out,
+         card_config1_chained_updates_per_s=config1_rate, card=CARD)
+    return out
 
 
 FLEET_LIVE_DEPTH = 4  # bench.py bench_fleet_live: async depth 4, an 8 s window
@@ -2770,9 +3182,11 @@ def main() -> int:
     conv = phase_config4_converge(device, gm4, beams4)
     del gm4
     torch.cuda.empty_cache()
+    sharded = phase_sharded(device)
     head = phase_headline(device)
     fleet_plain = phase_fleet_vs_plain(device)
     config5 = phase_config5(device, mega1["classic_kernels_per_correction"])
+    multihost = phase_multihost(device)
     fleet_live = phase_fleet_live(device)
     # the single-filter runtime through the port's command line
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -2783,6 +3197,7 @@ def main() -> int:
     inject = phase_inject(device)
     phase_methods(device)
     probes = phase_probes(device)
+    phase_baseline(config1["rate"])
     keys = ("launches", "max_abs_err", "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")
     k3 = config4["k3"]
     dedup_entries = []
@@ -2811,8 +3226,13 @@ def main() -> int:
             "source": "monte_carlo_localization_tpu_torch/csrc/lut_likelihood.cu",
             "replaces": "monte_carlo_localization_tpu/ops/pallas_lut.py:450",
             **{k: head[k] for k in keys},
+            "launches": head["launches"] + sharded["d1"] + sum(sharded["d2"]),
+            "max_abs_err": max(head["max_abs_err"], sharded["max_abs_err"]),
             "library_ms": None,
             "sector_bytes": head["sector_bytes"], "sector_bound_ms": head["sector_bound_ms"],
+            "headline_launches": head["launches"],
+            # the sharded filter's K2, per shard: D = 1 (NCCL), D = 2 (gloo, per rank)
+            "sharded_launches": {"d1": sharded["d1"], "d2": sharded["d2"]},
             "config1_launches": config1["launches"],
             "config4_launches": config4["k1_launches"],
             # the runtime's paths: cli replay (per correction, chained, the
@@ -2898,12 +3318,14 @@ def main() -> int:
             "source": "monte_carlo_localization_tpu_torch/csrc/lut_likelihood.cu",
             "replaces": "monte_carlo_localization_tpu/ops/pallas_lut.py:835-949",
             **{k: config5[k] for k in keys},
-            "launches": config5["launches"] + fleet_live["launches"],
-            "max_abs_err": max(config5["max_abs_err"], fleet_plain["max_abs_err"]),
+            "launches": config5["launches"] + fleet_live["launches"] + sum(multihost["launches"]),
+            "max_abs_err": max(config5["max_abs_err"], fleet_plain["max_abs_err"],
+                               multihost["max_abs_err"]),
             "library_ms": None,
             "sector_bytes": config5["sector_bytes"], "sector_bound_ms": config5["sector_bound_ms"],
             "config5_launches": config5["launches"],
             "fleet_live_launches": fleet_live["launches"],
+            "multihost_launches": multihost["launches"],
         },
         {
             "name": "range_lut_sweep",

@@ -10,6 +10,8 @@ Subcommands:
               LUT and print its route and seconds)
   export-bag  trace .npz -> rosbag2 directory (sqlite3 + CDR)
   import-bag  rosbag2 directory (or .db3) -> trace .npz
+  baseline    replay a trace through the measured CPU reference harness
+              (``baseline/cpu_reference.py``, on the host CPU)
 
 ``replay --viz-out DIR`` renders PNG frames (Pillow); ``live --serve PORT``
 serves the interactive viewer over HTTP (``runtime/webviz.py``).
@@ -17,8 +19,8 @@ serves the interactive viewer over HTTP (``runtime/webviz.py``).
 ``--raycast`` takes every method of the JAX package: ``auto`` and
 ``lut_pallas`` (the fused LUT kernel), ``lut``, ``sphere`` and ``dda``.
 
-Not ported yet, each exiting non-zero with the ROADMAP.md item that
-brings it: ``baseline`` and ``bench``.
+Not ported yet, exiting non-zero with the ROADMAP.md item that brings
+it: ``bench``.
 
 Map resolution: ``--map`` accepts either a path to a ROS-style map YAML or
 a bare name resolved against ``--map-dir``.
@@ -59,7 +61,6 @@ from monte_carlo_localization_tpu_torch.utils.timing import device_trace
 # what is not ported yet, and the ROADMAP.md item (queue 1) that brings it
 UNPORTED = {
     "bench": "item 1 (the port's benchmark, in files of its own)",
-    "baseline": "item 9 (baseline/cpu_reference.py)",
 }
 
 
@@ -325,6 +326,43 @@ def cmd_import_bag(args) -> int:
     return 0
 
 
+def cmd_baseline(args) -> int:
+    """The CPU reference harness on a trace; it runs on the host by
+    design, so its map is loaded on the CPU and it takes no ``--device``."""
+    from monte_carlo_localization_tpu_torch.baseline import (
+        replay_cpu_reference,
+        trajectory_rmse,
+    )
+
+    gm = _resolve_map(args.map, args.map_dir, args.max_range, "cpu")
+    trace = Trace.load(args.trace)
+    cfg = _load_cfg(args)
+    times, poses, stats, ups = replay_cpu_reference(
+        gm, trace, cfg, seed=0, max_corrections=args.corrections
+    )
+    out = dict(
+        engine="cpu_reference",
+        updates_per_sec=round(ups, 2),
+        corrections=len(times),
+        particles=cfg.max_particles,
+    )
+    if trace.truth_t is not None:
+        rx, rt = trajectory_rmse(times, poses, trace.truth_t, trace.truth_pose)
+        out["rmse_xy_m"] = round(rx, 4)
+        out["rmse_theta_rad"] = round(rt, 4)
+    n = max(stats.measurement_count, 1)
+    out["phase_ms"] = dict(
+        total=round(stats.total_mcl_time / n, 2),
+        raycast=round(stats.ray_casting_time / n, 2),
+        sensor=round(stats.sensor_model_time / n, 2),
+        query_prep=round(stats.query_prep_time / n, 2),
+        motion=round(stats.motion_model_time / n, 2),
+        resample=round(stats.resampling_time / n, 2),
+    )
+    print(json.dumps(out))
+    return 0
+
+
 def cmd_unported(args) -> int:
     raise _unported(args.cmd)
 
@@ -338,10 +376,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help="torch device to run on (default cuda; cpu for a "
                         "machine without a card)")
 
-    common = argparse.ArgumentParser(add_help=False, parents=[device])
-    common.add_argument("--map", required=True, help="map YAML path or name")
-    common.add_argument("--map-dir", default=None)
-    common.add_argument("--max-range", type=float, default=12.0)
+    map_args = argparse.ArgumentParser(add_help=False)
+    map_args.add_argument("--map", required=True, help="map YAML path or name")
+    map_args.add_argument("--map-dir", default=None)
+    map_args.add_argument("--max-range", type=float, default=12.0)
+    common = argparse.ArgumentParser(add_help=False, parents=[device, map_args])
 
     mt = sub.add_parser("make-trace", parents=[common])
     mt.add_argument("--out", required=True)
@@ -419,14 +458,16 @@ def build_parser() -> argparse.ArgumentParser:
     lv.add_argument("-v", "--verbose", action="store_true")
     lv.set_defaults(fn=cmd_live, resample=None)
 
-    bl = sub.add_parser("baseline", parents=[common],
-                        help="not ported yet (ROADMAP.md queue 1, item 9)")
+    bl = sub.add_parser("baseline", parents=[map_args],
+                        help="the measured CPU baseline: the reference-faithful "
+                        "host harness (numpy + native DDA) on the host CPU")
     bl.add_argument("--trace", required=True)
     bl.add_argument("--config", default=None)
     bl.add_argument("--particles", type=int, default=None)
     bl.add_argument("--angle-step", type=int, default=None, dest="angle_step")
-    bl.add_argument("--corrections", type=int, default=60)
-    bl.set_defaults(fn=cmd_unported)
+    bl.add_argument("--corrections", type=int, default=60,
+                    help="cap on replayed corrections (timing sample size)")
+    bl.set_defaults(fn=cmd_baseline, raycast=None, resample=None)
 
     bn = sub.add_parser("bench", help="not ported yet (ROADMAP.md queue 1, item 1)")
     bn.add_argument("rest", nargs=argparse.REMAINDER)

@@ -9,8 +9,10 @@ from monte_carlo_localization_tpu_torch.ops.raycast import cast_rays, cast_rays_
 from monte_carlo_localization_tpu_torch.ops.resample import (
     multinomial_resample_indices,
     resample_indices,
+    resample_rows,
     systematic_invert_cdf_window,
     systematic_resample_indices,
+    systematic_resample_rows,
 )
 
 __all__ = [
@@ -25,6 +27,8 @@ __all__ = [
     "mega_step_reference",
     "multinomial_resample_indices",
     "resample_indices",
+    "resample_rows",
     "systematic_invert_cdf_window",
     "systematic_resample_indices",
+    "systematic_resample_rows",
 ]

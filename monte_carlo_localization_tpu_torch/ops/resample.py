@@ -1,5 +1,6 @@
-"""Resampling indices from log weights, as in the JAX package's
-``ops/resample.py:16-91``.
+"""Resampling from log weights, as in the JAX package's
+``ops/resample.py``: indices (``:16-91``), and the proposal rows
+themselves, on one filter or distributed over shards (``:94-325``).
 
 Systematic resampling (the default) inverts the weight CDF scatter-side
 in O(N): source j's first output slot is ``floor(M*cdf[j-1] - u0) + 1``;
@@ -7,9 +8,12 @@ scatter j there with ``amax`` and forward-fill with a cumulative max.
 Multinomial resampling draws N iid categorical samples (the reference's
 ``std::discrete_distribution``).
 
-Every function takes (N,) log weights, or (F, N) for a fleet: F
+The index functions take (N,) log weights, or (F, N) for a fleet: F
 independent filters resampled by the same few launches, one offset u0 per
-row (the JAX package vmaps the same functions over members).
+row (the JAX package vmaps the same functions over members). The row
+functions serve one filter, or one shard of it
+(:func:`distributed_systematic_resample_rows`, whose collectives are
+``parallel/collectives.py``'s).
 """
 
 from __future__ import annotations
@@ -139,3 +143,170 @@ def resample_indices(
             raise ValueError("u0 applies to systematic resampling only")
         return multinomial_resample_indices(log_weights, num_samples, generator)
     raise ValueError(f"Unknown resample method: {method!r}")
+
+
+def _last_valid_scan(valid: torch.Tensor, rows: torch.Tensor):
+    """Forward-fill ``rows`` with the last valid row: JAX's associative
+    "last valid wins" scan as a cumulative max of the valid slots'
+    indices and one gather. A slot with no valid slot at or before it
+    keeps row 0, as the scan does. Returns (any valid so far, filled)."""
+    idx = torch.arange(valid.shape[0], device=valid.device)
+    last = torch.cummax(torch.where(valid, idx, 0), dim=0).values
+    seen = torch.cummax(valid.to(torch.uint8), dim=0).values.bool()
+    return seen, rows[last]
+
+
+def _scatter_rows(target: torch.Tensor, rows: torch.Tensor, length: int):
+    """JAX's ``.at[target].set(rows, mode="drop")`` into ``length`` zero
+    rows and the matching valid mask: a target outside ``[0, length)``
+    writes a spare row past the end, which is dropped."""
+    spare = torch.where((target >= 0) & (target < length), target, length).to(torch.int64)
+    out = torch.zeros((length + 1,) + rows.shape[1:], dtype=rows.dtype, device=rows.device)
+    out[spare] = rows
+    valid = torch.zeros(length + 1, dtype=torch.bool, device=rows.device)
+    valid[spare] = True
+    return out[:length], valid[:length]
+
+
+def systematic_rows_from_cdf(
+    cdf: torch.Tensor, u0: torch.Tensor, particles: torch.Tensor, num_samples: int
+) -> torch.Tensor:
+    """The systematic proposal rows for ``num_samples`` slots of a weight
+    CDF (N,) and offset ``u0``, without a gather of ancestor indices (JAX
+    ``systematic_resample_rows``, ``ops/resample.py:94-161``).
+
+    With ``g[j] = num_samples*cdf[j] - u0``, in ``cdf``'s dtype, source j
+    covers the slots ``[floor(g[j-1]) + 1, floor(g[j])]``. Each covered
+    source writes its row into its first slot (one writer a slot), slot 0
+    takes the row of its covering source ``j0 = #{j: g[j] < 0}`` (clipped
+    to N - 1: an f32 CDF may end below 1, and then no source covers a
+    slot at the knife edge), and the last valid row fills the rest."""
+    n, m = cdf.shape[0], num_samples
+    g = m * cdf - u0
+    floors = torch.floor(g).to(torch.int32)
+    prev = torch.cat([torch.full((1,), -1, dtype=torch.int32, device=cdf.device), floors[:-1]])
+    covered = floors > prev
+    rows, valid = _scatter_rows(torch.where(covered, prev + 1, m), particles, m)
+    j0 = torch.clamp(torch.sum((g < 0).to(torch.int32)), 0, n - 1)
+    rows[0] = particles[j0]
+    valid[0] = True
+    return _last_valid_scan(valid, rows)[1]
+
+
+def systematic_resample_rows(
+    log_weights: torch.Tensor,
+    particles: torch.Tensor,
+    num_samples: int | None = None,
+    generator: torch.Generator | None = None,
+    u0: torch.Tensor | float | None = None,
+) -> torch.Tensor:
+    """Systematic resampling that materializes the proposal rows (JAX
+    ``systematic_resample_rows``): :func:`systematic_rows_from_cdf` of
+    :func:`weight_cdf`, with ``u0`` drawn from ``generator`` unless
+    given. Equal to ``particles[systematic_resample_indices(...)]`` on
+    the same CDF and u0."""
+    m = log_weights.shape[-1] if num_samples is None else num_samples
+    u0 = _uniform_u0(log_weights, generator, u0)
+    return systematic_rows_from_cdf(weight_cdf(log_weights), u0, particles, m)
+
+
+def distributed_systematic_resample_rows(
+    particles: torch.Tensor,
+    global_cdf_local: torch.Tensor,
+    u0: torch.Tensor,
+    num_total: int,
+    comm,
+    num_shards: int,
+    fringe: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Bucketed distributed systematic resampling of this shard's rows
+    (JAX ``distributed_systematic_resample_rows``,
+    ``ops/resample.py:172-311``); ``comm`` is the shard axis's
+    ``parallel.collectives.Collectives``.
+
+    Shard p owns sources and output slots ``[p*n_local, (p+1)*n_local)``.
+    Each shard writes its covered sources' rows into a buffer of its own
+    slot window plus a ``fringe`` of C slots on each side; the two
+    fringes go to the neighbours by one ``ppermute`` each (O(C) bytes,
+    not the O(N) all-gather). Slot ``p*n_local`` takes its covering
+    source ``j0_p = #{j: g[j] < p*n_local}``, an exact int64 psum, and
+    that source's row by a masked psum. A covered source whose first
+    slot falls outside its buffer sets the overflow flag (an exact psum,
+    the same on every shard): the caller then takes the all-gather path.
+    ``g`` is computed in ``global_cdf_local``'s dtype; the boundary
+    ``g[j-1]`` crosses shards by value. Out-of-buffer writes go to a
+    spare slot, where JAX's scatter drops them.
+
+    Returns ``(rows (n_local, ...), overflow () bool)``, bitwise equal to
+    the all-gather inversion of the same CDF."""
+    n_local = particles.shape[0]
+    d = num_shards
+    c = int(min(max(fringe, 1), n_local))
+    shard = comm.axis_index
+    dev = particles.device
+    trail = (1,) * (particles.dim() - 1)
+
+    g = num_total * global_cdf_local - u0  # this shard's g segment
+    perm_up = [(i, i + 1) for i in range(d - 1)]  # data moves p -> p+1
+    perm_dn = [(i + 1, i) for i in range(d - 1)]  # data moves p -> p-1
+    g_prev_last = comm.ppermute(g[-1:], perm_up)  # shard 0 is overridden below
+    prev_floor = torch.floor(torch.cat([g_prev_last, g[:-1]])).to(torch.int32)
+    if shard == 0:
+        # global source 0's first slot is defined as 0, whatever g is
+        prev_floor[0] = -1
+    floors = torch.floor(g).to(torch.int32)
+    covered = floors > prev_floor  # covers >= 1 slot; one writer a slot
+
+    buf_len = n_local + 2 * c
+    fb = prev_floor.to(torch.int64) + 1 - (shard * n_local - c)  # buffer coordinate
+    in_buf = (fb >= 0) & (fb < buf_len)
+    overflow_local = torch.any(covered & ~in_buf)
+    buf_rows, buf_valid = _scatter_rows(torch.where(covered & in_buf, fb, buf_len),
+                                        particles, buf_len)
+
+    # my left fringe belongs to shard p-1's window, my right one to p+1's;
+    # a missing neighbour sends zeros (invalid)
+    from_left_rows = comm.ppermute(buf_rows[n_local + c:], perm_up)
+    from_left_valid = comm.ppermute(buf_valid[n_local + c:], perm_up)
+    from_right_rows = comm.ppermute(buf_rows[:c], perm_dn)
+    from_right_valid = comm.ppermute(buf_valid[:c], perm_dn)
+
+    rows = buf_rows[c:c + n_local].clone()
+    valid = buf_valid[c:c + n_local].clone()
+    # one covered writer a slot globally: merging is a select on validity
+    rows[:c] = torch.where(from_left_valid.reshape((c,) + trail), from_left_rows, rows[:c])
+    valid[:c] |= from_left_valid
+    rows[n_local - c:] = torch.where(from_right_valid.reshape((c,) + trail), from_right_rows,
+                                     rows[n_local - c:])
+    valid[n_local - c:] |= from_right_valid
+
+    boundaries = torch.arange(d, dtype=g.dtype, device=dev) * n_local
+    counts_local = torch.sum((g[:, None] < boundaries[None, :]).to(torch.int64), dim=0)
+    # one exact int64 psum: the D boundary counts and the overflow flag
+    counts = comm.psum(torch.cat([counts_local, overflow_local.to(torch.int64).reshape(1)]))
+    j0 = torch.clamp(counts[:d], 0, num_total - 1)  # (D,)
+    local_idx = j0 - shard * n_local
+    mine = (local_idx >= 0) & (local_idx < n_local)
+    contrib = torch.where(mine.reshape((d,) + trail),
+                          particles[torch.clamp(local_idx, 0, n_local - 1)],
+                          torch.zeros((), dtype=particles.dtype, device=dev))
+    seeds = comm.psum(contrib)  # (D, ...) on every shard
+    rows[0] = seeds[shard]
+    valid[0] = True
+
+    return _last_valid_scan(valid, rows)[1], counts[d] > 0
+
+
+def resample_rows(
+    log_weights: torch.Tensor,
+    particles: torch.Tensor,
+    method: str = "systematic",
+    num_samples: int | None = None,
+    generator: torch.Generator | None = None,
+    u0: torch.Tensor | float | None = None,
+) -> torch.Tensor:
+    """Resampled proposal rows (JAX ``resample_rows``): gather-free for
+    the systematic default, ``particles[idx]`` for multinomial."""
+    if method == "systematic":
+        return systematic_resample_rows(log_weights, particles, num_samples, generator, u0)
+    return particles[resample_indices(log_weights, method, num_samples, generator, u0)]

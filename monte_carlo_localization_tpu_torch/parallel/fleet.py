@@ -1,7 +1,7 @@
 """Fleet filtering: F independent MCL filters (e.g. 64 cars x 4000
 particles) stepped as one batch, as the JAX package's
-``parallel/fleet.py`` ``FleetFilter`` does on its ``lut_pallas`` path
-without a mesh.
+``parallel/fleet.py`` ``FleetFilter`` does, on one process or over the
+processes of a mesh.
 
 Every phase of a correction carries a leading member axis, so a fleet
 correction issues the launches of one filter's, whatever F is: the
@@ -24,12 +24,24 @@ needs ``lut_pallas``, as in the JAX fleet.
 runs the classic fleet step, as the JAX fleet does (it never reads the
 flag), so one config file can drive both.
 
-Not ported: a mesh or particle axis (torch.distributed, ROADMAP.md queue
-1, item 8). It raises; the filter never runs another path.
+Over a ``DeviceMesh`` (``mesh=``, ``fleet_axis=``) the members are
+block-split over the fleet axis's processes: each steps its own F / D
+members, with no collective, and returns their rows (state and poses;
+``parallel/multihost.py`` ``MultiHostFleet.gather_poses`` assembles the
+table). ``lut_pallas`` needs D to divide F, and every process holds the
+whole LUT. With a ``particle_axis`` as well (a 2-D fleet x particle
+mesh; the ``sphere``, ``dda`` and ``lut`` methods only, as in JAX), each
+member's particles are split over that axis too, and a correction
+all-gathers a member's particles and weights to resample it, as the
+gathers XLA inserts for the JAX fleet do; the max shift, log quality and
+pose are reduced over the axis. A meshed fleet draws from a generator of
+its own per fleet shard (seeded from the seed and the shard), each
+member's full draws on every process of its particle axis.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass, field
 from typing import Sequence
@@ -45,8 +57,28 @@ from monte_carlo_localization_tpu_torch.filter.core import (
 )
 from monte_carlo_localization_tpu_torch.filter.init import initialize_pose
 from monte_carlo_localization_tpu_torch.mapping.grid_map import OCC_OCCUPIED, GridMap
+from monte_carlo_localization_tpu_torch.models.motion import motion_model
 from monte_carlo_localization_tpu_torch.models.sensor import SensorModel
+from monte_carlo_localization_tpu_torch.ops.resample import resample_indices
+from monte_carlo_localization_tpu_torch.parallel.collectives import Collectives, shard_seed
 from monte_carlo_localization_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device, upload
+
+
+def _validate_parallel_config(cfg: MCLConfig, who: str, allow_pallas: bool = False) -> None:
+    """Fail at construction on config values the batched or sharded
+    filters cannot serve (JAX ``_validate_parallel_config``)."""
+    if cfg.raycast_method == "lut_pallas" and not allow_pallas:
+        raise ValueError(
+            f"{who} supports raycast_method='lut_pallas' (shared or "
+            "heterogeneous maps) only without a particle mesh axis, and "
+            "with fleet_size divisible over a 1-D fleet mesh; use 'lut'"
+        )
+    if cfg.raycast_method not in ("sphere", "dda", "lut", "lut_pallas"):
+        raise ValueError(f"Unknown raycast method: {cfg.raycast_method!r}")
+    if cfg.resample_method not in ("systematic", "multinomial"):
+        raise ValueError(f"Unknown resample method: {cfg.resample_method!r}")
+    if cfg.sensor_model_mode not in ("analytic", "table"):
+        raise ValueError(f"Unknown sensor model mode: {cfg.sensor_model_mode!r}")
 
 
 @dataclass(frozen=True)
@@ -150,6 +182,20 @@ def is_batched_map(grid_map: GridMap) -> bool:
     return grid_map.is_batched
 
 
+def _select_maps(gm: GridMap, maps) -> GridMap:
+    """The maps ``maps`` of a stacked map, as a stacked map without a LUT
+    (a fleet shard's own members' maps)."""
+    idx = torch.as_tensor(np.asarray(maps), dtype=torch.long, device=gm.device)
+    fields = {
+        name: getattr(gm, name)[idx]
+        for name in ("occupancy", "occupied", "permissible", "clearance", "free_cells",
+                     "num_free", "origin_x", "origin_y", "origin_yaw", "member_dims")
+    }
+    return dataclasses.replace(gm, **fields, range_lut=None, lut_row_map=None,
+                               lut_theta_bins=0, lut_row_stride=0, lut_member_base=None,
+                               lut_row_map_base=None)
+
+
 class FleetFilter:
     """F independent filters stepped as one batch over one shared map or a
     stacked map (``stack_maps``), everything on ``device`` (default: the
@@ -157,7 +203,12 @@ class FleetFilter:
 
     ``map_assignment`` (F,) int maps each member to a map of a stacked
     ``grid_map``, so members share its LUT block. Without it a stacked
-    map must hold one map per member."""
+    map must hold one map per member.
+
+    Over ``mesh`` (a ``DeviceMesh`` with ``fleet_axis``, and
+    ``particle_axis`` for a 2-D mesh) this process holds the members
+    ``local_members`` (and, with a particle axis, the particle columns
+    ``local_particles`` of each); states, draws and poses are its rows."""
 
     def __init__(
         self,
@@ -166,23 +217,33 @@ class FleetFilter:
         config: MCLConfig | None = None,
         beam_angles: np.ndarray | None = None,
         mesh=None,
+        fleet_axis: str = "fleet",
         particle_axis: str | None = None,
         map_assignment: np.ndarray | None = None,
         device: torch.device | str | None = None,
     ):
-        if mesh is not None or particle_axis is not None:
-            raise NotImplementedError(
-                "FleetFilter over a device mesh (mesh / particle_axis) is not "
-                "ported yet; see ROADMAP.md queue 1, item 8 (torch.distributed)"
-            )
         cfg = config or MCLConfig()
         cfg = cfg.replace(raycast_method=resolve_raycast_method(cfg.raycast_method))
-        if cfg.resample_method not in ("systematic", "multinomial"):
-            raise ValueError(f"Unknown resample method: {cfg.resample_method!r}")
-        if cfg.sensor_model_mode not in ("analytic", "table"):
-            raise ValueError(f"Unknown sensor model mode: {cfg.sensor_model_mode!r}")
         if fleet_size < 1:
             raise ValueError(f"fleet_size {fleet_size} < 1")
+        if particle_axis is not None and mesh is None:
+            raise ValueError("particle_axis needs a mesh")
+        self._fleet_comm = Collectives.of_mesh(mesh, fleet_axis)
+        self._particle_comm = Collectives.of_mesh(mesh if particle_axis else None, particle_axis)
+        shards = self._fleet_comm.size
+        # the fused kernel serves the fleet as one flattened particle batch
+        # with per-member scans; over a 1-D fleet mesh each process runs it
+        # on its F / D members. A particle axis stays on the XLA-style paths
+        pallas_ok = (cfg.raycast_method == "lut_pallas" and particle_axis is None
+                     and fleet_size % shards == 0)
+        _validate_parallel_config(cfg, "FleetFilter", allow_pallas=pallas_ok)
+        if fleet_size % shards:
+            raise ValueError(f"fleet_size={fleet_size} must divide over {shards} fleet shards")
+        if cfg.max_particles % self._particle_comm.size:
+            raise ValueError(
+                f"max_particles ({cfg.max_particles}) must divide evenly over "
+                f"{self._particle_comm.size} particle shards"
+            )
         self.map_assignment = None
         if map_assignment is not None:
             asg = np.asarray(map_assignment, np.int32)
@@ -204,10 +265,32 @@ class FleetFilter:
             )
         self.config = cfg
         self.fleet_size = int(fleet_size)
+        self.mesh, self.fleet_axis, self.particle_axis = mesh, fleet_axis, particle_axis
+        local_f = self.fleet_size // shards
+        m0 = self._fleet_comm.axis_index * local_f
+        self.local_members = range(m0, m0 + local_f)
+        n_local = cfg.max_particles // self._particle_comm.size
+        p0 = self._particle_comm.axis_index * n_local
+        self.local_particles = range(p0, p0 + n_local)
         self.device = torch.device(device) if device is not None else grid_map.device
         self.map = grid_map.to(self.device)
+        # each member's map in the stacked map (None on a shared map)
+        member_maps = None
+        if grid_map.is_batched:
+            member_maps = (self.map_assignment if self.map_assignment is not None
+                           else np.arange(fleet_size))
+            if mesh is not None and cfg.raycast_method != "lut_pallas":
+                # the XLA-style paths read one map per member: keep this
+                # shard's members' maps (the LUT kernel keeps every map's block)
+                self.map = _select_maps(self.map, member_maps[m0:m0 + local_f])
+                member_maps = np.arange(fleet_size) - m0
         if cfg.raycast_method == "lut":
             self.map = self.map.with_range_lut(cfg.lut_theta_bins)
+        self._all_member_maps = member_maps
+        self._member_map = None
+        if member_maps is not None:
+            self._member_map = torch.as_tensor(member_maps[m0:m0 + local_f], dtype=torch.int32,
+                                               device=self.device)
         self.sensor = SensorModel.create(
             max_range_px=grid_map.max_range_px,
             resolution=grid_map.resolution,
@@ -219,15 +302,14 @@ class FleetFilter:
             squash_factor=cfg.squash_factor,
             device=self.device,
         )
-        # each member's map (None on a shared map)
-        self._member_map = None
-        if grid_map.is_batched:
-            members = self.map_assignment if self.map_assignment is not None else np.arange(fleet_size)
-            self._member_map = torch.as_tensor(members, dtype=torch.int32, device=self.device)
         self.beam_angles: torch.Tensor | None = None
         self.likelihood = None
         if beam_angles is not None:
             self.set_beam_angles(beam_angles)
+
+    @property
+    def num_local_members(self) -> int:
+        return len(self.local_members)
 
     def set_beam_angles(self, beam_angles: np.ndarray) -> None:
         """Set the beam angles; under ``lut_pallas`` this attaches the LUT
@@ -236,7 +318,7 @@ class FleetFilter:
         beams = np.asarray(beam_angles, np.float32)
         if self.config.raycast_method == "lut_pallas":
             self.map, self.likelihood = build_lut_likelihood(
-                self.map, beams, self.config, num_members=self.fleet_size
+                self.map, beams, self.config, num_members=self.num_local_members
             )
         self.beam_angles = torch.as_tensor(beams, device=self.device)
 
@@ -245,14 +327,45 @@ class FleetFilter:
         gen.manual_seed(self.config.seed if seed is None else int(seed))
         return gen
 
+    def place_state(self, state: FleetState) -> FleetState:
+        """This process's rows of a whole fleet ``state`` (F members, N
+        particles) on its device; a meshed fleet then draws from its
+        shard's own generator, seeded from the state's seed and the fleet
+        shard. Without a mesh: the state on the fleet's device."""
+        f, n = state.particles.shape[:2]
+        if (f, n) != (self.fleet_size, self.config.max_particles):
+            raise ValueError(
+                f"state holds {f} members x {n} particles, fleet expects "
+                f"{self.fleet_size} x {self.config.max_particles}"
+            )
+        gen = state.generator
+        if self.mesh is not None or gen.device.type != self.device.type:
+            seed = gen.initial_seed()
+            if self.mesh is not None:
+                seed = shard_seed(seed, self._fleet_comm.axis_index)
+            gen = self._generator(seed)
+        members = slice(self.local_members.start, self.local_members.stop)
+        cols = slice(self.local_particles.start, self.local_particles.stop)
+        return FleetState(
+            particles=state.particles[members, cols].to(self.device),
+            log_weights=state.log_weights[members, cols].to(self.device),
+            generator=gen,
+            log_quality=state.log_quality[members].to(self.device),
+        )
+
     def init_global(self, seed: int | None = None) -> FleetState:
         """Each member uniform over its own map's free cells (under that
-        map's ``num_free``), headings uniform in [0, 2pi)."""
+        map's ``num_free``), headings uniform in [0, 2pi). Over a mesh
+        every process draws the whole fleet and keeps its rows."""
         gen = self._generator(seed)
         gm, f, n = self.map, self.fleet_size, self.config.max_particles
         dev = self.device
         if gm.is_batched:
-            maps = self._member_map.long()
+            # a meshed fleet on the XLA-style paths holds only its own
+            # members' maps: other members' rows are drawn on some map
+            # (the same random bits) and dropped by place_state
+            maps = torch.as_tensor(self._all_member_maps, dtype=torch.long,
+                                   device=dev).clamp(0, gm.num_maps - 1)
             num_free = gm.num_free.to(torch.int64)[maps]
             # 62 random bits mod the count: a bias below 2^-40
             cell = torch.randint(0, 1 << 62, (f, n), generator=gen, device=dev) % num_free[:, None]
@@ -266,11 +379,13 @@ class FleetFilter:
         y = cells[..., 0].to(torch.float32) * gm.resolution + oy
         theta = torch.rand((f, n), generator=gen, device=dev) * (2.0 * math.pi)
         particles = torch.stack([x, y, theta], dim=-1)
-        return FleetState(particles=particles, log_weights=torch.zeros((f, n), device=dev),
-                          generator=gen)
+        state = FleetState(particles=particles, log_weights=torch.zeros((f, n), device=dev),
+                           generator=gen)
+        return state if self.mesh is None else self.place_state(state)
 
     def init_pose(self, poses, seed: int | None = None) -> FleetState:
-        """A Gaussian cloud around each member's pose; ``poses`` (F, 3)."""
+        """A Gaussian cloud around each member's pose; ``poses`` (F, 3).
+        Over a mesh every process draws the whole fleet and keeps its rows."""
         poses = torch.as_tensor(poses, dtype=torch.float32, device=self.device)
         if tuple(poses.shape) != (self.fleet_size, 3):
             raise ValueError(f"poses shape {tuple(poses.shape)} != ({self.fleet_size}, 3)")
@@ -278,7 +393,8 @@ class FleetFilter:
         particles, log_w = initialize_pose(
             gen, poses, self.config.max_particles, device=self.device
         )
-        return FleetState(particles=particles, log_weights=log_w, generator=gen)
+        state = FleetState(particles=particles, log_weights=log_w, generator=gen)
+        return state if self.mesh is None else self.place_state(state)
 
     def _likelihood_fn(self, particles: torch.Tensor, obs_px: torch.Tensor) -> torch.Tensor:
         gm, (f, n), cfg = self.map, particles.shape[:2], self.config
@@ -304,41 +420,92 @@ class FleetFilter:
         if self.beam_angles is None:
             raise RuntimeError("beam_angles not set — call set_beam_angles() first")
 
-    def _as(self, x, shape: tuple, name: str) -> torch.Tensor | None:
+    def _as(self, x, shape: tuple, name: str, axis: int = 0) -> torch.Tensor | None:
+        """``x`` on the device with ``shape`` (local members on ``axis``);
+        a meshed fleet also takes the whole fleet's rows and keeps its own."""
         if x is None:
             return None
         x = upload(x, self.device)
+        local_f = self.num_local_members
+        if (self.mesh is not None and x.dim() > axis and x.shape[axis] == self.fleet_size
+                and local_f != self.fleet_size):
+            x = x.narrow(axis, self.local_members.start, local_f)
         if tuple(x.shape) != shape:
             raise ValueError(f"{name} shape {tuple(x.shape)} != {shape}")
         return x
 
+    def _gather_columns(self, x: torch.Tensor) -> torch.Tensor:
+        """A member-major (F_l, n_local, ...) tensor's whole particle axis,
+        all-gathered over the particle axis in shard order."""
+        return self._particle_comm.all_gather(x.transpose(0, 1).contiguous()).transpose(0, 1)
+
+    def _step_particle_axis(self, state, actions, obs_px, u0, noise):
+        """One correction on a 2-D mesh: a member's particles and weights
+        are all-gathered to resample it, its full draws made on every
+        process of the particle axis, and the max shift, log quality and
+        pose reduced over the axis."""
+        cfg, comm, gen = self.config, self._particle_comm, state.generator
+        cols = slice(self.local_particles.start, self.local_particles.stop)
+        log_w_all = self._gather_columns(state.log_weights)
+        idx = resample_indices(log_w_all, method=cfg.resample_method, generator=gen, u0=u0)
+        particles_all = self._gather_columns(state.particles)
+        proposal = torch.gather(particles_all, 1, idx[:, cols].long()[..., None].expand(-1, -1, 3))
+        if noise is None:
+            noise = torch.randn(particles_all.shape, generator=gen, device=self.device)
+        proposal = motion_model(
+            proposal, actions,
+            dispersion_x=cfg.motion_dispersion_x, dispersion_y=cfg.motion_dispersion_y,
+            dispersion_theta=cfg.motion_dispersion_theta,
+            exact_dt_heuristic=cfg.exact_dt_heuristic, noise=noise[:, cols],
+        )
+        log_w = self._likelihood_fn(proposal, obs_px)
+        mq = comm.pmax(torch.amax(log_w, dim=-1))
+        zq = comm.psum(torch.sum(torch.exp(log_w - mq[:, None]), dim=-1))
+        log_quality = (mq + torch.log(zq) - math.log(cfg.max_particles)).to(torch.float32)
+        log_w = log_w - mq[:, None]
+        e = torch.exp(log_w)
+        sums = comm.psum(torch.stack([
+            torch.sum(e, -1), torch.sum(e * proposal[..., 0], -1), torch.sum(e * proposal[..., 1], -1),
+            torch.sum(e * torch.sin(proposal[..., 2]), -1),
+            torch.sum(e * torch.cos(proposal[..., 2]), -1),
+        ], dim=-1))
+        poses = torch.stack([sums[:, 1] / sums[:, 0], sums[:, 2] / sums[:, 0],
+                             torch.atan2(sums[:, 3], sums[:, 4])], dim=-1)
+        return proposal, log_w, log_quality, poses
+
     def _step(self, state, actions, obs_px, u0, noise):
         cfg = self.config
-        particles, log_w, log_quality, poses = correct(
-            state.particles, state.log_weights, state.generator, actions, obs_px,
-            self._likelihood_fn,
-            resample_method=cfg.resample_method,
-            motion_dispersion=(
-                cfg.motion_dispersion_x, cfg.motion_dispersion_y, cfg.motion_dispersion_theta,
-            ),
-            exact_dt_heuristic=cfg.exact_dt_heuristic,
-            u0=u0,
-            noise=noise,
-        )
+        if self.particle_axis is not None:
+            particles, log_w, log_quality, poses = self._step_particle_axis(
+                state, actions, obs_px, u0, noise)
+        else:
+            particles, log_w, log_quality, poses = correct(
+                state.particles, state.log_weights, state.generator, actions, obs_px,
+                self._likelihood_fn,
+                resample_method=cfg.resample_method,
+                motion_dispersion=(
+                    cfg.motion_dispersion_x, cfg.motion_dispersion_y, cfg.motion_dispersion_theta,
+                ),
+                exact_dt_heuristic=cfg.exact_dt_heuristic,
+                u0=u0,
+                noise=noise,
+            )
         new_state = FleetState(particles=particles, log_weights=log_w,
                                generator=state.generator, log_quality=log_quality)
         return new_state, poses
 
     def step(self, state: FleetState, actions, scans, u0=None, noise=None):
-        """One correction of every member, launched without waiting for the
-        device (host inputs go up through pinned memory): ``actions``
-        (F, 3), ``scans`` (F, R) in meters. Optional
-        draws: ``u0`` (F,) and ``noise`` (F, N, 3). Returns (state, poses
-        (F, 3))."""
+        """One correction of every member (of this process's members over a
+        mesh), launched without waiting for the device (host inputs go up
+        through pinned memory): ``actions`` (F, 3), ``scans`` (F, R) in
+        meters. Optional draws: ``u0`` (F,) and ``noise`` (F, N, 3). Over a
+        mesh each takes this process's members' rows, or those rows alone
+        (F / D of them). Returns (state, poses (F, 3), or this process's
+        (F / D, 3))."""
         self._require_beams()
-        f, n = self.fleet_size, state.particles.shape[1]
+        f, n = self.num_local_members, self.config.max_particles
         actions = self._as(actions, (f, 3), "actions")
-        scans = upload(scans, self.device)
+        scans = self._as(scans, (f, self.beam_angles.shape[0]), "scans")
         obs_px = self.sensor.to_pixel_index(scans).to(torch.float32)
         return self._step(state, actions, obs_px, self._as(u0, (f,), "u0"),
                           self._as(noise, (f, n, 3), "noise"))
@@ -346,18 +513,17 @@ class FleetFilter:
     def step_many(self, state: FleetState, actions, scans, u0=None, noise=None):
         """K chained corrections with no host synchronization between them:
         ``actions`` (K, F, 3), ``scans`` (K, F, R). Optional draws: ``u0``
-        (K, F) and ``noise`` (K, F, N, 3). Returns (state, poses (K, F, 3))."""
+        (K, F) and ``noise`` (K, F, N, 3). Returns (state, poses (K, F, 3));
+        over a mesh, as :meth:`step`."""
         self._require_beams()
-        f, n = self.fleet_size, state.particles.shape[1]
+        f, n = self.num_local_members, self.config.max_particles
         actions = upload(actions, self.device)
         k = actions.shape[0]
-        actions = self._as(actions, (k, f, 3), "actions")
-        scans = upload(scans, self.device)
-        if scans.shape[:2] != (k, f):
-            raise ValueError(f"scans shape {tuple(scans.shape)} != ({k}, {f}, R)")
+        actions = self._as(actions, (k, f, 3), "actions", axis=1)
+        scans = self._as(scans, (k, f, self.beam_angles.shape[0]), "scans", axis=1)
         obs_px = self.sensor.to_pixel_index(scans).to(torch.float32)
-        u0 = self._as(u0, (k, f), "u0")
-        noise = self._as(noise, (k, f, n, 3), "noise")
+        u0 = self._as(u0, (k, f), "u0", axis=1)
+        noise = self._as(noise, (k, f, n, 3), "noise", axis=1)
         poses = []
         for i in range(k):
             state, p = self._step(

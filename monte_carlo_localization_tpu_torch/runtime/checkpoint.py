@@ -15,9 +15,12 @@ seeds the generator from ``key_data``. The random streams of the two
 packages cannot match, so a resumed filter continues with other draws
 than its writer would have taken.
 
-``load_state(place=...)`` waits for the port's sharded filter (ROADMAP.md
-queue 1, item 8) and raises ``NotImplementedError``, as a ``FleetFilter``
-on a mesh does.
+``load_state(path, place=spf.place_state)`` resumes a sharded filter
+(``parallel/sharded.py``): the whole state is read and ``place`` keeps
+this process's rows on its device, so a checkpoint written at one shard
+count resumes at another (write one with ``spf.gather_state``).
+``load_fleet_state(path, fleet=ff)`` keeps a meshed fleet's rows the
+same way (``FleetFilter.place_state``).
 """
 
 from __future__ import annotations
@@ -33,7 +36,6 @@ from monte_carlo_localization_tpu_torch.utils.device import DEFAULT_DEVICE, reso
 
 _VERSION = 1
 _FLEET_VERSION = 1
-_SHARDED = "ROADMAP.md queue 1, item 8 (parallel/sharded.py)"
 
 
 def _key_data(seed: int) -> np.ndarray:
@@ -125,9 +127,9 @@ def save_state(
 def load_state(path: str | Path, tracker=None, place=None,
                device: torch.device | str = DEFAULT_DEVICE):
     """Read a checkpoint -> (MCLState on ``device``, meta dict). Restores
-    the tracker anchors in place when one is passed."""
-    if place is not None:
-        raise NotImplementedError(f"load_state(place=...) waits for {_SHARDED}")
+    the tracker anchors in place when one is passed. ``place`` (a callable
+    ``MCLState -> MCLState``, e.g. ``ShardedParticleFilter.place_state``)
+    re-places the restored state."""
     device = resolve_device(device)
     with np.load(Path(path), allow_pickle=False) as z:
         if int(z["version"]) != _VERSION:
@@ -169,6 +171,8 @@ def load_state(path: str | Path, tracker=None, place=None,
         extra = _extra(z)
     if extra:
         meta["extra"] = extra
+    if place is not None:
+        state = place(state)
     return state, meta
 
 
@@ -204,9 +208,10 @@ def save_fleet_state(
 def load_fleet_state(path: str | Path, fleet=None,
                      device: torch.device | str = DEFAULT_DEVICE):
     """Read a fleet checkpoint -> (FleetState, meta dict), on ``fleet``'s
-    device when a ``FleetFilter`` is given (its member count must match),
-    else on ``device``. A file without the port's generator state seeds
-    the fleet's one generator from member 0's key."""
+    device when a ``FleetFilter`` is given (its member count must match;
+    a meshed fleet keeps its rows, ``FleetFilter.place_state``), else on
+    ``device``. A file without the port's generator state seeds the
+    fleet's one generator from member 0's key."""
     with np.load(Path(path), allow_pickle=False) as z:
         if "fleet_version" not in z:
             raise ValueError(
@@ -236,4 +241,6 @@ def load_fleet_state(path: str | Path, fleet=None,
         extra = _extra(z)
     if extra:
         meta["extra"] = extra
+    if fleet is not None and fleet.mesh is not None:
+        state = fleet.place_state(state)
     return state, meta

@@ -214,3 +214,14 @@ def test_bag_roundtrip_gate(tmp_path):
     scans[3, 7] = np.nextafter(scans[3, 7], np.float32(np.inf))
     with pytest.raises(RuntimeError, match="changed scan_ranges"):
         chip_smoke.bag_roundtrip_errors(orig, dc.replace(back, scan_ranges=scans))
+
+
+def test_result_line_is_rank_zero_s_one_result():
+    assert chip_smoke.result_line(["noise\nRESULT {\"a\": 1}\n", "RESULT {}"]) == {"a": 1}
+    for outs in (["no result"], ["RESULT {}\nRESULT {}"]):
+        with pytest.raises(RuntimeError, match="result lines"):
+            chip_smoke.result_line(outs)
+
+
+def test_host_cpu_names_its_cores():
+    assert chip_smoke.host_cpu().endswith("logical cores")

@@ -116,13 +116,28 @@ def test_info_lut_names_its_route(world, capsys):
 
 
 UNPORTED = [
-    (["baseline", "--trace", "T"], "item 9"),
     (["bench"], "item 1"),
 ]
 
 
-def test_only_bench_and_baseline_stay_unported():
-    assert sorted(cli.UNPORTED) == ["baseline", "bench"]
+def test_only_bench_stays_unported():
+    assert sorted(cli.UNPORTED) == ["bench"]
+
+
+def test_baseline_json_matches_jax(world, capsys):
+    """``baseline`` prints the JAX CLI's keys, and the same numbers: both
+    harnesses draw from numpy ``default_rng(0)`` and cast with one native
+    source. Its phase times are the host's."""
+    args = ["baseline", "--map", world["map"], "--trace", world["trace"], "--particles", "64",
+            "--angle-step", "6", "--corrections", "8"]
+    port = _json(capsys, cli.main, args)
+    jax_out = _json(capsys, jcli.main, args)
+    assert sorted(port) == sorted(jax_out) and sorted(port["phase_ms"]) == sorted(jax_out["phase_ms"])
+    assert port["engine"] == "cpu_reference" and port["corrections"] == 8
+    assert (port["rmse_xy_m"], port["rmse_theta_rad"]) == (jax_out["rmse_xy_m"],
+                                                           jax_out["rmse_theta_rad"])
+    with pytest.raises(SystemExit):
+        cli.main([*args, "--device", "cpu"])  # a host harness: it takes no --device
 
 
 @pytest.mark.parametrize("argv, item", UNPORTED, ids=[" ".join(a[:1] + a[-2:-1]) for a, _ in UNPORTED])

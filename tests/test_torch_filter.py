@@ -213,7 +213,12 @@ def test_package_imports_without_jax():
         "monte_carlo_localization_tpu_torch.runtime.webviz, "
         "monte_carlo_localization_tpu_torch.runtime.rosbag, "
         "monte_carlo_localization_tpu_torch.runtime.ros2_bridge, "
-        "monte_carlo_localization_tpu_torch.mapping.synthetic\n"
+        "monte_carlo_localization_tpu_torch.mapping.synthetic, "
+        "monte_carlo_localization_tpu_torch.parallel.sharded, "
+        "monte_carlo_localization_tpu_torch.parallel.multihost, "
+        "monte_carlo_localization_tpu_torch.parallel.collectives, "
+        "monte_carlo_localization_tpu_torch.baseline, "
+        "monte_carlo_localization_tpu_torch.tools.dryrun_multichip\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k.startswith('monte_carlo_localization_tpu.')"
         " or k == 'monte_carlo_localization_tpu')\n"

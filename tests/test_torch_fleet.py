@@ -439,11 +439,9 @@ def test_validation_errors_mirror_jax(name):
         torch_call()
 
 
-def test_unported_fleet_paths_raise():
+def test_fleet_construction_errors():
     _, gm = _map_pair(MAP_SPECS[0])
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        FleetFilter(gm, 2, MCLConfig(max_particles=64), mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+    with pytest.raises(ValueError, match="particle_axis needs a mesh"):
         FleetFilter(gm, 2, MCLConfig(max_particles=64), particle_axis="p")
     with pytest.raises(ValueError, match="single member"):
         FleetFilter(gm, 2, MCLConfig(max_particles=64, pallas_dedup_slots=4), beam_angles=BEAMS)

@@ -1,20 +1,19 @@
 """The port's public names against the JAX package's: the ``__all__`` of
-the top-level package, ``mapping``, ``ops`` and ``runtime`` hold every
-name the JAX one holds, except those still to be ported, listed here by
-name with the ROADMAP.md item that brings them. Every listed name
-resolves, and the package carries the JAX package's ``__version__``."""
+the top-level package, ``mapping``, ``ops``, ``runtime``, ``parallel``
+and ``baseline`` hold every name the JAX one holds, except those still
+to be ported, listed here by name with the ROADMAP.md item that brings
+them (none now). Every listed name resolves, and the package carries the
+JAX package's ``__version__``."""
 
 import importlib
 
 import pytest
 
 # name -> the ROADMAP.md queue 1 item that ports it
-STILL_TO_PORT = {
-    "ops": {"resample_rows": "item 8", "systematic_resample_rows": "item 8"},
-}
+STILL_TO_PORT: dict[str, dict[str, str]] = {}
 
 
-@pytest.mark.parametrize("sub", ["", "mapping", "ops", "runtime"])
+@pytest.mark.parametrize("sub", ["", "mapping", "ops", "runtime", "parallel", "baseline"])
 def test_public_names_cover_the_jax_package(sub):
     suffix = f".{sub}" if sub else ""
     jax_mod = importlib.import_module("monte_carlo_localization_tpu" + suffix)
