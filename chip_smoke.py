@@ -54,7 +54,15 @@ overflow fallback likewise; config #5 across two processes
 (``MultiHostFleet``, 32 cars each, their own scans, the pose table
 gathered and compared with the one-process fleet on the same draws); and
 ``cli baseline`` (the CPU reference harness) on config #1's trace, on
-the host CPU. Every LUT is built on
+the host CPU. Its ``bench`` phase drives the port's benchmark harness
+(``monte_carlo_localization_tpu_torch/bench.py``) on the workloads the
+other phases do not: config #2, 1,000,000 particles chained and
+converging, the giant fleet over two basement-class maps (its kernel held
+against the plain version), the three kidnap arms, the live loop at
+chunks 1, 8 and 32 and the synthetic headline, then
+``tools/mega_ab.py`` on Spielberg's 12.3 GB dense LUT (the mega kernel
+held against its plain version there), ``tools/perf_ablate.py`` and the
+three examples. Every LUT is built on
 the card, and each path that builds one is gated on the sweep kernel's
 launches. Each phase prints
 one JSON line with its own seconds; any failure raises and exits
@@ -86,6 +94,14 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 try:
+    from monte_carlo_localization_tpu_torch.bench import (
+        _beams,
+        _convergence_truths,
+        _drift_threshold,
+        _fleet_inputs,
+        _start_pose,
+        _synth_scan,
+    )
     from monte_carlo_localization_tpu_torch.utils.timing import device_ms, event_ms, profile_run
 except ModuleNotFoundError as exc:
     sys.exit(f"chip_smoke: run from a checkout of the repository ({exc})")
@@ -164,11 +180,6 @@ def emit(phase: str, t0: float, **fields) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
-
-
-def headline_beams(num_beams: int) -> np.ndarray:
-    inc = 1.5 * np.pi / max(num_beams - 1, 1)
-    return (-0.75 * np.pi + np.arange(num_beams) * inc).astype(np.float32)
 
 
 def chain_profile(run, steps: int) -> dict:
@@ -490,7 +501,7 @@ def phase_lut_build(device) -> dict:
     plain["config1_dense_padded"] = sweep_vs_plain("config #1 dense, padded", gm1.occupied, t1,
                                                    s1, gm1.max_range_px, False)
     spiel = load_map(REPO / "maps" / "Spielberg_map.yaml", device=device)
-    beams = headline_beams(1080)
+    beams = _beams(1080)
     free = spiel.free_cells[: spiel.num_free].float().median(dim=0).values.long().tolist()
     r0 = min(max(free[0] - LUT_CROP // 2, 0), spiel.height - LUT_CROP)
     c0 = min(max(free[1] - LUT_CROP // 2, 0), spiel.width - LUT_CROP)
@@ -524,7 +535,7 @@ def phase_lut_build(device) -> dict:
         del gm
     check(native["basement_u8"]["lut_bytes"] > 2**31, "basement's compact LUT should pass 2^31 B")
     maps = [load_map(REPO / "maps" / name, device=device) for name in CONFIG5_MAPS]
-    t, stride, itemsize = lut_geometry(headline_beams(60), maps[0].max_range_px)
+    t, stride, itemsize = lut_geometry(_beams(60), maps[0].max_range_px)
     eps = 512 // itemsize
     fleet = stack_maps(maps)
     native["config5_member_compact"] = card_vs_native(
@@ -577,7 +588,7 @@ def long_line_build(device) -> dict:
 
     gm = corridor_world(**LONG_LINE_MAP, device=device)
     check(gm.width > MAX_LINE_CELLS >= gm.height, "the corridor should have long rows only")
-    t, _, _ = lut_geometry(headline_beams(60), gm.max_range_px)
+    t, _, _ = lut_geometry(_beams(60), gm.max_range_px)
     plans = long_line_plans(gm, t, t, lut_dtype(gm.max_range_px).itemsize)
     check(any(p["global_d"] for p in plans) and not all(p["global_d"] for p in plans),
           f"long lines: D in global memory for {[p['global_d'] for p in plans]} of the groups")
@@ -612,7 +623,7 @@ def long_line_hall(device) -> dict:
     from monte_carlo_localization_tpu_torch.utils.timing import profile_run
 
     gm = box_world(**LONG_LINE_HALL, device=device)
-    t, stride, itemsize = lut_geometry(headline_beams(60), gm.max_range_px)
+    t, stride, itemsize = lut_geometry(_beams(60), gm.max_range_px)
     plans = long_line_plans(gm, t, stride, itemsize)
     out = sweep_vs_plain("long-line hall, compact", gm.occupied, t, stride, gm.max_range_px,
                          True)
@@ -671,9 +682,9 @@ def phase_methods(device) -> dict:
     lut = lut_built_on_card("methods_headline_lut", pf.grid_map)
     check(lut["lut_bytes"] == gm.height * gm.width * 1440,
           f"the headline lut method's LUT has {lut['lut_bytes']} B")
-    beams = headline_beams(1080)
+    beams = _beams(1080)
     pf.set_beam_angles(beams)
-    pose = _nearest_free_pose(gm, _center_pose(gm))
+    pose = _start_pose(gm)
     beams_t = torch.as_tensor(beams, device=device)
     q = torch.stack([torch.full_like(beams_t, float(pose[0])),
                      torch.full_like(beams_t, float(pose[1])), float(pose[2]) + beams_t], 1)
@@ -748,7 +759,7 @@ def phase_kernel_vs_plain(device) -> dict:
     cases, times = {"K1": [], "K3": []}, {"K1": {}, "K3": {}}
     for kernel, subbin in (("K1", False), ("K3", True)):
         for num_beams in (60, 1080):
-            beams = headline_beams(num_beams)
+            beams = _beams(num_beams)
             for max_range_px in (200, 400):
                 for compact in (False, True):
                     q, lut, parts, obs, row_map = synthetic_case(
@@ -787,7 +798,7 @@ def phase_kernel_vs_plain(device) -> dict:
             for max_range_px, compact, subbin in ((200, False, False), (400, True, False),
                                                   (200, True, True)):
                 q, lut, parts, obs, row_map = synthetic_case(
-                    rng, headline_beams(num_beams), max_range_px, compact, n, device, subbin=subbin)
+                    rng, _beams(num_beams), max_range_px, compact, n, device, subbin=subbin)
                 got = q.launch(lut, parts, obs, row_map)
                 want = lut_log_weights_reference(q, lut, parts, obs, row_map)
                 torch.cuda.synchronize()
@@ -799,7 +810,7 @@ def phase_kernel_vs_plain(device) -> dict:
                                   row_map=compact, subbin=subbin, off_map=int((want == -1e4).sum()),
                                   max_abs_err=err))
     # u16 entries far above ceil(m) read the table's last row
-    q, lut, parts, obs, _ = synthetic_case(rng, headline_beams(60), 400, False, N_PARTICLES, device)
+    q, lut, parts, obs, _ = synthetic_case(rng, _beams(60), 400, False, N_PARTICLES, device)
     big = torch.from_numpy(rng.integers(401, 65536, lut.numel() // 3).astype(np.uint16)).to(device)
     lut.view(torch.int16)[::3][: big.numel()] = big.view(torch.int16)
     got, want = q.launch(lut, parts, obs), lut_log_weights_reference(q, lut, parts, obs)
@@ -813,7 +824,7 @@ def phase_kernel_vs_plain(device) -> dict:
     # does the sub-bin lerp at a range that is not an integer
     for num_beams in (60, 1080):
         for max_range_px, subbin in ((2000, False), (2000, True), (198.4, True)):
-            q, lut, parts, obs, row_map = synthetic_case(rng, headline_beams(num_beams), max_range_px,
+            q, lut, parts, obs, row_map = synthetic_case(rng, _beams(num_beams), max_range_px,
                                                          True, N_PARTICLES, device, subbin=subbin)
             got = q.launch(lut, parts, obs, row_map)
             want = lut_log_weights_reference(q, lut, parts, obs, row_map)
@@ -858,7 +869,7 @@ def phase_norm_table(device) -> dict:
     cases = []
     timed = None
     for max_range_px in (200, 400, 198.4):
-        q = synthetic_case(rng, headline_beams(60), max_range_px, False, 8, device)[0]
+        q = synthetic_case(rng, _beams(60), max_range_px, False, 8, device)[0]
         q.table_launch_count = 0
         table = q.norm_table(device)
         check(q.table_launch_count == 1 and q.norm_table(device) is table,
@@ -888,8 +899,8 @@ def phase_norm_table(device) -> dict:
             )
     sub_cases, sub_timed = [], None
     for max_range_px in (200, 238, 400):  # 238: basement_fixed's max range
-        qs = synthetic_case(rng, headline_beams(60), max_range_px, False, 8, device, subbin=True)[0]
-        q = synthetic_case(rng, headline_beams(60), max_range_px, False, 8, device)[0]
+        qs = synthetic_case(rng, _beams(60), max_range_px, False, 8, device, subbin=True)[0]
+        q = synthetic_case(rng, _beams(60), max_range_px, False, 8, device)[0]
         table = qs.subbin_table(device)
         check(qs.subbin_table_launch_count == 1 and qs.subbin_table(device) is table,
               "the sub-bin table is filled once per query and device")
@@ -919,9 +930,9 @@ def phase_norm_table(device) -> dict:
             )
     whole_bins = {}
     for num_beams in (60, 1080):
-        q, lut, parts, obs, row_map = synthetic_case(rng, headline_beams(num_beams), 200, True,
+        q, lut, parts, obs, row_map = synthetic_case(rng, _beams(num_beams), 200, True,
                                                      6000, device)
-        qs = synthetic_case(rng, headline_beams(num_beams), 200, True, 8, device, subbin=True)[0]
+        qs = synthetic_case(rng, _beams(num_beams), 200, True, 8, device, subbin=True)[0]
         k = torch.from_numpy(rng.integers(-q.t_bins, q.t_bins, 6000).astype(np.float32)).to(device)
         theta = k / q.bin_scale
         bpos = theta * q.bin_scale
@@ -1058,7 +1069,7 @@ def phase_dedup_vs_plain(device) -> dict:
         (60, 400, True, False, ("mixed",)),
         (1080, 400, False, True, ("converged", "mixed")),
     ):
-        beams = headline_beams(num_beams)
+        beams = _beams(num_beams)
         dtype = np.uint8 if max_range_px <= 254 else np.uint16
         t = suggest_theta_bins(beams)
         stride = required_row_stride(t, beams, np.dtype(dtype).itemsize)
@@ -1208,7 +1219,7 @@ def phase_headline(device) -> dict:
     gm = load_map(REPO / "maps" / "Spielberg_map.yaml", device=device)
     t_map = time.perf_counter() - t0
     pf = ParticleFilter(gm, MCLConfig(max_particles=N_PARTICLES))
-    beams = headline_beams(1080)
+    beams = _beams(1080)
     sweep_reset()
     t1 = time.perf_counter()
     pf.set_beam_angles(beams)  # builds the compact LUT on the card
@@ -1387,7 +1398,7 @@ def phase_mega_vs_plain(device) -> dict:
     rng = np.random.default_rng(2)
     cases, times = [], {}
     for num_beams in (60, 1080):
-        beams = headline_beams(num_beams)
+        beams = _beams(num_beams)
         for max_range_px in (200, 400):
             for motion, sc in MOTIONS.items():
                 step, lut, parts, logw, noise, obs = mega_case(rng, beams, max_range_px, N_PARTICLES, device)
@@ -1404,7 +1415,7 @@ def phase_mega_vs_plain(device) -> dict:
     # computes the weight CDF itself, past that a cooperative grid does
     scalars = torch.tensor(MOTIONS["arc"] + [0.0] * 4, dtype=torch.float32, device=device)
     for num_beams, n in ((60, 1), (60, 8192), (1080, 8192), (60, 30_011), (1080, 30_011), (60, 100_000)):
-        step, lut, parts, logw, noise, obs = mega_case(rng, headline_beams(num_beams), 200, n, device)
+        step, lut, parts, logw, noise, obs = mega_case(rng, _beams(num_beams), 200, n, device)
         if n == 1:
             parts[:, :2] = torch.tensor([1.0, 2.0], device=device)  # on the map
         what = f"mega {n} x {num_beams}"
@@ -1491,7 +1502,7 @@ def phase_mega_full_window(device) -> dict:
 
     t0 = time.perf_counter()
     gm = load_map(REPO / "maps" / "map_1753950572.yaml", device=device)
-    beams = headline_beams(1080)
+    beams = _beams(1080)
     pf = ParticleFilter(gm, MCLConfig(max_particles=N_PARTICLES, pallas_mega=True))
     pf.set_beam_angles(beams)
     check(pf.grid_map.lut_row_map is None, "map_1753950572 at 1080 beams should take the dense LUT")
@@ -1634,34 +1645,6 @@ def phase_config4_replay(device):
                 subbin_table_fills=runs["subbin"]["subbin_table_fills"]), gm, beams
 
 
-def sphere_scan(gm, beams, pose) -> np.ndarray:
-    """The scan (meters) at ``pose`` by ``cast_rays_sphere`` (64
-    iterations), as bench.py makes its synthetic scans."""
-    import torch
-
-    from monte_carlo_localization_tpu_torch.ops.raycast import cast_rays_sphere
-
-    beams_t = torch.as_tensor(beams, dtype=torch.float32, device=gm.device)
-    q = torch.stack([torch.full_like(beams_t, float(pose[0])),
-                     torch.full_like(beams_t, float(pose[1])), float(pose[2]) + beams_t], 1)
-    return cast_rays_sphere(gm, q, num_iters=64).cpu().numpy()
-
-
-def converge_truths(gm, count: int) -> list[np.ndarray]:
-    """The trial poses of bench.py bench_convergence: free cell centres
-    drawn by default_rng(0), headings uniform; past the bench's
-    CONVERGE_TRIALS the same stream drawn on."""
-    rng = np.random.default_rng(0)
-    free = gm.free_cells[: gm.num_free].cpu().numpy()
-    truths = []
-    for _ in range(count):
-        row, col = free[rng.integers(len(free))]
-        truths.append(np.array([(col + 0.5) * gm.resolution + gm.origin_x,
-                                (row + 0.5) * gm.resolution + gm.origin_y,
-                                rng.uniform(-np.pi, np.pi)], np.float32))
-    return truths
-
-
 def phase_config4_converge(device, gm, beams) -> dict:
     """Config #4: 100k particles seeded over basement_fixed, chained
     corrections in chunks of 5 until within 0.5 m (at most 80), 5 trials,
@@ -1685,8 +1668,8 @@ def phase_config4_converge(device, gm, beams) -> dict:
         filters[name] = f
     check(filters["dedup_K4"].likelihood.dedup_slots == DEDUP_SLOTS, "dedup filter without slots")
     check(filters["dedup_matmul_K5"].likelihood.dedup_matmul, "K5 filter without dedup_matmul")
-    truths = converge_truths(gm, CONVERGE_TRIALS + CONVERGE_MORE)
-    scans = [sphere_scan(gm, beams, p) for p in truths]
+    truths = _convergence_truths(gm, CONVERGE_TRIALS + CONVERGE_MORE)
+    scans = [_synth_scan(gm, beams, p) for p in truths]
     for f in filters.values():  # pay first launches outside every trial's timer
         converge_global(f, scans[0], truths[0], seed=99, max_updates=5)
     torch.cuda.synchronize()
@@ -1803,7 +1786,7 @@ def fleet_case(rng, maps, f, npm, map_of, member_base, compact, max_range_px, su
         suggest_theta_bins,
     )
 
-    beams = headline_beams(60)
+    beams = _beams(60)
     dtype = np.uint8 if max_range_px <= 254 else np.uint16
     itemsize = np.dtype(dtype).itemsize
     t = suggest_theta_bins(beams)
@@ -1886,9 +1869,9 @@ def phase_fleet_vs_plain(device) -> dict:
     for subbin in (False, True):
         for compact in (False, True):
             q, lut, parts, obs, row_map = synthetic_case(
-                np.random.default_rng(5), headline_beams(60), 200, compact, N_PARTICLES + 1,
+                np.random.default_rng(5), _beams(60), 200, compact, N_PARTICLES + 1,
                 device, subbin=subbin)
-            fq = LUTQuery(q.t_bins, headline_beams(60), height=q.height, width=q.width,
+            fq = LUTQuery(q.t_bins, _beams(60), height=q.height, width=q.width,
                           resolution=q.resolution, origin_x=q.origin_x, origin_y=q.origin_y,
                           max_range_px=200, row_stride=q.row_stride, z_hit=0.8, z_short=0.01,
                           z_max=0.07, z_rand=0.12, sigma_hit=8.0, inv_squash=1 / 2.2,
@@ -1906,32 +1889,6 @@ def phase_fleet_vs_plain(device) -> dict:
             one[f"subbin={subbin} compact={compact}"] = "torch.equal"
     emit("fleet_vs_plain", t0, tol=KERNEL_TOL, cases=cases, one_member_vs_single=one)
     return dict(max_abs_err=max(c["max_abs_err"] for c in cases.values()))
-
-
-# copies of bench.py's helpers (chip_smoke imports neither bench.py nor
-# jax; headline_beams is bench.py's _beams)
-def _center_pose(gm) -> np.ndarray:
-    """A pose at the centroid of free space (bench.py ``_center_pose``)."""
-    free = gm.free_cells[: int(gm.num_free)].cpu().numpy()
-    row, col = free.mean(axis=0)
-    return np.array([col * gm.resolution + float(gm.origin_x),
-                     row * gm.resolution + float(gm.origin_y), 0.3], np.float32)
-
-
-def _nearest_free_pose(gm, pose) -> np.ndarray:
-    """Snap a pose to the nearest free cell (bench.py ``_nearest_free_pose``)."""
-    free = gm.free_cells[: int(gm.num_free)].cpu().numpy()
-    col = (pose[0] - float(gm.origin_x)) / gm.resolution
-    row = (pose[1] - float(gm.origin_y)) / gm.resolution
-    i = np.argmin((free[:, 0] - row) ** 2 + (free[:, 1] - col) ** 2)
-    return np.array([free[i, 1] * gm.resolution + float(gm.origin_x),
-                     free[i, 0] * gm.resolution + float(gm.origin_y), pose[2]], np.float32)
-
-
-def _drift_threshold(n_corrections: int, sigma_xy: float = 0.05) -> float:
-    """bench.py's divergence gate for zero-action benches: 3 sigma of the
-    motion noise's random walk over S corrections, floored at 1 m."""
-    return max(1.0, 3.0 * float(np.sqrt(max(n_corrections, 1))) * sigma_xy)
 
 
 def phase_config5(device, classic_kernels: float) -> dict:
@@ -2100,8 +2057,8 @@ def basement_for_sharding(device):
     gm = load_map(REPO / "maps" / "basement_fixed.map.yaml", device=device)
     beams = np.asarray(Trace.load(REPO / "traces" / "config4_basement_fixed.npz").beam_angles[::18],
                        np.float32)
-    truths = converge_truths(gm, CONVERGE_TRIALS)
-    return gm, beams, truths, [sphere_scan(gm, beams, p) for p in truths]
+    truths = _convergence_truths(gm, CONVERGE_TRIALS)
+    return gm, beams, truths, [_synth_scan(gm, beams, p) for p in truths]
 
 
 def sharded_trials(spf, truths, scans) -> dict:
@@ -2273,21 +2230,16 @@ def phase_sharded(device) -> dict:
 
 
 def config5_fleet_inputs(device):
-    """Config #5 as bench.py ``bench_fleet`` sets it up: the four maps,
-    ``map_assignment = arange(64) % 4``, 60 beams, each car at its map's
-    best-cleared pose with a sphere-cast scan. Returns (maps, stacked map,
-    assignment, beams, start poses (64, 3), scans (64, 60))."""
+    """Config #5 as the port's bench ``bench_fleet`` sets it up
+    (``_fleet_inputs``): the four maps, ``map_assignment = arange(64) %
+    4``, 60 beams, each car at its map's start pose with a sphere-cast
+    scan. Returns (maps, stacked map, assignment, beams, start poses (64,
+    3), scans (64, 60))."""
     from monte_carlo_localization_tpu_torch import load_map
     from monte_carlo_localization_tpu_torch.parallel import stack_maps
 
     maps = [load_map(REPO / "maps" / name, device=device) for name in CONFIG5_MAPS]
-    asg = np.arange(CONFIG5_FLEET, dtype=np.int32) % len(maps)
-    beams = headline_beams(60)
-    map_poses = [_nearest_free_pose(m, _center_pose(m)) for m in maps]
-    map_scans = [sphere_scan(m, beams, p) for m, p in zip(maps, map_poses)]
-    poses0 = np.stack([map_poses[a] for a in asg])
-    scans = np.stack([map_scans[a] for a in asg])
-    return maps, stack_maps(maps), asg, beams, poses0, scans
+    return maps, stack_maps(maps), *_fleet_inputs(CONFIG5_FLEET, 60, maps)
 
 
 def multihost_draws(device):
@@ -2480,25 +2432,12 @@ def phase_fleet_live(device) -> dict:
     dispatched correction and no single-filter launch."""
     import torch
 
-    from monte_carlo_localization_tpu_torch import MCLConfig, load_map
-    from monte_carlo_localization_tpu_torch.ops.raycast import cast_rays_sphere
-    from monte_carlo_localization_tpu_torch.parallel import stack_maps
+    from monte_carlo_localization_tpu_torch import MCLConfig
     from monte_carlo_localization_tpu_torch.runtime import FleetNode, LiveRunner
 
     t0 = time.perf_counter()
     f, n, r = CONFIG5_FLEET, N_PARTICLES, 60
-    maps = [load_map(REPO / "maps" / name, device=device) for name in CONFIG5_MAPS]
-    asg = np.arange(f, dtype=np.int32) % len(maps)
-    beams = headline_beams(r)
-    beams_t = torch.as_tensor(beams, device=device)
-    map_poses = [_nearest_free_pose(m, _center_pose(m)) for m in maps]
-    map_scans = []
-    for m, p in zip(maps, map_poses):
-        qry = torch.stack([torch.full_like(beams_t, float(p[0])),
-                           torch.full_like(beams_t, float(p[1])), float(p[2]) + beams_t], 1)
-        map_scans.append(cast_rays_sphere(m, qry, num_iters=64).cpu().numpy())
-    poses0 = np.stack([map_poses[a] for a in asg])
-    stacked = stack_maps(maps)
+    maps, stacked, asg, beams, poses0, scans = config5_fleet_inputs(device)
 
     def make_node(async_correction: bool):
         cfg = MCLConfig(max_particles=n, angle_step=1, async_correction=async_correction,
@@ -2507,7 +2446,7 @@ def phase_fleet_live(device) -> dict:
         sweep_reset()
         t1 = time.perf_counter()
         for i in range(f):  # the first scan attaches the member LUTs
-            node.on_scan(i, map_scans[asg[i]], beam_angles=beams)
+            node.on_scan(i, scans[i], beam_angles=beams)
             node.on_odometry(i, *poses0[i], 0.0, 0.0, stamp=0.0)
         torch.cuda.synchronize()
         first_scans_s = time.perf_counter() - t1
@@ -3122,6 +3061,365 @@ def phase_runtime_io(device, tmp: Path) -> dict:
     return dict(replay=replay, serve=serve, viz=viz)
 
 
+# the bench phase: the port's harness (monte_carlo_localization_tpu_torch/
+# bench.py) on the workloads chip_smoke's other phases do not drive, at
+# full width, cut in depth only (rounds, trials, windows)
+BENCH_MILLION = 1_000_000  # bench.py run_million: particles of the 1M workload
+BENCH_MILLION_ROUNDS = 2  # bench_updates rounds at 1M (chain 10, reps 2)
+BENCH_MILLION_TRIALS = 2  # bench_convergence trials at 1M (max_updates 60)
+BENCH_MEGA_AB = dict(particles=4000, beams=1080, chain=50, reps=2, rounds=2)  # on Spielberg
+BENCH_MEGA_LUT_BYTES = 2000 * 2000 * 3072  # Spielberg's dense u8 LUT at 1080 beams: 12.3 GB
+BENCH_ABLATE = dict(particles=4000, beams=60, chain=50, reps=2)  # config #1's shape
+BENCH_SIBAL1_RANGE_PX = 239  # int(12 m / the f32-fuzzed 0.05000000074505806 m) of config #2
+# the keys of the JAX harness's lines (bench.py run_config / run_headline,
+# run_million, bench_convergence's lines, run_fleet_giant, run_kidnap,
+# run_live), and the rates each must show finite and positive
+BENCH_UPDATES_KEYS = {"metric", "value", "unit", "vs_baseline", "value_min", "value_max", "rounds",
+                      "dispatch_updates_per_sec", "dispatch_min", "dispatch_max", "rays_per_sec",
+                      "method"}
+BENCH_LINES = {
+    "updates": (BENCH_UPDATES_KEYS, ("value", "value_min", "value_max", "dispatch_updates_per_sec",
+                                     "dispatch_min", "dispatch_max", "rays_per_sec")),
+    "million": ({"metric", "value", "unit", "vs_baseline", "spread", "dispatch", "ns_per_particle",
+                 "method"}, ("value", "ns_per_particle")),
+    "converge": ({"metric", "value", "unit", "vs_baseline", "success_rate", "median_updates",
+                  "trials", "method"}, ()),
+    "fleet": ({"metric", "value", "unit", "vs_baseline", "value_min", "value_max", "rounds",
+               "member_updates_per_sec", "chained_fleet_steps_per_sec", "rays_per_sec",
+               "lut_bytes", "method"},
+              ("value", "value_min", "value_max", "member_updates_per_sec",
+               "chained_fleet_steps_per_sec")),
+    "kidnap": ({"metric", "value", "unit", "vs_baseline", "recovery_rate", "arm", "eligible",
+                "trials", "method"}, ()),
+    "live": ({"metric", "value", "unit", "vs_baseline", "spread", "median_pose_staleness_ms",
+              "method"}, ("value",)),
+}
+
+
+def bench_line(res: dict, device, kind: str) -> dict:
+    """``res`` as the harness prints it (``bench.labelled``), parsed back;
+    raises unless it has the JAX line's keys, the card's name and power
+    limit, and finite, positive rates."""
+    from monte_carlo_localization_tpu_torch import bench
+
+    line = json.loads(json.dumps(bench.labelled(res, device)))
+    keys, rates = BENCH_LINES[kind]
+    missing = keys - set(line)
+    check(not missing, f"bench line {line.get('metric')!r} lacks the JAX keys {sorted(missing)}")
+    import torch
+
+    check(line["device"] == torch.cuda.get_device_name(device) and line["power_limit_w"] > 0,
+          f"bench line {line['metric']!r} names {line['device']!r} at {line['power_limit_w']} W")
+    for k in rates:
+        check(math.isfinite(line[k]) and line[k] > 0,
+              f"bench line {line['metric']!r}: {k} = {line[k]}")
+    return line
+
+
+def k2_compare(pf, particles, scan, what: str) -> dict:
+    """The LUT kernel of a harness filter ``pf`` on ``particles`` and its
+    ``scan`` (meters) against the plain version; raises past KERNEL_TOL.
+    Its launch is made outside the filter's steps, so the harness does not
+    count it."""
+    import torch
+
+    from monte_carlo_localization_tpu_torch.ops.lut_query import lut_log_weights_reference
+
+    gm, q = pf.grid_map, pf.likelihood
+    obs = pf.sensor.to_pixel_index(torch.as_tensor(scan, device=particles.device)).float()
+    got = q(gm.range_lut, particles, obs, row_map=gm.lut_row_map)
+    want = lut_log_weights_reference(q, gm.range_lut, particles, obs, gm.lut_row_map)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(err <= KERNEL_TOL, f"{what}: K2 vs plain {err} > {KERNEL_TOL}")
+    return dict(max_abs_err=err, particles=int(particles.shape[0]), beams=int(obs.shape[0]),
+                max_range_px=int(gm.max_range_px))
+
+
+def bench_launches(what: str, single: bool = True) -> dict:
+    """The kernel launches the harness's wrappers counted in the workload
+    just run (``bench.LAUNCHES``), held to its corrections: one LUT-kernel
+    launch per correction of a filter, one fleet launch per fleet
+    correction, and no other kernel."""
+    from monte_carlo_localization_tpu_torch import bench
+
+    got = dict(bench.LAUNCHES)
+    kernel, corr = (("lut_loglik", "corrections") if single
+                    else ("lut_loglik_fleet", "fleet_corrections"))
+    check(got.get(corr, 0) > 0 and got.get(kernel, 0) == got[corr],
+          f"{what}: {got.get(kernel, 0)} {kernel} launches for {got.get(corr, 0)} {corr}")
+    others = {k: v for k, v in got.items() if k not in (kernel, corr) and v}
+    check(not others, f"{what}: other launches or corrections {others}")
+    return got
+
+
+def phase_bench(device) -> dict:
+    """The port's benchmark harness on the workloads no other phase runs,
+    at full width (every workload's particles, beams and maps), cut in
+    depth: config #2 (``run_config(2, quick=True)``, sibal1 at the fuzzed
+    resolution, max_range_px 239), K2 held against its plain version on a
+    filter of config #2 after 10 corrections; 1,000,000 particles on
+    basement_fixed (``bench_updates`` chain 10, reps 2,
+    BENCH_MILLION_ROUNDS rounds, and BENCH_MILLION_TRIALS
+    ``bench_convergence`` trials of at most 60 updates), with a profile of
+    10 chained corrections of the filter ``bench_updates`` times and K2
+    held against its plain version on its 1M particles; the giant fleet
+    (``run_fleet_giant(quick=True)``: 16 cars over basement and its
+    rotation, per-member compact LUTs), its fleet kernel held against the
+    plain version on all 16 x 4000 particles and a profile of 10 chained
+    corrections; the three kidnap arms
+    (``run_kidnap(quick=True)``); the live loop at chunks 1, 8 and 32
+    (``run_live(quick=True)``); the synthetic 768^2 headline; the mega
+    A/B on Spielberg's 12.3 GB dense LUT (``tools/mega_ab.py``, K6 held
+    to its plain version there); ``tools/perf_ablate.py`` at config #1's
+    shape; and the three examples at their default sizes. Every LUT comes
+    from the sweep kernel, every workload's kernel launches equal its
+    corrections, and each workload's LUTs are freed before the next."""
+    import gc
+
+    import torch
+
+    from monte_carlo_localization_tpu_torch import bench
+    from monte_carlo_localization_tpu_torch.examples import (
+        fleet_live_loop,
+        fleet_racing,
+        localize_on_map,
+    )
+    from monte_carlo_localization_tpu_torch.ops.range_lut_sweep import sweep
+    from monte_carlo_localization_tpu_torch.tools import mega_ab, perf_ablate
+
+    t_phase = time.perf_counter()
+    torch.zeros(1, device=device)  # the allocator keeps peak stats once it has allocated
+    base_bytes = torch.cuda.memory_allocated(device)
+    subs, lines, launches = {}, {}, {}
+
+    def run(name: str, fn):
+        """One workload, with every count set to 0 just before it; its
+        seconds, sweep launches and peak device bytes recorded."""
+        bench.LAUNCHES.clear()
+        sweep_reset()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        out = fn()
+        seconds = time.perf_counter() - t0
+        check(sweep.launch_count > 0, f"bench {name}: no LUT built by the sweep kernel")
+        SWEEP_LAUNCHES[f"bench_{name}"] = sweep.launch_count
+        subs[name] = dict(seconds=seconds, sweep_launches=sweep.launch_count,
+                          peak_device_bytes=torch.cuda.max_memory_allocated(device))
+        return out
+
+    def freed(name: str) -> None:
+        """Free the workload's LUTs (its nodes may hold reference cycles)
+        and check that it left less than 1 GiB allocated."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated(device) - base_bytes
+        check(left < 1 << 30, f"bench {name}: {left} B still allocated after the workload")
+        subs[name]["left_bytes"] = left
+
+    # config #2, then K2 against its plain version on a config #2 filter
+    def config2():
+        res = bench.run_config(2, quick=True, device=device)
+        c = bench.CONFIGS[2]
+        gm = bench._load_real_map(bench.CONFIG_MAPS[2], device)
+        pf, state, scan = bench._build_single(c["particles"], c["beams"], gm)
+        check(pf.grid_map.max_range_px == BENCH_SIBAL1_RANGE_PX
+              and pf.grid_map.lut_route == "kernel",
+              f"config #2: max_range_px {pf.grid_map.max_range_px}, LUT by "
+              f"{pf.grid_map.lut_route!r}")
+        state, _ = pf.step_many(state, np.zeros((10, 3), np.float32), np.tile(scan, (10, 1)))
+        return res, k2_compare(pf, state.particles, scan, "config #2 (sibal1)")
+
+    res, k2_config2 = run("config2", config2)
+    lines["config2"] = [bench_line(res, device, "updates")]
+    launches["config2"] = bench_launches("config #2")
+    subs["config2"]["k2_vs_plain"] = k2_config2
+    freed("config2")
+
+    # 1,000,000 particles on basement_fixed: a profile of the filter that
+    # bench_updates then times, K2 against its plain version on its
+    # particles, and the convergence trials
+    def million():
+        gm = bench._load_real_map(bench.CONFIG_MAPS[4], device)
+        setup = bench._build_single(BENCH_MILLION, 60, gm)
+        pf, state, scan = setup
+        check(gm.max_range_px <= 254 and pf.grid_map.lut_route == "kernel",
+              f"1M: LUT by {pf.grid_map.lut_route!r}")
+        act, scans = np.zeros((10, 3), np.float32), np.tile(scan, (10, 1))
+        moved, _ = pf.step_many(state, act, scans)
+        prof = chain_profile(lambda: pf.step_many(state, act, scans), 10)
+        upd = bench.bench_updates(BENCH_MILLION, 60, gm, chain=10, reps=2,
+                                  rounds=BENCH_MILLION_ROUNDS, setup=setup)
+        k2 = k2_compare(pf, moved.particles, scan, "1M")
+        del setup, pf, state, moved
+        gc.collect()
+        torch.cuda.empty_cache()
+        conv = bench.bench_convergence(BENCH_MILLION, 60, gm, trials=BENCH_MILLION_TRIALS,
+                                       max_updates=60)
+        return prof, k2, bench.million_lines(BENCH_MILLION, False, "lut_pallas", upd, conv)
+
+    prof_1m, k2_1m, res = run("million", million)
+    lines["million"] = [bench_line(res[0], device, "million"),
+                        bench_line(res[1], device, "converge")]
+    check(len(lines["million"][1]["trials"]) == BENCH_MILLION_TRIALS, "1M: trials missing")
+    check(k2_1m["particles"] == BENCH_MILLION, f"1M: K2 held on {k2_1m['particles']} particles")
+    launches["million"] = bench_launches("1M")
+    subs["million"].update(profile_10_steps=prof_1m, k2_vs_plain=k2_1m)
+    freed("million")
+
+    # the giant fleet: its kernel against the plain version and a profile,
+    # then the harness
+    def fleet_giant():
+        from monte_carlo_localization_tpu_torch.ops.lut_query import lut_log_weights_reference
+
+        maps = bench._giant_fleet_maps(device)
+        ff, state, poses0, scans = bench._fleet_setup(16, 4000, 60, maps, "lut_pallas")
+        gm, q = ff.map, ff.likelihood
+        check(gm.lut_row_map is not None and gm.lut_row_map_base is not None
+              and gm.lut_route == "kernel", "fleet giant: per-member compact LUTs on the card")
+        act, scans_k = np.zeros((10, 16, 3), np.float32), np.tile(scans, (10, 1, 1))
+        state, _ = ff.step_many(state, act, scans_k)
+        prof = chain_profile(lambda: ff.step_many(state, act, scans_k), 10)
+        parts = state.particles.reshape(-1, 3).contiguous()
+        obs = ff.sensor.to_pixel_index(torch.as_tensor(scans, device=device)).float()
+        fleet = dict(origins=(gm.origin_x, gm.origin_y), map_of=ff._member_map,
+                     dims=gm.member_dims, lut_bases=gm.lut_member_base,
+                     row_map_bases=gm.lut_row_map_base)
+        cmp = fleet_compare(q, gm.range_lut, parts, obs, gm.lut_row_map, fleet,
+                            "fleet giant kernel", synthetic=False)
+        tables = q.fleet_tables(parts, obs, gm.lut_row_map, **fleet)
+        cmp.update(
+            kernel_device_ms=device_ms(lambda: q.launch(gm.range_lut, parts, obs, gm.lut_row_map,
+                                                        tables), "lut_loglik_kernel")["ms"],
+            plain_ms=event_ms(lambda: lut_log_weights_reference(
+                q, gm.range_lut, parts, obs, gm.lut_row_map, tables), iters=5),
+            lut_bytes=gm.range_lut.numel() * gm.range_lut.element_size())
+        del ff, state, parts, tables
+        gc.collect()
+        torch.cuda.empty_cache()
+        return prof, cmp, bench.run_fleet_giant(quick=True, device=device)
+
+    prof_fg, cmp_fg, res = run("fleet_giant", fleet_giant)
+    lines["fleet_giant"] = [bench_line(res, device, "fleet")]
+    launches["fleet_giant"] = bench_launches("fleet giant", single=False)
+    subs["fleet_giant"].update(profile_10_steps=prof_fg, kernel_vs_plain=cmp_fg)
+    freed("fleet_giant")
+
+    # the three kidnap arms
+    res = run("kidnap", lambda: list(bench.run_kidnap(quick=True, device=device)))
+    lines["kidnap"] = [bench_line(r, device, "kidnap") for r in res]
+    check([ln["arm"] for ln in lines["kidnap"]] == ["inject", "reinit", "off"],
+          "kidnap: an arm is missing")
+    launches["kidnap"] = bench_launches("kidnap")
+    freed("kidnap")
+
+    # the live loop at chunks 1, 8 and 32
+    res = run("live", lambda: bench.run_live(quick=True, device=device))
+    lines["live"] = [bench_line(r, device, "live") for r in res]
+    check([ln["metric"].split("live_chunk=")[1][:2].rstrip("]") for ln in lines["live"]]
+          == ["1", "8", "32"], "live: a chunk is missing")
+    launches["live"] = bench_launches("live")
+    freed("live")
+
+    # the synthetic 768^2 headline
+    res = run("headline_synthetic", lambda: bench.run_headline(quick=True, synthetic=True,
+                                                               device=device))
+    lines["headline_synthetic"] = [bench_line(res, device, "updates")]
+    launches["headline_synthetic"] = bench_launches("synthetic headline")
+    freed("headline_synthetic")
+
+    # the mega A/B on Spielberg's dense LUT, K6 held to its plain version there
+    def mega():
+        out = mega_ab.run(**BENCH_MEGA_AB, device=device)
+        arms = out["arms"]
+        classic, fused = arms["classic"]["filter"], arms["mega"]["filter"]
+        gm = classic.grid_map
+        check(gm.lut_row_map is None and gm.lut_route == "kernel"
+              and out["lut_bytes"] == BENCH_MEGA_LUT_BYTES,
+              f"mega A/B: LUT of {out['lut_bytes']} B by {gm.lut_route!r} (want the dense "
+              f"{BENCH_MEGA_LUT_BYTES} B by the kernel)")
+        check(classic.likelihood.launch_count == arms["classic"]["corrections"]
+              and fused.mega.mega.launch_count == arms["mega"]["corrections"]
+              and fused.likelihood.launch_count == 0,
+              f"mega A/B launches: classic {classic.likelihood.launch_count}, mega "
+              f"{fused.mega.mega.launch_count}, mega's LUT kernel {fused.likelihood.launch_count}")
+        counted = dict(classic=classic.likelihood.launch_count, mega=fused.mega.mega.launch_count)
+        step, state = fused.mega.mega, arms["mega"]["state"]
+        obs = torch.clamp(fused.sensor.to_pixel_index(
+            torch.as_tensor(out["scan"], device=device)).float(), max=float(gm.max_range_px))
+        noise = torch.randn((state.num_particles, 3), generator=state.generator, device=device)
+        scalars = torch.tensor([0.05, 0.01, 0.0, 0.5, 0, 0, 0, 0], dtype=torch.float32,
+                               device=device)
+        args = (gm.range_lut, state.particles, state.log_weights, noise, obs, scalars)
+        cmp = mega_compare(step, *args, "mega on Spielberg's dense LUT")
+        times = mega_times(step, *args, state.num_particles - cmp["off_map"])
+        summary = dict(
+            lut_bytes=out["lut_bytes"], build_s=out["build_s"],
+            arms={k: dict(spread=a["spread"], rates=a["rates"], err_m=a["err_m"],
+                          corrections=a["corrections"]) for k, a in arms.items()},
+            mega_over_classic=arms["mega"]["spread"]["median"]
+            / arms["classic"]["spread"]["median"],
+            launches=counted, k6_vs_plain=cmp, k6_times=times)
+        return summary
+
+    subs_mega = run("mega_ab", mega)
+    subs["mega_ab"].update(subs_mega)
+    freed("mega_ab")
+
+    # perf_ablate at config #1's shape
+    def ablate():
+        out = perf_ablate.run(**BENCH_ABLATE, map_name=bench.CONFIG_MAPS[1], device=device)
+        q = out["query"]
+        check(q.launch_count == out["kernel_corrections"],
+              f"perf_ablate: {q.launch_count} launches for {out['kernel_corrections']} corrections")
+        check(all(math.isfinite(v) and v > 0 for v in out["median"].values()),
+              f"perf_ablate rates {out['median']}")
+        return dict(median_updates_per_s=out["median"], marginal_ms=out["marginal_ms"],
+                    full_ms=out["full_ms"], rates=out["rates"], launches=q.launch_count)
+
+    subs_ablate = run("perf_ablate", ablate)
+    subs["perf_ablate"].update(subs_ablate)
+    freed("perf_ablate")
+
+    # the three examples at their default sizes
+    def examples():
+        said = []
+        loc = localize_on_map.run(device=device, log=said.append)
+        race = fleet_racing.run(device=device, log=said.append)
+        live = fleet_live_loop.run(device=device, log=said.append)
+        q = race["filter"].likelihood
+        check(loc["filter"].grid_map.lut_route == race["filter"].map.lut_route
+              == live["node"].filter.map.lut_route == "kernel", "examples: a LUT off the kernel")
+        check(q.fleet_launch_count == 15 and q.launch_count == 0,
+              f"fleet_racing: {q.fleet_launch_count} fleet launches for 15 corrections")
+        return dict(localize_err_m=loc["err_m"], racing_max_err_m=float(race["err_m"].max()),
+                    racing_fleet_launches=q.fleet_launch_count,
+                    live_loop=dict(corrections=live["corrections"], ticks=live["ticks"],
+                                   skipped=live["skipped"],
+                                   fleet_corrections_per_s=live["fleet_corrections_per_s"],
+                                   max_err_m=float(live["err_m"].max())),
+                    printed=said)
+
+    subs_examples = run("examples", examples)
+    subs["examples"].update(subs_examples)
+    launches["examples"] = {"lut_loglik_fleet": subs_examples["racing_fleet_launches"]}
+    freed("examples")
+
+    emit("bench", t_phase, card=CARD, sub_phases=subs, lines=lines, launches=launches)
+    single = sum(v.get("lut_loglik", 0) for v in launches.values())
+    single += subs["mega_ab"]["launches"]["classic"]
+    return dict(
+        lut_launches=single + subs_ablate["launches"],
+        fleet_launches=sum(v.get("lut_loglik_fleet", 0) for v in launches.values()),
+        mega_launches=subs["mega_ab"]["launches"]["mega"],
+        k6_max_abs_err=subs["mega_ab"]["k6_vs_plain"]["max_abs_err"],
+        fleet_max_abs_err=subs["fleet_giant"]["kernel_vs_plain"]["max_abs_err"],
+        k2_max_abs_err=max(k2_config2["max_abs_err"], k2_1m["max_abs_err"]),
+        launches_by_workload=dict(launches, mega_ab=subs["mega_ab"]["launches"],
+                                  perf_ablate=subs_ablate["launches"]),
+    )
+
+
 def main() -> int:
     global CARD
     import torch
@@ -3162,7 +3460,7 @@ def main() -> int:
     grids = {}
     for num_beams in (60, 1080):
         for max_range_px in (200, 400):
-            step = mega_case(np.random.default_rng(0), headline_beams(num_beams), max_range_px, 8, device)[0]
+            step = mega_case(np.random.default_rng(0), _beams(num_beams), max_range_px, 8, device)[0]
             grids[f"{num_beams} beams {'u8' if max_range_px <= 254 else 'u16'}"] = {
                 n: step.plan(n)[0] for n in (N_PARTICLES, CONFIG4_PARTICLES)}
     emit("build", t0, nvcc_s=built.seconds,
@@ -3198,6 +3496,7 @@ def main() -> int:
     phase_methods(device)
     probes = phase_probes(device)
     phase_baseline(config1["rate"])
+    bench_run = phase_bench(device)
     keys = ("launches", "max_abs_err", "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")
     k3 = config4["k3"]
     dedup_entries = []
@@ -3226,8 +3525,10 @@ def main() -> int:
             "source": "monte_carlo_localization_tpu_torch/csrc/lut_likelihood.cu",
             "replaces": "monte_carlo_localization_tpu/ops/pallas_lut.py:450",
             **{k: head[k] for k in keys},
-            "launches": head["launches"] + sharded["d1"] + sum(sharded["d2"]),
-            "max_abs_err": max(head["max_abs_err"], sharded["max_abs_err"]),
+            "launches": (head["launches"] + sharded["d1"] + sum(sharded["d2"])
+                         + bench_run["lut_launches"]),
+            "max_abs_err": max(head["max_abs_err"], sharded["max_abs_err"],
+                               bench_run["k2_max_abs_err"]),
             "library_ms": None,
             "sector_bytes": head["sector_bytes"], "sector_bound_ms": head["sector_bound_ms"],
             "headline_launches": head["launches"],
@@ -3249,6 +3550,8 @@ def main() -> int:
                                    if runtime_io["viz"]["rendered"] else 0),
             },
             "synthetic_times": lut_plain["times"]["K1"],
+            # the bench phase's workloads (K2, and K1 at 1080 beams)
+            "bench_launches": bench_run["launches_by_workload"],
         },
         {
             "name": "lut_likelihood (subbin)",
@@ -3298,8 +3601,9 @@ def main() -> int:
             "route": "cuda",
             "source": "monte_carlo_localization_tpu_torch/csrc/mega_step.cu",
             "replaces": "monte_carlo_localization_tpu/ops/pallas_mega.py:197",
-            "launches": mega1["launches"],
-            "max_abs_err": max(mega1["max_abs_err"], mega_plain["max_abs_err"]),
+            "launches": mega1["launches"] + bench_run["mega_launches"],
+            "max_abs_err": max(mega1["max_abs_err"], mega_plain["max_abs_err"],
+                               bench_run["k6_max_abs_err"]),
             "ms": mega1["device_ms"],
             "wrapper_ms": mega1["wrapper_ms"],
             "plain_ms": mega1["plain_ms"],
@@ -3308,6 +3612,7 @@ def main() -> int:
             "library_ms": None,
             "runtime_launches": {
                 "cli_chained_mega": cli_runs["chained_mega"]["launches"]["mega_step_kernel"]},
+            "bench_mega_ab_launches": bench_run["mega_launches"],
             "grid_blocks": mega1["grid_blocks"], "phase1": mega1["phase1"],
             "phase_device_ms": mega1["phase_device_ms"],
             "synthetic_times": mega_plain["times"],
@@ -3318,14 +3623,16 @@ def main() -> int:
             "source": "monte_carlo_localization_tpu_torch/csrc/lut_likelihood.cu",
             "replaces": "monte_carlo_localization_tpu/ops/pallas_lut.py:835-949",
             **{k: config5[k] for k in keys},
-            "launches": config5["launches"] + fleet_live["launches"] + sum(multihost["launches"]),
+            "launches": (config5["launches"] + fleet_live["launches"] + sum(multihost["launches"])
+                         + bench_run["fleet_launches"]),
             "max_abs_err": max(config5["max_abs_err"], fleet_plain["max_abs_err"],
-                               multihost["max_abs_err"]),
+                               multihost["max_abs_err"], bench_run["fleet_max_abs_err"]),
             "library_ms": None,
             "sector_bytes": config5["sector_bytes"], "sector_bound_ms": config5["sector_bound_ms"],
             "config5_launches": config5["launches"],
             "fleet_live_launches": fleet_live["launches"],
             "multihost_launches": multihost["launches"],
+            "bench_launches": bench_run["fleet_launches"],
         },
         {
             "name": "range_lut_sweep",

@@ -12,15 +12,14 @@ Subcommands:
   import-bag  rosbag2 directory (or .db3) -> trace .npz
   baseline    replay a trace through the measured CPU reference harness
               (``baseline/cpu_reference.py``, on the host CPU)
+  bench       the benchmark harness (``bench.py`` of this package; its
+              own arguments, ``--device`` among them)
 
 ``replay --viz-out DIR`` renders PNG frames (Pillow); ``live --serve PORT``
 serves the interactive viewer over HTTP (``runtime/webviz.py``).
 
 ``--raycast`` takes every method of the JAX package: ``auto`` and
 ``lut_pallas`` (the fused LUT kernel), ``lut``, ``sphere`` and ``dda``.
-
-Not ported yet, exiting non-zero with the ROADMAP.md item that brings
-it: ``bench``.
 
 Map resolution: ``--map`` accepts either a path to a ROS-style map YAML or
 a bare name resolved against ``--map-dir``.
@@ -57,18 +56,6 @@ from monte_carlo_localization_tpu_torch.runtime import (
 )
 from monte_carlo_localization_tpu_torch.runtime.rosbag import export_bag, import_bag
 from monte_carlo_localization_tpu_torch.utils.timing import device_trace
-
-# what is not ported yet, and the ROADMAP.md item (queue 1) that brings it
-UNPORTED = {
-    "bench": "item 1 (the port's benchmark, in files of its own)",
-}
-
-
-def _unported(what: str) -> SystemExit:
-    return SystemExit(
-        f"{what} is not ported to PyTorch yet; see ROADMAP.md queue 1, {UNPORTED[what]}"
-    )
-
 
 def _resolve_map(map_arg: str, map_dir: str | None, max_range: float, device: str):
     p = Path(map_arg)
@@ -363,8 +350,10 @@ def cmd_baseline(args) -> int:
     return 0
 
 
-def cmd_unported(args) -> int:
-    raise _unported(args.cmd)
+def cmd_bench(argv: list[str]) -> int:
+    from monte_carlo_localization_tpu_torch import bench
+
+    return bench.main(argv)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -469,9 +458,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="cap on replayed corrections (timing sample size)")
     bl.set_defaults(fn=cmd_baseline, raycast=None, resample=None)
 
-    bn = sub.add_parser("bench", help="not ported yet (ROADMAP.md queue 1, item 1)")
-    bn.add_argument("rest", nargs=argparse.REMAINDER)
-    bn.set_defaults(fn=cmd_unported)
+    # listed for the usage only: main() hands bench its arguments unparsed
+    sub.add_parser("bench", help="the benchmark harness (python -m "
+                   "monte_carlo_localization_tpu_torch.bench --help)")
 
     eb = sub.add_parser(
         "export-bag",
@@ -513,6 +502,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["bench"]:
+        # the harness parses its own options (an argparse remainder would
+        # hand the leading ones to this parser)
+        return cmd_bench(argv[1:])
     args = build_parser().parse_args(argv)
     return args.fn(args)
 

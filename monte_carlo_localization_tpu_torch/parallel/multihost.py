@@ -154,6 +154,8 @@ class MultiHostFleet:
 
 
 def _free_port() -> int:
+    """A port no socket holds now; any process may take it before its
+    caller binds it, so only a caller that binds it at once may use it."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
@@ -163,13 +165,20 @@ def spawn(target: str, num_processes: int, timeout_s: float = 300.0,
           env: dict | None = None) -> list[str]:
     """Run ``target`` (``"module:function"``, called with no arguments) in
     ``num_processes`` OS processes joined by :func:`init_multihost` (gloo
-    over ``tcp://127.0.0.1:<free port>``: the processes may share a card), from the root of
+    over ``tcp://127.0.0.1:<port>``: the processes may share a card), from the root of
     this checkout. Returns each process's output (stdout and stderr);
     raises with the tail of every process that failed or outlived
-    ``timeout_s``. Once one fails, the rest are given 10 s and stopped."""
-    coord = f"127.0.0.1:{_free_port()}"
-    base = dict(os.environ, **(env or {}), MCL_MH_COORD=coord,
-                MCL_MH_NPROC=str(num_processes))
+    ``timeout_s``. Once one fails, the rest are given 10 s and stopped.
+
+    The rendezvous store listens in this process, on a port the system
+    picks as it binds it, and the processes join it as clients (torch's
+    ``TORCHELASTIC_USE_AGENT_STORE``, the elastic agent's convention). A
+    port probed free and closed here, for rank 0 to bind seconds later,
+    could be taken meanwhile by any other process's bind or connect."""
+    store = dist.TCPStore("127.0.0.1", 0, None, True, timedelta(seconds=_TIMEOUT_S),
+                          wait_for_workers=False)
+    base = dict(os.environ, **(env or {}), MCL_MH_COORD=f"127.0.0.1:{store.port}",
+                MCL_MH_NPROC=str(num_processes), TORCHELASTIC_USE_AGENT_STORE="True")
     with tempfile.TemporaryDirectory(prefix="mcl_spawn_") as tmp:
         logs = [Path(tmp) / f"rank{pid}.log" for pid in range(num_processes)]
         procs = []
@@ -195,6 +204,7 @@ def spawn(target: str, num_processes: int, timeout_s: float = 300.0,
                     p.kill()
                 p.wait()
         outs = [log.read_text() for log in logs]
+    del store  # every process has ended: stop listening
     why.update({i: f"rc={p.returncode}" for i, p in enumerate(procs)
                 if p.returncode != 0 and i not in why})
     if why:

@@ -225,3 +225,87 @@ def test_result_line_is_rank_zero_s_one_result():
 
 def test_host_cpu_names_its_cores():
     assert chip_smoke.host_cpu().endswith("logical cores")
+
+
+def _jax_line_keys(fn: str, which: int = 0) -> set[str]:
+    """The keywords of the ``which``-th ``dict(metric=...)`` line that
+    ``fn`` of the JAX harness (bench.py) builds."""
+    import ast
+
+    tree = ast.parse((REPO / "bench.py").read_text())
+    body = next(n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef) and n.name == fn)
+    calls = sorted((n for n in ast.walk(body)
+                    if isinstance(n, ast.Call) and getattr(n.func, "id", None) == "dict"
+                    and any(k.arg == "metric" for k in n.keywords)), key=lambda n: n.lineno)
+    return {k.arg for k in calls[which].keywords if k.arg}
+
+
+@pytest.mark.parametrize("kind, fn, which, extra", [
+    ("updates", "run_config", 0, set()), ("updates", "run_headline", 0, set()),
+    ("million", "run_million", 0, set()), ("converge", "run_million", 1, set()),
+    ("converge", "run_converge", 0, set()), ("fleet", "run_fleet_giant", 0, {"lut_bytes"}),
+    ("kidnap", "run_kidnap", 0, set()), ("live", "run_live", 0, set()),
+])
+def test_bench_phase_gates_on_the_jax_harness_keys(kind, fn, which, extra):
+    """The ``bench`` phase holds each line to the keys of the JAX
+    harness's line of the same workload (``lut_bytes`` comes through
+    bench_fleet's ``info``)."""
+    assert chip_smoke.BENCH_LINES[kind][0] == _jax_line_keys(fn, which) | extra
+    assert set(chip_smoke.BENCH_LINES[kind][1]) <= chip_smoke.BENCH_LINES[kind][0]
+
+
+def test_bench_phase_runs_the_million_workload_at_full_width():
+    """1,000,000 particles, as bench.py ``run_million`` (chain 10, reps 2),
+    cut in depth only: 2 rounds and 2 convergence trials of at most 60
+    updates; the other workloads at their own widths."""
+    src = inspect.getsource(chip_smoke.phase_bench)
+    jax_src = inspect.getsource(__import__("bench").run_million)
+    assert chip_smoke.BENCH_MILLION == 1_000_000 and "1_000_000" in jax_src
+    assert "chain=10, reps=2" in jax_src
+    assert ("bench.bench_updates(BENCH_MILLION, 60, gm, chain=10, reps=2,\n"
+            "                                  rounds=BENCH_MILLION_ROUNDS, setup=setup)") in src
+    assert "setup = bench._build_single(BENCH_MILLION, 60, gm)" in src
+    assert 'k2_compare(pf, moved.particles, scan, "1M")' in src
+    assert "bench.bench_convergence(BENCH_MILLION, 60, gm, trials=BENCH_MILLION_TRIALS," in src
+    assert chip_smoke.BENCH_MILLION_ROUNDS == chip_smoke.BENCH_MILLION_TRIALS == 2
+    assert chip_smoke.BENCH_MEGA_AB == dict(particles=4000, beams=1080, chain=50, reps=2, rounds=2)
+    assert chip_smoke.BENCH_MEGA_LUT_BYTES == 2000 * 2000 * 3072
+    for call in ("bench.run_config(2, quick=True", "bench.run_fleet_giant(quick=True",
+                 "bench.run_kidnap(quick=True", "bench.run_live(quick=True",
+                 "bench.run_headline(quick=True, synthetic=True"):
+        assert call in src
+
+
+def test_bench_launches_hold_kernels_to_corrections(monkeypatch):
+    from monte_carlo_localization_tpu_torch import bench
+
+    monkeypatch.setattr(bench, "LAUNCHES", bench.collections.Counter())
+    bench.LAUNCHES.update(lut_loglik=12, corrections=12, lut_loglik_fleet=0)
+    assert chip_smoke.bench_launches("ok")["lut_loglik"] == 12
+    for bad in (dict(lut_loglik=11, corrections=12), dict(lut_loglik=12, corrections=12,
+                                                          mega_step=1),
+                dict(lut_loglik=0, corrections=0)):
+        bench.LAUNCHES.clear()
+        bench.LAUNCHES.update(bad)
+        with pytest.raises(RuntimeError, match="chip_smoke"):
+            chip_smoke.bench_launches("bad")
+    bench.LAUNCHES.clear()
+    bench.LAUNCHES.update(lut_loglik_fleet=7, fleet_corrections=7)
+    assert chip_smoke.bench_launches("fleet", single=False)["fleet_corrections"] == 7
+
+
+def test_bench_phase_holds_each_kernel_at_its_workload_s_shape():
+    """K2 is held to its plain version on a config #2 filter (sibal1 at
+    max_range_px 239, as both packages load it) and on the 1M filter's
+    particles; the giant fleet's kernel on all of its members' particles."""
+    from monte_carlo_localization_tpu.mapping import load_map as jload_map
+    from monte_carlo_localization_tpu_torch import bench
+
+    path = REPO / "maps" / bench.CONFIG_MAPS[2]
+    assert (chip_smoke.BENCH_SIBAL1_RANGE_PX == bench._load_real_map(
+        bench.CONFIG_MAPS[2], device="cpu").max_range_px == jload_map(path).max_range_px == 239)
+    src = inspect.getsource(chip_smoke.phase_bench)
+    assert 'k2_compare(pf, state.particles, scan, "config #2 (sibal1)")' in src
+    assert "parts = state.particles.reshape(-1, 3).contiguous()" in src
+    assert 'k2_max_abs_err=max(k2_config2["max_abs_err"], k2_1m["max_abs_err"])' in src
+    assert 'bench_run["k2_max_abs_err"]' in inspect.getsource(chip_smoke.main)

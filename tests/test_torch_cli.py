@@ -4,8 +4,9 @@ the same values), the port's checkpoint round trip runs through the CLI,
 ``--raycast lut|sphere|dda`` replays as the JAX CLI does, ``info --lut``
 names the LUT's route, ``replay --viz-out`` writes the JAX CLI's frames,
 ``live --serve`` answers while the loop runs (the bag commands are held in
-``tests/test_torch_rosbag.py``), each subcommand not ported yet exits
-non-zero naming its ROADMAP item, and the default device is the card."""
+``tests/test_torch_rosbag.py``), ``bench`` runs the port's harness
+(``tests/test_torch_bench.py`` holds it against the JAX harness), and the
+default device is the card."""
 
 import json
 import subprocess
@@ -115,15 +116,6 @@ def test_info_lut_names_its_route(world, capsys):
     assert out["lut_bytes"] == out["height"] * out["width"] * 90 and out["lut_theta_bins"] == 90
 
 
-UNPORTED = [
-    (["bench"], "item 1"),
-]
-
-
-def test_only_bench_stays_unported():
-    assert sorted(cli.UNPORTED) == ["bench"]
-
-
 def test_baseline_json_matches_jax(world, capsys):
     """``baseline`` prints the JAX CLI's keys, and the same numbers: both
     harnesses draw from numpy ``default_rng(0)`` and cast with one native
@@ -140,15 +132,31 @@ def test_baseline_json_matches_jax(world, capsys):
         cli.main([*args, "--device", "cpu"])  # a host harness: it takes no --device
 
 
-@pytest.mark.parametrize("argv, item", UNPORTED, ids=[" ".join(a[:1] + a[-2:-1]) for a, _ in UNPORTED])
-def test_unported_options_exit_with_their_roadmap_item(world, argv, item):
-    if argv[0] != "bench":
-        argv = [argv[0], "--device", "cpu", "--map", world["map"], *argv[1:]]
-    with pytest.raises(SystemExit) as e:
-        cli.main(argv)
-    assert e.value.code not in (0, None)
-    msg = str(e.value.code)
-    assert "not ported" in msg and f"ROADMAP.md queue 1, {item}" in msg, msg
+def test_bench_prints_one_line_with_the_jax_keys(capsys):
+    """``bench --device cpu --config 1 --quick`` runs the port's harness:
+    one JSON line with every key of the JAX harness's line
+    (BENCH_r05.json), the device's keys, and nothing left unported."""
+    assert cli.main(["bench", "--device", "cpu", "--config", "1", "--quick"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 1
+    line = json.loads(lines[0])
+    jax_keys = set(json.loads((REPO / "BENCH_r05.json").read_text())["parsed"])
+    assert jax_keys <= set(line) and line["device"] == line["power_limit_w"] == "cpu"
+    assert line["method"] == "lut_pallas+cpu" and line["value"] > 0
+    assert not hasattr(cli, "UNPORTED") and not hasattr(cli, "cmd_unported")
+
+
+def test_bench_without_a_card_exits_non_zero_naming_the_device():
+    """The default device is the card: with none and no ``--device cpu``
+    both entry points exit non-zero naming it, with no fallback line."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device runs")
+    for module in ("monte_carlo_localization_tpu_torch.cli bench",
+                   "monte_carlo_localization_tpu_torch.bench"):
+        res = subprocess.run([sys.executable, "-m", *module.split(), "--config", "1", "--quick"],
+                             cwd=REPO, capture_output=True, text=True, timeout=300)
+        assert res.returncode != 0 and res.stdout == "", module
+        assert "device cuda requested" in res.stderr and "is_available() is False" in res.stderr
 
 
 def test_replay_viz_out_renders_as_the_jax_cli_does(world, capsys, tmp_path):

@@ -218,7 +218,13 @@ def test_package_imports_without_jax():
         "monte_carlo_localization_tpu_torch.parallel.multihost, "
         "monte_carlo_localization_tpu_torch.parallel.collectives, "
         "monte_carlo_localization_tpu_torch.baseline, "
-        "monte_carlo_localization_tpu_torch.tools.dryrun_multichip\n"
+        "monte_carlo_localization_tpu_torch.tools.dryrun_multichip, "
+        "monte_carlo_localization_tpu_torch.bench, "
+        "monte_carlo_localization_tpu_torch.tools.mega_ab, "
+        "monte_carlo_localization_tpu_torch.tools.perf_ablate, "
+        "monte_carlo_localization_tpu_torch.examples.localize_on_map, "
+        "monte_carlo_localization_tpu_torch.examples.fleet_racing, "
+        "monte_carlo_localization_tpu_torch.examples.fleet_live_loop\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k.startswith('monte_carlo_localization_tpu.')"
         " or k == 'monte_carlo_localization_tpu')\n"

@@ -57,6 +57,33 @@ def test_multihost_dryrun_two_processes(capsys):
     assert "MULTIHOST DRYRUN OK (2 processes)" in out and out.count("pose table ok") == 2
 
 
+def _rendezvous_rank() -> None:
+    """A spawned process: one all-reduce over the group, then its
+    rendezvous address and whether it joined as a store client."""
+    t = torch.ones(1)
+    dist.all_reduce(t)
+    print(f"RANK {dist.get_rank()} SUM {int(t.item())} COORD {os.environ['MCL_MH_COORD']} "
+          f"CLIENT {os.environ.get('TORCHELASTIC_USE_AGENT_STORE')}", flush=True)
+
+
+def test_spawn_holds_its_rendezvous_port(monkeypatch):
+    """``spawn``'s rendezvous store listens in the spawning process from
+    before the first rank starts, and the ranks join it as clients: no
+    port is probed free and left for rank 0 to bind later, when another
+    process may hold it (the race of concurrent spawns under xdist)."""
+    import monte_carlo_localization_tpu_torch.parallel.multihost as mh
+
+    def probe():
+        raise AssertionError("spawn probed a free port for a rank to bind later")
+
+    monkeypatch.setattr(mh, "_free_port", probe)
+    outs = spawn("tests.test_torch_multihost:_rendezvous_rank", 2, timeout_s=240.0)
+    lines = [ln.split() for out in outs for ln in out.splitlines() if ln.startswith("RANK")]
+    assert sorted(ln[1] for ln in lines) == ["0", "1"]
+    assert {ln[3] for ln in lines} == {"2"} and {ln[7] for ln in lines} == {"True"}
+    assert len({ln[5] for ln in lines}) == 1
+
+
 def test_multihost_dryrun_three_processes(capsys):
     """An odd process count: nothing in the mesh, scatter or gather
     assumes a power of two."""

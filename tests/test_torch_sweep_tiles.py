@@ -26,6 +26,7 @@ from monte_carlo_localization_tpu.mapping.range_lut_device import (
     build_compact_range_lut_jax,
     build_range_lut_jax,
 )
+from monte_carlo_localization_tpu_torch.bench import _beams
 from monte_carlo_localization_tpu_torch.mapping import clearance_field
 from monte_carlo_localization_tpu_torch.mapping.range_lut_device import (
     FAR_ROW_MARGIN,
@@ -68,11 +69,11 @@ def _geometries() -> dict:
     out = {}
     cases = (
         ("config1", _trace_beams("config1_map_1753950572.npz"), 240, 288),
-        ("spielberg_compact_u8", chip_smoke.headline_beams(1080), int(12.0 / 0.05796), 2000),
-        ("spielberg_crop_u16", chip_smoke.headline_beams(1080), int(25.6 / 0.05796), 400),
+        ("spielberg_compact_u8", _beams(1080), int(12.0 / 0.05796), 2000),
+        ("spielberg_crop_u16", _beams(1080), int(25.6 / 0.05796), 400),
         ("basement_u8", _trace_beams("config4_basement_fixed.npz"), int(12.0 / 0.0504), 1300),
         ("basement_u16", _trace_beams("u16_basement.npz"), int(25.6 / 0.0504), 1300),
-        ("config5", chip_smoke.headline_beams(60), 240, 446),
+        ("config5", _beams(60), 240, 446),
     )
     for name, beams, mrp, line in cases:
         t, stride, itemsize = chip_smoke.lut_geometry(beams, mrp)
