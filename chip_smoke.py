@@ -64,7 +64,18 @@ chunks 1, 8 and 32 and the synthetic headline, then
 held against its plain version there), ``tools/perf_ablate.py`` and the
 three examples. Every LUT is built on
 the card, and each path that builds one is gated on the sweep kernel's
-launches. Each phase prints
+launches. Every filter step above runs as the replay of a CUDA graph
+(``utils/graphs.py``), the default on a card; the ``graphs`` phase holds
+each graphed program (the classic ``step_many`` under K1, K2, K3, K4,
+K5, ``lut``, ``sphere`` and ``dda``, the one-correction step, the
+injection step, the mega chain on each side of its cooperative launch,
+the fleet's ``step`` and ``step_many``) ``torch.equal`` to its eager run
+under ``disable_graphs()`` over 12 chained corrections, on given draws
+and on the generator's own, and prints eager against graph in the same
+call (wall ms, kernels and idle share a correction, capture ms, pool
+bytes) on config #1 (classic, mega, ``sphere``, ``dda``), the
+headline, config #4 at 100k with and without dedup, 1M and config #5.
+Each phase prints
 one JSON line with its own seconds; any failure raises and exits
 non-zero. The last two lines are the kernel report and ``{"ok": true,
 "device": {...}}``. It imports nothing of JAX and needs no network.
@@ -80,6 +91,7 @@ wrapper's host work. Bounds use the H100 SXM's published peaks.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -692,7 +704,8 @@ def phase_methods(device) -> dict:
     chain = 50
     actions = np.tile(np.float32([0.05, 0.0, 0.01]), (chain, 1))
     scans = np.tile(scan, (chain, 1))
-    state, _ = pf.step_many(pf.init_pose(pose, seed=1), actions[:5], scans[:5])  # warm-up
+    # warm-up at the timed shape: the chain's graph is captured here
+    state, _ = pf.step_many(pf.init_pose(pose, seed=1), actions, scans)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     state, poses = pf.step_many(state, actions, scans)
@@ -1241,7 +1254,9 @@ def phase_headline(device) -> dict:
     actions = np.tile(np.float32([0.05, 0.0, 0.01]), (chain, 1))
     scans = np.tile(scan, (chain, 1))
     state = pf.init_pose(pose, seed=1)
-    state, _ = pf.step_many(state, actions[:5], scans[:5])  # warm-up
+    # warm-up at the timed shapes: the chain's and the step's graphs are captured here
+    state, _ = pf.step_many(state, actions, scans)
+    state, _ = pf.step(state, actions[0], scan)
     torch.cuda.synchronize()
 
     pf.likelihood.launch_count = 0
@@ -1519,7 +1534,7 @@ def phase_mega_full_window(device) -> dict:
     scans = np.tile(scan, (chain, 1))
     s0 = pf.init_pose(pose, seed=1)
     for f in (pf, pf_c):
-        f.step_many(s0, actions[:5], scans[:5])  # warm-up
+        f.step_many(s0, actions, scans)  # warm-up at the timed shape (its graph's capture)
     torch.cuda.synchronize()
 
     rates = {"mega": [], "classic": []}
@@ -1942,6 +1957,8 @@ def phase_config5(device, classic_kernels: float) -> dict:
     thr_chain = _drift_threshold(n_corr)
     check(bool(np.isfinite(err_chain).all()) and err_chain.max() < thr_chain,
           f"config #5 chained: max member error {err_chain.max()} m >= {thr_chain}")
+    state, pose_s = ff.step(state, action, scans)  # warm-up: the step's graph is captured
+    n_corr += 1
     per_step = []
     for _ in range(CONFIG5_ROUNDS):
         t2 = time.perf_counter()
@@ -2558,6 +2575,321 @@ def phase_fleet_live(device) -> dict:
     return dict(launches=launches, live=live, synchronous=sync, live_runner=runner_out)
 
 
+GRAPH_CHAIN = 12  # chained corrections each program is held to eager over (>= 10)
+GRAPH_STEPS = 20  # corrections of each eager/graph timing pair
+GRAPH_CAST_STEPS = 5  # the same under sphere and dda (~1700 and ~7200 kernels a correction)
+# the wrappers' per-correction launch counts (the table fills happen once)
+STEP_COUNTERS = ("launch_count", "fleet_launch_count", "dedup_launch_count")
+GRAPH_MILLION_STEPS = 10  # bench.py run_million's chain
+MEGA_COOP_PARTICLES = 20_000  # past the mega step's 8192: its cooperative launch
+
+
+def _launch_total(wrappers) -> int:
+    return sum(getattr(w, name, 0) for w in wrappers for name in STEP_COUNTERS)
+
+
+def hold_graph_to_eager(make_state, run, draws: dict, wrappers=(), corrections: int = 0) -> dict:
+    """``run(state, draws)`` on fresh ``make_state()`` states (one seed),
+    under ``disable_graphs()`` and graphed: with the given ``draws`` and
+    with the generator's own, the graph's poses, particles, log weights,
+    log quality and final generator state against eager's
+    (``torch.equal``), a second graphed call (a replay only) against the
+    first, the first call's outputs unchanged by the second (no
+    aliasing), and the wrappers' likelihood or mega launches of each
+    call against ``corrections``. Returns the findings; the caller
+    gates."""
+    import torch
+
+    from monte_carlo_localization_tpu_torch import disable_graphs
+
+    def outs(s, p):
+        return (p, s.particles, s.log_weights, s.log_quality, s.generator.get_state())
+
+    res = {}
+    for kind, d in (("given_draws", draws), ("generator_draws", {})):
+        calls = []
+        for graphed in (False, True, True):
+            before = _launch_total(wrappers)
+            with contextlib.ExitStack() as stack:
+                if not graphed:
+                    stack.enter_context(disable_graphs())
+                s, p = run(make_state(), d)
+            calls.append((outs(s, p), _launch_total(wrappers) - before))
+            if len(calls) == 2:
+                kept = [t.clone() for t in outs(s, p)]
+        torch.cuda.synchronize()
+        (eager, n_e), (graph, n_g), (again, n_a) = calls
+        equal = all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(eager, graph))
+        diff = (eager[0] != graph[0]).reshape(eager[0].shape[0], -1).any(dim=1)
+        res[kind] = dict(
+            equal=equal,
+            replay_equal=all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(graph, again)),
+            no_aliasing=all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(kept, graph)),
+            first_differing_step=int(diff.nonzero()[0, 0]) if bool(diff.any()) else None,
+            max_abs_pose_diff=float((eager[0] - graph[0]).abs().max()),
+            launches=dict(eager=n_e, graph=n_g, replay=n_a, corrections=corrections),
+        )
+    return res
+
+
+def graph_pair(run, steps: int, programs) -> dict:
+    """:func:`chain_profile` of ``run`` (``steps`` corrections) eagerly and
+    as graphs in this call, with the graphs' capture ms and pool bytes."""
+    from monte_carlo_localization_tpu_torch import disable_graphs
+
+    with disable_graphs():
+        eager = chain_profile(run, steps)
+    graph = chain_profile(run, steps)
+    stats = programs.stats()
+    return dict(eager=eager, graph=graph,
+                wall_speedup=eager["wall_ms_per_correction"] / graph["wall_ms_per_correction"],
+                updates_per_s=dict(eager=1e3 / eager["wall_ms_per_correction"],
+                                   graph=1e3 / graph["wall_ms_per_correction"]),
+                capture_ms=sum(s["warmup_ms"] + s["capture_ms"] for s in stats.values()),
+                pool_bytes=programs.pool_bytes, programs=len(stats))
+
+
+def graph_programs(device) -> dict:
+    """Each graphed program against ``disable_graphs()`` on config #1
+    (:func:`hold_graph_to_eager` over GRAPH_CHAIN corrections): the
+    classic ``step_many`` under K2, K1 (1080 beams), K3 (``pallas_subbin``),
+    K4 and K5 (``pallas_dedup_slots``), the ``lut``, ``sphere`` and ``dda``
+    methods, the single ``step`` and the injection step (a fraction per
+    step through one graph), the mega step (4000 particles, and past 8192
+    its cooperative launch), and the fleet's ``step`` and ``step_many``
+    (config #5's 64 cars over 4 maps)."""
+    import torch
+
+    from monte_carlo_localization_tpu_torch import MCLConfig, ParticleFilter, load_map
+    from monte_carlo_localization_tpu_torch.parallel import FleetFilter
+
+    gm = load_map(REPO / CONFIG1_MAP, device=device)
+    tr, actions_all, scans_all = None, None, None
+    k = GRAPH_CHAIN
+    rng = np.random.default_rng(11)
+    out = {}
+
+    def single(name, n=N_PARTICLES, angle_step=18, **opts):
+        nonlocal tr, actions_all, scans_all
+        cfg = MCLConfig(max_particles=n, angle_step=angle_step, **opts)
+        pf = ParticleFilter(gm, cfg)
+        tr, actions_all, scans_all = trace_inputs(pf, REPO / CONFIG1_TRACE)
+        pf.set_beam_angles(tr["beam_angles"][::angle_step])
+        actions, scans = actions_all[:k], scans_all[:k]
+        draws = dict(u0=rng.random(k, dtype=np.float32),
+                     noise=rng.standard_normal((k, n, 3), dtype=np.float32))
+        wrappers = [w for w in (pf.likelihood, pf.mega and pf.mega.mega) if w is not None]
+        res = hold_graph_to_eager(lambda: pf.init_pose(tr["truth_pose"][0], seed=7),
+                                  lambda s, d: pf.step_many(s, actions, scans, **d), draws,
+                                  wrappers, k if wrappers else 0)
+        out[name] = res
+        return pf
+
+    single("classic_K2")
+    single("classic_K1_1080", angle_step=1)
+    single("subbin_K3", pallas_subbin=True)
+    single("dedup_K4", pallas_dedup_slots=DEDUP_SLOTS)
+    single("dedup_K5", pallas_dedup_slots=DEDUP_SLOTS, pallas_dedup_matmul=True)
+    for method in ("lut", "sphere", "dda"):
+        single(method, raycast_method=method)
+    mega = single("mega", pallas_mega=True)
+    out["mega"]["graphs"] = len(mega.mega.programs.cache)
+    coop = single("mega_cooperative", n=MEGA_COOP_PARTICLES, pallas_mega=True)
+    # past 8192 particles the kernel's cooperative launch, captured like any other
+    out["mega_cooperative"]["graphs"] = len(coop.mega.programs.cache)
+    out["mega_cooperative"]["plan"] = list(coop.mega.mega.plan(MEGA_COOP_PARTICLES))
+    del mega, coop
+
+    # one correction per call: the plain step and the injection step
+    pf = ParticleFilter(gm, MCLConfig(max_particles=N_PARTICLES, angle_step=18))
+    pf.set_beam_angles(tr["beam_angles"][::18])
+    fractions = [0.0, 0.05, 0.3, 0.0, 1.0, 0.1, 0.02, 0.5, 0.0, 0.25, 0.07, 0.9][:k]
+    step_draws = dict(u0=rng.random(k, dtype=np.float32),
+                      noise=rng.standard_normal((k, N_PARTICLES, 3), dtype=np.float32),
+                      mask_u=rng.random((k, N_PARTICLES), dtype=np.float32),
+                      injected=rng.standard_normal((k, N_PARTICLES, 3), dtype=np.float32))
+
+    def steps(inject):
+        def run(s, d):
+            poses = []
+            for i in range(k):
+                di = {name: v[i] for name, v in d.items()
+                      if inject or name in ("u0", "noise")}
+                if di.get("u0") is not None:
+                    di["u0"] = float(di["u0"])
+                if inject:
+                    s, p = pf.step(s, actions_all[i], scans_all[i],
+                                   inject_fraction=fractions[i], **di)
+                else:
+                    s, p = pf.step(s, actions_all[i], scans_all[i], **di)
+                poses.append(p)
+            return s, torch.stack(poses)
+        return run
+
+    make = lambda: pf.init_pose(tr["truth_pose"][0], seed=7)  # noqa: E731
+    out["step"] = hold_graph_to_eager(make, steps(False), step_draws, [pf.likelihood], k)
+    out["inject_step"] = hold_graph_to_eager(make, steps(True), step_draws, [pf.likelihood], k)
+    out["inject_step"]["programs"] = sum(key[:2] == ("step", True) for key in pf.programs.cache)
+    del pf, gm
+
+    maps, stacked, asg, beams, poses0, scans5 = config5_fleet_inputs(device)
+    f = CONFIG5_FLEET
+    ff = FleetFilter(stacked, f, MCLConfig(max_particles=N_PARTICLES, lut_theta_bins=720),
+                     map_assignment=asg)
+    ff.set_beam_angles(beams)
+    fleet_draws = dict(u0=rng.random((k, f), dtype=np.float32),
+                       noise=rng.standard_normal((k, f, N_PARTICLES, 3), dtype=np.float32))
+    acts = np.zeros((k, f, 3), np.float32)
+    scans_k = np.tile(scans5, (k, 1, 1))
+    make = lambda: ff.init_pose(poses0, seed=7)  # noqa: E731
+    out["fleet_step_many"] = hold_graph_to_eager(
+        make, lambda s, d: ff.step_many(s, acts, scans_k, **d), fleet_draws, [ff.likelihood], k)
+
+    def fleet_steps(s, d):
+        poses = []
+        for i in range(k):
+            s, p = ff.step(s, acts[i], scans5, **{name: v[i] for name, v in d.items()})
+            poses.append(p)
+        return s, torch.stack(poses)
+
+    out["fleet_step"] = hold_graph_to_eager(make, fleet_steps, fleet_draws, [ff.likelihood], k)
+    del ff, maps, stacked
+    torch.cuda.empty_cache()
+    return out
+
+
+def graph_cells(device) -> dict:
+    """Eager against graph in this call (:func:`graph_pair`) on the cells
+    PERF.md tracks: config #1 under the classic step (chained and one
+    correction a call), the mega step, ``sphere`` and ``dda``; the
+    Spielberg headline (4000 x 1080, K1 on the compact LUT); config #4 at
+    100k particles with and without dedup; config #5 (chained and one
+    fleet step a call); and 1M particles on basement_fixed."""
+    import torch
+
+    from monte_carlo_localization_tpu_torch import MCLConfig, ParticleFilter, load_map
+    from monte_carlo_localization_tpu_torch.parallel import FleetFilter
+
+    cells = {}
+    t_cell = time.perf_counter()
+
+    def timed(name):
+        nonlocal t_cell
+        cells[name]["seconds"] = time.perf_counter() - t_cell
+        t_cell = time.perf_counter()
+
+    def pairs(pf, s0, actions, scans, per_step=True):
+        progs = pf.mega.programs if pf.mega is not None else pf.programs
+        k = actions.shape[0]
+        got = dict(chained=graph_pair(lambda: pf.step_many(s0, actions, scans), k, progs))
+        if per_step:
+            def one_at_a_time():
+                s = s0
+                for i in range(k):
+                    s, _ = pf.step(s, actions[i], scans[i])
+            got["per_step"] = graph_pair(one_at_a_time, k, pf.programs)
+        return got
+
+    gm = load_map(REPO / CONFIG1_MAP, device=device)
+    for name, opts in (("config1_classic", {}), ("config1_mega", dict(pallas_mega=True)),
+                       ("config1_sphere", dict(raycast_method="sphere")),
+                       ("config1_dda", dict(raycast_method="dda"))):
+        pf = ParticleFilter(gm, MCLConfig(max_particles=N_PARTICLES, angle_step=18, **opts))
+        tr, actions, scans = trace_inputs(pf, REPO / CONFIG1_TRACE)
+        pf.set_beam_angles(tr["beam_angles"][::18])
+        s0 = pf.init_pose(tr["truth_pose"][0], seed=3)
+        k = GRAPH_CAST_STEPS if "raycast_method" in opts else GRAPH_STEPS
+        cells[name] = pairs(pf, s0, actions[:k], scans[:k], per_step=name != "config1_mega")
+        timed(name)
+        del pf
+    del gm
+
+    gm = load_map(REPO / "maps" / "Spielberg_map.yaml", device=device)
+    pf = ParticleFilter(gm, MCLConfig(max_particles=N_PARTICLES))
+    pf.set_beam_angles(_beams(1080))
+    pose = _start_pose(gm)
+    scans = np.tile(lut_scan(pf, pose).astype(np.float32), (GRAPH_STEPS, 1))
+    actions = np.tile(np.float32([0.05, 0.0, 0.01]), (GRAPH_STEPS, 1))
+    cells["headline"] = pairs(pf, pf.init_pose(pose, seed=1), actions, scans)
+    timed("headline")
+    del pf, gm
+    torch.cuda.empty_cache()
+
+    gm, beams, truths, scans4 = basement_for_sharding(device)
+    actions = np.zeros((GRAPH_STEPS, 3), np.float32)
+    scans = np.tile(scans4[0], (GRAPH_STEPS, 1))
+    for name, opts in (("config4_100k", {}),
+                       ("config4_100k_dedup", dict(pallas_dedup_slots=DEDUP_SLOTS))):
+        pf = ParticleFilter(gm, MCLConfig(max_particles=CONFIG4_PARTICLES, **opts))
+        pf.set_beam_angles(beams)
+        cells[name] = pairs(pf, pf.init_global(seed=100), actions, scans)
+        timed(name)
+        del pf
+        torch.cuda.empty_cache()
+    pf = ParticleFilter(gm, MCLConfig(max_particles=BENCH_MILLION))
+    pf.set_beam_angles(beams)
+    pose = _start_pose(gm)
+    scans = np.tile(_synth_scan(gm, beams, pose), (GRAPH_MILLION_STEPS, 1))
+    cells["million"] = pairs(pf, pf.init_pose(pose, seed=1), actions[:GRAPH_MILLION_STEPS],
+                             scans, per_step=False)
+    timed("million")
+    del pf, gm
+    torch.cuda.empty_cache()
+
+    maps, stacked, asg, beams, poses0, scans5 = config5_fleet_inputs(device)
+    f = CONFIG5_FLEET
+    ff = FleetFilter(stacked, f, MCLConfig(max_particles=N_PARTICLES, lut_theta_bins=720),
+                     map_assignment=asg)
+    ff.set_beam_angles(beams)
+    s0 = ff.init_pose(poses0, seed=1)
+    acts = np.zeros((CONFIG5_CHAIN, f, 3), np.float32)
+    scans_k = np.tile(scans5, (CONFIG5_CHAIN, 1, 1))
+
+    def fleet_one_at_a_time():
+        s = s0
+        for i in range(CONFIG5_CHAIN):
+            s, _ = ff.step(s, acts[i], scans5)
+
+    cells["config5"] = dict(
+        chained=graph_pair(lambda: ff.step_many(s0, acts, scans_k), CONFIG5_CHAIN, ff.programs),
+        per_step=graph_pair(fleet_one_at_a_time, CONFIG5_CHAIN, ff.programs))
+    timed("config5")
+    del ff, maps, stacked
+    torch.cuda.empty_cache()
+    return cells
+
+
+def phase_graphs(device) -> dict:
+    """The JAX package's compiled step programs as CUDA graphs
+    (``utils/graphs.py``): every program held ``torch.equal`` to its
+    eager run under ``disable_graphs()`` on the same draws, given and
+    from the generator (:func:`graph_programs`), with launches equal to
+    corrections, and the eager/graph timing pairs (:func:`graph_cells`)."""
+    t0 = time.perf_counter()
+    programs = graph_programs(device)
+    cells = graph_cells(device)
+    summary = {name: {kind: (r["equal"], r["first_differing_step"]) for kind, r in res.items()
+                      if isinstance(r, dict) and "equal" in r}
+               for name, res in programs.items()}
+    emit("graphs", t0, card=CARD, chain=GRAPH_CHAIN, equal=summary, programs=programs,
+         cells=cells)
+    for name, res in programs.items():
+        for kind in ("given_draws", "generator_draws"):
+            r = res[kind]
+            check(r["equal"], f"graphs: {name} ({kind}) differs from eager from step "
+                              f"{r['first_differing_step']}")
+            check(r["replay_equal"] and r["no_aliasing"],
+                  f"graphs: {name} ({kind}): a replay changed an earlier call's outputs")
+            n = r["launches"]
+            check(n["eager"] == n["graph"] == n["replay"] == n["corrections"],
+                  f"graphs: {name} ({kind}) launches {n}")
+    check(programs["mega_cooperative"]["graphs"] == 2,
+          "graphs: the mega step's cooperative launch did not run as a graph")
+    check(programs["inject_step"]["programs"] == 2,
+          f"graphs: the injection step took {programs['inject_step']['programs']} programs")
+    return dict(programs=programs, cells=cells)
+
+
 def phase_probes(device) -> dict:
     """The probes of tools/mega_probe.py through their Hopper kernels (the
     port's ``tools/mega_probe.py``): every probe once with the launch
@@ -3070,6 +3402,7 @@ BENCH_MILLION_TRIALS = 2  # bench_convergence trials at 1M (max_updates 60)
 BENCH_MEGA_AB = dict(particles=4000, beams=1080, chain=50, reps=2, rounds=2)  # on Spielberg
 BENCH_MEGA_LUT_BYTES = 2000 * 2000 * 3072  # Spielberg's dense u8 LUT at 1080 beams: 12.3 GB
 BENCH_ABLATE = dict(particles=4000, beams=60, chain=50, reps=2)  # config #1's shape
+BENCH_UNROLL = dict(particles=4000, beams=60, chain=48, reps=2, unroll=16)  # u = 1 .. 16
 BENCH_SIBAL1_RANGE_PX = 239  # int(12 m / the f32-fuzzed 0.05000000074505806 m) of config #2
 # the keys of the JAX harness's lines (bench.py run_config / run_headline,
 # run_million, bench_convergence's lines, run_fleet_giant, run_kidnap,
@@ -3374,8 +3707,19 @@ def phase_bench(device) -> dict:
               f"perf_ablate: {q.launch_count} launches for {out['kernel_corrections']} corrections")
         check(all(math.isfinite(v) and v > 0 for v in out["median"].values()),
               f"perf_ablate rates {out['median']}")
+        # --unroll: the corrections-per-replay sweep, the lax.scan unroll's counterpart
+        sweep = perf_ablate.run(**BENCH_UNROLL, map_name=bench.CONFIG_MAPS[1], device=device)
+        qs = sweep["query"]
+        check(list(sweep["median"]) == [f"full_unroll{1 << i}" for i in range(5)],
+              f"perf_ablate --unroll ran {list(sweep['median'])}")
+        check(qs.launch_count == sweep["kernel_corrections"],
+              f"perf_ablate --unroll: {qs.launch_count} launches for "
+              f"{sweep['kernel_corrections']} corrections")
         return dict(median_updates_per_s=out["median"], marginal_ms=out["marginal_ms"],
-                    full_ms=out["full_ms"], rates=out["rates"], launches=q.launch_count)
+                    full_ms=out["full_ms"], rates=out["rates"],
+                    launches=q.launch_count + qs.launch_count,
+                    unroll_updates_per_s=sweep["median"], unroll_rates=sweep["rates"],
+                    capture=dict(out["capture"], **sweep["capture"]))
 
     subs_ablate = run("perf_ablate", ablate)
     subs["perf_ablate"].update(subs_ablate)
@@ -3475,6 +3819,7 @@ def main() -> int:
     mega_plain = phase_mega_vs_plain(device)
     config1 = phase_config1(device)
     mega1 = phase_config1_mega(device, config1["rate"])
+    graphs = phase_graphs(device)
     phase_mega_full_window(device)
     config4, gm4, beams4 = phase_config4_replay(device)
     conv = phase_config4_converge(device, gm4, beams4)

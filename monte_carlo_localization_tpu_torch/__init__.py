@@ -10,6 +10,10 @@ on a card and as its plain PyTorch version on the CPU; with
 correction as one launch of the mega-step kernel (``csrc/mega_step.cu``). ``GridMap.from_numpy`` and ``MCLState.from_numpy`` /
 ``MCLState.to_numpy`` carry a map (with its LUT buffer) and a particle
 cloud across from the JAX package, so both can run on the same inputs.
+On a card ``ParticleFilter.step`` / ``step_many``, the mega step's chain
+and ``FleetFilter.step`` / ``step_many`` replay CUDA graphs captured on
+first use, the counterpart of the JAX package's ``jax.jit``;
+``disable_graphs()`` runs them eagerly, as ``jax.disable_jit()`` does.
 
 ``runtime`` holds the single-filter node (``MCLNode``: the dual-rate
 tracker, sinks, checkpoints, Augmented-MCL re-localization), the fleet
@@ -29,6 +33,7 @@ from monte_carlo_localization_tpu_torch.filter import (
 )
 from monte_carlo_localization_tpu_torch.mapping import GridMap, load_map
 from monte_carlo_localization_tpu_torch.runtime import LiveRunner, MCLNode, Trace
+from monte_carlo_localization_tpu_torch.utils.graphs import disable_graphs
 
 __version__ = "0.1.0"  # the JAX package's version, which this port mirrors
 
@@ -44,5 +49,6 @@ __all__ = [
     "MCLNode",
     "LiveRunner",
     "Trace",
+    "disable_graphs",
     "__version__",
 ]

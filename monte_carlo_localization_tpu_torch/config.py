@@ -102,6 +102,9 @@ class MCLConfig:
     async_correction: bool = False
     async_depth: int = 4
     live_chunk: int = 1
+    # the JAX step_many's lax.scan unroll; accepted for the JAX configs' sake,
+    # with no counterpart: a CUDA graph of a chunk is fully unrolled
+    # (tools/perf_ablate.py --unroll sweeps the corrections per replay)
     scan_unroll: int = 1
     dtype: str = "float32"
     seed: int = 0

@@ -12,8 +12,12 @@ With ``inject_fraction`` (Augmented MCL) each particle is replaced, after
 motion and before the likelihood, by a uniform free-space draw with that
 probability.
 
-PyTorch runs eagerly, so a step is a sequence of device launches with no
-host synchronization; :meth:`ParticleFilter.step_many` chains K of them.
+On a card :meth:`ParticleFilter.step`, its injection twin and
+:meth:`ParticleFilter.step_many` (a chunk of K corrections) each run as
+one replay of a CUDA graph captured on first use (``utils/graphs.py``,
+the counterpart of the JAX filter's ``jax.jit`` and ``lax.scan``);
+on the CPU and inside ``disable_graphs()`` they run as the eager
+sequence of launches, with no host synchronization either way.
 Random draws come from a ``torch.Generator`` carried in the state. The
 streams differ from jax.random's, so :func:`mcl_step` also takes the
 resample offset ``u0``, the motion noise and the injection's mask
@@ -44,6 +48,7 @@ from monte_carlo_localization_tpu_torch.ops.lut_query import (
 from monte_carlo_localization_tpu_torch.ops.raycast import cast_rays, lut_expected_px
 from monte_carlo_localization_tpu_torch.ops.resample import resample_indices
 from monte_carlo_localization_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device, upload
+from monte_carlo_localization_tpu_torch.utils.graphs import Programs, shape_of
 from monte_carlo_localization_tpu_torch.utils.timing import TimingStats, call_ms
 
 
@@ -199,7 +204,7 @@ def correct(
 
 def inject_uniform(
     proposal: torch.Tensor,
-    fraction: float,
+    fraction: float | torch.Tensor,
     grid_map: GridMap,
     generator: torch.Generator,
     mask_u: torch.Tensor | None = None,
@@ -210,8 +215,10 @@ def inject_uniform(
     of ``injected`` (N, 3), uniform free-space poses from
     :func:`initialize_global`, where its mask uniform ``mask_u`` (N,) is
     below ``fraction``. Both are drawn from ``generator`` (poses first)
-    unless given. The fraction is rounded to float32 on the host, as the
-    JAX step's traced scalar is."""
+    unless given. The fraction is float32, as the JAX step's traced
+    scalar is: a number is rounded to it on the host; a 0-d float32
+    tensor on the particles' device (a graph's input buffer, which the
+    host writes before each replay) is compared as it is."""
     n = proposal.shape[0]
     if injected is None:
         injected, _ = initialize_global(generator, grid_map, n, dtype=proposal.dtype)
@@ -222,7 +229,9 @@ def inject_uniform(
             f"injected {tuple(injected.shape)} / mask_u {tuple(mask_u.shape)} do not "
             f"fit {tuple(proposal.shape)} particles"
         )
-    replace = mask_u < float(np.float32(fraction))
+    if not isinstance(fraction, torch.Tensor):
+        fraction = float(np.float32(fraction))
+    replace = mask_u < fraction
     return torch.where(replace[:, None], injected, proposal)
 
 
@@ -232,7 +241,7 @@ def mcl_step(
     obs_px: torch.Tensor,
     likelihood_fn,
     *,
-    inject_fraction: float | None = None,
+    inject_fraction: float | torch.Tensor | None = None,
     grid_map: GridMap | None = None,
     mask_u: torch.Tensor | None = None,
     injected: torch.Tensor | None = None,
@@ -347,6 +356,11 @@ class ParticleFilter:
     ``step`` stays the classic correction. ``pallas_subbin`` and
     ``pallas_dedup_slots`` select the fused likelihood's K3 and K4/K5
     forms on the classic correction (the mega step refuses them).
+
+    On a card ``step`` (with or without ``inject_fraction``) and
+    ``step_many`` replay CUDA graphs of the whole correction or chunk,
+    captured once per shape and kept in ``programs``
+    (``utils/graphs.py``); ``disable_graphs()`` runs them eagerly.
     """
 
     def __init__(
@@ -384,6 +398,7 @@ class ParticleFilter:
         self.beam_angles: torch.Tensor | None = None
         self.likelihood: LUTQuery | None = None  # the fused query under lut_pallas
         self.mega = None  # a MegaStepper once beams are set, with pallas_mega
+        self.programs = Programs(self.device)
         if beam_angles is not None:
             self.set_beam_angles(beam_angles)
 
@@ -395,6 +410,8 @@ class ParticleFilter:
         if self.config.raycast_method == "lut_pallas":
             self._attach_fused(beams)
         self.beam_angles = torch.as_tensor(beams, device=self.device)
+        # graphs read the LUT, the query and the beams by address
+        self.programs = Programs(self.device, [self.likelihood])
 
     def _attach_fused(self, beams: np.ndarray) -> None:
         cfg = self.config
@@ -478,60 +495,83 @@ class ParticleFilter:
         if self.beam_angles is None:
             raise RuntimeError("beam_angles not set — call set_beam_angles() first")
 
+    def _keep(self) -> tuple:
+        """What a graph of this filter reads by address."""
+        return (self.grid_map, self.sensor, self.beam_angles, self.likelihood)
+
     def step(
         self, state: MCLState, action, observed_m, inject_fraction: float | None = None,
         u0=None, noise=None, mask_u=None, injected=None,
     ) -> tuple[MCLState, torch.Tensor]:
         """One MCL correction, launched without waiting for the device
-        (host inputs go up through pinned memory). ``inject_fraction``:
-        Augmented-MCL injection for this correction (None: the plain
-        step, whose draws it leaves as they are). Optional draws: ``u0``
-        (scalar), ``noise`` (N, 3), and with injection ``mask_u`` (N,) and
-        ``injected`` (N, 3)."""
+        (host inputs go up through pinned memory); on a card one replay of
+        the step's graph. ``inject_fraction``: Augmented-MCL injection for
+        this correction (None: the plain step, whose draws it leaves as
+        they are); one graph of the injection step serves every fraction.
+        Optional draws: ``u0`` (scalar), ``noise`` (N, 3), and with
+        injection ``mask_u`` (N,) and ``injected`` (N, 3)."""
         self._require_beams()
-        opt = {k: None if v is None else upload(v, self.device)
-               for k, v in dict(u0=u0, noise=noise, mask_u=mask_u, injected=injected).items()}
         if inject_fraction is None and (mask_u is not None or injected is not None):
             raise ValueError("mask_u and injected need an inject_fraction")
-        obs_px = self.sensor.to_pixel_index(upload(observed_m, self.device)).to(torch.float32)
-        return self._step(state, upload(action, self.device), obs_px,
-                          inject_fraction=inject_fraction, **opt)
+        draws = {name: v for name, v in dict(u0=u0, noise=noise, mask_u=mask_u,
+                                              injected=injected).items() if v is not None}
+        inputs = dict(particles=state.particles, log_weights=state.log_weights,
+                      action=action, observed_m=observed_m, **draws)
+        if inject_fraction is not None:
+            inputs["fraction"] = float(np.float32(inject_fraction))
+
+        def program(b, gen):
+            obs_px = self.sensor.to_pixel_index(b["observed_m"]).to(torch.float32)
+            new, pose = self._step(
+                MCLState(b["particles"], b["log_weights"], gen), b["action"], obs_px,
+                inject_fraction=b.get("fraction"), **{name: b[name] for name in draws})
+            return dict(particles=new.particles, log_weights=new.log_weights,
+                        log_quality=new.log_quality, pose=pose)
+
+        key = ("step", inject_fraction is not None, *sorted(draws))
+        out = self.programs(key, program, inputs, state.generator, self._keep())
+        return MCLState(particles=out["particles"], log_weights=out["log_weights"],
+                        generator=state.generator, log_quality=out["log_quality"]), out["pose"]
 
     def step_many(
         self, state: MCLState, actions, observed_m, u0=None, noise=None
     ) -> tuple[MCLState, torch.Tensor]:
         """K sequential corrections with no host synchronization between
-        them: ``actions`` (K, 3), ``observed_m`` (K, R). Optional draws:
-        ``u0`` (K,) and ``noise`` (K, N, 3). Returns (state, poses (K, 3)).
-        With ``pallas_mega`` each correction is one mega-step launch."""
+        them, on a card one replay of the K-correction graph (the JAX
+        filter's ``lax.scan``): ``actions`` (K, 3), ``observed_m`` (K, R).
+        Optional draws: ``u0`` (K,) and ``noise`` (K, N, 3). Returns
+        (state, poses (K, 3)). With ``pallas_mega`` each correction is one
+        mega-step launch."""
         self._require_beams()
-        actions = upload(actions, self.device)
-        observed_m = upload(observed_m, self.device)
-        k = actions.shape[0]
-        if observed_m.shape[0] != k:
-            raise ValueError(f"{k} actions but {observed_m.shape[0]} scans")
-        if u0 is not None:
-            u0 = upload(u0, self.device)
-            if u0.shape != (k,):
-                raise ValueError(f"u0 shape {tuple(u0.shape)} != ({k},)")
-        if noise is not None:
-            noise = upload(noise, self.device)
-            if noise.shape != (k, state.num_particles, 3):
-                raise ValueError(
-                    f"noise shape {tuple(noise.shape)} != ({k}, {state.num_particles}, 3)"
-                )
+        k = shape_of(actions)[0]
+        if shape_of(observed_m)[0] != k:
+            raise ValueError(f"{k} actions but {shape_of(observed_m)[0]} scans")
+        if u0 is not None and shape_of(u0) != (k,):
+            raise ValueError(f"u0 shape {shape_of(u0)} != ({k},)")
+        if noise is not None and shape_of(noise) != (k, state.num_particles, 3):
+            raise ValueError(
+                f"noise shape {shape_of(noise)} != ({k}, {state.num_particles}, 3)"
+            )
         if self.mega is not None:
             return self.mega.step_many(state, actions, observed_m, u0=u0, noise=noise)
-        obs_px = self.sensor.to_pixel_index(observed_m).to(torch.float32)
-        poses = []
-        for i in range(k):
-            state, pose = self._step(
-                state, actions[i], obs_px[i],
-                None if u0 is None else u0[i],
-                None if noise is None else noise[i],
-            )
-            poses.append(pose)
-        return state, torch.stack(poses)
+        draws = {name: v for name, v in dict(u0=u0, noise=noise).items() if v is not None}
+        inputs = dict(particles=state.particles, log_weights=state.log_weights,
+                      actions=actions, observed_m=observed_m, **draws)
+
+        def program(b, gen):
+            obs_px = self.sensor.to_pixel_index(b["observed_m"]).to(torch.float32)
+            st, poses = MCLState(b["particles"], b["log_weights"], gen), []
+            for i in range(k):
+                st, pose = self._step(st, b["actions"][i], obs_px[i],
+                                      **{name: b[name][i] for name in draws})
+                poses.append(pose)
+            return dict(particles=st.particles, log_weights=st.log_weights,
+                        log_quality=st.log_quality, poses=torch.stack(poses))
+
+        out = self.programs(("step_many", *sorted(draws)), program, inputs, state.generator,
+                            self._keep())
+        return MCLState(particles=out["particles"], log_weights=out["log_weights"],
+                        generator=state.generator, log_quality=out["log_quality"]), out["poses"]
 
     def log_quality(self, state: MCLState) -> float:
         """log mean (squashed) measurement likelihood of the latest

@@ -6,7 +6,9 @@ arithmetic run outside the kernel, vectorized over the K steps of a
 chain. The random draws are taken before the chain, step by step, in the
 classic step's order (u0, then the motion noise), so a mega chain and a
 classic chain with one seed consume identical draws. No host
-synchronization inside the chain.
+synchronization inside the chain. On a card the draws, the K launches
+and the pose arithmetic of a chain are one CUDA graph, replayed per
+call (``utils/graphs.py``, the JAX ``jax.jit`` of ``mega_step_many``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from monte_carlo_localization_tpu_torch.mapping.grid_map import GridMap
 from monte_carlo_localization_tpu_torch.models.motion import reconstruct_velocity
 from monte_carlo_localization_tpu_torch.models.sensor import SensorModel
 from monte_carlo_localization_tpu_torch.ops.mega_step import NUM_SUMS, MegaStep
+from monte_carlo_localization_tpu_torch.utils.graphs import Programs, shape_of
 
 
 def mega_supported(grid_map: GridMap, cfg: MCLConfig) -> bool:
@@ -65,6 +68,7 @@ class MegaStepper:
             ),
             **lut_query_kwargs(grid_map, cfg),
         )
+        self.programs = Programs(self.mega.device, [self.mega])
 
     def step_many(self, state: MCLState, actions, observed_m, u0=None, noise=None):
         """K chained corrections: ``actions`` (K, 3), ``observed_m`` (K, R),
@@ -74,12 +78,23 @@ class MegaStepper:
         n = self.n
         if state.num_particles != n:
             raise ValueError(f"state has {state.num_particles} particles, the mega step {n}")
-        actions = torch.as_tensor(actions, dtype=torch.float32, device=dev)
-        observed_m = torch.as_tensor(observed_m, dtype=torch.float32, device=dev)
-        k = actions.shape[0]
+        k = shape_of(actions)[0]
         if k == 0:
             return state, torch.zeros((0, 3), dtype=torch.float32, device=dev)
-        gen = state.generator
+        draws = {name: v for name, v in dict(u0=u0, noise=noise).items() if v is not None}
+        inputs = dict(particles=state.particles, log_weights=state.log_weights,
+                      actions=actions, observed_m=observed_m, **draws)
+        out = self.programs(("mega_step_many", *sorted(draws)), self._chain, inputs,
+                            state.generator, keep=(self.grid_map, self.sensor))
+        return MCLState(particles=out["particles"], log_weights=out["log_weights"],
+                        generator=state.generator, log_quality=out["log_quality"]), out["poses"]
+
+    def _chain(self, b: dict, gen: torch.Generator) -> dict:
+        """The chain of :meth:`step_many` on device tensors ``b``."""
+        dev, n = self.mega.device, self.n
+        actions, observed_m = b["actions"], b["observed_m"]
+        k = actions.shape[0]
+        u0, noise = b.get("u0"), b.get("noise")
         if u0 is None or noise is None:
             u0s, noises = [], []
             for _ in range(k):
@@ -89,8 +104,7 @@ class MegaStepper:
                     noises.append(torch.randn((n, 3), generator=gen, dtype=torch.float32, device=dev))
             u0 = torch.stack(u0s) if u0 is None else u0
             noise = torch.stack(noises) if noise is None else noise
-        u0 = torch.as_tensor(u0, dtype=torch.float32, device=dev)
-        noise = torch.as_tensor(noise, dtype=torch.float32, device=dev).contiguous()
+        noise = noise.contiguous()
 
         # the displacement form after the dt heuristic, for all K at once
         if self.cfg.exact_dt_heuristic:
@@ -114,8 +128,8 @@ class MegaStepper:
              torch.empty(n, dtype=torch.float32, device=dev))
             for _ in range(min(k, 2))
         ]
-        parts = state.particles.contiguous()
-        logw = state.log_weights.contiguous()
+        parts = b["particles"].contiguous()
+        logw = b["log_weights"].contiguous()
         for i in range(k):
             out_p, out_w = bufs[i % 2]
             self.mega(lut, parts, logw, noise[i], obs[i], scalars[i], out_p, out_w, sums[i])
@@ -126,5 +140,4 @@ class MegaStepper:
             [sums[:, 0] / z, sums[:, 1] / z, torch.atan2(sums[:, 2], sums[:, 3])], dim=1
         )
         log_quality = sums[-1, 5] + torch.log(z[-1]) - math.log(n)
-        return MCLState(particles=parts, log_weights=logw, generator=gen,
-                        log_quality=log_quality), poses
+        return dict(particles=parts, log_weights=logw, log_quality=log_quality, poses=poses)

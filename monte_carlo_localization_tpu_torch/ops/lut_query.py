@@ -303,7 +303,9 @@ class LUTQuery:
         self.subbin_table_entries = subbin_table_entries(self.m) if self.subbin else 0
         self._norm_tables: dict[torch.device, torch.Tensor] = {}
         self._subbin_tables: dict[torch.device, torch.Tensor] = {}
-        self._shared_tables = None  # ((device, N), FleetTables) of the one map
+        # FleetTables of the one map by (device, N), never freed: a CUDA
+        # graph of the step holds their addresses
+        self._shared_tables: dict[tuple[torch.device, int], FleetTables] = {}
         self.launch_count = 0
         self.table_launch_count = 0
         self.subbin_table_launch_count = 0
@@ -705,16 +707,16 @@ class LUTQuery:
         """The query's one map as map 0 of a fleet of ``num_members``, with
         its origin as float32 (the value the single-map math applies),
         built once per (device, N)."""
-        if self._shared_tables is None or self._shared_tables[0] != (dev, n):
-            self._shared_tables = ((dev, n), FleetTables(
+        if (dev, n) not in self._shared_tables:
+            self._shared_tables[(dev, n)] = FleetTables(
                 npm=n // self.num_members, member_base=0, map_of=None,
                 origin_x=torch.tensor([self.origin_x], dtype=torch.float32, device=dev),
                 origin_y=torch.tensor([self.origin_y], dtype=torch.float32, device=dev),
                 dims=torch.tensor([[self.height, self.width]], dtype=torch.int32, device=dev),
                 lut_bases=torch.zeros(1, dtype=torch.int32, device=dev),
                 row_map_bases=None,
-            ))
-        return self._shared_tables[1]
+            )
+        return self._shared_tables[(dev, n)]
 
 
 @dataclass(frozen=True)

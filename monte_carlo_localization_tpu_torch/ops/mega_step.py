@@ -70,7 +70,9 @@ class MegaStep:
             self.two_pi, self.inv_2pi,
         )
         self._plans: dict[tuple[torch.device, int], tuple[int, int, bool]] = {}
-        self._workspace: torch.Tensor | None = None
+        # zeroed workspaces by (device, bytes), never freed: a CUDA graph of
+        # the step holds their addresses
+        self._workspaces: dict[tuple[torch.device, int], torch.Tensor] = {}
         self.launch_count = 0
 
     def plan(self, n: int, device: torch.device | str | None = None) -> tuple[int, int, bool]:
@@ -162,10 +164,11 @@ class MegaStep:
         fn = lib.mcl_mega_step_u8 if want_dtype == torch.uint8 else lib.mcl_mega_step_u16
         grid, chunk, small = self.plan(n, dev)
         ws_bytes = lib.mcl_mega_workspace_bytes(n, grid)
-        ws = self._workspace
-        if ws is None or ws.device != dev or ws.numel() < ws_bytes:
+        ws = self._workspaces.get((dev, ws_bytes))
+        if ws is None:
             # zeroed: the kernel's ticket counts from 0 and resets itself
-            ws = self._workspace = torch.zeros(ws_bytes, dtype=torch.uint8, device=dev)
+            ws = self._workspaces[(dev, ws_bytes)] = torch.zeros(
+                ws_bytes, dtype=torch.uint8, device=dev)
         table = q.norm_table(dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream

@@ -75,11 +75,9 @@ def cast_rays_dda(grid_map: GridMap, queries: torch.Tensor) -> torch.Tensor:
         oob, idx = _cells(gm, gx, gy)
         blocked = oob | occ[idx]
         hit = torch.where((hit == sentinel) & blocked, step, hit)
-    return torch.where(
-        hit < sentinel,
-        hit.to(queries.dtype) * res,
-        torch.tensor(gm.max_range_meters, dtype=queries.dtype, device=x0.device),
-    )
+    # the maximum range as a Python number: no host-to-device copy, which a
+    # captured step may not make (it rounds to the queries' type)
+    return torch.where(hit < sentinel, hit.to(queries.dtype) * res, gm.max_range_meters)
 
 
 def cast_rays_sphere(

@@ -62,6 +62,7 @@ from monte_carlo_localization_tpu_torch.models.sensor import SensorModel
 from monte_carlo_localization_tpu_torch.ops.resample import resample_indices
 from monte_carlo_localization_tpu_torch.parallel.collectives import Collectives, shard_seed
 from monte_carlo_localization_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device, upload
+from monte_carlo_localization_tpu_torch.utils.graphs import Programs, run_eager, shape_of
 
 
 def _validate_parallel_config(cfg: MCLConfig, who: str, allow_pallas: bool = False) -> None:
@@ -304,6 +305,7 @@ class FleetFilter:
         )
         self.beam_angles: torch.Tensor | None = None
         self.likelihood = None
+        self.programs = Programs(self.device)
         if beam_angles is not None:
             self.set_beam_angles(beam_angles)
 
@@ -321,6 +323,8 @@ class FleetFilter:
                 self.map, beams, self.config, num_members=self.num_local_members
             )
         self.beam_angles = torch.as_tensor(beams, device=self.device)
+        # graphs read the LUT, the query and the beams by address
+        self.programs = Programs(self.device, [self.likelihood])
 
     def _generator(self, seed: int | None) -> torch.Generator:
         gen = torch.Generator(device=self.device)
@@ -421,17 +425,19 @@ class FleetFilter:
             raise RuntimeError("beam_angles not set — call set_beam_angles() first")
 
     def _as(self, x, shape: tuple, name: str, axis: int = 0) -> torch.Tensor | None:
-        """``x`` on the device with ``shape`` (local members on ``axis``);
-        a meshed fleet also takes the whole fleet's rows and keeps its own."""
+        """``x`` checked to have ``shape`` (local members on ``axis``); a
+        meshed fleet also takes the whole fleet's rows and keeps its own
+        (on the device). Host values stay on the host until a program
+        copies them in."""
         if x is None:
             return None
-        x = upload(x, self.device)
         local_f = self.num_local_members
-        if (self.mesh is not None and x.dim() > axis and x.shape[axis] == self.fleet_size
-                and local_f != self.fleet_size):
-            x = x.narrow(axis, self.local_members.start, local_f)
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{name} shape {tuple(x.shape)} != {shape}")
+        if self.mesh is not None:
+            x = upload(x, self.device)
+            if x.dim() > axis and x.shape[axis] == self.fleet_size and local_f != self.fleet_size:
+                x = x.narrow(axis, self.local_members.start, local_f)
+        if shape_of(x) != shape:
+            raise ValueError(f"{name} shape {shape_of(x)} != {shape}")
         return x
 
     def _gather_columns(self, x: torch.Tensor) -> torch.Tensor:
@@ -494,41 +500,69 @@ class FleetFilter:
                                generator=state.generator, log_quality=log_quality)
         return new_state, poses
 
+    def _run(self, key: tuple, state: FleetState, inputs: dict, many: bool):
+        """``step`` (``many`` False) or ``step_many`` on validated inputs:
+        without a mesh one replay of the program's graph on a card; over a
+        mesh, whose collectives and host copies a graph cannot hold, the
+        eager loop."""
+        draws = [name for name in ("u0", "noise") if name in inputs]
+
+        def program(b, gen):
+            obs_px = self.sensor.to_pixel_index(b["scans"]).to(torch.float32)
+            st = FleetState(particles=b["particles"], log_weights=b["log_weights"],
+                            generator=gen)
+            if not many:
+                st, poses = self._step(st, b["actions"], obs_px, b.get("u0"), b.get("noise"))
+            else:
+                poses = []
+                for i in range(b["actions"].shape[0]):
+                    st, p = self._step(st, b["actions"][i], obs_px[i],
+                                       *(b[name][i] if name in b else None
+                                         for name in ("u0", "noise")))
+                    poses.append(p)
+                poses = torch.stack(poses)
+            return dict(particles=st.particles, log_weights=st.log_weights,
+                        log_quality=st.log_quality, poses=poses)
+
+        inputs = dict(particles=state.particles, log_weights=state.log_weights, **inputs)
+        if self.mesh is not None:
+            out = run_eager(program, inputs, state.generator, self.device)
+        else:
+            out = self.programs((*key, *draws), program, inputs, state.generator,
+                                keep=(self.map, self.sensor, self.beam_angles, self.likelihood,
+                                      self._member_map))
+        return FleetState(particles=out["particles"], log_weights=out["log_weights"],
+                          generator=state.generator, log_quality=out["log_quality"]), out["poses"]
+
     def step(self, state: FleetState, actions, scans, u0=None, noise=None):
         """One correction of every member (of this process's members over a
         mesh), launched without waiting for the device (host inputs go up
-        through pinned memory): ``actions`` (F, 3), ``scans`` (F, R) in
+        through pinned memory); without a mesh, on a card, one replay of
+        the fleet step's graph: ``actions`` (F, 3), ``scans`` (F, R) in
         meters. Optional draws: ``u0`` (F,) and ``noise`` (F, N, 3). Over a
         mesh each takes this process's members' rows, or those rows alone
         (F / D of them). Returns (state, poses (F, 3), or this process's
         (F / D, 3))."""
         self._require_beams()
         f, n = self.num_local_members, self.config.max_particles
-        actions = self._as(actions, (f, 3), "actions")
-        scans = self._as(scans, (f, self.beam_angles.shape[0]), "scans")
-        obs_px = self.sensor.to_pixel_index(scans).to(torch.float32)
-        return self._step(state, actions, obs_px, self._as(u0, (f,), "u0"),
-                          self._as(noise, (f, n, 3), "noise"))
+        inputs = dict(actions=self._as(actions, (f, 3), "actions"),
+                      scans=self._as(scans, (f, self.beam_angles.shape[0]), "scans"),
+                      u0=self._as(u0, (f,), "u0"), noise=self._as(noise, (f, n, 3), "noise"))
+        return self._run(("fleet_step",), state,
+                         {name: v for name, v in inputs.items() if v is not None}, many=False)
 
     def step_many(self, state: FleetState, actions, scans, u0=None, noise=None):
-        """K chained corrections with no host synchronization between them:
+        """K chained corrections with no host synchronization between them,
+        without a mesh on a card one replay of the K-correction graph:
         ``actions`` (K, F, 3), ``scans`` (K, F, R). Optional draws: ``u0``
         (K, F) and ``noise`` (K, F, N, 3). Returns (state, poses (K, F, 3));
         over a mesh, as :meth:`step`."""
         self._require_beams()
         f, n = self.num_local_members, self.config.max_particles
-        actions = upload(actions, self.device)
-        k = actions.shape[0]
-        actions = self._as(actions, (k, f, 3), "actions", axis=1)
-        scans = self._as(scans, (k, f, self.beam_angles.shape[0]), "scans", axis=1)
-        obs_px = self.sensor.to_pixel_index(scans).to(torch.float32)
-        u0 = self._as(u0, (k, f), "u0", axis=1)
-        noise = self._as(noise, (k, f, n, 3), "noise", axis=1)
-        poses = []
-        for i in range(k):
-            state, p = self._step(
-                state, actions[i], obs_px[i],
-                None if u0 is None else u0[i], None if noise is None else noise[i],
-            )
-            poses.append(p)
-        return state, torch.stack(poses)
+        k = shape_of(actions)[0]
+        inputs = dict(actions=self._as(actions, (k, f, 3), "actions", axis=1),
+                      scans=self._as(scans, (k, f, self.beam_angles.shape[0]), "scans", axis=1),
+                      u0=self._as(u0, (k, f), "u0", axis=1),
+                      noise=self._as(noise, (k, f, n, 3), "noise", axis=1))
+        return self._run(("fleet_step_many",), state,
+                         {name: v for name, v in inputs.items() if v is not None}, many=True)

@@ -16,16 +16,20 @@ could save. The variants are the JAX tool's six:
   no_kernel    a surrogate log weight with a data dependency on the cloud
 
 over the port's own step functions (``resample_indices``,
-``motion_model``, the fused ``LUTQuery``, ``expected_pose``).
+``motion_model``, the fused ``LUTQuery``, ``expected_pose``). On a card
+each variant's chain is one replay of a CUDA graph (``utils/graphs.py``,
+as the JAX tool ``jax.jit``-s a ``lax.scan``), so a marginal is device
+time and not the host's launch work; on the CPU the chain runs eagerly.
 
 The JAX tool's ``--unroll U`` swept the ``lax.scan`` unroll factor of the
-chained step. The port's ``step_many`` is a Python loop of launches,
-with no unroll to sweep until it becomes one CUDA graph (ROADMAP.md
-queue 1, item 2); the option exits saying so.
+full step. A graph is fully unrolled, so the port's counterpart sweeps
+the corrections per replay instead: u = 1, 2, 4, ... up to U, each chain
+run as chain / u replays of a u-correction graph, one line per u.
 
 Usage:
     python -m monte_carlo_localization_tpu_torch.tools.perf_ablate [--particles 4000]
         [--beams 1080] [--chain 50] [--reps 5] [--map Spielberg_map.yaml] [--device cpu]
+        [--unroll U]
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from monte_carlo_localization_tpu_torch.models.motion import motion_model
 from monte_carlo_localization_tpu_torch.models.sensor import SensorModel
 from monte_carlo_localization_tpu_torch.ops.resample import resample_indices
 from monte_carlo_localization_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device, upload
+from monte_carlo_localization_tpu_torch.utils.graphs import Programs
 
 # (resample, motion, likelihood, pose) of each variant
 VARIANTS = {
@@ -62,14 +67,22 @@ VARIANTS = {
 }
 DISPERSION = (0.05, 0.025, 0.25)
 ROUNDS = 3
-UNROLL_EXIT = ("--unroll sweeps the lax.scan unroll factor of the JAX step; the port's "
-               "step_many is a Python loop with nothing to unroll until it becomes one CUDA "
-               "graph (ROADMAP.md queue 1, item 2)")
 
 
-def make_steps(gm, query, sensor, do_resample, do_motion, do_likelihood, do_pose):
+def unroll_variants(unroll: int) -> dict:
+    """The ``--unroll`` sweep: the full step at u = 1, 2, 4, ... <= U
+    corrections per replay (the JAX tool's ``full_unroll{u}``)."""
+    return {f"full_unroll{1 << i}": (True, True, True, True, 1 << i)
+            for i in range(unroll.bit_length())}
+
+
+def make_steps(gm, query, sensor, do_resample, do_motion, do_likelihood, do_pose,
+               per_replay: int = 0):
     """K chained corrections of one variant: (state, actions (K, 3),
-    scans (K, R)) -> (state, poses (K, 3))."""
+    scans (K, R)) -> (state, poses (K, 3)), run as replays of a program
+    of ``per_replay`` corrections (0: the whole chain in one); the
+    function's ``programs`` hold its graphs."""
+    programs = Programs(gm.device, [query])
 
     def step(state: MCLState, action, obs):
         gen = state.generator
@@ -99,22 +112,40 @@ def make_steps(gm, query, sensor, do_resample, do_motion, do_likelihood, do_pose
         return MCLState(particles=proposal, log_weights=log_w, generator=gen,
                         log_quality=log_q.to(torch.float32)), pose
 
-    def steps(state, actions, scans):
-        poses = []
-        for i in range(actions.shape[0]):
-            state, pose = step(state, actions[i], scans[i])
+    def chunk(b, gen):
+        state, poses = MCLState(particles=b["particles"], log_weights=b["log_weights"],
+                                generator=gen), []
+        for i in range(b["actions"].shape[0]):
+            state, pose = step(state, b["actions"][i], b["scans"][i])
             poses.append(pose)
-        return state, torch.stack(poses)
+        return dict(particles=state.particles, log_weights=state.log_weights,
+                    log_quality=state.log_quality, poses=torch.stack(poses))
 
+    def steps(state, actions, scans):
+        u, poses = per_replay or actions.shape[0], []
+        for j in range(0, actions.shape[0], u):
+            out = programs(("perf_ablate",), chunk,
+                           dict(particles=state.particles, log_weights=state.log_weights,
+                                actions=actions[j:j + u], scans=scans[j:j + u]),
+                           state.generator, keep=(gm, sensor, query))
+            state = MCLState(particles=out["particles"], log_weights=out["log_weights"],
+                             generator=state.generator, log_quality=out["log_quality"])
+            poses.append(out["poses"])
+        return state, torch.cat(poses)
+
+    steps.programs = programs
     return steps
 
 
 def run(particles=4000, beams=1080, chain=50, reps=5, map_name="Spielberg_map.yaml",
-        device=DEFAULT_DEVICE) -> dict:
+        device=DEFAULT_DEVICE, unroll: int = 0) -> dict:
     """Every variant's updates/s over ROUNDS rounds of ``reps`` chains.
     Returns ``rates`` (variant -> per-round rates), ``median`` (variant ->
     updates/s), ``marginal_ms`` (phase -> ms per update inside the full
-    step), the query (its launch counts) and the corrections that ran it."""
+    step; None for the ``unroll`` sweep), the query (its launch counts),
+    the corrections that ran it and ``capture`` (variant -> graph
+    warm-up and capture ms, pool bytes and replays; empty on the CPU).
+    ``unroll`` U > 0 runs :func:`unroll_variants` instead of the six."""
     device = resolve_device(device)
     n, r = particles, beams
     gm = bench._load_real_map(map_name, device)
@@ -128,8 +159,9 @@ def run(particles=4000, beams=1080, chain=50, reps=5, map_name="Spielberg_map.ya
     actions = upload(np.tile(np.array([0.05, 0.0, 0.01], np.float32), (chain, 1)), device)
     scans = upload(np.tile(scan, (chain, 1)), device)
 
-    rates, kernel_corrections = {}, 0
-    for name, flags in VARIANTS.items():
+    variants = unroll_variants(unroll) if unroll > 0 else VARIANTS
+    rates, kernel_corrections, capture = {}, 0, {}
+    for name, flags in variants.items():
         steps = make_steps(gm, query, sensor, *flags)
         gen = torch.Generator(device=device)
         gen.manual_seed(0)
@@ -148,13 +180,15 @@ def run(particles=4000, beams=1080, chain=50, reps=5, map_name="Spielberg_map.ya
             raise RuntimeError(f"{name}: non-finite poses")
         if flags[2]:
             kernel_corrections += chain * (1 + ROUNDS * reps)
+        capture[name] = steps.programs.stats()
     median = {name: float(np.median(v)) for name, v in rates.items()}
-    full_ms = 1e3 / median["full"]
-    marginal = {name[3:]: full_ms - 1e3 / median[name]
-                for name in ("no_pose", "no_resample", "no_motion", "no_kernel")}
+    full_ms = 1e3 / median[next(iter(variants))]
+    marginal = None if unroll > 0 else {
+        name[3:]: full_ms - 1e3 / median[name]
+        for name in ("no_pose", "no_resample", "no_motion", "no_kernel")}
     return dict(rates=rates, median=median, marginal_ms=marginal, full_ms=full_ms,
                 query=query, kernel_corrections=kernel_corrections, map=gm.name,
-                particles=n, beams=r)
+                particles=n, beams=r, capture=capture)
 
 
 def main(argv=None) -> int:
@@ -166,15 +200,17 @@ def main(argv=None) -> int:
     ap.add_argument("--map", default="Spielberg_map.yaml")
     ap.add_argument("--device", default=DEFAULT_DEVICE)
     ap.add_argument("--unroll", type=int, default=0, metavar="U",
-                    help="the JAX tool's lax.scan unroll sweep: not ported (exits)")
+                    help="sweep the full step at 1, 2, 4, ... <= U corrections per graph "
+                         "replay (the JAX tool's lax.scan unroll sweep)")
     args = ap.parse_args(argv)
-    if args.unroll:
-        raise SystemExit(UNROLL_EXIT)
-    out = run(args.particles, args.beams, args.chain, args.reps, args.map, args.device)
+    out = run(args.particles, args.beams, args.chain, args.reps, args.map, args.device,
+              unroll=args.unroll)
     for name, med in out["median"].items():
         rs = out["rates"][name]
         print(f"{name:12s} {med:9.2f} updates/s   {1e3 / med:7.4f} ms/update   "
               f"(min {min(rs):.1f}, max {max(rs):.1f})")
+    if out["marginal_ms"] is None:
+        return 0
     print("\nmarginal costs inside the chained step:")
     for phase, d in out["marginal_ms"].items():
         print(f"  {phase:10s} {d:7.4f} ms/update ({100 * d / out['full_ms']:5.1f}% of the step)")

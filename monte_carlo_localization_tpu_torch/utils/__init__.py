@@ -3,6 +3,7 @@ from monte_carlo_localization_tpu_torch.utils.device import (
     resolve_device,
     upload,
 )
+from monte_carlo_localization_tpu_torch.utils.graphs import disable_graphs
 from monte_carlo_localization_tpu_torch.utils.geometry import (
     apply_vehicle_offset,
     div,
@@ -18,6 +19,7 @@ __all__ = [
     "DEFAULT_DEVICE",
     "resolve_device",
     "upload",
+    "disable_graphs",
     "apply_vehicle_offset",
     "div",
     "normalize_angle",

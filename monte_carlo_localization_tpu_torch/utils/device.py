@@ -27,17 +27,19 @@ def resolve_device(device: torch.device | str) -> torch.device:
     return dev
 
 
-def upload(x, device: torch.device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """``x`` (array, number or tensor) as a ``dtype`` tensor on ``device``.
-    A host value goes to a card through pinned memory without waiting: a
-    plain host-to-device copy synchronizes the stream, and with it every
+def upload(x, device: torch.device, dtype: torch.dtype = torch.float32,
+           out: torch.Tensor | None = None) -> torch.Tensor:
+    """``x`` (array, number or tensor) as a ``dtype`` tensor on ``device``,
+    or copied into ``out`` (whose device and type then rule). A host value
+    goes to a card through pinned memory without waiting: a plain
+    host-to-device copy synchronizes the stream, and with it every
     correction still in flight."""
-    if isinstance(x, torch.Tensor):
-        if x.device == device:
-            return x.to(dtype)
-        t = x.to(dtype)
-    else:
-        t = torch.tensor(np.asarray(x), dtype=dtype)
+    if out is not None:
+        device, dtype = out.device, out.dtype
+    if isinstance(x, torch.Tensor) and (x.device.type != "cpu" or device.type == "cpu"):
+        return x.to(device=device, dtype=dtype) if out is None else out.copy_(x)
+    t = x.to(dtype) if isinstance(x, torch.Tensor) else torch.tensor(np.asarray(x), dtype=dtype)
     if device.type != "cuda":
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device) if out is None else out.copy_(t)
+    t = t.pin_memory()
+    return t.to(device, non_blocking=True) if out is None else out.copy_(t, non_blocking=True)

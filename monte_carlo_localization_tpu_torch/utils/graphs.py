@@ -1,0 +1,264 @@
+"""CUDA graphs of the filters' step programs: the port's counterpart of
+the JAX package's compiled programs, ``jax.jit`` of the step and of its
+injection twin and ``jax.jit`` of a ``lax.scan`` over K corrections
+(``filter/core.py:483-510``, ``filter/mega.py:110-197``,
+``parallel/fleet.py:315-476`` of the JAX package).
+
+A program is a Python function of named float32 input buffers and a
+``torch.Generator`` that returns a dict of output tensors: one correction,
+or a chunk of K. :class:`Programs` keeps one filter's programs, keyed the
+way ``jit``'s cache is (the program, K, N, F, which draws are given), all
+in one graph memory pool. On a card each key's first call
+
+1. copies the inputs into static device buffers (host values through
+   pinned memory straight into them, :func:`upload` with ``out``);
+2. warms up: one eager run on those buffers with the program's own
+   generator, on a side stream, so that every lazy cache (``div``'s
+   divisors, the LUT query's tables, the mega step's plan and workspace,
+   the kernels' library) fills outside the capture and no draw is taken
+   from the caller's generator;
+3. captures the same run into a ``torch.cuda.CUDAGraph`` on a side
+   stream (``capture_error_mode="thread_local"``: the live loop and the
+   web view run other threads), with the program's generator registered
+   (``register_generator_state``), so that the in-graph ``torch.rand``
+   and ``torch.randn`` draw afresh on every replay;
+
+and every call then replays the graph: the caller's generator state is
+handed to the program's generator before the replay and taken back
+after it, so the caller's generator advances exactly as an eager run
+would advance it and draws the same numbers. The outputs come back as
+clones, so a later replay never overwrites what a caller holds, and the
+inputs are never written. A failed capture raises
+:class:`GraphCaptureError` naming the last tensor operation it reached;
+nothing falls back to an eager run.
+
+Python counters do not move on a replay, so :class:`LaunchCounters`
+records how far each kernel wrapper's ``*launch_count`` moved during the
+capture and adds that on every replay; the first call leaves the counters
+as its eager warm-up left them (a normaliser table filled there counts
+once, as on the eager path). The dedup query's ``last_overflow`` is set
+to what the capture left: the device tensor that each replay writes.
+
+On the CPU, inside :func:`disable_graphs` (the counterpart of
+``jax.disable_jit()``), and while the current stream is already being
+captured (a program inside another graph is inlined, as ``jit`` inlines
+a jitted function) the function runs eagerly on the caller's tensors.
+One filter's programs share a pool, so they replay on one stream at a
+time, as one filter's steps do.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from monte_carlo_localization_tpu_torch.utils.device import upload
+
+# wrapper attributes a replay sets to what the capture left: the dedup
+# kernel's overflow flags, a device tensor each replay writes
+REPLAYED_ATTRS = ("last_overflow",)
+
+_lock = threading.Lock()
+_disabled = 0
+
+
+@contextlib.contextmanager
+def disable_graphs():
+    """Run every program eagerly while inside (nestable; process-wide,
+    like the JAX package's ``jax.disable_jit()``): the only way to the
+    eager loop on a card."""
+    global _disabled
+    with _lock:
+        _disabled += 1
+    try:
+        yield
+    finally:
+        with _lock:
+            _disabled -= 1
+
+
+def graphs_enabled(device: torch.device | str) -> bool:
+    """True where a program runs as a graph: a CUDA device, outside
+    :func:`disable_graphs`, on a stream that is not being captured."""
+    dev = torch.device(device)
+    return (dev.type == "cuda" and _disabled == 0
+            and not torch.cuda.is_current_stream_capturing())
+
+
+class GraphCaptureError(RuntimeError):
+    """A program's capture failed; the message names the last operation."""
+
+
+class LaunchCounters:
+    """The ``*launch_count`` integers (and :data:`REPLAYED_ATTRS`) of some
+    kernel wrappers, for a graph whose replays launch their kernels
+    without Python seeing it."""
+
+    def __init__(self, wrappers):
+        self.wrappers = [w for w in wrappers if w is not None]
+        self.deltas: dict[tuple[int, str], int] = {}
+        self.replayed: dict[tuple[int, str], object] = {}
+
+    def snapshot(self) -> dict[tuple[int, str], int]:
+        return {(i, name): value for i, w in enumerate(self.wrappers)
+                for name, value in vars(w).items() if name.endswith("launch_count")}
+
+    def settle(self, warm: dict, captured: dict) -> None:
+        """After the capture: keep what the capture added as the per-replay
+        deltas and set the counters back to ``warm`` less one replay's
+        worth, so that the first replay leaves them at ``warm``, as the
+        eager warm-up did."""
+        self.deltas = {k: v - warm.get(k, 0) for k, v in captured.items()}
+        for (i, name), d in self.deltas.items():
+            setattr(self.wrappers[i], name, captured[(i, name)] - 2 * d)
+        self.replayed = {(i, a): getattr(w, a) for i, w in enumerate(self.wrappers)
+                         for a in REPLAYED_ATTRS if hasattr(w, a)}
+
+    def replay(self) -> None:
+        """Add one replay's launches; restore what the capture left."""
+        for (i, name), d in self.deltas.items():
+            w = self.wrappers[i]
+            setattr(w, name, getattr(w, name) + d)
+        for (i, a), value in self.replayed.items():
+            setattr(self.wrappers[i], a, value)
+
+
+class _LastOp(TorchDispatchMode):
+    """Remembers the last tensor operation dispatched (a capture's
+    culprit when it fails)."""
+
+    def __init__(self):
+        super().__init__()
+        self.last = None
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.last = func
+        return func(*args, **(kwargs or {}))
+
+
+def shape_of(x) -> tuple:
+    """The shape of a tensor, an array, a nested list or a number."""
+    return tuple(x.shape) if hasattr(x, "shape") else np.shape(x)
+
+
+class GraphedProgram:
+    """One captured program (see the module's notes): its static input
+    buffers, the graph, the outputs the graph writes, its own generator,
+    its launch counters, and what it cost: ``warmup_ms``, ``capture_ms``
+    and ``pool_bytes`` (device memory the capture added to the pool)."""
+
+    def __init__(self, key, fn: Callable, inputs: dict, device: torch.device,
+                 counters: LaunchCounters, pool, keep=()):
+        self.key = key
+        self.device = device
+        self.counters = counters
+        self.keep = keep  # what the graph reads by address: maps, LUTs, tables
+        self.buffers = {name: torch.empty(shape_of(x), dtype=torch.float32, device=device)
+                        for name, x in inputs.items()}
+        self._load(inputs)
+        self.generator = torch.Generator(device=device)
+        cur = torch.cuda.current_stream(device)
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            fn(self.buffers, self.generator)
+        cur.wait_stream(side)
+        torch.cuda.synchronize(device)
+        warm = counters.snapshot()
+        t1 = time.perf_counter()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(self.generator)
+        op = _LastOp()
+        try:
+            with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
+                with op:
+                    self.outputs = fn(self.buffers, self.generator)
+        except Exception as e:
+            raise GraphCaptureError(
+                f"capture of program {key!r} failed at {op.last}: {e}") from e
+        torch.cuda.synchronize(device)
+        self.warmup_ms = (t1 - t0) * 1e3
+        self.capture_ms = (time.perf_counter() - t1) * 1e3
+        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+        counters.settle(warm, counters.snapshot())
+        self.replays = 0
+
+    def _load(self, inputs: dict) -> None:
+        """Copy the inputs into the buffers (their shapes are the key's)."""
+        for name, x in inputs.items():
+            buf = self.buffers[name]
+            if x is buf:
+                continue
+            if isinstance(x, float):
+                buf.fill_(x)
+            else:
+                upload(x, self.device, out=buf)
+
+    def __call__(self, inputs: dict, generator: torch.Generator) -> dict:
+        self._load(inputs)
+        return self.replay(generator)
+
+    def replay(self, generator: torch.Generator) -> dict:
+        """One replay on the loaded buffers, drawing from ``generator``;
+        the outputs as fresh tensors."""
+        self.generator.set_state(generator.get_state())
+        self.graph.replay()
+        generator.set_state(self.generator.get_state())
+        self.counters.replay()
+        self.replays += 1
+        return {name: t.clone() for name, t in self.outputs.items()}
+
+
+def run_eager(fn: Callable, inputs: dict, generator: torch.Generator,
+              device: torch.device) -> dict:
+    """``fn`` on the inputs uploaded to ``device``: a program's eager run."""
+    return fn({name: upload(x, device) for name, x in inputs.items()}, generator)
+
+
+class Programs:
+    """One filter's programs, keyed like ``jit``'s cache, sharing one
+    graph pool. ``wrappers`` are the kernel wrappers whose launch counts
+    the programs keep (the LUT query, the mega step)."""
+
+    def __init__(self, device: torch.device | str, wrappers=()):
+        self.device = torch.device(device)
+        self.wrappers = [w for w in wrappers if w is not None]
+        self.cache: dict[tuple, GraphedProgram] = {}
+        self._pool = None
+
+    def __call__(self, key: tuple, fn: Callable, inputs: dict,
+                 generator: torch.Generator, keep=()) -> dict:
+        """``fn(inputs on the device, generator)``: a replay of the graph
+        of ``key`` and the inputs' shapes on a card (captured on first
+        use), else an eager run. ``keep``: what the graph reads by
+        address and must outlive it (the map and its LUT, the tables)."""
+        if not graphs_enabled(self.device):
+            return run_eager(fn, inputs, generator, self.device)
+        key = (*key, *((name, shape_of(x)) for name, x in sorted(inputs.items())))
+        prog = self.cache.get(key)
+        if prog is not None:
+            return prog(inputs, generator)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        prog = self.cache[key] = GraphedProgram(key, fn, inputs, self.device,
+                                                LaunchCounters(self.wrappers), self._pool, keep)
+        return prog.replay(generator)
+
+    @property
+    def pool_bytes(self) -> int:
+        return sum(p.pool_bytes for p in self.cache.values())
+
+    def stats(self) -> dict:
+        """Per key: warm-up and capture ms, pool bytes, replays."""
+        return {str(k): dict(warmup_ms=p.warmup_ms, capture_ms=p.capture_ms,
+                             pool_bytes=p.pool_bytes, replays=p.replays)
+                for k, p in self.cache.items()}

@@ -309,3 +309,54 @@ def test_bench_phase_holds_each_kernel_at_its_workload_s_shape():
     assert "parts = state.particles.reshape(-1, 3).contiguous()" in src
     assert 'k2_max_abs_err=max(k2_config2["max_abs_err"], k2_1m["max_abs_err"])' in src
     assert 'bench_run["k2_max_abs_err"]' in inspect.getsource(chip_smoke.main)
+
+
+def _held(equal=True, step=None):
+    return dict(equal=equal, replay_equal=True, no_aliasing=True, first_differing_step=step,
+                max_abs_pose_diff=0.0, launches=dict(eager=3, graph=3, replay=3, corrections=3))
+
+
+def test_the_graphs_phase_runs_and_gates_graph_against_eager(monkeypatch):
+    """``main`` runs the graphs phase, which refuses a program whose
+    graph is not ``torch.equal`` to its eager run, names the first
+    differing step, and gates launches against corrections."""
+    assert "phase_graphs(device)" in inspect.getsource(chip_smoke.main)
+    assert "torch.equal" in inspect.getsource(chip_smoke.hold_graph_to_eager)
+    monkeypatch.setattr(chip_smoke, "emit", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "graph_cells", lambda device: {})
+    programs = {"classic_K2": dict(given_draws=_held(), generator_draws=_held(False, 4)),
+                "mega_cooperative": dict(given_draws=_held(), generator_draws=_held(), graphs=2),
+                "inject_step": dict(given_draws=_held(), generator_draws=_held(), programs=2)}
+    monkeypatch.setattr(chip_smoke, "graph_programs", lambda device: programs)
+    with pytest.raises(RuntimeError, match=r"classic_K2 \(generator_draws\) differs from eager "
+                                           r"from step 4"):
+        chip_smoke.phase_graphs("cpu")
+    programs["classic_K2"]["generator_draws"] = _held()
+    assert chip_smoke.phase_graphs("cpu")["programs"] is programs
+    programs["classic_K2"]["given_draws"]["launches"]["graph"] = 2
+    with pytest.raises(RuntimeError, match="launches"):
+        chip_smoke.phase_graphs("cpu")
+
+
+def test_holding_a_program_to_eager_compares_every_output(monkeypatch):
+    """On the CPU both runs are eager, so they agree; the comparison
+    covers poses, particles, weights, quality and the generator."""
+    from monte_carlo_localization_tpu_torch import MCLConfig, ParticleFilter
+    from monte_carlo_localization_tpu_torch.mapping.synthetic import random_obstacle_world
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    torch.set_num_threads(1)
+    pf = ParticleFilter(random_obstacle_world(seed=3, device="cpu"), MCLConfig(max_particles=32),
+                        beam_angles=np.linspace(-2.3, 2.3, 60).astype(np.float32))
+    acts, scans = np.zeros((3, 3), np.float32), np.full((3, 60), 2.0, np.float32)
+    rng = np.random.default_rng(0)
+    draws = dict(u0=rng.random(3, dtype=np.float32),
+                 noise=rng.standard_normal((3, 32, 3), dtype=np.float32))
+    res = chip_smoke.hold_graph_to_eager(
+        lambda: pf.init_pose(np.float32([10, 10, 0.5]), seed=1),
+        lambda s, d: pf.step_many(s, acts, scans, **d), draws, [pf.likelihood], 3)
+    for kind in ("given_draws", "generator_draws"):
+        r = res[kind]
+        assert r["equal"] and r["replay_equal"] and r["no_aliasing"]
+        assert r["first_differing_step"] is None and r["max_abs_pose_diff"] == 0.0
+        assert r["launches"] == dict(eager=0, graph=0, replay=0, corrections=3)  # plain on the CPU

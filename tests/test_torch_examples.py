@@ -69,8 +69,14 @@ def test_perf_ablate_runs_the_six_variants(capsys):
     assert set(out["marginal_ms"]) == {"pose", "resample", "motion", "kernel"}
     assert out["kernel_corrections"] == 5 * 3 * (1 + perf_ablate.ROUNDS)
     assert out["query"].launch_count == 0  # the plain version on the CPU
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1, item 2"):
-        perf_ablate.main(["--unroll", "4", "--device", "cpu"])
+    assert out["capture"] == {name: {} for name in perf_ablate.VARIANTS}  # eager on the CPU
+    # --unroll U: the corrections-per-replay sweep, one line per u
+    assert perf_ablate.main(["--unroll", "4", "--device", "cpu", "--particles", "64",
+                             "--beams", "60", "--chain", "4", "--reps", "1",
+                             "--map", MAP1]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert [ln.split()[0] for ln in lines] == ["full_unroll1", "full_unroll2", "full_unroll4"]
+    assert all("updates/s" in ln for ln in lines)
 
 
 def test_localize_on_map_converges():

@@ -1,0 +1,298 @@
+"""The step programs as CUDA graphs (``utils/graphs.py``).
+
+On the CPU: a capture-safety guard (one correction of each path, after a
+warm step, records no operation that a captured region cannot hold: a
+device read on the host, a data-dependent shape, or a host-to-device
+copy of a host value; ``aten.scalar_tensor``, the wrapped Python number
+of ``torch.where(m, 0.0, t)``, is capture-safe), the launch-counter
+bookkeeping of a replay, ``disable_graphs()`` nesting, and the eager run
+a CPU program is.
+
+On a card (skipped here; this file imports no jax, so it runs on a GPU
+machine alone: ``python -m pytest --noconftest -p no:cacheprovider -m
+cuda tests/test_torch_graphs.py``): each program ``torch.equal`` to its
+eager run, no aliasing between calls, capture from a ``LiveRunner``
+thread, and a failed capture raising.
+"""
+
+import time
+
+import numpy as np
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from monte_carlo_localization_tpu_torch import MCLConfig, ParticleFilter, disable_graphs
+from monte_carlo_localization_tpu_torch.mapping.synthetic import random_obstacle_world
+from monte_carlo_localization_tpu_torch.parallel import FleetFilter
+from monte_carlo_localization_tpu_torch.utils import graphs
+from monte_carlo_localization_tpu_torch.utils.device import upload
+from monte_carlo_localization_tpu_torch.utils.graphs import (
+    GraphCaptureError,
+    LaunchCounters,
+    Programs,
+)
+
+N = 64
+BEAMS = np.linspace(-2.35, 2.35, 60).astype(np.float32)
+POSE = np.array([10.0, 10.0, 0.5], np.float32)
+# operations a captured region cannot hold
+FORBIDDEN = ("_local_scalar_dense", "nonzero", "masked_select", "unique", "lift_fresh")
+
+
+class RecordOps(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.names = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.append(func.overloadpacket.__name__)
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.fixture(scope="module")
+def world():
+    torch.set_num_threads(1)
+    return random_obstacle_world(seed=3, device="cpu")
+
+
+def _single(gm, **opts):
+    pf = ParticleFilter(gm, MCLConfig(max_particles=N, **opts), beam_angles=BEAMS)
+    state = pf.init_pose(POSE, seed=0)
+    action = upload(np.float32([0.05, 0.0, 0.02]), pf.device)
+    obs_px = pf.sensor.to_pixel_index(upload(np.full(60, 2.5, np.float32), pf.device)).float()
+    return pf, state, action, obs_px
+
+
+def _guard_path(gm, path):
+    """(warm call, guarded call) of one correction of ``path``."""
+    if path == "fleet":
+        ff = FleetFilter(gm, 4, MCLConfig(max_particles=N), beam_angles=BEAMS)
+        state = ff.init_pose(np.tile(POSE, (4, 1)), seed=0)
+        actions = upload(np.zeros((4, 3), np.float32), ff.device)
+        obs_px = ff.sensor.to_pixel_index(upload(np.full((4, 60), 2.5, np.float32),
+                                                 ff.device)).float()
+        return lambda: ff._step(state, actions, obs_px, None, None)
+    if path == "mega":
+        pf, state, action, obs_px = _single(gm, pallas_mega=True)
+        b = dict(particles=state.particles, log_weights=state.log_weights,
+                 actions=action[None], observed_m=upload(np.full((1, 60), 2.5, np.float32),
+                                                         pf.device))
+        return lambda: pf.mega._chain(b, state.generator)
+    method, _, inject = path.partition("+")
+    opts = dict(raycast_method=method) if method in ("lut", "sphere", "dda") else {}
+    if method == "subbin":
+        opts = dict(pallas_subbin=True)
+    if method == "dedup":
+        opts = dict(pallas_dedup_slots=4)
+    pf, state, action, obs_px = _single(gm, **opts)
+    kw = {}
+    if inject:
+        kw = dict(inject_fraction=upload(np.float32(0.3), pf.device))
+    return lambda: pf._step(state, action, obs_px, **kw)
+
+
+@pytest.mark.parametrize("path", [
+    "lut_pallas", "subbin", "dedup", "lut", "sphere", "dda",
+    "lut_pallas+inject", "lut+inject", "sphere+inject", "fleet", "mega",
+])
+def test_a_correction_holds_no_operation_a_graph_cannot(world, path):
+    """One correction of each path after a warm one, on the tensors a
+    program's buffers would hold. ``dda`` built its maximum range as a
+    host tensor in every call until it became a Python number."""
+    run = _guard_path(world, path)
+    run()
+    with RecordOps() as rec:
+        run()
+    assert rec.names, "nothing was dispatched"
+    bad = sorted({n for n in rec.names if n.startswith(FORBIDDEN)})
+    assert bad == [], f"{path}: {bad}"
+
+
+class _Wrapper:
+    def __init__(self):
+        self.launch_count = 5
+        self.table_launch_count = 0
+        self.last_overflow = None
+        self.other = 7
+
+
+def test_counters_replay_what_the_capture_launched():
+    w = _Wrapper()
+    c = LaunchCounters([w, None])
+    # the warm-up: three corrections and the table's one fill
+    w.launch_count += 3
+    w.table_launch_count += 1
+    warm = c.snapshot()
+    assert warm == {(0, "launch_count"): 8, (0, "table_launch_count"): 1}
+    # the capture: the three corrections again, the table cached
+    w.launch_count += 3
+    w.last_overflow = "flags of the captured step"
+    c.settle(warm, c.snapshot())
+    assert c.deltas == {(0, "launch_count"): 3, (0, "table_launch_count"): 0}
+    w.last_overflow = "flags of an eager call"
+    c.replay()  # the first call's replay: the counters as the warm-up left them
+    assert (w.launch_count, w.table_launch_count) == (8, 1)
+    assert w.last_overflow == "flags of the captured step"
+    w.launch_count = 0  # a caller resets its count
+    c.replay()
+    c.replay()
+    assert (w.launch_count, w.table_launch_count, w.other) == (6, 1, 7)
+
+
+def test_disable_graphs_nests_and_restores(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
+    assert graphs.graphs_enabled("cuda") and not graphs.graphs_enabled("cpu")
+    with disable_graphs():
+        assert not graphs.graphs_enabled("cuda")
+        with disable_graphs():
+            assert not graphs.graphs_enabled("cuda")
+        assert not graphs.graphs_enabled("cuda")
+    assert graphs.graphs_enabled("cuda")
+    with pytest.raises(ValueError), disable_graphs():
+        raise ValueError("leaves the block")
+    assert graphs.graphs_enabled("cuda")
+
+
+def test_a_program_on_the_cpu_runs_eagerly_on_the_callers_inputs():
+    progs = Programs("cpu")
+    seen = []
+
+    def fn(b, gen):
+        seen.append(b)
+        return dict(y=b["x"] * 2 + b["f"])
+
+    x = torch.arange(3.0)
+    out = progs(("double",), fn, dict(x=x, f=0.5, a=[1.0, 2.0]), torch.Generator())
+    assert torch.equal(out["y"], torch.tensor([0.5, 2.5, 4.5]))
+    assert seen[0]["x"] is x and seen[0]["f"].dtype == torch.float32
+    assert seen[0]["a"].shape == (2,) and progs.cache == {} and progs.pool_bytes == 0
+
+
+def test_shape_of_reads_tensors_arrays_lists_and_numbers():
+    assert graphs.shape_of(torch.zeros(2, 3)) == (2, 3)
+    assert graphs.shape_of(np.zeros((4,))) == (4,)
+    assert graphs.shape_of([[1, 2], [3, 4]]) == (2, 2)
+    assert graphs.shape_of(0.25) == ()
+
+
+def test_upload_into_a_buffer_casts_and_copies():
+    buf = torch.zeros(3)
+    got = upload(np.array([1, 2, 3], np.int64), torch.device("cpu"), out=buf)
+    assert got is buf and torch.equal(buf, torch.tensor([1.0, 2.0, 3.0]))
+    upload(torch.tensor([4.0, 5.0, 6.0], dtype=torch.float64), torch.device("cpu"), out=buf)
+    assert torch.equal(buf, torch.tensor([4.0, 5.0, 6.0]))
+
+
+# ---- on a card -------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    torch.set_num_threads(1)
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    return torch.device("cuda")
+
+
+def _outs(state, poses):
+    return (poses, state.particles, state.log_weights, state.log_quality,
+            state.generator.get_state())
+
+
+def _equal(a, b) -> bool:
+    return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+
+def _chain_cases(gm):
+    """(name, filter factory, run(filter, state, draws)) of each program."""
+    k, rng = 10, np.random.default_rng(0)
+    acts = np.tile(np.float32([0.05, 0.0, 0.02]), (k, 1))
+    scans = np.full((k, 60), 2.5, np.float32)
+    draws = dict(u0=rng.random(k, dtype=np.float32),
+                 noise=rng.standard_normal((k, N, 3), dtype=np.float32))
+
+    def many(pf, s, d):
+        return pf.step_many(s, acts, scans, **d)
+
+    def steps(pf, s, d, inject=False):
+        poses = []
+        for i in range(k):
+            kw = {name: v[i] for name, v in d.items()}
+            if inject:
+                kw["inject_fraction"] = 0.1 * (i % 4)
+            s, p = pf.step(s, acts[i], scans[i], **kw)
+            poses.append(p)
+        return s, torch.stack(poses)
+
+    for name, opts in (("classic", {}), ("subbin", dict(pallas_subbin=True)),
+                       ("dedup", dict(pallas_dedup_slots=4)), ("mega", dict(pallas_mega=True)),
+                       ("sphere", dict(raycast_method="sphere"))):
+        yield name, opts, many, draws
+    yield "step", {}, steps, draws
+    yield "inject", {}, lambda pf, s, d: steps(pf, s, d, inject=True), draws
+
+
+@pytest.mark.cuda
+def test_each_program_equals_its_eager_run(cuda):
+    gm = random_obstacle_world(seed=3, device=cuda)
+    for name, opts, run, draws in _chain_cases(gm):
+        pf = ParticleFilter(gm, MCLConfig(max_particles=N, **opts), beam_angles=BEAMS)
+        for d in (draws, {}):
+            with disable_graphs():
+                eager = _outs(*run(pf, pf.init_pose(POSE, seed=1), d))
+            first = _outs(*run(pf, pf.init_pose(POSE, seed=1), d))
+            kept = [t.clone() for t in first]
+            again = _outs(*run(pf, pf.init_pose(POSE, seed=1), d))
+            assert _equal(eager, first), (name, sorted(d))
+            assert _equal(first, again) and _equal(kept, first), (name, "aliasing")
+        assert (pf.mega.programs if pf.mega else pf.programs).cache, name
+
+
+@pytest.mark.cuda
+def test_fleet_programs_equal_their_eager_run(cuda):
+    gm = random_obstacle_world(seed=3, device=cuda)
+    ff = FleetFilter(gm, 4, MCLConfig(max_particles=N), beam_angles=BEAMS)
+    acts = np.zeros((10, 4, 3), np.float32)
+    scans = np.full((10, 4, 60), 2.5, np.float32)
+    for run in (lambda s: ff.step_many(s, acts, scans), lambda s: ff.step(s, acts[0], scans[0])):
+        with disable_graphs():
+            eager = _outs(*run(ff.init_pose(np.tile(POSE, (4, 1)), seed=1)))
+        graphed = _outs(*run(ff.init_pose(np.tile(POSE, (4, 1)), seed=1)))
+        assert _equal(eager, graphed)
+    q = ff.likelihood
+    before = q.launch_count + q.fleet_launch_count
+    ff.step_many(ff.init_pose(np.tile(POSE, (4, 1)), seed=1), acts, scans)
+    assert q.launch_count + q.fleet_launch_count - before == 10
+
+
+@pytest.mark.cuda
+def test_a_live_runner_thread_captures_and_replays(cuda):
+    from monte_carlo_localization_tpu_torch.runtime import LiveRunner, MCLNode, synthesize_trace
+
+    gm = random_obstacle_world(seed=3, device=cuda)
+    tr = synthesize_trace(gm, duration_s=1.0, num_beams=60, seed=0)
+    node = MCLNode(gm, MCLConfig(max_particles=N, timer_frequency=200.0))
+    node.initialize_pose(tr.truth_pose[0])
+    with LiveRunner(node) as runner:
+        for i in range(len(tr.scan_t)):
+            node.on_odometry(*tr.odom_pose[4 * i], *tr.odom_twist[4 * i])
+            node.on_scan(tr.scan_ranges[i], beam_angles=tr.beam_angles)
+            time.sleep(0.005)
+        for _ in range(5000):
+            if runner.corrections > 0 or runner.error is not None:
+                break
+            time.sleep(0.002)
+    assert runner.corrections > 0 and node.filter.programs.cache
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises(cuda):
+    progs = Programs(cuda)
+
+    def reads_the_device(b, gen):
+        return dict(y=b["x"] * float(b["x"].sum()))
+
+    with pytest.raises(GraphCaptureError, match="local_scalar_dense"):
+        progs(("bad",), reads_the_device, dict(x=torch.ones(4, device=cuda)),
+              torch.Generator(device=cuda))
