@@ -46,13 +46,16 @@ shared memory (the kernel keeps such lines' distances in global memory)
 against the native builder, and times a 2048-row hall with such rows
 against the plain sweep. It runs the sharded filter
 (``parallel/sharded.py``) on config #4's global localization at 100k
-particles: over an NCCL process group of one in this process, and over
-two processes sharing the card through gloo (spawned by
-``parallel/multihost.py`` ``spawn``; NCCL refuses two ranks on one GPU),
-holding the bucketed resampler ``torch.equal`` to the all-gather and its
-overflow fallback likewise; config #5 across two processes
-(``MultiHostFleet``, 32 cars each, their own scans, the pose table
-gathered and compared with the one-process fleet on the same draws); and
+particles: over an NCCL process group of one in this process (as graphs
+and eagerly, with eager/graph pairs beside a one-shard world's and the
+single filter's), and over two processes sharing the card through gloo
+(spawned by ``parallel/multihost.py`` ``spawn``; NCCL refuses two ranks
+on one GPU; eager, as every step over gloo is), holding the bucketed
+resampler ``torch.equal`` to the all-gather and an overflowed chunk's
+re-run likewise; config #5 across two processes (``MultiHostFleet``, 32
+cars each, their own scans, each step a graph held to its eager run, the
+pose table gathered and held bit for bit to the one-process fleet on the
+same draws); and
 ``cli baseline`` (the CPU reference harness) on config #1's trace, on
 the host CPU. Its ``bench`` phase drives the port's benchmark harness
 (``monte_carlo_localization_tpu_torch/bench.py``) on the workloads the
@@ -69,9 +72,12 @@ launches. Every filter step above runs as the replay of a CUDA graph
 each graphed program (the classic ``step_many`` under K1, K2, K3, K4,
 K5, ``lut``, ``sphere`` and ``dda``, the one-correction step, the
 injection step, the mega chain on each side of its cooperative launch,
-the fleet's ``step`` and ``step_many``) ``torch.equal`` to its eager run
-under ``disable_graphs()`` over 12 chained corrections, on given draws
-and on the generator's own, and prints eager against graph in the same
+the fleet's ``step`` and ``step_many``; the sharded filter's ``step``
+and ``step_many`` over an NCCL group of one and in a one-shard world, a
+fleet's on a 1 x 1 NCCL fleet x particle mesh) ``torch.equal`` to its
+eager run under ``disable_graphs()`` over 12 chained corrections, on
+given draws and on the generators' own, with launches and collective
+calls and bytes as eager's, and prints eager against graph in the same
 call (wall ms, kernels and idle share a correction, capture ms, pool
 bytes) on config #1 (classic, mega, ``sphere``, ``dda``), the
 headline, config #4 at 100k with and without dedup, 1M and config #5.
@@ -219,6 +225,8 @@ def chain_profile(run, steps: int) -> dict:
         idle_share_profiled=1.0 - busy_us / 1e6 / wall,
         idle_share=1.0 - busy_us / 1e6 / wall_plain,
         top_us_per_correction={k[:60]: us / steps for k, (us, _) in top},
+        nccl_us_per_correction=sum(us for k, (us, _) in rows.items()
+                                   if k.startswith("nccl")) / steps,
     )
 
 
@@ -2021,6 +2029,7 @@ def phase_config5(device, classic_kernels: float) -> dict:
 
 
 SHARDED_CHAIN = 10  # chained corrections holding bucketed against allgather
+SHARDED_CHUNK = 5  # corrections a chunk (converge_on_draws) and of the re-run test
 MULTIHOST_PROCESSES = 2
 MULTIHOST_CHAINS = 4  # chains of CONFIG5_CHAIN steps: 1 warm + 3 timed
 DRAW_SEED = 5  # the card generator of the multihost member draws
@@ -2033,8 +2042,8 @@ def result_line(outs: list[str]) -> dict:
     return json.loads(lines[0][len("RESULT "):])
 
 
-def converge_on_draws(spf, scan_m, truth, seed: int, chunk: int = 5, max_updates: int = 80,
-                      tol_m: float = 0.5) -> dict:
+def converge_on_draws(spf, scan_m, truth, seed: int, chunk: int = SHARDED_CHUNK,
+                      max_updates: int = 80, tol_m: float = 0.5) -> dict:
     """``runtime/converge.py`` ``converge_global``'s loop (chunks of 5
     chained corrections from ``init_global(seed)``, one readback a chunk,
     until within ``tol_m``) on draws from a card generator seeded by
@@ -2080,9 +2089,13 @@ def basement_for_sharding(device):
 
 def sharded_trials(spf, truths, scans) -> dict:
     """Config #4's five global-localization trials on a sharded filter (this
-    process's shard), gated on one LUT-kernel launch a shard and correction
-    and on the kernel against its plain version on this shard's particles;
-    then 10 profiled chained corrections."""
+    process's shard; graph replays, except under ``disable_graphs()`` and
+    over gloo), gated on one LUT-kernel launch a shard and correction
+    (and one more for each correction of a re-run chunk) and on the
+    kernel against its plain version on this shard's particles.
+    ``overflow_reads`` is one a chunk of the bucketed path (D > 1), and
+    ``rerun_chunks`` the chunks its overflow ran again through the
+    all-gather."""
     import torch
 
     from monte_carlo_localization_tpu_torch.ops.lut_query import lut_log_weights_reference
@@ -2097,13 +2110,20 @@ def sharded_trials(spf, truths, scans) -> dict:
               for i, (truth, scan) in enumerate(zip(truths, scans))]
     corrections = sum(t["corrections"] for t in trials)
     launches = q.launch_count
-    check(launches == corrections,
-          f"shard {spf.shard}: {launches} LUT-kernel launches for {corrections} corrections")
+    chunks = corrections // SHARDED_CHUNK
+    # a chunk re-run through the all-gather launches its K corrections again
+    rerun = SHARDED_CHUNK * spf.fallbacks
+    check(launches == corrections + rerun,
+          f"shard {spf.shard}: {launches} LUT-kernel launches for {corrections} corrections "
+          f"and {spf.fallbacks} re-run chunks of {SHARDED_CHUNK}")
+    check(spf.overflow_reads == (chunks if spf.num_devices > 1 else 0),
+          f"shard {spf.shard}: {spf.overflow_reads} overflow reads for {chunks} chunks")
     syncs = dict(overflow_reads=spf.overflow_reads / corrections,
                  gloo_host_copies=spf.comm.host_copies / corrections,
-                 readbacks=sum(t["corrections"] // 5 for t in trials) / corrections)
+                 readbacks=chunks / corrections)
     comm = dict(calls_per_correction=spf.comm.calls / corrections,
-                bytes_per_correction=spf.comm.bytes / corrections, fallbacks=spf.fallbacks)
+                bytes_per_correction=spf.comm.bytes / corrections, chunks=chunks,
+                rerun_chunks=spf.fallbacks, rerun_corrections=rerun)
     parts = trials[-1]["state"].particles.contiguous()
     obs = spf.sensor.to_pixel_index(torch.as_tensor(scans[-1], device=dev)).float()
     got = q(gm.range_lut, parts, obs, row_map=gm.lut_row_map)
@@ -2111,16 +2131,21 @@ def sharded_trials(spf, truths, scans) -> dict:
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     check(err <= KERNEL_TOL, f"shard {spf.shard}: K2 vs plain {err} > {KERNEL_TOL}")
-    s0 = spf.init_global(seed=7)
-    zeros, tiled = np.zeros((10, 3), np.float32), np.tile(scans[0], (10, 1))
-    prof = chain_profile(lambda: spf.step_many(s0, zeros, tiled), 10)
     return dict(
         trials=[{k: v for k, v in t.items() if k != "state"} for t in trials],
         converged=[i for i, t in enumerate(trials) if t["updates"] is not None],
         corrections=corrections, k2_launches=launches, syncs_per_correction=syncs,
         collectives=comm, k2_max_abs_err=err, k2_particles=int(parts.shape[0]),
-        profile_10_steps=prof,
     )
+
+
+def sharded_chain(spf, scan, steps: int):
+    """``step_many`` of ``steps`` zero-action corrections from a fixed
+    ``init_global`` state of ``spf`` on ``scan``, as a function of no
+    arguments (for :func:`chain_profile` and :func:`graph_pair`)."""
+    s0 = spf.init_global(seed=7)
+    zeros, tiled = np.zeros((steps, 3), np.float32), np.tile(scan, (steps, 1))
+    return lambda: spf.step_many(s0, zeros, tiled)
 
 
 def _sharded_rank() -> None:
@@ -2143,6 +2168,8 @@ def _sharded_rank() -> None:
     spf = ShardedParticleFilter(gm, MCLConfig(max_particles=n), beam_angles=beams)
     check(spf.num_devices == 2 and spf.comm.backend == "gloo", "D = 2 runs over gloo")
     out = sharded_trials(spf, truths, scans)
+    out["profile_10_steps"] = chain_profile(sharded_chain(spf, scans[0], 10), 10)
+    check(not spf.programs.cache, "a step over gloo was captured")
 
     runs = {}
     for mode in ("bucketed", "allgather"):
@@ -2156,26 +2183,36 @@ def _sharded_rank() -> None:
         whole = f.gather_state(s)
         runs[mode] = dict(bytes=f.comm.bytes / SHARDED_CHAIN, calls=f.comm.calls / SHARDED_CHAIN,
                           state=whole, poses=poses, fallbacks=f.fallbacks)
-    out["chain_fallbacks"] = runs["bucketed"]["fallbacks"]
+    out["chain_rerun_chunks"] = runs["bucketed"]["fallbacks"]
     equal = all(torch.equal(getattr(runs["bucketed"]["state"], k), getattr(runs["allgather"]["state"], k))
                 for k in ("particles", "log_weights")) and torch.equal(runs["bucketed"]["poses"],
                                                                       runs["allgather"]["poses"])
     check(equal, "bucketed and allgather corrections differ")
 
+    # a chunk whose first correction overflows a one-slot fringe: run
+    # again through the all-gather; each mode twice, the second timed
     fb = {}
+    chunk = np.zeros((SHARDED_CHUNK, 3), np.float32), np.tile(scans[0], (SHARDED_CHUNK, 1))
     for mode, fringe in (("bucketed", 1), ("allgather", 0)):
         f = ShardedParticleFilter(spf.map, MCLConfig(max_particles=n, sharded_resample=mode,
                                                      sharded_fringe=fringe), beam_angles=beams)
         whole = f.gather_state(f.init_global(seed=4))
         lw = torch.full((n,), -80.0, device=device)
         lw[n - n // 2:] = 0.0  # all the mass on the last shard
-        st, pose = f.step(f.place_state(dataclasses.replace(whole, log_weights=lw)),
-                          np.zeros(3, np.float32), scans[0], u0=0.5)
-        fb[mode] = (f.gather_state(st).particles, pose, f.fallbacks)
-    check(fb["bucketed"][2] == 1, "a one-slot fringe did not trip the overflow flag")
+        for _ in range(2):
+            s0 = f.place_state(dataclasses.replace(whole, log_weights=lw))
+            f.overflow_reads = f.fallbacks = 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            st, poses = f.step_many(s0, *chunk, u0=np.full(SHARDED_CHUNK, 0.5, np.float32))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+        fb[mode] = (f.gather_state(st).particles, poses, f.fallbacks, f.overflow_reads, ms)
+    check(fb["bucketed"][2:4] == (1, 1),
+          f"a one-slot fringe: {fb['bucketed'][3]} reads, {fb['bucketed'][2]} re-run chunks")
     check(torch.equal(fb["bucketed"][0], fb["allgather"][0])
           and torch.equal(fb["bucketed"][1], fb["allgather"][1]),
-          "the overflow fallback differs from allgather")
+          "the overflowed chunk's re-run differs from allgather")
 
     probe = {}
     for name in ("all_reduce", "all_gather"):
@@ -2202,48 +2239,83 @@ def _sharded_rank() -> None:
         bytes_per_correction={m: r["bytes"] for m, r in runs.items()},
         calls_per_correction={m: r["calls"] for m, r in runs.items()},
         exchange_bytes_saved_per_correction=runs["allgather"]["bytes"] - runs["bucketed"]["bytes"],
-        fallback=dict(tripped=fb["bucketed"][2], equal_to_allgather=True),
+        rerun=dict(rerun_chunks=fb["bucketed"][2], overflow_reads=fb["bucketed"][3],
+                   equal_to_allgather=True, chunk=SHARDED_CHUNK,
+                   bucketed_and_rerun_chunk_ms=fb["bucketed"][4],
+                   allgather_chunk_ms=fb["allgather"][4]),
         gloo_card_tensors=probe,
     )
     if dist.get_rank() == 0:
         print("RESULT " + json.dumps(out), flush=True)
 
 
+def sharded_d1(gm, beams, truths, scans) -> dict:
+    """D = 1 over the NCCL group of one this process is in: the trials as
+    graphs and under ``disable_graphs()``, and an eager/graph pair of
+    GRAPH_STEPS chained corrections."""
+    from monte_carlo_localization_tpu_torch import MCLConfig, disable_graphs
+    from monte_carlo_localization_tpu_torch.parallel import ShardedParticleFilter
+
+    spf = ShardedParticleFilter(gm, MCLConfig(max_particles=CONFIG4_PARTICLES),
+                                beam_angles=beams)
+    check(spf.num_devices == 1 and spf.comm.backend == "nccl", "D = 1 runs over NCCL")
+    graph = sharded_trials(spf, truths, scans)
+    check(len(spf.programs.cache) >= 1, "D = 1 over NCCL ran no graph")
+    with disable_graphs():
+        eager = sharded_trials(spf, truths, scans)
+    pair = graph_pair(sharded_chain(spf, scans[0], GRAPH_STEPS), GRAPH_STEPS, spf.programs)
+    return dict(graph=graph, eager=eager, pair=pair)
+
+
 def phase_sharded(device) -> dict:
     """The sharded filter (``parallel/sharded.py``) on config #4's global
     localization at full width: 100k particles x 60 beams on basement_fixed
     under ``lut_pallas``, its five start poses, chunks of 5 up to 80
-    updates. (a) D = 1 over an NCCL process group of one, in this process;
-    (b) D = 2 processes on this one card over gloo (NCCL refuses two ranks
-    on one GPU). The same trials must converge in both."""
+    updates. (a) D = 1 over an NCCL process group of one, in this process,
+    as graphs and eagerly, with an eager/graph pair; (b) eager/graph pairs
+    of D = 1 in a one-shard world (no group) and of the single filter on
+    the same map in this call; (c) D = 2 processes on this one card over
+    gloo (NCCL refuses two ranks on one GPU), eager by rule. The same
+    trials must converge in (a) both ways and in (c)."""
     import torch
-    import torch.distributed as dist
 
-    from monte_carlo_localization_tpu_torch import MCLConfig
-    from monte_carlo_localization_tpu_torch.parallel import ShardedParticleFilter, init_multihost
-    from monte_carlo_localization_tpu_torch.parallel.multihost import _free_port, spawn
+    from monte_carlo_localization_tpu_torch import MCLConfig, ParticleFilter
+    from monte_carlo_localization_tpu_torch.parallel import ShardedParticleFilter
+    from monte_carlo_localization_tpu_torch.parallel.multihost import spawn
 
     t0 = time.perf_counter()
     gm, beams, truths, scans = basement_for_sharding(device)
-    init_multihost(f"127.0.0.1:{_free_port()}", 1, 0, backend="nccl")
-    try:
-        spf = ShardedParticleFilter(gm, MCLConfig(max_particles=CONFIG4_PARTICLES),
-                                    beam_angles=beams)
-        check(spf.num_devices == 1 and spf.comm.backend == "nccl", "D = 1 runs over NCCL")
-        d1 = sharded_trials(spf, truths, scans)
-    finally:
-        dist.destroy_process_group()
-    del spf, gm
+    with nccl_group_of_one():
+        d1 = sharded_d1(gm, beams, truths, scans)
+    world = ShardedParticleFilter(gm, MCLConfig(max_particles=CONFIG4_PARTICLES),
+                                  beam_angles=beams)
+    check(world.num_devices == 1 and world.comm.group is None, "a one-shard world")
+    pairs = dict(d1_nccl=d1.pop("pair"),
+                 d1_world=graph_pair(sharded_chain(world, scans[0], GRAPH_STEPS), GRAPH_STEPS,
+                                     world.programs))
+    del world
+    pf = ParticleFilter(gm, MCLConfig(max_particles=CONFIG4_PARTICLES))
+    pf.set_beam_angles(beams)
+    s0 = pf.init_global(seed=7)
+    zeros, tiled = np.zeros((GRAPH_STEPS, 3), np.float32), np.tile(scans[0], (GRAPH_STEPS, 1))
+    pairs["single_filter"] = graph_pair(lambda: pf.step_many(s0, zeros, tiled), GRAPH_STEPS,
+                                        pf.programs)
+    del pf, gm
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
     d2 = result_line(spawn("chip_smoke:_sharded_rank", 2, timeout_s=600.0))
     d2_wall = time.perf_counter() - t1
-    check(d2["converged"] == d1["converged"] and d1["converged"],
-          f"converged trials differ: D = 1 {d1['converged']}, D = 2 {d2['converged']}")
+    converged = dict(d1_graph=d1["graph"]["converged"], d1_eager=d1["eager"]["converged"],
+                     d2=d2["converged"])
+    check(len({tuple(c) for c in converged.values()}) == 1 and d2["converged"],
+          f"converged trials differ: {converged}")
     emit("sharded", t0, card=CARD, map="basement_fixed", particles=CONFIG4_PARTICLES,
-         beams=len(beams), d1_nccl=d1, d2_gloo=d2, d2_spawn_wall_s=d2_wall)
-    return dict(d1=d1["k2_launches"], d2=[r["k2_launches"] for r in d2["ranks"]],
-                max_abs_err=max([d1["k2_max_abs_err"]] + [r["k2_max_abs_err"] for r in d2["ranks"]]))
+         beams=len(beams), chunk=SHARDED_CHUNK, converged=converged, d1_nccl=d1, pairs=pairs,
+         d2_gloo=d2, d2_spawn_wall_s=d2_wall)
+    return dict(d1=d1["graph"]["k2_launches"] + d1["eager"]["k2_launches"],
+                d2=[r["k2_launches"] for r in d2["ranks"]],
+                max_abs_err=max([d1["graph"]["k2_max_abs_err"], d1["eager"]["k2_max_abs_err"]]
+                                + [r["k2_max_abs_err"] for r in d2["ranks"]]))
 
 
 def config5_fleet_inputs(device):
@@ -2273,8 +2345,9 @@ def multihost_draws(device):
 
 def _multihost_rank() -> None:
     """One process of config #5 across MULTIHOST_PROCESSES on the card: 32
-    members, their own scans only, chains of 10 corrections, the pose
-    table gathered."""
+    members, their own scans only, chains of 10 corrections (graph
+    replays), the pose table gathered; then the step held to its eager
+    run and eager/graph pairs, per step and chained."""
     import torch
     import torch.distributed as dist
 
@@ -2321,20 +2394,45 @@ def _multihost_rank() -> None:
                  row_map_bases=gm.lut_row_map_base)
     cmp = fleet_compare(q, gm.range_lut, state.particles.reshape(-1, 3).contiguous(), obs, None,
                         fleet, f"multihost process {mh.process_index}", synthetic=False)
+    # the step (one graph replay a process, over gloo too: no collective
+    # in a correction) against disable_graphs() on this process's rows of
+    # given draws and on its generator's, then eager/graph pairs
+    k, rng = GRAPH_CHAIN, np.random.default_rng(DRAW_SEED + mh.process_index)
+    held_draws = dict(u0=rng.random((k, len(mine)), dtype=np.float32),
+                      noise=rng.standard_normal((k, len(mine), N_PARTICLES, 3), dtype=np.float32))
+
+    def steps(s, d):
+        poses = []
+        for i in range(k):
+            s, p = mh.step(s, actions_local, scans_local, **{key: v[i] for key, v in d.items()})
+            poses.append(p)
+        return s, torch.stack(poses)
+
+    held = hold_graph_to_eager(lambda: mh.init_pose(poses0, seed=1), steps, held_draws, [q], k,
+                               mh.fleet._comms())
+    held["graphs"] = sum(key[0] == "fleet_step" for key in mh.fleet.programs.cache)
+
+    def one_at_a_time():
+        s = state
+        for _ in range(CONFIG5_CHAIN):
+            s, _ = mh.step(s, actions_local, scans_local)
+
     actions_k = np.zeros((CONFIG5_CHAIN, len(mine), 3), np.float32)
     scans_k = scans_local.expand(CONFIG5_CHAIN, -1, -1)
-    prof = chain_profile(lambda: mh.fleet.step_many(state, actions_k, scans_k), CONFIG5_CHAIN)
+    pairs = dict(per_step=graph_pair(one_at_a_time, CONFIG5_CHAIN, mh.fleet.programs),
+                 chained=graph_pair(lambda: mh.fleet.step_many(state, actions_k, scans_k),
+                                    CONFIG5_CHAIN, mh.fleet.programs))
     out = dict(process=mh.process_index, members=[mine[0], mine[-1]], corrections=corrections,
                fleet_launches=launches, chained_fleet_steps_per_s=rates,
                chained_member_updates_per_s=[r * len(mine) for r in rates],
                max_member_err_m=float(err.max()), drift_threshold_m=thr,
-               fleet_kernel_max_abs_err=cmp["max_abs_err"], profile_10_steps=prof,
+               fleet_kernel_max_abs_err=cmp["max_abs_err"], held=held, pairs=pairs,
                table=[[float(v).hex() for v in row] for row in table])
     outs = [None] * MULTIHOST_PROCESSES
     dist.all_gather_object(outs, {k: out[k] for k in ("process", "fleet_launches",
                                                       "chained_fleet_steps_per_s",
                                                       "fleet_kernel_max_abs_err",
-                                                      "profile_10_steps")})
+                                                      "held", "pairs")})
     if dist.get_rank() == 0:
         print("RESULT " + json.dumps(dict(out, ranks=outs)), flush=True)
 
@@ -2345,8 +2443,10 @@ def phase_multihost(device) -> dict:
     particles x 60 beams over the four maps), feeds its own members' scans,
     runs chains of 10 corrections on member draws from a card generator and
     gathers the (64, 3) table. The one-process ``FleetFilter`` of
-    ``phase_config5``'s setup then runs the same draws: the tables are
-    compared bit for bit (printed, not gated)."""
+    ``phase_config5``'s setup then runs the same draws: the tables must be
+    equal bit for bit. Each process's step is a graph (a 1-D fleet mesh
+    calls no collective in a correction), held ``torch.equal`` to its
+    eager run; eager/graph pairs per process."""
     import torch
 
     from monte_carlo_localization_tpu_torch import MCLConfig
@@ -2370,6 +2470,11 @@ def phase_multihost(device) -> dict:
          fleet=CONFIG5_FLEET, particles=N_PARTICLES, beams=60, map_assignment="arange(64) % 4",
          spawn_wall_s=spawn_s, **res, table_equal_to_one_process=equal,
          table_max_abs_diff=float(np.abs(one - table).max()))
+    check(equal, "multihost: the gathered pose table differs from the one-process fleet's")
+    for r in res["ranks"]:
+        gate_held("multihost", f"process {r['process']}'s step", r["held"])
+        check(r["held"]["graphs"] == 2, f"multihost: process {r['process']} captured "
+                                        f"{r['held']['graphs']} step graphs, not 2")
     del ff, state
     torch.cuda.empty_cache()
     return dict(launches=[r["fleet_launches"] for r in res["ranks"]],
@@ -2581,6 +2686,7 @@ GRAPH_CAST_STEPS = 5  # the same under sphere and dda (~1700 and ~7200 kernels a
 # the wrappers' per-correction launch counts (the table fills happen once)
 STEP_COUNTERS = ("launch_count", "fleet_launch_count", "dedup_launch_count")
 GRAPH_MILLION_STEPS = 10  # bench.py run_million's chain
+MESH_FLEET = 4  # members of the 2-D fleet held to eager on a 1 x 1 NCCL mesh
 MEGA_COOP_PARTICLES = 20_000  # past the mega step's 8192: its cooperative launch
 
 
@@ -2588,37 +2694,46 @@ def _launch_total(wrappers) -> int:
     return sum(getattr(w, name, 0) for w in wrappers for name in STEP_COUNTERS)
 
 
-def hold_graph_to_eager(make_state, run, draws: dict, wrappers=(), corrections: int = 0) -> dict:
+def _comm_total(comms) -> list[int]:
+    """The collectives' calls and bytes, summed over ``comms``."""
+    return [sum(c.calls for c in comms), sum(c.bytes for c in comms)]
+
+
+def hold_graph_to_eager(make_state, run, draws: dict, wrappers=(), corrections: int = 0,
+                        comms=()) -> dict:
     """``run(state, draws)`` on fresh ``make_state()`` states (one seed),
     under ``disable_graphs()`` and graphed: with the given ``draws`` and
-    with the generator's own, the graph's poses, particles, log weights,
-    log quality and final generator state against eager's
-    (``torch.equal``), a second graphed call (a replay only) against the
-    first, the first call's outputs unchanged by the second (no
-    aliasing), and the wrappers' likelihood or mega launches of each
-    call against ``corrections``. Returns the findings; the caller
-    gates."""
+    with the generators' own, the graph's poses, particles, log weights,
+    log quality and final generator states (a sharded state's motion
+    generator too) against eager's (``torch.equal``), a second graphed
+    call (a replay only) against the first, the first call's outputs
+    unchanged by the second (no aliasing), the wrappers' likelihood or
+    mega launches of each call against ``corrections``, and the calls and
+    bytes of the collectives ``comms`` each call made. Returns the
+    findings; the caller gates."""
     import torch
 
     from monte_carlo_localization_tpu_torch import disable_graphs
 
     def outs(s, p):
-        return (p, s.particles, s.log_weights, s.log_quality, s.generator.get_state())
+        gens = [g for g in (s.generator, getattr(s, "motion_generator", None)) if g is not None]
+        return (p, s.particles, s.log_weights, s.log_quality, *(g.get_state() for g in gens))
 
     res = {}
     for kind, d in (("given_draws", draws), ("generator_draws", {})):
         calls = []
         for graphed in (False, True, True):
-            before = _launch_total(wrappers)
+            before, comm_before = _launch_total(wrappers), _comm_total(comms)
             with contextlib.ExitStack() as stack:
                 if not graphed:
                     stack.enter_context(disable_graphs())
                 s, p = run(make_state(), d)
-            calls.append((outs(s, p), _launch_total(wrappers) - before))
+            calls.append((outs(s, p), _launch_total(wrappers) - before,
+                          [a - b for a, b in zip(_comm_total(comms), comm_before)]))
             if len(calls) == 2:
                 kept = [t.clone() for t in outs(s, p)]
         torch.cuda.synchronize()
-        (eager, n_e), (graph, n_g), (again, n_a) = calls
+        (eager, n_e, c_e), (graph, n_g, c_g), (again, n_a, c_a) = calls
         equal = all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(eager, graph))
         diff = (eager[0] != graph[0]).reshape(eager[0].shape[0], -1).any(dim=1)
         res[kind] = dict(
@@ -2628,8 +2743,49 @@ def hold_graph_to_eager(make_state, run, draws: dict, wrappers=(), corrections: 
             first_differing_step=int(diff.nonzero()[0, 0]) if bool(diff.any()) else None,
             max_abs_pose_diff=float((eager[0] - graph[0]).abs().max()),
             launches=dict(eager=n_e, graph=n_g, replay=n_a, corrections=corrections),
+            collectives=dict(eager=c_e, graph=c_g, replay=c_a),
         )
     return res
+
+
+def gate_held(where: str, name: str, res: dict) -> None:
+    """Refuse a program that :func:`hold_graph_to_eager` found unequal to
+    its eager run, changed by a replay, or launching kernels or calling
+    collectives other than eager did."""
+    for kind in ("given_draws", "generator_draws"):
+        r = res[kind]
+        check(r["equal"], f"{where}: {name} ({kind}) differs from eager from step "
+                          f"{r['first_differing_step']}")
+        check(r["replay_equal"] and r["no_aliasing"],
+              f"{where}: {name} ({kind}): a replay changed an earlier call's outputs")
+        n = r["launches"]
+        check(n["eager"] == n["graph"] == n["replay"] == n["corrections"],
+              f"{where}: {name} ({kind}) launches {n}")
+        c = r.get("collectives")
+        check(c is None or c["eager"] == c["graph"] == c["replay"],
+              f"{where}: {name} ({kind}) collective calls and bytes {c}")
+
+
+@contextlib.contextmanager
+def nccl_group_of_one():
+    """An NCCL process group of this one process (D = 1). The caller drops
+    every filter whose graphs hold the group's communicator before the
+    block ends; the group is destroyed after a collection."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from monte_carlo_localization_tpu_torch.parallel import init_multihost
+    from monte_carlo_localization_tpu_torch.parallel.multihost import _free_port
+
+    init_multihost(f"127.0.0.1:{_free_port()}", 1, 0, backend="nccl")
+    try:
+        yield
+    finally:
+        gc.collect()
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
 
 
 def graph_pair(run, steps: int, programs) -> dict:
@@ -2730,7 +2886,14 @@ def graph_programs(device) -> dict:
     out["step"] = hold_graph_to_eager(make, steps(False), step_draws, [pf.likelihood], k)
     out["inject_step"] = hold_graph_to_eager(make, steps(True), step_draws, [pf.likelihood], k)
     out["inject_step"]["programs"] = sum(key[:2] == ("step", True) for key in pf.programs.cache)
-    del pf, gm
+    beams = tr["beam_angles"][::18]
+    del pf
+    # the sharded filter's and the meshed fleet's programs
+    with nccl_group_of_one():
+        out.update(graph_sharded(gm, beams, actions_all, scans_all, rng, "sharded_nccl"))
+        out.update(graph_fleet_2d(gm, beams, tr, actions_all, scans_all, rng))
+    out.update(graph_sharded(gm, beams, actions_all, scans_all, rng, "sharded_world"))
+    del gm
 
     maps, stacked, asg, beams, poses0, scans5 = config5_fleet_inputs(device)
     f = CONFIG5_FLEET
@@ -2756,6 +2919,78 @@ def graph_programs(device) -> dict:
     del ff, maps, stacked
     torch.cuda.empty_cache()
     return out
+
+
+def hold_step_and_chain(name: str, flt, key: str, make, acts, scans, draws: dict, wrappers,
+                        corrections: int, comms) -> dict:
+    """:func:`hold_graph_to_eager` of a filter's ``step_many`` over the
+    chunk and of its ``step`` once a correction, as ``{name}_step_many``
+    and ``{name}_step``; ``graphs`` counts each program's keys
+    (``{key}_step_many``, ``{key}_step``) in the filter's programs."""
+    import torch
+
+    def steps(s, d):
+        poses = []
+        for i in range(len(acts)):
+            s, p = flt.step(s, acts[i], scans[i], **{k: v[i] for k, v in d.items()})
+            poses.append(p)
+        return s, torch.stack(poses)
+
+    out = {}
+    for program, run in (("step_many", lambda s, d: flt.step_many(s, acts, scans, **d)),
+                         ("step", steps)):
+        res = out[f"{name}_{program}"] = hold_graph_to_eager(make, run, draws, wrappers,
+                                                             corrections, comms)
+        res["graphs"] = sum(k[0] == f"{key}_{program}" for k in flt.programs.cache)
+    return out
+
+
+def graph_sharded(gm, beams, actions_all, scans_all, rng, name: str) -> dict:
+    """The sharded filter's ``step_many`` and ``step`` (config #1's map and
+    trace, N_PARTICLES particles) against ``disable_graphs()`` over
+    GRAPH_CHAIN corrections: over the NCCL group of one this process is in
+    (``sharded_nccl``), or in a one-shard world outside any group
+    (``sharded_world``). ``graphs``: the program's keys captured (2: given
+    draws and the generators')."""
+    from monte_carlo_localization_tpu_torch import MCLConfig
+    from monte_carlo_localization_tpu_torch.parallel import ShardedParticleFilter
+
+    k, n = GRAPH_CHAIN, N_PARTICLES
+    spf = ShardedParticleFilter(gm, MCLConfig(max_particles=n, angle_step=18), beam_angles=beams)
+    backend = "nccl" if name == "sharded_nccl" else None
+    check(spf.num_devices == 1 and spf.comm.backend == backend,
+          f"graphs: {name} runs on {spf.num_devices} shards over {spf.comm.backend}")
+    draws = dict(u0=rng.random(k, dtype=np.float32),
+                 noise=rng.standard_normal((k, n, 3), dtype=np.float32))
+    return hold_step_and_chain(name, spf, "sharded", lambda: spf.init_global(seed=7),
+                               actions_all[:k], scans_all[:k], draws, [spf.likelihood], k,
+                               [spf.comm])
+
+
+def graph_fleet_2d(gm, beams, tr, actions_all, scans_all, rng) -> dict:
+    """A fleet of MESH_FLEET members on a 1 x 1 fleet x particle mesh over
+    the NCCL group of one this process is in (``lut``, config #1's map
+    and trace, N_PARTICLES particles a member): its ``step_many`` and
+    ``step`` against ``disable_graphs()`` over GRAPH_CHAIN corrections,
+    with the particle axis's collectives counted."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from monte_carlo_localization_tpu_torch import MCLConfig
+    from monte_carlo_localization_tpu_torch.parallel import FleetFilter
+
+    k, n, f = GRAPH_CHAIN, N_PARTICLES, MESH_FLEET
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("fleet", "p"))
+    ff = FleetFilter(gm, f, MCLConfig(max_particles=n, angle_step=18, raycast_method="lut"),
+                     beam_angles=beams, mesh=mesh, particle_axis="p")
+    comm = ff._particle_comm
+    check(comm.backend == "nccl", f"graphs: the 2-D fleet's particle axis is {comm.backend}")
+    draws = dict(u0=rng.random((k, f), dtype=np.float32),
+                 noise=rng.standard_normal((k, f, n, 3), dtype=np.float32))
+    return hold_step_and_chain(
+        "fleet_2d_nccl", ff, "fleet", lambda: ff.init_pose(np.tile(tr["truth_pose"][0], (f, 1)),
+                                                           seed=7),
+        np.tile(actions_all[:k, None], (1, f, 1)), np.tile(scans_all[:k, None], (1, f, 1)),
+        draws, (), 0, [comm])
 
 
 def graph_cells(device) -> dict:
@@ -2874,15 +3109,9 @@ def phase_graphs(device) -> dict:
     emit("graphs", t0, card=CARD, chain=GRAPH_CHAIN, equal=summary, programs=programs,
          cells=cells)
     for name, res in programs.items():
-        for kind in ("given_draws", "generator_draws"):
-            r = res[kind]
-            check(r["equal"], f"graphs: {name} ({kind}) differs from eager from step "
-                              f"{r['first_differing_step']}")
-            check(r["replay_equal"] and r["no_aliasing"],
-                  f"graphs: {name} ({kind}): a replay changed an earlier call's outputs")
-            n = r["launches"]
-            check(n["eager"] == n["graph"] == n["replay"] == n["corrections"],
-                  f"graphs: {name} ({kind}) launches {n}")
+        gate_held("graphs", name, res)
+        check(res.get("graphs", 2) == 2, f"graphs: {name} captured {res.get('graphs')} graphs, "
+                                         "not one for the given draws and one for the generators'")
     check(programs["mega_cooperative"]["graphs"] == 2,
           "graphs: the mega step's cooperative launch did not run as a graph")
     check(programs["inject_step"]["programs"] == 2,

@@ -164,7 +164,7 @@ def _scatter_rows(target: torch.Tensor, rows: torch.Tensor, length: int):
     out = torch.zeros((length + 1,) + rows.shape[1:], dtype=rows.dtype, device=rows.device)
     out[spare] = rows
     valid = torch.zeros(length + 1, dtype=torch.bool, device=rows.device)
-    valid[spare] = True
+    valid.index_fill_(0, spare, True)  # a scalar fill: no host tensor to copy in a graph
     return out[:length], valid[:length]
 
 
@@ -189,7 +189,7 @@ def systematic_rows_from_cdf(
     rows, valid = _scatter_rows(torch.where(covered, prev + 1, m), particles, m)
     j0 = torch.clamp(torch.sum((g < 0).to(torch.int32)), 0, n - 1)
     rows[0] = particles[j0]
-    valid[0] = True
+    valid[0].fill_(True)
     return _last_valid_scan(valid, rows)[1]
 
 
@@ -253,7 +253,7 @@ def distributed_systematic_resample_rows(
     prev_floor = torch.floor(torch.cat([g_prev_last, g[:-1]])).to(torch.int32)
     if shard == 0:
         # global source 0's first slot is defined as 0, whatever g is
-        prev_floor[0] = -1
+        prev_floor[0].fill_(-1)
     floors = torch.floor(g).to(torch.int32)
     covered = floors > prev_floor  # covers >= 1 slot; one writer a slot
 
@@ -292,7 +292,7 @@ def distributed_systematic_resample_rows(
                           torch.zeros((), dtype=particles.dtype, device=dev))
     seeds = comm.psum(contrib)  # (D, ...) on every shard
     rows[0] = seeds[shard]
-    valid[0] = True
+    valid[0].fill_(True)
 
     return _last_valid_scan(valid, rows)[1], counts[d] > 0
 

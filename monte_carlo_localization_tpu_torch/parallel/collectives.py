@@ -13,7 +13,13 @@ several processes share one card (NCCL refuses two ranks of one
 communicator on the same GPU), is given host tensors: every gloo call
 copies a card tensor to the host first and its result back after, chosen
 by the group's backend and nothing else. Those copies wait for the card,
-so each one is a host synchronization; ``host_copies`` counts them.
+so each one is a host synchronization; ``host_copies`` counts them. A
+host copy cannot be captured in a CUDA graph: a filter whose step calls
+the collectives of a group that stages on the host
+(:attr:`Collectives.stages_on_host`) runs that step eagerly, and one over
+a one-shard world or an NCCL group runs it as a graph
+(``utils/graphs.py``). The NCCL calls add no host value and no
+host-side allocation per rank, so that a graph can hold them.
 """
 
 from __future__ import annotations
@@ -65,6 +71,12 @@ class Collectives:
         for ``mesh=None``."""
         return cls(None if mesh is None else mesh.get_group(axis))
 
+    @property
+    def stages_on_host(self) -> bool:
+        """True where every call copies through the host (gloo): a step
+        that calls these collectives then runs eagerly, never as a graph."""
+        return self.backend == "gloo"
+
     def reset_counts(self) -> None:
         self.calls = self.bytes = self.host_copies = 0
 
@@ -74,7 +86,7 @@ class Collectives:
 
     def _stage(self, x: torch.Tensor) -> torch.Tensor:
         """The tensor handed to the backend: a host copy under gloo."""
-        if self.backend == "gloo" and x.device.type != "cpu":
+        if self.stages_on_host and x.device.type != "cpu":
             self.host_copies += 1
             return x.cpu()
         return x.contiguous()
@@ -106,9 +118,14 @@ class Collectives:
             return flat
         self._count(flat)
         buf = self._stage(flat)
-        parts = [torch.empty_like(buf) for _ in range(self.size)]
-        dist.all_gather(parts, buf, group=self.group)
-        return torch.cat(parts).to(x.device)
+        if self.stages_on_host:
+            parts = [torch.empty_like(buf) for _ in range(self.size)]
+            dist.all_gather(parts, buf, group=self.group)
+            return torch.cat(parts).to(x.device)
+        # one output tensor, as a graph can hold: the bits of the list form
+        out = buf.new_empty((self.size * buf.shape[0], *buf.shape[1:]))
+        dist.all_gather_into_tensor(out, buf, group=self.group)
+        return out
 
     def ppermute(self, x: torch.Tensor, pairs) -> torch.Tensor:
         """``x`` sent along ``pairs`` of (source, destination) ranks of the
@@ -127,7 +144,7 @@ class Collectives:
                                   self.group))
         recv = None
         if me in src_of:
-            recv = torch.zeros_like(wire, device="cpu" if self.backend == "gloo" else x.device)
+            recv = torch.zeros_like(wire, device="cpu" if self.stages_on_host else x.device)
             ops.append(dist.P2POp(dist.irecv, recv, self._global(src_of[me]), self.group))
         for work in dist.batch_isend_irecv(ops):
             work.wait()

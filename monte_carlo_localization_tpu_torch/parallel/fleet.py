@@ -37,6 +37,13 @@ gathers XLA inserts for the JAX fleet do; the max shift, log quality and
 pose are reduced over the axis. A meshed fleet draws from a generator of
 its own per fleet shard (seeded from the seed and the shard), each
 member's full draws on every process of its particle axis.
+
+``step`` and ``step_many`` are programs (``utils/graphs.py``, the JAX
+fleet's ``jax.jit`` and ``lax.scan``): a CUDA graph replay on a card
+without a mesh, over a 1-D fleet mesh (no collective a correction,
+whatever the backend), and over a particle axis of NCCL or of one
+process; eager over a gloo particle axis, whose collectives copy through
+the host.
 """
 
 from __future__ import annotations
@@ -305,7 +312,7 @@ class FleetFilter:
         )
         self.beam_angles: torch.Tensor | None = None
         self.likelihood = None
-        self.programs = Programs(self.device)
+        self.programs = Programs(self.device, self._comms())
         if beam_angles is not None:
             self.set_beam_angles(beam_angles)
 
@@ -324,7 +331,11 @@ class FleetFilter:
             )
         self.beam_angles = torch.as_tensor(beams, device=self.device)
         # graphs read the LUT, the query and the beams by address
-        self.programs = Programs(self.device, [self.likelihood])
+        self.programs = Programs(self.device, [self.likelihood, *self._comms()])
+
+    def _comms(self) -> list:
+        """The two axes' collectives, whose counters the programs keep."""
+        return [self._fleet_comm, self._particle_comm]
 
     def _generator(self, seed: int | None) -> torch.Generator:
         gen = torch.Generator(device=self.device)
@@ -502,9 +513,10 @@ class FleetFilter:
 
     def _run(self, key: tuple, state: FleetState, inputs: dict, many: bool):
         """``step`` (``many`` False) or ``step_many`` on validated inputs:
-        without a mesh one replay of the program's graph on a card; over a
-        mesh, whose collectives and host copies a graph cannot hold, the
-        eager loop."""
+        on a card one replay of the program's graph. A correction calls no
+        collective but the particle axis's (none over a 1-D fleet mesh, any
+        backend); where those stage through the host (gloo), the program
+        runs eagerly, decided before any capture."""
         draws = [name for name in ("u0", "noise") if name in inputs]
 
         def program(b, gen):
@@ -525,7 +537,7 @@ class FleetFilter:
                         log_quality=st.log_quality, poses=poses)
 
         inputs = dict(particles=state.particles, log_weights=state.log_weights, **inputs)
-        if self.mesh is not None:
+        if self._particle_comm.stages_on_host:
             out = run_eager(program, inputs, state.generator, self.device)
         else:
             out = self.programs((*key, *draws), program, inputs, state.generator,
@@ -537,9 +549,9 @@ class FleetFilter:
     def step(self, state: FleetState, actions, scans, u0=None, noise=None):
         """One correction of every member (of this process's members over a
         mesh), launched without waiting for the device (host inputs go up
-        through pinned memory); without a mesh, on a card, one replay of
-        the fleet step's graph: ``actions`` (F, 3), ``scans`` (F, R) in
-        meters. Optional draws: ``u0`` (F,) and ``noise`` (F, N, 3). Over a
+        through pinned memory); on a card one replay of the fleet step's
+        graph (eager over a gloo particle axis): ``actions`` (F, 3),
+        ``scans`` (F, R) in meters. Optional draws: ``u0`` (F,) and ``noise`` (F, N, 3). Over a
         mesh each takes this process's members' rows, or those rows alone
         (F / D of them). Returns (state, poses (F, 3), or this process's
         (F / D, 3))."""
@@ -553,7 +565,8 @@ class FleetFilter:
 
     def step_many(self, state: FleetState, actions, scans, u0=None, noise=None):
         """K chained corrections with no host synchronization between them,
-        without a mesh on a card one replay of the K-correction graph:
+        on a card one replay of the K-correction graph (eager over a gloo
+        particle axis):
         ``actions`` (K, F, 3), ``scans`` (K, F, R). Optional draws: ``u0``
         (K, F) and ``noise`` (K, F, N, 3). Returns (state, poses (K, F, 3));
         over a mesh, as :meth:`step`."""

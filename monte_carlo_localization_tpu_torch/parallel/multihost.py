@@ -162,11 +162,12 @@ def _free_port() -> int:
 
 
 def spawn(target: str, num_processes: int, timeout_s: float = 300.0,
-          env: dict | None = None) -> list[str]:
+          env: dict | None = None, backend: str = "gloo") -> list[str]:
     """Run ``target`` (``"module:function"``, called with no arguments) in
-    ``num_processes`` OS processes joined by :func:`init_multihost` (gloo
-    over ``tcp://127.0.0.1:<port>``: the processes may share a card), from the root of
-    this checkout. Returns each process's output (stdout and stderr);
+    ``num_processes`` OS processes joined by :func:`init_multihost` over
+    ``tcp://127.0.0.1:<port>`` (``backend`` gloo: the processes may share
+    a card; NCCL needs a card a process), from the root of this checkout.
+    Returns each process's output (stdout and stderr);
     raises with the tail of every process that failed or outlived
     ``timeout_s``. Once one fails, the rest are given 10 s and stopped.
 
@@ -178,7 +179,8 @@ def spawn(target: str, num_processes: int, timeout_s: float = 300.0,
     store = dist.TCPStore("127.0.0.1", 0, None, True, timedelta(seconds=_TIMEOUT_S),
                           wait_for_workers=False)
     base = dict(os.environ, **(env or {}), MCL_MH_COORD=f"127.0.0.1:{store.port}",
-                MCL_MH_NPROC=str(num_processes), TORCHELASTIC_USE_AGENT_STORE="True")
+                MCL_MH_NPROC=str(num_processes), MCL_MH_BACKEND=backend,
+                TORCHELASTIC_USE_AGENT_STORE="True")
     with tempfile.TemporaryDirectory(prefix="mcl_spawn_") as tmp:
         logs = [Path(tmp) / f"rank{pid}.log" for pid in range(num_processes)]
         procs = []
@@ -222,7 +224,7 @@ def _child(target: str) -> int:
     """One spawned process: join the group, run ``target``, leave."""
     torch.set_num_threads(1)
     init_multihost(os.environ["MCL_MH_COORD"], int(os.environ["MCL_MH_NPROC"]),
-                   int(os.environ["MCL_MH_PID"]))
+                   int(os.environ["MCL_MH_PID"]), backend=os.environ["MCL_MH_BACKEND"])
     module, fn = target.split(":")
     try:
         getattr(importlib.import_module(module), fn)()

@@ -21,9 +21,23 @@ One process holds one shard, ``N / D`` particles, on its device:
 * the pose is a psum-weighted mean and circular mean.
 
 The collectives are ``parallel/collectives.py``'s over the axis's process
-group. JAX branches on the overflow flag on the device (``lax.cond``); here
-the host reads it, one synchronization a correction of the bucketed path
-(``overflow_reads`` counts them).
+group. ``step`` and ``step_many`` are programs (``utils/graphs.py``, the
+counterpart of the JAX filter's ``jax.jit`` of its ``shard_map`` step and
+its ``lax.scan`` of K steps): on a card one CUDA graph replay over a
+one-shard world or an NCCL group; eager on the CPU, under
+``disable_graphs()``, and over gloo, whose every collective is a host
+copy (``Collectives.stages_on_host``).
+
+JAX branches on the overflow flag on the device, per correction
+(``lax.cond``). The flag is an exact global psum, so every rank takes the
+same branch; the port runs a chunk (one ``step``, or the K corrections of
+``step_many``) on the bucketed path, ORs each correction's flag into one
+device flag, and reads it once after the chunk (``overflow_reads``, one
+a chunk). Where it is set, the chunk runs again through the all-gather
+path from the same inputs and the generator states saved before it
+(``fallbacks`` counts these re-run chunks). Bucketed and all-gather rows
+are bit-equal wherever no correction overflows, so the chunk's result is
+the per-correction ``lax.cond``'s, bit for bit.
 
 Random draws follow the JAX key discipline with two generators: the
 resample offset u0 is the same on every rank (drawn from ``generator``,
@@ -62,7 +76,7 @@ from monte_carlo_localization_tpu_torch.parallel.collectives import (
     world_mesh,
 )
 from monte_carlo_localization_tpu_torch.parallel.fleet import _validate_parallel_config
-from monte_carlo_localization_tpu_torch.utils.device import upload
+from monte_carlo_localization_tpu_torch.utils.graphs import Programs, run_eager, shape_of
 
 
 @dataclass(frozen=True)
@@ -133,8 +147,9 @@ class ShardedParticleFilter:
         )
         self.beam_angles: torch.Tensor | None = None
         self.likelihood = None  # this rank's LUTQuery under lut_pallas
-        self.overflow_reads = 0  # host reads of the overflow flag: one sync each
-        self.fallbacks = 0  # corrections the overflow sent through the all-gather
+        self.overflow_reads = 0  # host reads of a chunk's overflow flag: one sync each
+        self.fallbacks = 0  # chunks the overflow ran again through the all-gather
+        self.programs = Programs(self.device, [self.comm])
         if beam_angles is not None:
             self.set_beam_angles(beam_angles)
 
@@ -145,6 +160,8 @@ class ShardedParticleFilter:
         if self.config.raycast_method == "lut_pallas":
             self.map, self.likelihood = build_lut_likelihood(self.map, beams, self.config)
         self.beam_angles = torch.as_tensor(beams, device=self.device)
+        # graphs read the LUT, the query and the beams by address
+        self.programs = Programs(self.device, [self.likelihood, self.comm])
 
     def _require_beams(self) -> None:
         if self.beam_angles is None:
@@ -222,8 +239,10 @@ class ShardedParticleFilter:
         )
         return all_particles[src.long()]
 
-    def _resample(self, state: ShardedState, u0) -> torch.Tensor:
-        comm, d = self.comm, self.num_devices
+    def _resample(self, state: ShardedState, u0, bucketed: bool):
+        """This shard's resampled rows, and the bucketed exchange's global
+        overflow flag (a device bool; None on the all-gather path)."""
+        comm = self.comm
         m = comm.pmax(torch.amax(state.log_weights).reshape(1))
         w_local = torch.exp(state.log_weights - m)
         w = w_local / comm.psum(torch.sum(w_local).reshape(1))  # global softmax, local slice
@@ -233,20 +252,17 @@ class ShardedParticleFilter:
         if u0 is None:
             # one global offset: the same generator state on every rank
             u0 = torch.rand((), generator=state.generator, device=self.device)
-        if self.config.sharded_resample == "bucketed" and d > 1:
-            rows, overflow = distributed_systematic_resample_rows(
-                state.particles, cdf, u0, self.config.max_particles, comm, d, self._fringe
-            )
-            self.overflow_reads += 1
-            if not bool(overflow):
-                return rows
-            self.fallbacks += 1
-        return self._full_gather(state.particles, cdf, u0)
+        if bucketed:
+            return distributed_systematic_resample_rows(
+                state.particles, cdf, u0, self.config.max_particles, comm, self.num_devices,
+                self._fringe)
+        return self._full_gather(state.particles, cdf, u0), None
 
-    def _step(self, state: ShardedState, action, obs_px, u0=None, noise=None):
+    def _step(self, state: ShardedState, action, obs_px, u0, noise, bucketed: bool):
         cfg, comm = self.config, self.comm
+        rows, overflow = self._resample(state, u0, bucketed)
         proposal = motion_model(
-            self._resample(state, u0),
+            rows,
             action,
             dispersion_x=cfg.motion_dispersion_x,
             dispersion_y=cfg.motion_dispersion_y,
@@ -272,57 +288,115 @@ class ShardedParticleFilter:
             particles=proposal, log_weights=log_w, generator=state.generator,
             log_quality=log_quality.to(torch.float32), motion_generator=state.motion_generator,
         )
-        return new_state, pose
+        return new_state, pose, overflow
 
-    def _my_rows(self, noise):
-        return noise[self.shard * self.n_local:(self.shard + 1) * self.n_local]
+    def _chunk(self, b: dict, gens, bucketed: bool) -> dict:
+        """The program of a chunk of K corrections on this rank's buffers:
+        ``particles``, ``log_weights``, ``actions`` (K, 3), ``scans`` (K,
+        R), optional ``u0`` (K,) and ``noise`` (K, n_local, 3); ``gens``
+        the (u0, motion) generators. With ``bucketed`` every correction
+        takes the bucketed exchange and ORs its overflow flag into
+        ``overflow``, which the caller reads once after the chunk."""
+        u0_gen, motion_gen = gens
+        obs_px = self.sensor.to_pixel_index(b["scans"]).to(torch.float32)
+        state = ShardedState(particles=b["particles"], log_weights=b["log_weights"],
+                             generator=u0_gen, motion_generator=motion_gen)
+        overflow = torch.zeros((), dtype=torch.bool, device=self.device)
+        poses = []
+        for i in range(b["actions"].shape[0]):
+            state, pose, flag = self._step(
+                state, b["actions"][i], obs_px[i], b["u0"][i] if "u0" in b else None,
+                b["noise"][i] if "noise" in b else None, bucketed)
+            if flag is not None:
+                overflow = overflow | flag
+            poses.append(pose)
+        return dict(particles=state.particles, log_weights=state.log_weights,
+                    log_quality=state.log_quality, poses=torch.stack(poses), overflow=overflow)
+
+    def _program(self, key: tuple, inputs: dict, gens, bucketed: bool) -> dict:
+        """One chunk: a graph replay, or eagerly where the collectives
+        stage through the host (gloo), decided before any capture."""
+        def fn(b, g):
+            return self._chunk(b, g, bucketed)
+
+        if self.comm.stages_on_host:
+            return run_eager(fn, inputs, gens, self.device)
+        return self.programs((*key, "bucketed" if bucketed else "allgather"), fn, inputs, gens,
+                             keep=(self.map, self.sensor, self.beam_angles, self.likelihood))
+
+    def _run(self, key: tuple, state: ShardedState, inputs: dict):
+        """A chunk on the bucketed path with one host read of its overflow
+        flag, run again through the all-gather from the same inputs and
+        the generator states saved before it where the flag is set; the
+        all-gather alone at D = 1 and under ``sharded_resample='allgather'``."""
+        gens = (state.generator, state.motion_generator)
+        inputs = dict(particles=state.particles, log_weights=state.log_weights, **inputs)
+        bucketed = self.config.sharded_resample == "bucketed" and self.num_devices > 1
+        saved = [g.get_state() for g in gens] if bucketed else None
+        out = self._program(key, inputs, gens, bucketed)
+        if bucketed:
+            self.overflow_reads += 1
+            if bool(out["overflow"]):  # the global flag: every rank re-runs
+                self.fallbacks += 1
+                for g, st in zip(gens, saved):
+                    g.set_state(st)
+                out = self._program(key, inputs, gens, bucketed=False)
+        new_state = ShardedState(
+            particles=out["particles"], log_weights=out["log_weights"],
+            generator=state.generator, log_quality=out["log_quality"],
+            motion_generator=state.motion_generator,
+        )
+        return new_state, out["poses"]
+
+    def _my_rows(self, x, axis: int = 0):
+        """This shard's rows of ``x`` along its global particle ``axis``."""
+        rows = slice(self.shard * self.n_local, (self.shard + 1) * self.n_local)
+        x = x if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
+        return x[(slice(None),) * axis + (rows,)]
 
     def step(self, state: ShardedState, action, scan, u0=None, noise=None):
         """One sharded correction: ``action`` (3,), ``scan`` (R,) in meters,
         the same on every rank. Optional draws: ``u0`` (scalar) and
         ``noise`` (N, 3) in global particle order. Returns (this rank's
-        state, the global pose (3,), the same on every rank)."""
+        state, the global pose (3,), the same on every rank); on a card
+        one replay of the step's graph, except over gloo."""
         self._require_beams()
         n = self.config.max_particles
-        if noise is not None:
-            noise = upload(noise, self.device)
-            if tuple(noise.shape) != (n, 3):
-                raise ValueError(f"noise shape {tuple(noise.shape)} != ({n}, 3)")
-            noise = self._my_rows(noise)
-        obs_px = self.sensor.to_pixel_index(upload(scan, self.device)).to(torch.float32)
-        return self._step(state, upload(action, self.device), obs_px,
-                          None if u0 is None else upload(u0, self.device), noise)
+        if noise is not None and shape_of(noise) != (n, 3):
+            raise ValueError(f"noise shape {shape_of(noise)} != ({n}, 3)")
+        draws = dict(u0=u0, noise=None if noise is None else self._my_rows(noise))
+        inputs = {name: _one(v) for name, v in dict(actions=action, scans=scan, **draws).items()
+                  if v is not None}
+        state, poses = self._run(("sharded_step", *sorted(k for k, v in draws.items()
+                                                          if v is not None)), state, inputs)
+        return state, poses[0]
 
     def step_many(self, state: ShardedState, actions, scans, u0=None, noise=None):
         """K chained sharded corrections: ``actions`` (K, 3), ``scans``
         (K, R); optional draws ``u0`` (K,) and ``noise`` (K, N, 3). Equal
-        to K calls of :meth:`step`. Returns (state, poses (K, 3))."""
+        to K calls of :meth:`step`; on a card one replay of the chunk's
+        graph (the JAX filter's ``lax.scan``), except over gloo. Returns
+        (state, poses (K, 3))."""
         self._require_beams()
         n = self.config.max_particles
-        actions = upload(actions, self.device)
-        scans = upload(scans, self.device)
-        k = actions.shape[0]
-        if scans.shape[0] != k:
-            raise ValueError(f"{k} actions but {scans.shape[0]} scans")
-        if u0 is not None:
-            u0 = upload(u0, self.device)
-            if tuple(u0.shape) != (k,):
-                raise ValueError(f"u0 shape {tuple(u0.shape)} != ({k},)")
-        if noise is not None:
-            noise = upload(noise, self.device)
-            if tuple(noise.shape) != (k, n, 3):
-                raise ValueError(f"noise shape {tuple(noise.shape)} != ({k}, {n}, 3)")
-        obs_px = self.sensor.to_pixel_index(scans).to(torch.float32)
-        poses = []
-        for i in range(k):
-            state, pose = self._step(
-                state, actions[i], obs_px[i], None if u0 is None else u0[i],
-                None if noise is None else self._my_rows(noise[i]),
-            )
-            poses.append(pose)
-        return state, torch.stack(poses)
+        k = shape_of(actions)[0]
+        if shape_of(scans)[0] != k:
+            raise ValueError(f"{k} actions but {shape_of(scans)[0]} scans")
+        if u0 is not None and shape_of(u0) != (k,):
+            raise ValueError(f"u0 shape {shape_of(u0)} != ({k},)")
+        if noise is not None and shape_of(noise) != (k, n, 3):
+            raise ValueError(f"noise shape {shape_of(noise)} != ({k}, {n}, 3)")
+        draws = dict(u0=u0, noise=None if noise is None else self._my_rows(noise, axis=1))
+        draws = {name: v for name, v in draws.items() if v is not None}
+        return self._run(("sharded_step_many", *sorted(draws)), state,
+                         dict(actions=actions, scans=scans, **draws))
 
     def log_quality(self, state: ShardedState) -> float:
         """Global log mean measurement likelihood of the latest correction
         (Augmented MCL's w_avg), as ``ParticleFilter.log_quality``."""
         return float(state.log_quality)
+
+
+def _one(x):
+    """``x`` with a leading axis of one: one correction as a chunk of one."""
+    return x[None] if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)[None]

@@ -32,19 +32,32 @@ inputs are never written. A failed capture raises
 :class:`GraphCaptureError` naming the last tensor operation it reached;
 nothing falls back to an eager run.
 
+A program may own several generators (the sharded filter's u0
+generator and its shard's motion generator): it is then called with a
+tuple of the caller's generators, gets a tuple of its own, registers
+each, and hands each state in and out around a replay.
+
 Python counters do not move on a replay, so :class:`LaunchCounters`
-records how far each kernel wrapper's ``*launch_count`` moved during the
-capture and adds that on every replay; the first call leaves the counters
-as its eager warm-up left them (a normaliser table filled there counts
-once, as on the eager path). The dedup query's ``last_overflow`` is set
-to what the capture left: the device tensor that each replay writes.
+records how far each kernel wrapper's ``*launch_count`` (and each
+``parallel/collectives.py`` ``Collectives``' ``calls`` and ``bytes``)
+moved during the capture and adds that on every replay; the first call
+leaves the counters as its eager warm-up left them (a normaliser table
+filled there counts once, as on the eager path). The dedup query's
+``last_overflow`` is set to what the capture left: the device tensor
+that each replay writes.
 
 On the CPU, inside :func:`disable_graphs` (the counterpart of
 ``jax.disable_jit()``), and while the current stream is already being
 captured (a program inside another graph is inlined, as ``jit`` inlines
 a jitted function) the function runs eagerly on the caller's tensors.
-One filter's programs share a pool, so they replay on one stream at a
-time, as one filter's steps do.
+One rule more is the callers': a program whose body calls a collective
+of a group that stages through the host (gloo: ``Collectives.stages_on_host``,
+a card-to-host copy each call) is not handed to :class:`Programs` at all
+but run by :func:`run_eager`, decided from the group's backend before any
+capture; a one-shard world and an NCCL group are captured. No capture
+error is caught to fall back to an eager run. One filter's programs
+share a pool, so they replay on one stream at a time, as one filter's
+steps do.
 """
 
 from __future__ import annotations
@@ -63,6 +76,9 @@ from monte_carlo_localization_tpu_torch.utils.device import upload
 # wrapper attributes a replay sets to what the capture left: the dedup
 # kernel's overflow flags, a device tensor each replay writes
 REPLAYED_ATTRS = ("last_overflow",)
+# counters a replay advances besides the wrappers' ``*launch_count``: a
+# ``Collectives``' calls and the bytes this rank handed to them
+COUNTED_ATTRS = ("calls", "bytes")
 
 _lock = threading.Lock()
 _disabled = 0
@@ -96,9 +112,10 @@ class GraphCaptureError(RuntimeError):
 
 
 class LaunchCounters:
-    """The ``*launch_count`` integers (and :data:`REPLAYED_ATTRS`) of some
-    kernel wrappers, for a graph whose replays launch their kernels
-    without Python seeing it."""
+    """The ``*launch_count`` integers and :data:`COUNTED_ATTRS` (and
+    :data:`REPLAYED_ATTRS`) of some kernel wrappers and collectives, for a
+    graph whose replays launch their kernels and collectives without
+    Python seeing it."""
 
     def __init__(self, wrappers):
         self.wrappers = [w for w in wrappers if w is not None]
@@ -107,7 +124,8 @@ class LaunchCounters:
 
     def snapshot(self) -> dict[tuple[int, str], int]:
         return {(i, name): value for i, w in enumerate(self.wrappers)
-                for name, value in vars(w).items() if name.endswith("launch_count")}
+                for name, value in vars(w).items()
+                if name.endswith("launch_count") or name in COUNTED_ATTRS}
 
     def settle(self, warm: dict, captured: dict) -> None:
         """After the capture: keep what the capture added as the per-replay
@@ -142,6 +160,11 @@ class _LastOp(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
+def generators_of(generator) -> tuple:
+    """A program's generators: ``generator`` alone, or a tuple of them."""
+    return tuple(generator) if isinstance(generator, tuple) else (generator,)
+
+
 def shape_of(x) -> tuple:
     """The shape of a tensor, an array, a nested list or a number."""
     return tuple(x.shape) if hasattr(x, "shape") else np.shape(x)
@@ -149,12 +172,13 @@ def shape_of(x) -> tuple:
 
 class GraphedProgram:
     """One captured program (see the module's notes): its static input
-    buffers, the graph, the outputs the graph writes, its own generator,
-    its launch counters, and what it cost: ``warmup_ms``, ``capture_ms``
-    and ``pool_bytes`` (device memory the capture added to the pool)."""
+    buffers, the graph, the outputs the graph writes, its own generators
+    (as many as the caller hands it), its launch counters, and what it
+    cost: ``warmup_ms``, ``capture_ms`` and ``pool_bytes`` (device memory
+    the capture added to the pool)."""
 
     def __init__(self, key, fn: Callable, inputs: dict, device: torch.device,
-                 counters: LaunchCounters, pool, keep=()):
+                 counters: LaunchCounters, pool, keep=(), generator=None):
         self.key = key
         self.device = device
         self.counters = counters
@@ -162,13 +186,16 @@ class GraphedProgram:
         self.buffers = {name: torch.empty(shape_of(x), dtype=torch.float32, device=device)
                         for name, x in inputs.items()}
         self._load(inputs)
-        self.generator = torch.Generator(device=device)
+        # as many generators as the caller's, handed to ``fn`` in the same form
+        self.generators = tuple(torch.Generator(device=device)
+                                for _ in generators_of(generator))
+        own = self.generators if isinstance(generator, tuple) else self.generators[0]
         cur = torch.cuda.current_stream(device)
         t0 = time.perf_counter()
         side = torch.cuda.Stream(device)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
-            fn(self.buffers, self.generator)
+            fn(self.buffers, own)
         cur.wait_stream(side)
         torch.cuda.synchronize(device)
         warm = counters.snapshot()
@@ -176,12 +203,13 @@ class GraphedProgram:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(device)
         self.graph = torch.cuda.CUDAGraph()
-        self.graph.register_generator_state(self.generator)
+        for gen in self.generators:
+            self.graph.register_generator_state(gen)
         op = _LastOp()
         try:
             with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
                 with op:
-                    self.outputs = fn(self.buffers, self.generator)
+                    self.outputs = fn(self.buffers, own)
         except Exception as e:
             raise GraphCaptureError(
                 f"capture of program {key!r} failed at {op.last}: {e}") from e
@@ -203,31 +231,35 @@ class GraphedProgram:
             else:
                 upload(x, self.device, out=buf)
 
-    def __call__(self, inputs: dict, generator: torch.Generator) -> dict:
+    def __call__(self, inputs: dict, generator) -> dict:
         self._load(inputs)
         return self.replay(generator)
 
-    def replay(self, generator: torch.Generator) -> dict:
-        """One replay on the loaded buffers, drawing from ``generator``;
-        the outputs as fresh tensors."""
-        self.generator.set_state(generator.get_state())
+    def replay(self, generator) -> dict:
+        """One replay on the loaded buffers, drawing from ``generator`` (or
+        a tuple of generators, one for each of the program's); the outputs
+        as fresh tensors."""
+        theirs = generators_of(generator)
+        for own, their in zip(self.generators, theirs):
+            own.set_state(their.get_state())
         self.graph.replay()
-        generator.set_state(self.generator.get_state())
+        for own, their in zip(self.generators, theirs):
+            their.set_state(own.get_state())
         self.counters.replay()
         self.replays += 1
         return {name: t.clone() for name, t in self.outputs.items()}
 
 
-def run_eager(fn: Callable, inputs: dict, generator: torch.Generator,
-              device: torch.device) -> dict:
+def run_eager(fn: Callable, inputs: dict, generator, device: torch.device) -> dict:
     """``fn`` on the inputs uploaded to ``device``: a program's eager run."""
     return fn({name: upload(x, device) for name, x in inputs.items()}, generator)
 
 
 class Programs:
     """One filter's programs, keyed like ``jit``'s cache, sharing one
-    graph pool. ``wrappers`` are the kernel wrappers whose launch counts
-    the programs keep (the LUT query, the mega step)."""
+    graph pool. ``wrappers`` are the kernel wrappers and collectives whose
+    counters the programs keep (the LUT query, the mega step, a mesh
+    axis's ``Collectives``)."""
 
     def __init__(self, device: torch.device | str, wrappers=()):
         self.device = torch.device(device)
@@ -235,12 +267,13 @@ class Programs:
         self.cache: dict[tuple, GraphedProgram] = {}
         self._pool = None
 
-    def __call__(self, key: tuple, fn: Callable, inputs: dict,
-                 generator: torch.Generator, keep=()) -> dict:
+    def __call__(self, key: tuple, fn: Callable, inputs: dict, generator, keep=()) -> dict:
         """``fn(inputs on the device, generator)``: a replay of the graph
         of ``key`` and the inputs' shapes on a card (captured on first
-        use), else an eager run. ``keep``: what the graph reads by
-        address and must outlive it (the map and its LUT, the tables)."""
+        use), else an eager run. ``generator`` may be a tuple of
+        generators, which ``fn`` then gets as a tuple. ``keep``: what the
+        graph reads by address and must outlive it (the map and its LUT,
+        the tables)."""
         if not graphs_enabled(self.device):
             return run_eager(fn, inputs, generator, self.device)
         key = (*key, *((name, shape_of(x)) for name, x in sorted(inputs.items())))
@@ -250,7 +283,8 @@ class Programs:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         prog = self.cache[key] = GraphedProgram(key, fn, inputs, self.device,
-                                                LaunchCounters(self.wrappers), self._pool, keep)
+                                                LaunchCounters(self.wrappers), self._pool, keep,
+                                                generator)
         return prog.replay(generator)
 
     @property

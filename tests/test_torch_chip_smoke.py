@@ -336,6 +336,20 @@ def test_the_graphs_phase_runs_and_gates_graph_against_eager(monkeypatch):
     programs["classic_K2"]["given_draws"]["launches"]["graph"] = 2
     with pytest.raises(RuntimeError, match="launches"):
         chip_smoke.phase_graphs("cpu")
+    programs["classic_K2"]["given_draws"]["launches"]["graph"] = 3
+    # a sharded program must call the collectives eager calls, and be a graph
+    held = dict(given_draws=_held(), generator_draws=_held(), graphs=2)
+    held["given_draws"]["collectives"] = dict(eager=[96, 12816], graph=[96, 12816],
+                                              replay=[96, 12816])
+    programs["sharded_nccl_step_many"] = held
+    assert chip_smoke.phase_graphs("cpu")["programs"] is programs
+    held["given_draws"]["collectives"]["replay"] = [95, 12816]
+    with pytest.raises(RuntimeError, match="collective calls and bytes"):
+        chip_smoke.phase_graphs("cpu")
+    held["given_draws"]["collectives"]["replay"] = [96, 12816]
+    held["graphs"] = 0
+    with pytest.raises(RuntimeError, match="captured 0 graphs"):
+        chip_smoke.phase_graphs("cpu")
 
 
 def test_holding_a_program_to_eager_compares_every_output(monkeypatch):
@@ -360,3 +374,38 @@ def test_holding_a_program_to_eager_compares_every_output(monkeypatch):
         assert r["equal"] and r["replay_equal"] and r["no_aliasing"]
         assert r["first_differing_step"] is None and r["max_abs_pose_diff"] == 0.0
         assert r["launches"] == dict(eager=0, graph=0, replay=0, corrections=3)  # plain on the CPU
+
+
+def test_holding_a_sharded_program_to_eager_compares_both_generators(monkeypatch):
+    """A sharded state has two generators: a run that leaves the motion
+    generator elsewhere than eager did is refused; the collectives' calls
+    and bytes of each call are counted (none in a one-shard world)."""
+    from monte_carlo_localization_tpu_torch import MCLConfig
+    from monte_carlo_localization_tpu_torch.mapping.synthetic import random_obstacle_world
+    from monte_carlo_localization_tpu_torch.parallel import ShardedParticleFilter
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    torch.set_num_threads(1)
+    spf = ShardedParticleFilter(random_obstacle_world(seed=3, device="cpu"),
+                                MCLConfig(max_particles=32),
+                                beam_angles=np.linspace(-2.3, 2.3, 60).astype(np.float32))
+    acts, scans = np.zeros((3, 3), np.float32), np.full((3, 60), 2.0, np.float32)
+    calls = []
+
+    def run(s, d):
+        calls.append(d)
+        s, p = spf.step_many(s, acts, scans, **d)
+        if len(calls) == 2:  # the first graphed call of the given draws: one draw more
+            torch.rand((), generator=s.motion_generator)
+        return s, p
+
+    rng = np.random.default_rng(0)
+    draws = dict(u0=rng.random(3, dtype=np.float32),
+                 noise=rng.standard_normal((3, 32, 3), dtype=np.float32))
+    res = chip_smoke.hold_graph_to_eager(lambda: spf.init_global(seed=1), run, draws,
+                                         [spf.likelihood], 3, [spf.comm])
+    assert not res["given_draws"]["equal"] and not res["given_draws"]["replay_equal"]
+    assert res["given_draws"]["max_abs_pose_diff"] == 0.0  # only the motion generator moved
+    assert res["generator_draws"]["equal"] and res["generator_draws"]["replay_equal"]
+    assert res["generator_draws"]["collectives"] == dict(eager=[0, 0], graph=[0, 0],
+                                                         replay=[0, 0])

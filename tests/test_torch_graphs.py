@@ -4,27 +4,38 @@ On the CPU: a capture-safety guard (one correction of each path, after a
 warm step, records no operation that a captured region cannot hold: a
 device read on the host, a data-dependent shape, or a host-to-device
 copy of a host value; ``aten.scalar_tensor``, the wrapped Python number
-of ``torch.where(m, 0.0, t)``, is capture-safe), the launch-counter
-bookkeeping of a replay, ``disable_graphs()`` nesting, and the eager run
-a CPU program is.
+of ``torch.where(m, 0.0, t)``, is capture-safe; the sharded filter's
+bucketed chunk and the meshed fleets' corrections are recorded inside two
+spawned gloo processes), the launch-counter bookkeeping of a replay (the
+collectives' calls and bytes too), ``disable_graphs()`` nesting, and the
+eager run a CPU program is, with one generator or two.
 
 On a card (skipped here; this file imports no jax, so it runs on a GPU
 machine alone: ``python -m pytest --noconftest -p no:cacheprovider -m
 cuda tests/test_torch_graphs.py``): each program ``torch.equal`` to its
 eager run, no aliasing between calls, capture from a ``LiveRunner``
-thread, and a failed capture raising.
+thread, a failed capture raising, and, on two or more cards, the sharded
+filter's bucketed program over an NCCL group of two against its eager
+run.
 """
 
+import contextlib
+import json
+import os
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from monte_carlo_localization_tpu_torch import MCLConfig, ParticleFilter, disable_graphs
 from monte_carlo_localization_tpu_torch.mapping.synthetic import random_obstacle_world
-from monte_carlo_localization_tpu_torch.parallel import FleetFilter
+from monte_carlo_localization_tpu_torch.parallel import FleetFilter, ShardedParticleFilter
+from monte_carlo_localization_tpu_torch.parallel.collectives import Collectives, world_mesh
+from monte_carlo_localization_tpu_torch.parallel.multihost import spawn
 from monte_carlo_localization_tpu_torch.utils import graphs
 from monte_carlo_localization_tpu_torch.utils.device import upload
 from monte_carlo_localization_tpu_torch.utils.graphs import (
@@ -66,6 +77,13 @@ def _single(gm, **opts):
 
 def _guard_path(gm, path):
     """(warm call, guarded call) of one correction of ``path``."""
+    if path == "sharded":
+        # a one-shard world: the program's chunk of two corrections
+        spf = ShardedParticleFilter(gm, MCLConfig(max_particles=N), beam_angles=BEAMS)
+        st = spf.init_global(seed=0)
+        b = dict(particles=st.particles, log_weights=st.log_weights,
+                 actions=torch.zeros(2, 3), scans=torch.full((2, 60), 2.5))
+        return lambda: spf._chunk(b, (st.generator, st.motion_generator), bucketed=False)
     if path == "fleet":
         ff = FleetFilter(gm, 4, MCLConfig(max_particles=N), beam_angles=BEAMS)
         state = ff.init_pose(np.tile(POSE, (4, 1)), seed=0)
@@ -92,21 +110,75 @@ def _guard_path(gm, path):
     return lambda: pf._step(state, action, obs_px, **kw)
 
 
-@pytest.mark.parametrize("path", [
-    "lut_pallas", "subbin", "dedup", "lut", "sphere", "dda",
-    "lut_pallas+inject", "lut+inject", "sphere+inject", "fleet", "mega",
-])
-def test_a_correction_holds_no_operation_a_graph_cannot(world, path):
-    """One correction of each path after a warm one, on the tensors a
-    program's buffers would hold. ``dda`` built its maximum range as a
-    host tensor in every call until it became a Python number."""
-    run = _guard_path(world, path)
+def _recorded(run) -> list[str]:
+    """The operations of ``run()`` after a warm call."""
     run()
     with RecordOps() as rec:
         run()
-    assert rec.names, "nothing was dispatched"
-    bad = sorted({n for n in rec.names if n.startswith(FORBIDDEN)})
-    assert bad == [], f"{path}: {bad}"
+    return rec.names
+
+
+MESHED = ("sharded_bucketed", "fleet_1d", "fleet_2d")
+
+
+def _guard_rank() -> None:
+    """One of two spawned gloo processes: the operations of the sharded
+    filter's bucketed chunk (two corrections, D = 2), of a correction of
+    a fleet over a 1-D fleet mesh (the LUT likelihood) and of one over a
+    1 x 2 fleet x particle mesh (``lut``), as JSON."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    gm = random_obstacle_world(seed=3, device="cpu")
+    spf = ShardedParticleFilter(gm, MCLConfig(max_particles=2 * N), mesh=world_mesh("p"),
+                                beam_angles=BEAMS)
+    st = spf.init_global(seed=0)
+    b = dict(particles=st.particles, log_weights=st.log_weights,
+             actions=torch.zeros(2, 3), scans=torch.full((2, 60), 2.5))
+    runs = dict(sharded_bucketed=lambda: spf._chunk(b, (st.generator, st.motion_generator),
+                                                    bucketed=True))
+    for path, mesh, particle_axis, method in (
+            ("fleet_1d", world_mesh("fleet"), None, "lut_pallas"),
+            ("fleet_2d", init_device_mesh("cpu", (1, 2), mesh_dim_names=("fleet", "p")), "p",
+             "lut")):
+        ff = FleetFilter(gm, 2, MCLConfig(max_particles=N, raycast_method=method),
+                         beam_angles=BEAMS, mesh=mesh, particle_axis=particle_axis)
+        fs = ff.init_pose(np.tile(POSE, (2, 1)), seed=0)
+        f = ff.num_local_members
+        obs_px = ff.sensor.to_pixel_index(torch.full((f, 60), 2.5)).float()
+        runs[path] = (lambda ff, fs, f, obs_px: lambda: ff._step(
+            fs, torch.zeros(f, 3), obs_px, None, None))(ff, fs, f, obs_px)
+    names = {path: _recorded(run) for path, run in runs.items()}
+    (Path(os.environ["MCL_TEST_IO"]) / f"ops{dist.get_rank()}.json").write_text(json.dumps(names))
+
+
+@pytest.fixture(scope="module")
+def meshed_ops(tmp_path_factory):
+    """Each rank's recorded operations of the :data:`MESHED` paths."""
+    io = tmp_path_factory.mktemp("guard")
+    spawn("tests.test_torch_graphs:_guard_rank", 2, timeout_s=240.0,
+          env={"MCL_TEST_IO": str(io)})
+    return [json.loads((io / f"ops{r}.json").read_text()) for r in range(2)]
+
+
+@pytest.mark.parametrize("path", [
+    "lut_pallas", "subbin", "dedup", "lut", "sphere", "dda",
+    "lut_pallas+inject", "lut+inject", "sphere+inject", "fleet", "mega", "sharded",
+    *MESHED,
+])
+def test_a_correction_holds_no_operation_a_graph_cannot(world, path, request):
+    """One correction of each path after a warm one, on the tensors a
+    program's buffers would hold. ``dda`` built its maximum range as a
+    host tensor in every call until it became a Python number; the
+    sharded filter read its overflow flag on the host in every correction
+    until the flag became a chunk's output."""
+    if path in MESHED:
+        recorded = [ops[path] for ops in request.getfixturevalue("meshed_ops")]
+    else:
+        recorded = [_recorded(_guard_path(world, path))]
+    for names in recorded:
+        assert names, "nothing was dispatched"
+        bad = sorted({n for n in names if n.startswith(FORBIDDEN)})
+        assert bad == [], f"{path}: {bad}"
 
 
 class _Wrapper:
@@ -140,6 +212,22 @@ def test_counters_replay_what_the_capture_launched():
     assert (w.launch_count, w.table_launch_count, w.other) == (6, 1, 7)
 
 
+def test_counters_replay_the_collectives_calls_and_bytes():
+    comm = Collectives()
+    c = LaunchCounters([comm])
+    comm.calls, comm.bytes = 3, 48  # the warm-up: three psums of 16 bytes
+    warm = c.snapshot()
+    assert warm == {(0, "calls"): 3, (0, "bytes"): 48}
+    comm.calls, comm.bytes = 6, 96  # the capture
+    c.settle(warm, c.snapshot())
+    c.replay()  # the first call's replay
+    assert (comm.calls, comm.bytes) == (3, 48)
+    comm.reset_counts()
+    c.replay()
+    c.replay()
+    assert (comm.calls, comm.bytes, comm.host_copies) == (6, 96, 0)
+
+
 def test_disable_graphs_nests_and_restores(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
     assert graphs.graphs_enabled("cuda") and not graphs.graphs_enabled("cpu")
@@ -167,6 +255,26 @@ def test_a_program_on_the_cpu_runs_eagerly_on_the_callers_inputs():
     assert torch.equal(out["y"], torch.tensor([0.5, 2.5, 4.5]))
     assert seen[0]["x"] is x and seen[0]["f"].dtype == torch.float32
     assert seen[0]["a"].shape == (2,) and progs.cache == {} and progs.pool_bytes == 0
+
+
+def test_a_program_with_two_generators_runs_eagerly_on_the_callers_generators():
+    progs = Programs("cpu")
+    seen = []
+
+    def fn(b, gens):
+        seen.append(gens)
+        u0_gen, motion_gen = gens
+        return dict(y=b["x"] + torch.rand((), generator=u0_gen),
+                    z=torch.randn(3, generator=motion_gen))
+
+    gens = (torch.Generator().manual_seed(1), torch.Generator().manual_seed(2))
+    out = progs(("two",), fn, dict(x=torch.zeros(3)), gens)
+    ref = (torch.Generator().manual_seed(1), torch.Generator().manual_seed(2))
+    assert seen[0] == gens and seen[0][0] is gens[0] and seen[0][1] is gens[1]
+    assert torch.equal(out["y"], torch.rand((), generator=ref[0]).expand(3))
+    assert torch.equal(out["z"], torch.randn(3, generator=ref[1]))
+    assert all(torch.equal(g.get_state(), r.get_state()) for g, r in zip(gens, ref))
+    assert graphs.generators_of(gens) == gens and graphs.generators_of(gens[0]) == gens[:1]
 
 
 def test_shape_of_reads_tensors_arrays_lists_and_numbers():
@@ -296,3 +404,45 @@ def test_a_failed_capture_raises(cuda):
     with pytest.raises(GraphCaptureError, match="local_scalar_dense"):
         progs(("bad",), reads_the_device, dict(x=torch.ones(4, device=cuda)),
               torch.Generator(device=cuda))
+
+
+def _nccl_rank() -> None:
+    """One rank of an NCCL group of two, a card each: the sharded filter's
+    two chunks with a one-slot fringe (a bucketed program, its overflow
+    re-run through the all-gather one), eagerly and twice as graphs."""
+    dev = torch.device("cuda", dist.get_rank())
+    torch.cuda.set_device(dev)
+    gm = random_obstacle_world(seed=3, device=dev)
+    spf = ShardedParticleFilter(gm, MCLConfig(max_particles=2 * N, sharded_fringe=1),
+                                beam_angles=BEAMS)
+    acts = np.tile(np.float32([0.05, 0.0, 0.02]), (5, 1))
+    scans = np.full((5, 60), 2.5, np.float32)
+    runs = []
+    for graphed in (False, True, True):
+        reads = spf.overflow_reads
+        with contextlib.nullcontext() if graphed else disable_graphs():
+            s, first = spf.step_many(spf.init_global(seed=1), acts, scans)
+            s, second = spf.step_many(s, acts, scans)
+        runs.append(([first, second, s.particles, s.log_weights, s.log_quality,
+                      s.generator.get_state(), s.motion_generator.get_state()],
+                     spf.overflow_reads - reads))
+    (eager, n_e), (graph, n_g), (again, n_a) = runs
+    result = dict(equal=all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(eager, graph)),
+                  replay_equal=all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(graph, again)),
+                  reads=[n_e, n_g, n_a], graphs=len(spf.programs.cache),
+                  fallbacks=spf.fallbacks)
+    (Path(os.environ["MCL_TEST_IO"]) / f"nccl{dist.get_rank()}.json").write_text(
+        json.dumps(result))
+
+
+@pytest.mark.cuda
+def test_the_bucketed_program_over_nccl_equals_its_eager_run(cuda, tmp_path):
+    """NCCL at D = 2 needs a card a rank; a one-card machine skips this."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more NVIDIA GPUs: NCCL refuses two ranks on one card")
+    spawn("tests.test_torch_graphs:_nccl_rank", 2, timeout_s=600.0, backend="nccl",
+          env={"MCL_TEST_IO": str(tmp_path)})
+    for r in range(2):
+        res = json.loads((tmp_path / f"nccl{r}.json").read_text())
+        assert res["equal"] and res["replay_equal"], res
+        assert res["reads"] == [2, 2, 2] and res["graphs"] >= 1, res

@@ -11,7 +11,9 @@ particle rows within 1e-4 (``tests/test_torch_fleet.py``'s gates). The
 spawned processes import this module without JAX (it is imported
 inside the JAX-side helpers only) and run :func:`_fleet_rank`, which
 runs the dry run's process body too and reports whether any JAX module
-was loaded."""
+was loaded, and which ``Programs`` calls the steps made: a 1-D fleet mesh
+calls no collective in a correction, so each step is one program (a CUDA
+graph on a card), over gloo too."""
 
 import os
 import sys
@@ -154,6 +156,13 @@ def test_stacked_map_fleet_over_a_fleet_mesh_keeps_its_rows(fleet_runs):
         np.testing.assert_allclose(out["stacked_poses"], poses[m], rtol=0, atol=1e-6)
 
 
+def test_a_fleet_over_a_fleet_mesh_steps_through_its_programs(fleet_runs):
+    """No collective in a correction: each process's step is the unmeshed
+    fleet's program (a graph on a card), over gloo too."""
+    for out in fleet_runs["outs"]:
+        assert out["program_calls"] == ["fleet_step"] * STEPS
+
+
 def test_spawned_processes_import_no_jax(fleet_runs):
     assert all(out["jax_modules"] == [] for out in fleet_runs["outs"])
 
@@ -195,6 +204,7 @@ def _stacked_lut_fleet(inp, mesh):
 
 def _fleet_rank():
     from monte_carlo_localization_tpu_torch.parallel.multihost import _dryrun_child
+    from tests.test_torch_sharded import program_calls
 
     _dryrun_child()  # the dry run's own process body, under the same jax check
     io = Path(os.environ["MCL_TEST_IO"])
@@ -206,13 +216,14 @@ def _fleet_rank():
                                                        device="cpu"))
     mine = list(mh.local_members)
     poses, rows, tables = [], [], []
-    for k in range(STEPS):
-        state, p = mh.step(state, mh.scatter_local(inp["actions"][k][mine]),
-                           mh.scatter_local(inp["scans"][mine]),
-                           u0=inp["u0"][k][mine], noise=inp["noise"][k][mine])
-        poses.append(p.numpy())
-        rows.append(state.particles.numpy())
-        tables.append(mh.gather_poses(p))
+    with program_calls() as calls:  # a 1-D fleet mesh: one program a step, over gloo too
+        for k in range(STEPS):
+            state, p = mh.step(state, mh.scatter_local(inp["actions"][k][mine]),
+                               mh.scatter_local(inp["scans"][mine]),
+                               u0=inp["u0"][k][mine], noise=inp["noise"][k][mine])
+            poses.append(p.numpy())
+            rows.append(state.particles.numpy())
+            tables.append(mh.gather_poses(p))
     stacked_init, stacked_rows, stacked_poses = _stacked_lut_fleet(inp, mh.mesh)
     try:
         MultiHostFleet(gm, F + 1, MCLConfig(max_particles=N, raycast_method="lut"))
@@ -222,6 +233,7 @@ def _fleet_rank():
     result = dict(
         poses=np.stack(poses), particles=np.stack(rows), table=np.stack(tables),
         members=mine, mesh=mh.mesh.mesh.tolist(), divide_error=divide_error,
+        program_calls=[key[0] for key in calls],
         fleet_launches=mh.fleet.likelihood.fleet_launch_count,
         stacked_init=stacked_init, stacked_particles=stacked_rows, stacked_poses=stacked_poses,
         jax_modules=sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")

@@ -18,6 +18,12 @@ Gates:
 - the filter with ``bucketed`` and ``allgather`` resampling: ``torch.equal``
   over four corrections; the fringe-overflow fallback ``torch.equal`` to
   ``allgather``; ``step_many`` equal to chained steps;
+- ``step_many`` chunks with a one-slot fringe from JAX's cloud on JAX's
+  draws, where a correction after the first overflows: the chunk, run
+  again through the all-gather, ``torch.equal`` to the ``allgather`` mode
+  and to single steps, and within the single steps' tolerances of JAX;
+  the next chunk, on the generators' own draws, equal too; one overflow
+  read a chunk;
 - the filter on JAX's draws (u0, and each shard's motion noise from
   ``fold_in(k_motion, shard)``, as ``filter/mega.py:146-156`` rebuilds
   them): poses within 1e-3 and at least 99% of particle rows within 1e-4
@@ -26,9 +32,11 @@ Gates:
 - a checkpoint written at D = 2 resumes at D = 1 through ``place=``;
 - at D = 4, a fleet over a 2 x 2 fleet x particle mesh keeps every
   particle row of the one-process fleet on the same draws, with poses
-  within 1e-5.
+  within 1e-5, and runs eagerly (its gloo particle axis copies through
+  the host): no ``Programs`` call.
 """
 
+import contextlib
 import dataclasses
 import os
 from pathlib import Path
@@ -52,6 +60,7 @@ from monte_carlo_localization_tpu_torch.parallel import (
 from monte_carlo_localization_tpu_torch.parallel.collectives import Collectives, world_mesh
 from monte_carlo_localization_tpu_torch.parallel.multihost import spawn
 from monte_carlo_localization_tpu_torch.runtime.checkpoint import load_state, save_state
+from monte_carlo_localization_tpu_torch.utils.graphs import Programs
 
 BEAMS = np.linspace(-2.35, 2.35, 60).astype(np.float32)
 STEPS = 3
@@ -91,6 +100,22 @@ def _resample_cases(d):
     lw[37] = 0.0
     cases["single"] = (rng.normal(size=(256, 3)), lw, 256 // d)
     return {k: (p.astype(np.float32), w.astype(np.float32), f) for k, (p, w, f) in cases.items()}
+
+
+@contextlib.contextmanager
+def program_calls():
+    """The keys of every ``Programs`` call made inside (a spy on the class)."""
+    calls, real = [], Programs.__call__
+
+    def spy(self, key, *args, **kwargs):
+        calls.append(key)
+        return real(self, key, *args, **kwargs)
+
+    Programs.__call__ = spy
+    try:
+        yield calls
+    finally:
+        Programs.__call__ = real
 
 
 # ---------------------------------------------------------------------------
@@ -183,6 +208,40 @@ def _rank_main():
                                    and torch.equal(a.particles, b.particles)
                                    and torch.equal(a.log_weights, b.log_weights))
 
+    # chunks with a one-slot fringe: JAX's draws from JAX's cloud, where a
+    # correction after the first overflows (its chunk runs again through
+    # the all-gather), then a chunk on the generators' own draws; against
+    # the all-gather mode and against single steps
+    fringe = cfg.replace(sharded_fringe=1)
+    for mode in ("bucketed", "allgather"):
+        f = ShardedParticleFilter(gm, fringe.replace(sharded_resample=mode), mesh=mesh,
+                                  beam_angles=BEAMS)
+        s = f.place_state(MCLState.from_numpy(inp["p0"], inp["lw0"], seed=0, device="cpu"))
+        s, first = f.step_many(s, inp["actions"], inp["scans"], u0=inp["draw_u0"],
+                               noise=inp["draw_noise"])
+        rows = f.gather_state(s).particles.numpy()
+        reads = [f.overflow_reads]
+        s, second = f.step_many(s, inp["actions"], inp["scans"])
+        reads.append(f.overflow_reads)
+        whole = f.gather_state(s)
+        out.update({f"chunk_{mode}_first_poses": first.numpy(),
+                    f"chunk_{mode}_first_particles": rows,
+                    f"chunk_{mode}_poses": torch.cat([first, second]).numpy(),
+                    f"chunk_{mode}_particles": whole.particles.numpy(),
+                    f"chunk_{mode}_log_weights": whole.log_weights.numpy(),
+                    f"chunk_{mode}_reads": np.asarray(reads),
+                    f"chunk_{mode}_fallbacks": np.asarray(f.fallbacks)})
+    f = ShardedParticleFilter(gm, fringe, mesh=mesh, beam_angles=BEAMS)
+    s = f.place_state(MCLState.from_numpy(inp["p0"], inp["lw0"], seed=0, device="cpu"))
+    fallbacks, poses = [], []
+    for k in range(STEPS):
+        s, p = f.step(s, inp["actions"][k], inp["scans"][k], u0=inp["draw_u0"][k],
+                      noise=inp["draw_noise"][k])
+        fallbacks.append(f.fallbacks)
+        poses.append(p)
+    out.update(steps_fallbacks=np.asarray(fallbacks), steps_poses=torch.stack(poses).numpy(),
+               steps_particles=f.gather_state(s).particles.numpy())
+
     try:
         ShardedParticleFilter(gm, MCLConfig(max_particles=8 * d + 1), mesh=mesh)
         out["divide_error"] = np.asarray("")
@@ -199,14 +258,16 @@ def _rank_main():
         fs = ff.place_state(FleetState.from_numpy(inp["fleet_p0"], inp["fleet_lw0"], seed=0,
                                                   device="cpu"))
         fposes = []
-        for k in range(STEPS):
-            fs, fp = ff.step(fs, np.tile(inp["actions"][k], (FLEET, 1)),
-                             np.tile(inp["scans"][k], (FLEET, 1)), u0=inp["fleet_u0"][k],
-                             noise=inp["fleet_noise"][k])
-            fposes.append(fp.numpy())
+        with program_calls() as calls:  # gloo particle axis: eager, not a program
+            for k in range(STEPS):
+                fs, fp = ff.step(fs, np.tile(inp["actions"][k], (FLEET, 1)),
+                                 np.tile(inp["scans"][k], (FLEET, 1)), u0=inp["fleet_u0"][k],
+                                 noise=inp["fleet_noise"][k])
+                fposes.append(fp.numpy())
         out.update(fleet_members=np.asarray(ff.local_members),
                    fleet_columns=np.asarray(ff.local_particles),
-                   fleet_particles=fs.particles.numpy(), fleet_poses=np.stack(fposes))
+                   fleet_particles=fs.particles.numpy(), fleet_poses=np.stack(fposes),
+                   fleet_program_calls=np.asarray(len(calls)))
     np.savez(io / f"out{rank}.npz", **out)
 
 
@@ -378,6 +439,46 @@ def test_step_many_equals_steps(runs, d):
 
 
 @pytest.mark.parametrize("d", [2, 4])
+def test_a_chunk_overflowing_mid_way_equals_allgather_and_steps(runs, d):
+    """A one-slot fringe: the first correction stays in its window, a later
+    one overflows, and the chunk, run again through the all-gather, is the
+    all-gather mode's and the single steps' bit for bit; the next chunk,
+    on the generators' own draws, is equal too (both generators were set
+    back before the re-run)."""
+    out = runs[d]["outs"][0]
+    steps = out["steps_fallbacks"]
+    assert steps[0] == 0 and steps[-1] >= 1, f"no overflow after the first correction: {steps}"
+    for what in ("poses", "particles", "log_weights"):
+        assert torch.equal(torch.from_numpy(out[f"chunk_bucketed_{what}"]),
+                           torch.from_numpy(out[f"chunk_allgather_{what}"])), what
+    assert torch.equal(torch.from_numpy(out["chunk_bucketed_first_poses"]),
+                       torch.from_numpy(out["steps_poses"]))
+    assert torch.equal(torch.from_numpy(out["chunk_bucketed_first_particles"]),
+                       torch.from_numpy(out["steps_particles"]))
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_the_overflow_flag_is_read_once_a_chunk(runs, d):
+    for out in runs[d]["outs"]:
+        assert out["chunk_bucketed_reads"].tolist() == [1, 2]
+        assert out["chunk_allgather_reads"].tolist() == [0, 0]
+        assert 1 <= int(out["chunk_bucketed_fallbacks"]) <= 2
+        assert int(out["chunk_allgather_fallbacks"]) == 0
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_a_chunk_tracks_jax_on_its_draws(runs, d):
+    """The overflowing chunk on JAX's draws against JAX's sharded filter,
+    with the single steps' tolerances."""
+    ref, out = runs[d]["jax"], runs[d]["outs"][0]
+    np.testing.assert_allclose(out["chunk_bucketed_first_poses"], ref["poses"], rtol=0,
+                               atol=1e-3)
+    row_ok = np.all(np.abs(out["chunk_bucketed_first_particles"] - ref["particles"][-1]) <= 1e-4,
+                    axis=1)
+    assert row_ok.mean() >= 0.99, f"{row_ok.mean():.3f} rows equal"
+
+
+@pytest.mark.parametrize("d", [2, 4])
 def test_filter_tracks_jax_on_its_draws(runs, d):
     ref, outs = runs[d]["jax"], runs[d]["outs"]
     for r, out in enumerate(outs):  # every rank holds the global pose
@@ -454,6 +555,7 @@ def test_fleet_on_a_fleet_by_particle_mesh_keeps_the_rows(runs, scenario):
     poses = np.stack(poses)
     seen = np.zeros((FLEET, FLEET_N), bool)
     for out in runs[4]["outs"]:
+        assert int(out["fleet_program_calls"]) == 0  # a gloo particle axis runs eagerly
         m, c = out["fleet_members"], out["fleet_columns"]
         assert len(m) == 2 and len(c) == FLEET_N // 2
         np.testing.assert_array_equal(out["fleet_particles"], fs.particles.numpy()[m][:, c])
