@@ -3124,7 +3124,9 @@ def phase_probes(device) -> dict:
     port's ``tools/mega_probe.py``): every probe once with the launch
     counts reset (a failed probe or a kernel off its plain version fails
     the run), then each kernel call timed: kernel and library ms as CUDA
-    graphs, wrapper ms, plain ms, bound."""
+    graphs, wrapper ms, plain ms, bound. The gather and the normals run
+    at the probe's shape and at 4,000, 100,000 and 1,000,000 particles,
+    each timed beside the kernel as first ported (``ported_ms``)."""
     import torch
 
     from monte_carlo_localization_tpu_torch.ops.probes import Probes
@@ -3146,11 +3148,17 @@ def phase_probes(device) -> dict:
             m.update(bound(m["bytes"], m["f32_ops"], m["f64_ops"]))
             timed[name].append(m)
     # the calls redesigned against their library call: both times, and
-    # the launch the wrapper chose (grid, threads, shared memory)
+    # the launch the wrapper chose (grid, threads, shared memory); the
+    # gather and the normals at the main path's sizes also against the
+    # kernel as first ported and the bound
     redesigned = [
         {k: m[k] for k in ("label", "ms", "library_ms", "shape")}
         for name in ("scratch", "smem_roundtrip", "cumsum", "mega_parts") for m in timed[name]
         if name != "mega_parts" or " roll " in m["label"]
+    ] + [
+        {k: m[k] for k in ("label", "ms", "library_ms", "ported_ms", "bound_ms", "bound_by",
+                           "shape")}
+        for name in ("smem", "rng") for m in timed[name]
     ]
     # the least a graph node costs on this card, for the launch-bound
     # probes: a kernel (a PyTorch fill of one float) and a memcpy node (a
@@ -3158,16 +3166,66 @@ def phase_probes(device) -> dict:
     one, other = torch.zeros(1, device=device), torch.ones(1, device=device)
     floors = dict(kernel_node_ms=graph_ms(lambda: one.fill_(1.0)),
                   memcpy_node_ms=graph_ms(lambda: one.copy_(other)))
+    from monte_carlo_localization_tpu_torch.ops._cuda_build import load_library
+
+    from monte_carlo_localization_tpu_torch.tools.mega_probe import normals_error_bound
+
+    # the normals' largest difference from the plain version over every input
+    normals_bound = normals_error_bound(pr, device)
+    check(normals_bound["bound"] <= 1e-5, f"probes: normals bound {normals_bound}")
+    sass = sass_counts(load_library().paths["probes"])
+    check(len(sass) == len(SASS_KERNELS) + 1, f"probes: SASS of {sorted(sass)}")
     emit("probes", t0, passed=list(calls), launches=launches, redesigned=redesigned,
-         **floors, calls=timed)
-    return dict(launches=launches, timed=timed)
+         **floors, normals_bound=normals_bound, sass=sass, calls=timed)
+    return dict(launches=launches, timed=timed, sass=sass)
+
+
+# the probe kernels whose instructions the probes phase counts: the two
+# redesigned for the main path's sizes and their forms as first ported
+SASS_KERNELS = ("probe_gather_rows_kernel", "gather_rows_staged_kernel",
+                "probe_philox_normals_kernel", "philox_normals_pair_kernel")
+SASS_OPS = ("IMAD.WIDE.U32", "IMAD.HI.U32", "LOP3.LUT", "FFMA", "FMUL", "MUFU", "I2F", "BRA",
+            "LDG", "STG", "LDL", "STL")
+
+
+def sass_counts(so_path: Path, kernels=SASS_KERNELS) -> dict:
+    """Static SASS of each named kernel of a built library (``cuobjdump
+    -sass``, beside nvcc), by mangled name: its instructions and those of
+    the opcodes that bound the probes (64-bit integer products, logic,
+    float math, the special-function unit, conversions, branches, memory).
+    Static: every path of the function counts once, taken or not."""
+    from monte_carlo_localization_tpu_torch.ops._cuda_build import nvcc_path
+
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    txt = subprocess.run([str(tool), "-sass", str(so_path)], capture_output=True, text=True,
+                         check=True, timeout=120).stdout
+    counts, name = {}, None
+    for line in txt.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            name = name if any(k in name for k in kernels) else None
+            if name:
+                counts[name] = {"total": 0}
+            continue
+        parts = line.split("*/", 1)
+        if name is None or not parts[0].strip().startswith("/*") or len(parts) < 2:
+            continue
+        words = parts[1].split()
+        if not words or words[0].startswith("0x"):
+            continue
+        op = words[1] if words[0].startswith("@") and len(words) > 1 else words[0]
+        counts[name]["total"] += 1
+        for key in SASS_OPS:
+            if op.startswith(key):
+                counts[name][key] = counts[name].get(key, 0) + 1
+    return counts
 
 
 def probe_entries(probes: dict) -> list[dict]:
     """The kernels-line entries of the four probe kernels."""
     timed, launches = probes["timed"], probes["launches"]
-    keys = ("ms", "time_source", "wrapper_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-            "rows_off", "shape")
+    keys = ("ms", "time_source", "wrapper_ms", "plain_ms", "library_ms", "ported_ms", "bound_ms",
+            "bound_by", "rows_off", "shape")
     src = "monte_carlo_localization_tpu_torch/csrc/probes.cu"
 
     def entry(name, kernel, replaces, head, others):
@@ -3180,9 +3238,9 @@ def probe_entries(probes: dict) -> list[dict]:
     scans = [m for name in ("cumsum", "mega_parts", "mega_bisect") for m in timed[name]]
     return [
         entry("probe_gather_rows", "gather_rows", "tools/mega_probe.py:58",
-              timed["smem"][0], []),
+              timed["smem"][0], timed["smem"][1:]),
         entry("probe_philox_normals", "philox_normals", "tools/mega_probe.py:97",
-              timed["rng"][0], []),
+              timed["rng"][0], timed["rng"][1:]),
         entry("probe_staged_writes", "staged_writes", "tools/mega_probe.py:155, 303",
               timed["scratch"][0], timed["smem_roundtrip"]),
         entry("probe_scan_resample", "scan_resample",

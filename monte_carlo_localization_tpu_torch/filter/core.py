@@ -273,11 +273,13 @@ def mcl_step(
 DEDUP_BLOCK = 160
 
 
-def _resolve_dedup_slots(cfg: MCLConfig) -> int:
+def _resolve_dedup_slots(cfg: MCLConfig, num_members: int) -> int:
     """S of the unique-window kernel, as the JAX filter resolves it
     (``filter/core.py:329-336`` of the JAX package): an explicit S > 0
-    turns it on; 0 and -1 (auto) are off. A fleet with S > 0 makes the
-    query raise, where the JAX fleet turns dedup off without a word."""
+    turns it on for a single member; 0 and -1 (auto) are off, and so is
+    a fleet of more than one member, which runs the fleet form instead."""
+    if num_members > 1:
+        return 0
     return max(cfg.pallas_dedup_slots, 0)
 
 
@@ -317,7 +319,7 @@ def lut_likelihood_query(
     beams = np.asarray(beam_angles, np.float32)
     t = suggest_theta_bins(beams)
     stride = required_row_stride(t, beams, itemsize=dtype.itemsize)
-    slots = _resolve_dedup_slots(cfg)
+    slots = _resolve_dedup_slots(cfg, num_members)
     return LUTQuery(
         t, beams, **lut_query_kwargs(grid_map, cfg, stride),
         subbin=cfg.pallas_subbin,

@@ -162,6 +162,14 @@ def _bind(libs: dict[str, ctypes.CDLL]) -> None:
         "mcl_probe_gather_rows": [p, i32, i32, p, i32, p, p],
         # k0, k1, count, out, bits, stream
         "mcl_probe_philox_normals": [u32, u32, i64, p, p, p],
+        # the same two as first ported (the redesign's yardstick)
+        "mcl_probe_gather_rows_staged": [p, i32, i32, p, i32, p, p],
+        "mcl_probe_philox_normals_pairs": [u32, u32, i64, p, p, p],
+        # kernel (0, 1: gather 4-lane or wider rows' chunks; 2: normals),
+        # items, shape (grid, threads)
+        "mcl_probe_stream_shape": [i32, i64, p],
+        # which (0: r, 1: cos), out (2^24 floats), stream
+        "mcl_probe_box_muller_terms": [i32, p, p],
         # k0, k1, calls, words, stream
         "mcl_probe_curand_philox": [u32, u32, i32, p, p],
         # steps, per_step, a, b, c, add, out, stream

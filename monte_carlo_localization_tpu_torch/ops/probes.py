@@ -4,11 +4,12 @@ Hopper kernels (``csrc/probes.cu``), each beside its plain PyTorch version.
 Each TPU probe checked one capability the mega-fused step needed; each
 kernel here computes what its probe computes, designed for the card:
 
-- :meth:`Probes.gather_rows`: ``out[s] = hbm[y0[s]]`` with the offsets
-  staged in shared memory and the rows copied by ``cp.async``
-  (``probe_smem``).
+- :meth:`Probes.gather_rows`: ``out[s] = hbm[y0[s]]``, each thread
+  loading its own indices and rows by 16 B loads over a grid sized to the
+  card (``probe_smem``; on the main path, the ancestor gather).
 - :meth:`Probes.philox_normals`: Philox4x32-10 normals by Box-Muller,
-  the stream running on across blocks (``probe_rng``).
+  the stream running on across blocks, four normals a thread by one 16 B
+  store (``probe_rng``; on the main path, the motion noise).
 - :meth:`Probes.staged_writes`: one block writes every step's slice into
   its shared memory and reads them all back (``probe_scratch``,
   ``probe_smem_roundtrip``); at most :data:`MAX_STAGED` floats.
@@ -19,6 +20,10 @@ kernel here computes what its probe computes, designed for the card:
 
 A :class:`Probes` object launches the kernel on CUDA tensors (adding one
 to its ``launch_count`` entry) and runs the plain version on CPU tensors.
+The gather and the normals as first ported from the TPU probes stay
+callable on the card (:meth:`Probes.gather_rows_as_ported`,
+:meth:`Probes.philox_normals_as_ported`), uncounted, as the yardstick of
+their redesign.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ SCAN_PARTS = {"scan": 0, "lanes": 1, "roll": 2, "ge_sum": 3, "gather": 4, "col":
               "front": 6, "full": 7}
 MAX_SCAN = 1024 * 8  # elements of one probe_scan_resample block
 MAX_STAGED = 227 * 1024 // 4  # floats of staged writes: one CTA's shared memory
+MAX_GATHER_CHUNKS = 1 << 30  # 16 B chunks of rows one gather writes (16 GB)
 PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 _MASK32 = 0xFFFFFFFF
@@ -93,12 +99,24 @@ def philox4x32_10_reference(counters: torch.Tensor, key: tuple[int, int]) -> tor
     return torch.stack(c, dim=1)
 
 
+def _box_muller_terms(u1: torch.Tensor, u2: torch.Tensor):
+    """(r = sqrt(-2 log max(u1, 1e-12)), cos(fl(2 pi) u2)) in float32."""
+    r = torch.sqrt(-2.0 * torch.log(torch.clamp(u1, min=1e-12)))
+    return r, torch.cos(float(torch.tensor(2.0 * math.pi, dtype=torch.float32)) * u2)
+
+
 def box_muller_reference(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """The probe's float32 Box-Muller of two uint32 words (in int64)."""
-    u1 = (b1 >> 8).to(torch.float32) * (1.0 / (1 << 24))
-    u2 = (b2 >> 8).to(torch.float32) * (1.0 / (1 << 24))
-    r = torch.sqrt(-2.0 * torch.log(torch.clamp(u1, min=1e-12)))
-    return r * torch.cos(float(torch.tensor(2.0 * math.pi, dtype=torch.float32)) * u2)
+    r, c = _box_muller_terms((b1 >> 8).to(torch.float32) * (1.0 / (1 << 24)),
+                             (b2 >> 8).to(torch.float32) * (1.0 / (1 << 24)))
+    return r * c
+
+
+def box_muller_terms_reference(device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version's two terms of a normal, r and cos, at every
+    24-bit input u = m 2^-24."""
+    u = torch.arange(1 << 24, dtype=torch.float32, device=device) * (1.0 / (1 << 24))
+    return _box_muller_terms(u, u)
 
 
 def philox_normals_reference(seed: tuple[int, int], count: int, device="cpu"):
@@ -188,23 +206,36 @@ class Probes:
 
     def gather_rows(self, hbm: torch.Tensor, y0: torch.Tensor) -> torch.Tensor:
         """``out[s] = hbm[y0[s]]``: hbm (rows, lanes) float32 with lanes a
-        multiple of 4, y0 (S,) int32 in [0, rows)."""
+        multiple of 4, y0 (S,) int32 in [0, rows) (a row outside reads as
+        0 on the card)."""
         if hbm.device.type == "cpu":
             return gather_rows_reference(hbm, y0)
+        out = self._gather("mcl_probe_gather_rows", hbm, y0)
+        self.launch_count["gather_rows"] += 1
+        return out
+
+    def gather_rows_as_ported(self, hbm: torch.Tensor, y0: torch.Tensor) -> torch.Tensor:
+        """:meth:`gather_rows` as first ported (offsets staged in shared
+        memory, rows by ``cp.async``, 16 slots a block): the card only,
+        not counted."""
+        return self._gather("mcl_probe_gather_rows_staged", hbm, y0)
+
+    def _gather(self, entry: str, hbm: torch.Tensor, y0: torch.Tensor) -> torch.Tensor:
         _require(hbm, torch.float32, "hbm")
         _require(y0, torch.int32, "y0")
         if hbm.dim() != 2 or hbm.shape[1] % 4 or hbm.data_ptr() % 16:
             raise ValueError("hbm must be (rows, lanes) with lanes % 4 == 0 on a 16 B boundary")
         if y0.device != hbm.device or y0.dim() != 1:
             raise ValueError("y0 must be (S,) on hbm's device")
+        if y0.shape[0] * (hbm.shape[1] // 4) > MAX_GATHER_CHUNKS:
+            raise ValueError(f"{y0.shape[0]} rows of {hbm.shape[1]} lanes: at most "
+                             f"{MAX_GATHER_CHUNKS} 16 B chunks a gather")
         built, lib = _lib()
         out = torch.empty((y0.shape[0], hbm.shape[1]), dtype=torch.float32, device=hbm.device)
         with torch.cuda.device(hbm.device):
-            err = lib.mcl_probe_gather_rows(hbm.data_ptr(), hbm.shape[0], hbm.shape[1],
-                                            y0.data_ptr(), y0.shape[0], out.data_ptr(),
-                                            _stream(hbm.device))
-        _check(built, err, "probe_gather_rows")
-        self.launch_count["gather_rows"] += 1
+            err = getattr(lib, entry)(hbm.data_ptr(), hbm.shape[0], hbm.shape[1], y0.data_ptr(),
+                                      y0.shape[0], out.data_ptr(), _stream(hbm.device))
+        _check(built, err, entry)
         return out
 
     def philox_normals(self, seed: tuple[int, int], count: int, device, with_bits: bool = False):
@@ -215,19 +246,55 @@ class Probes:
         if device.type == "cpu":
             normals, words = philox_normals_reference(seed, count, device)
             return (normals, words) if with_bits else normals
+        got = self._normals("mcl_probe_philox_normals", seed, count, device, with_bits)
+        self.launch_count["philox_normals"] += 1
+        return got
+
+    def philox_normals_as_ported(self, seed: tuple[int, int], count: int, device,
+                                 with_bits: bool = False):
+        """:meth:`philox_normals` as first ported (one pair a thread, two
+        4 B stores): the card only, not counted."""
+        return self._normals("mcl_probe_philox_normals_pairs", seed, count, torch.device(device),
+                             with_bits)
+
+    def _normals(self, entry: str, seed, count: int, device: torch.device, with_bits: bool):
         if count % 2:
             raise ValueError(f"count {count} must be even (normals come in pairs)")
         built, lib = _lib()
         out = torch.empty(count, dtype=torch.float32, device=device)
         bits = torch.empty((count // 2, 4), dtype=torch.int32, device=device) if with_bits else None
         with torch.cuda.device(device):
-            err = lib.mcl_probe_philox_normals(seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF, count,
-                                               out.data_ptr(),
-                                               None if bits is None else bits.data_ptr(),
-                                               _stream(device))
-        _check(built, err, "probe_philox_normals")
-        self.launch_count["philox_normals"] += 1
+            err = getattr(lib, entry)(seed[0] & _MASK32, seed[1] & _MASK32, count, out.data_ptr(),
+                                      None if bits is None else bits.data_ptr(), _stream(device))
+        _check(built, err, entry)
         return (out, bits) if with_bits else out
+
+    def box_muller_terms(self, device) -> tuple[torch.Tensor, torch.Tensor]:
+        """The normals kernel's two terms at every 24-bit input, as
+        :func:`box_muller_terms_reference` gives the plain version's: the
+        card only, a check, not counted."""
+        device = torch.device(device)
+        if device.type != "cuda":
+            raise ValueError("the kernel's terms are computed on the card only")
+        built, lib = _lib()
+        terms = torch.empty((2, 1 << 24), dtype=torch.float32, device=device)
+        with torch.cuda.device(device):
+            for which in (0, 1):
+                _check(built, lib.mcl_probe_box_muller_terms(which, terms[which].data_ptr(),
+                                                             _stream(device)),
+                       "box_muller_terms")
+        return terms[0], terms[1]
+
+    def stream_shape(self, kernel: str, items: int, lanes: int = 4) -> dict:
+        """The launch of ``gather_rows`` over ``items`` rows of ``lanes``
+        floats or of ``philox_normals`` over ``items`` normals: a grid sized
+        to the work and the card, ``threads`` a block."""
+        built, lib = _lib()
+        shape = (ctypes.c_int * 2)()
+        which, n = (2, items) if kernel == "philox_normals" else (int(lanes != 4),
+                                                                   items * (lanes // 4))
+        _check(built, lib.mcl_probe_stream_shape(which, n, shape), f"{kernel} shape")
+        return dict(grid=shape[0], threads=shape[1])
 
     def staged_writes(self, steps: int, per_step: int, a: float, b: float, c: float,
                       add: float, device) -> torch.Tensor:

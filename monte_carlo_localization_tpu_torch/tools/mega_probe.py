@@ -9,8 +9,7 @@ against the kernel's plain PyTorch version:
     python -m monte_carlo_localization_tpu_torch.tools.mega_probe [probe ...] [--device cpu]
 
 Probes (the TPU capability each one tested, in brackets):
-  smem           offsets staged in shared memory, then row copies by
-                 cp.async [VMEM -> SMEM -> DMA offsets]
+  smem           a row gather by offsets [VMEM -> SMEM -> DMA offsets]
   rng            Philox4x32-10 normals over 4 blocks [prng_seed + bits]
   cumsum         flat inclusive scan of a (32, 128) tile [jnp.cumsum]
   scratch        per-block writes, read back by the last block [scratch]
@@ -20,12 +19,18 @@ Probes (the TPU capability each one tested, in brackets):
   mega_parts     the prologue's parts one by one
   mega_bisect    the gather, the front half, the whole prologue
 
+``smem`` and ``rng`` each run the TPU probe's own call first, then the
+same function at the main path's particle counts (:data:`MAIN_PATH_N`):
+the ancestor gather of N particles padded to 16 B rows, and the (N, 3)
+motion noise. On the CPU only the first of those counts runs.
+
 Prints PASS/FAIL per probe (FAIL with the traceback) and exits 1 if any
 failed. Every kernel call is held against its plain version at the
 probe's own tolerance. On the card each call also prints the kernel's
 time and the time of the PyTorch call that computes the same function,
 both as CUDA graphs of the bare call (``utils/timing.py`` ``graph_ms``),
-beside the wrapper's and the plain version's per-call time.
+beside the wrapper's and the plain version's per-call time, and for the
+gather and the normals the time of the kernel as first ported.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ import torch
 
 from monte_carlo_localization_tpu_torch.ops.probes import (
     Probes,
+    box_muller_terms_reference,
     gather_rows_reference,
     philox4x32_10_reference,
     philox_normals_reference,
@@ -58,6 +64,10 @@ PHILOX_KAT = (
      (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
 )
 N_MEGA = 32 * 128  # the mega probes' particle count
+# particle counts of the main path: config #1, config #4's global
+# localization, --million; the CPU runs the first only
+MAIN_PATH_N = (4_000, 100_000, 1_000_000)
+MAIN_PATH_SEED = 16
 U0 = 0.37
 ROWS_MIN = 0.99  # share of ancestor rows that must agree (knife-edge CDF slots)
 
@@ -84,6 +94,7 @@ class Call:
     max_abs_err: float  # kernel against plain over every entry (0.0 on the CPU)
     rows_off: float = 0.0  # share of ancestor rows that differ from the plain version
     shape: dict | None = None  # the launch chosen (the card only)
+    ported: Callable | None = None  # the kernel as first ported (the card only)
 
 
 def _t(a, device) -> torch.Tensor:
@@ -115,25 +126,48 @@ def _rows_vs_plain(got, plain, what: str):
     return rows, off
 
 
+def _main_path_n(device) -> tuple[int, ...]:
+    return MAIN_PATH_N if torch.device(device).type == "cuda" else MAIN_PATH_N[:1]
+
+
 def probe_smem(pr: Probes, device) -> list[Call]:
-    """y0 staged in shared memory, then the rows it names copied out."""
+    """The rows y0 names copied out; then the ancestor gather of the main
+    path: N particles padded to (N, 4) float32, y0 N sorted indices drawn
+    with repeats, as systematic resampling gives them."""
     hbm_np = np.arange(64 * 128, dtype=np.float32).reshape(64, 128)
     y0_np = np.array([3, 7, 0, 61, 5, 5, 9, 33, 2, 40, 1, 0, 8, 21, 13, 60], np.int32)
+    calls = [_gather_call(pr, device, "smem", hbm_np, y0_np)]
+    rng = np.random.default_rng(MAIN_PATH_SEED)
+    for n in _main_path_n(device):
+        hbm_np = rng.normal(size=(n, 4)).astype(np.float32)
+        y0_np = np.sort(rng.integers(0, n, n)).astype(np.int32)
+        calls.append(_gather_call(pr, device, f"smem gather N={n}", hbm_np, y0_np))
+    return calls
+
+
+def _gather_call(pr: Probes, device, label: str, hbm_np, y0_np) -> Call:
     hbm, y0 = _t(hbm_np, device), _t(y0_np, device)
     out = pr.gather_rows(hbm, y0)
     np.testing.assert_array_equal(out.cpu().numpy(), hbm_np[y0_np])
-    err = _vs_plain(out, gather_rows_reference(hbm, y0), "smem")
+    err = _vs_plain(out, gather_rows_reference(hbm, y0), label)
     lib_out = torch.empty_like(out)
-    return [Call("gather_rows", "smem", lambda: pr.gather_rows(hbm, y0),
-                 lambda: gather_rows_reference(hbm, y0),
-                 lambda: torch.index_select(hbm, 0, y0, out=lib_out),
-                 (4 * (16 + 2 * 16 * 128), 0, 0), err)]
+    s, lanes = y0_np.shape[0], hbm_np.shape[1]
+    cuda = out.is_cuda
+    return Call("gather_rows", label, lambda: pr.gather_rows(hbm, y0),
+                lambda: gather_rows_reference(hbm, y0),
+                lambda: torch.index_select(hbm, 0, y0, out=lib_out),
+                (4 * (s + 2 * s * lanes), 0, 0), err,
+                shape=pr.stream_shape("gather_rows", s, lanes) if cuda else None,
+                ported=(lambda: pr.gather_rows_as_ported(hbm, y0)) if cuda else None)
 
 
 def probe_rng(pr: Probes, device) -> list[Call]:
     """Philox normals over 4 blocks: the blocks differ, mean and std sane;
     the generator meets Philox4x32-10's known answers, and on the card its
-    bits equal the plain version's and the CUDA toolkit's curand Philox."""
+    bits equal the plain version's and the CUDA toolkit's curand Philox,
+    and its normals are bound within 1e-5 of the plain version's over
+    every input (:func:`normals_error_bound`). Then the main path's
+    motion noise: 3N normals, checked alike."""
     for ctr, key, want in PHILOX_KAT:
         got = philox4x32_10_reference(torch.tensor([ctr], dtype=torch.int64), key)[0]
         _expect(tuple(int(v) for v in got) == want, f"Philox KAT {ctr}: {got}")
@@ -141,23 +175,63 @@ def probe_rng(pr: Probes, device) -> list[Call]:
     out, bits = pr.philox_normals(seed, count, device, with_bits=True)
     blocks = out.reshape(4, 32, 128).cpu().numpy()
     _expect(not np.allclose(blocks[0], blocks[1]), "the stream must run on across blocks")
-    m, s = float(blocks.mean()), float(blocks.std())
-    _expect(abs(m) < 0.05 and abs(s - 1.0) < 0.05, f"normals: mean {m}, std {s}")
-    plain, words = philox_normals_reference(seed, count, device)
-    err = _vs_plain(out, plain, "rng normals", atol=1e-5)
+    calls = [_normals_call(pr, device, "rng", seed, count, out, bits)]
     if torch.device(device).type == "cuda":
+        bound = normals_error_bound(pr, device)
+        _expect(bound["bound"] <= 1e-5, f"rng: normals may differ by {bound['bound']:.3g} "
+                                        "from the plain version over all inputs")
+    for n in _main_path_n(device):
+        out, bits = pr.philox_normals(seed, 3 * n, device, with_bits=True)
+        calls.append(_normals_call(pr, device, f"rng motion noise N={n}", seed, 3 * n, out, bits))
+    return calls
+
+
+def normals_error_bound(pr: Probes, device) -> dict:
+    """The most the card's normals can differ from the plain version's:
+    each of the kernel's two terms, r and cos, against the plain
+    version's over all 2^24 inputs, then |r cos - r' cos'| <= |r - r'| +
+    max r' |cos - cos'|, plus an ulp of the largest normal for the two
+    products' roundings. The card only."""
+    r, c = pr.box_muller_terms(device)
+    r_plain, c_plain = box_muller_terms_reference(device)
+    r_max = float(r_plain.max())
+    d_r, d_cos = float((r - r_plain).abs().max()), float((c - c_plain).abs().max())
+    ulp = float(np.spacing(np.float32(r_max)))
+    return dict(r_max_abs_err=d_r, cos_max_abs_err=d_cos, r_max=r_max,
+                bound=d_r + r_max * d_cos + ulp)
+
+
+def _normals_call(pr: Probes, device, label: str, seed, count: int, out, bits) -> Call:
+    """The probe's checks of ``count`` normals and their words: mean and
+    std sane, the words 32-bit, the normals within 1e-5 of the plain
+    version; on the card the words equal the plain version's and the
+    first 256 curand's Philox4_32_10."""
+    m, s = float(out.mean()), float(out.std())
+    _expect(abs(m) < 0.05 and abs(s - 1.0) < 0.05, f"{label} normals: mean {m}, std {s}")
+    cuda = torch.device(device).type == "cuda"
+    _expect(tuple(bits.shape) == (count // 2, 4), f"{label}: Philox words of shape {bits.shape}")
+    if not cuda:  # uint32 words held in int64 (on the card: their bits in int32)
+        _expect(int(bits.min()) >= 0 and int(bits.max()) <= 0xFFFFFFFF,
+                f"{label}: Philox words out of range")
+    plain, words = philox_normals_reference(seed, count, device)
+    err = _vs_plain(out, plain, f"{label} normals", atol=1e-5)
+    if cuda:
         _expect(torch.equal(bits.long() & 0xFFFFFFFF, words),
-                "Philox bits differ from the plain version")
+                f"{label}: Philox bits differ from the plain version")
         oracle = pr.curand_philox_words(seed, 256, device)
-        _expect(torch.equal(bits[:256], oracle), "Philox bits differ from curand's Philox4_32_10")
+        _expect(torch.equal(bits[:256], oracle),
+                f"{label}: Philox bits differ from curand's Philox4_32_10")
     # Philox: 10 rounds of 2 mul-hi, 2 mul-lo, 4 xor, 2 key adds per 4
     # words (counted at the float32 rate), + ~20 float32 ops per normal
     ops = count * (10 * 10 / 2 + 20)
     lib_out = torch.empty_like(out)
-    return [Call("philox_normals", "rng", lambda: pr.philox_normals(seed, count, device),
-                 lambda: philox_normals_reference(seed, count, device),
-                 lambda: torch.randn(count, out=lib_out),
-                 (4 * count, ops, 0), err)]
+    return Call("philox_normals", label, lambda: pr.philox_normals(seed, count, device),
+                lambda: philox_normals_reference(seed, count, device),
+                lambda: torch.randn(count, out=lib_out),
+                (4 * count, ops, 0), err,
+                shape=pr.stream_shape("philox_normals", count) if cuda else None,
+                ported=(lambda: pr.philox_normals_as_ported(seed, count, device)) if cuda
+                else None)
 
 
 def probe_cumsum(pr: Probes, device) -> list[Call]:
@@ -359,13 +433,16 @@ def measure(call: Call) -> dict:
     """Times of one call on the card. The kernel (``ms``) and the library
     call (``library_ms``, None where no one PyTorch call computes it) are
     timed alike: a CUDA graph of the bare call, outputs allocated before
-    capture or from the graph's pool. The wrapper's and the plain
-    version's ms are CUDA events around back-to-back Python calls."""
+    capture or from the graph's pool; so is the kernel as first ported
+    (``ported_ms``, the gather's and the normals' calls only).
+    The wrapper's and the plain version's ms are CUDA events around
+    back-to-back Python calls."""
     return dict(
         kernel=call.kernel, label=call.label, ms=graph_ms(call.run), time_source="cuda_graph",
         wrapper_ms=event_ms(call.run),
         plain_ms=event_ms(call.plain, iters=10),
         library_ms=None if call.library is None else graph_ms(call.library),
+        ported_ms=None if call.ported is None else graph_ms(call.ported),
         bytes=call.work[0], f32_ops=call.work[1], f64_ops=call.work[2],
         max_abs_err=call.max_abs_err, rows_off=call.rows_off, shape=call.shape,
     )
@@ -402,7 +479,9 @@ def main(argv=None) -> int:
             for call in calls:
                 m = measure(call)
                 lib = "-" if m["library_ms"] is None else f"{m['library_ms']:.5f}"
-                print(f"  {call.label:44s} kernel {m['ms']:.5f} ms, library {lib} (CUDA graphs); "
+                ported = "" if m["ported_ms"] is None else f", as ported {m['ported_ms']:.5f}"
+                print(f"  {call.label:44s} kernel {m['ms']:.5f} ms, library {lib}{ported} "
+                      "(CUDA graphs); "
                       f"wrapper {m['wrapper_ms']:.4f}, plain {m['plain_ms']:.4f}; "
                       f"max abs err {m['max_abs_err']:.3g}, rows off {m['rows_off']:.4f}; "
                       f"launch {m['shape']}")

@@ -409,3 +409,43 @@ def test_holding_a_sharded_program_to_eager_compares_both_generators(monkeypatch
     assert res["generator_draws"]["equal"] and res["generator_draws"]["replay_equal"]
     assert res["generator_draws"]["collectives"] == dict(eager=[0, 0], graph=[0, 0],
                                                          replay=[0, 0])
+
+
+SASS = """
+	code for sm_90a
+		Function : _ZN12_GLOBAL__N_127probe_philox_normals_kernelENS_10PhiloxKeysElPfP5uint4
+	.headerflags	@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                 /* 0x00000a00ff017b82 */
+                                                                          /* 0x000fe40000000800 */
+        /*0010*/                   IMAD.WIDE.U32 R2, R8, -0x2daee0ad, RZ ; /* 0x000000000000 */
+        /*0020*/               @P0 MUFU.COS R3, R4 ;                      /* 0x000000000000 */
+        /*0030*/              @!P1 BRA 0xb00 ;                            /* 0x000000000000 */
+		Function : _ZN12_GLOBAL__N_126probe_staged_writes_kernelEiiffffPf
+        /*0000*/                   EXIT ;                                 /* 0x000000000000 */
+		Function : _ZN12_GLOBAL__N_124probe_gather_rows_kernelILb1EEEvPK6float4iiPKiiPS1_
+        /*0000*/                   LDG.E.128.CONSTANT R4, desc[UR6][R2.64] ; /* 0x0000 */
+        /*0010*/                   STG.E.128 desc[UR6][R6.64], R4 ;       /* 0x000000000000 */
+        /*0020*/                   NOP;                                   /* 0x000000000000 */
+"""
+
+
+def test_sass_counts_reads_each_named_kernel(monkeypatch):
+    """The probes phase's instruction counts: every instruction of each
+    named kernel once (a predicate does not hide its opcode), the
+    encoding's second word not at all, other kernels left out."""
+    import monte_carlo_localization_tpu_torch.ops._cuda_build as build
+
+    seen = []
+
+    def run(cmd, **kw):
+        seen.append(cmd)
+        return subprocess.CompletedProcess(cmd, 0, SASS, "")
+
+    monkeypatch.setattr(build, "nvcc_path", lambda: "/opt/cuda/bin/nvcc")
+    monkeypatch.setattr(chip_smoke.subprocess, "run", run)
+    counts = chip_smoke.sass_counts(Path("libprobes.so"))
+    assert seen == [["/opt/cuda/bin/cuobjdump", "-sass", "libprobes.so"]]
+    normals, gather = sorted(counts, key=lambda k: "gather" in k)
+    assert "probe_philox_normals_kernel" in normals and "gather_rows" in gather
+    assert counts[normals] == {"total": 4, "IMAD.WIDE.U32": 1, "MUFU": 1, "BRA": 1}
+    assert counts[gather] == {"total": 3, "LDG": 1, "STG": 1}

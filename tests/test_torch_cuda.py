@@ -774,6 +774,87 @@ def test_probe_scan_resample_sizes_and_refusals(cuda):
                        torch.zeros(2, dtype=torch.int32, device=cuda))
 
 
+MAIN_PATH_N = (4_000, 100_000, 1_000_000)
+
+
+@pytest.mark.parametrize("slots, rows, lanes", [
+    *[(n, n, 4) for n in MAIN_PATH_N],  # the ancestor gather, 16 B rows
+    (16, 64, 128),  # probe_smem's own shape
+    (1, 513, 4), (7, 513, 4), (1001, 513, 8), (4097, 513, 128), (300_007, 513, 4),  # ragged
+])
+def test_gather_rows_kernel_bits(cuda, slots, rows, lanes):
+    """The gather equals its plain version bit for bit at the main path's
+    counts, the probe's shape and S no multiple of a block or a grid
+    stride; a row outside [0, rows) reads as 0; one launch a call; the
+    form as first ported agrees and is not counted."""
+    from monte_carlo_localization_tpu_torch.ops.probes import Probes, gather_rows_reference
+
+    rng = np.random.default_rng(slots)
+    hbm = torch.from_numpy(rng.normal(size=(rows, lanes)).astype(np.float32)).to(cuda)
+    y0_np = np.sort(rng.integers(0, rows, slots)).astype(np.int32)
+    y0 = torch.from_numpy(y0_np).to(cuda)
+    pr = Probes()
+    got = pr.gather_rows(hbm, y0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather_rows_reference(hbm, y0))
+    assert pr.launch_count["gather_rows"] == 1
+    assert torch.equal(pr.gather_rows_as_ported(hbm, y0), got)
+    assert pr.launch_count["gather_rows"] == 1
+    off = y0.clone()
+    off[::5] = rows  # past the table
+    off[1::7] = -3
+    want = torch.where(((off >= 0) & (off < rows))[:, None],
+                       hbm[off.long().clamp(0, rows - 1)], torch.zeros((), device=cuda))
+    assert torch.equal(pr.gather_rows(hbm, off), want)
+    assert pr.launch_count["gather_rows"] == 2
+    shape = pr.stream_shape("gather_rows", slots, lanes)
+    props = torch.cuda.get_device_properties(cuda)
+    assert 1 <= shape["grid"] <= props.multi_processor_count * 8 and shape["threads"] == 256
+
+
+@pytest.mark.parametrize("count", [
+    *[3 * n for n in MAIN_PATH_N],  # the (N, 3) motion noise
+    4 * 32 * 128,  # probe_rng's own count
+    2, 6, 4002, 30_000_006,  # an odd last pair; more groups than the grid's threads
+])
+def test_philox_normals_kernel(cuda, count):
+    """The normals within 1e-5 of their plain version, the Philox words
+    equal to the plain version's and to curand's Philox4_32_10, at the
+    main path's counts, the probe's and counts with an odd last pair;
+    one launch a call; the form as first ported gives the same words."""
+    from monte_carlo_localization_tpu_torch.ops.probes import Probes, philox_normals_reference
+
+    seed = (12345, 678)
+    pr = Probes()
+    out, bits = pr.philox_normals(seed, count, cuda, with_bits=True)
+    torch.cuda.synchronize()
+    assert pr.launch_count["philox_normals"] == 1
+    plain, words = philox_normals_reference(seed, count, cuda)
+    assert torch.equal(bits.long() & 0xFFFFFFFF, words)
+    assert float((out - plain).abs().max()) <= 1e-5
+    calls = min(256, count // 2)
+    assert torch.equal(bits[:calls], pr.curand_philox_words(seed, calls, cuda))
+    assert torch.equal(pr.philox_normals(seed, count, cuda), out)
+    ported, ported_bits = pr.philox_normals_as_ported(seed, count, cuda, with_bits=True)
+    assert torch.equal(ported_bits, bits) and float((ported - plain).abs().max()) <= 1e-5
+    assert pr.launch_count["philox_normals"] == 2
+    with pytest.raises(ValueError, match="even"):
+        pr.philox_normals(seed, count + 1, cuda)
+
+
+def test_philox_normals_terms_bound_over_every_input(cuda):
+    """The normals kernel's r and cos against the plain version's over all
+    2^24 inputs each: their worst case keeps every normal within the
+    probe's 1e-5, and neither term is off by more than 1e-6."""
+    from monte_carlo_localization_tpu_torch.ops.probes import Probes
+    from monte_carlo_localization_tpu_torch.tools.mega_probe import normals_error_bound
+
+    bound = normals_error_bound(Probes(), cuda)
+    assert bound["bound"] <= 1e-5, bound
+    assert bound["r_max_abs_err"] <= 1e-6 and bound["cos_max_abs_err"] <= 1e-6, bound
+    assert 7.4 < bound["r_max"] < 7.5
+
+
 def _knife_edges(res: float, max_px: int, seed: int, extra: int = 20000) -> np.ndarray:
     half = ((np.arange(max_px + 1) + 0.5) * res).astype(np.float32)
     up, down = np.nextafter(half, np.float32(np.inf)), np.nextafter(half, np.float32(0))

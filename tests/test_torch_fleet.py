@@ -443,10 +443,77 @@ def test_fleet_construction_errors():
     _, gm = _map_pair(MAP_SPECS[0])
     with pytest.raises(ValueError, match="particle_axis needs a mesh"):
         FleetFilter(gm, 2, MCLConfig(max_particles=64), particle_axis="p")
-    with pytest.raises(ValueError, match="single member"):
-        FleetFilter(gm, 2, MCLConfig(max_particles=64, pallas_dedup_slots=4), beam_angles=BEAMS)
     with pytest.raises(ValueError, match="map_assignment requires"):
         FleetFilter(gm, 2, MCLConfig(max_particles=64), map_assignment=[0, 0])
+
+
+class _PathSpy:
+    """Counts the plain versions a query call reaches on the CPU: the
+    fleet form's (``lut_log_weights_reference`` with fleet tables) and
+    the unique-window kernel's (``lut_dedup_reference``)."""
+
+    def __init__(self, monkeypatch):
+        self.fleet = self.dedup = 0
+        plain, dedup = tlut.lut_log_weights_reference, tlut.lut_dedup_reference
+
+        def spy_plain(q, *args, **kw):
+            self.fleet += bool(q.fleet)
+            return plain(q, *args, **kw)
+
+        def spy_dedup(*args, **kw):
+            self.dedup += 1
+            return dedup(*args, **kw)
+
+        monkeypatch.setattr(tlut, "lut_log_weights_reference", spy_plain)
+        monkeypatch.setattr(tlut, "lut_dedup_reference", spy_dedup)
+
+
+@pytest.mark.parametrize("matmul", [False, True], ids=["slots", "slots_matmul"])
+@pytest.mark.parametrize("stacked", [False, True], ids=["two_members_one_map", "stacked_two_maps"])
+def test_fleet_with_dedup_slots_runs_the_fleet_form(stacked, matmul, monkeypatch):
+    """``pallas_dedup_slots`` on a fleet of two members: both packages
+    build it and resolve the slots to 0 (JAX ``filter/core.py:329-336``),
+    and a step runs the fleet form of the likelihood, not the dedup path,
+    with the same rows as the fleet built without the slots."""
+    if stacked:
+        jm, gm, _ = _stacked(MAP_SPECS[:2])
+        asg = np.array([0, 1], np.int32)
+    else:
+        (jm, gm), asg = _map_pair(MAP_SPECS[0]), None
+    base = dict(max_particles=64, raycast_method="lut_pallas")
+    cfg = dict(base, pallas_dedup_slots=4, pallas_dedup_matmul=matmul)
+    jff = JFleetFilter(jm, fleet_size=2, config=JMCLConfig(**cfg), beam_angles=BEAMS,
+                       map_assignment=asg)
+    assert jff.fleet_size == 2
+    ff = FleetFilter(gm, 2, MCLConfig(**cfg), beam_angles=BEAMS, map_assignment=asg)
+    plain = FleetFilter(gm, 2, MCLConfig(**base), beam_angles=BEAMS, map_assignment=asg)
+    q = ff.likelihood
+    assert q.fleet and q.dedup_slots == 0 and not q.dedup_matmul
+    spy = _PathSpy(monkeypatch)
+    rng = np.random.default_rng(5)
+    poses0 = np.float32([[1.0, 1.2, 0.3], [1.4, 0.9, -0.2]])
+    scans = rng.uniform(0.3, 5.0, (2, 60)).astype(np.float32)
+    actions = np.float32([[0.04, 0.0, 0.02]] * 2)
+    u0 = rng.uniform(size=2).astype(np.float32)
+    noise = rng.normal(size=(2, 64, 3)).astype(np.float32)
+    got, want = [], []
+    for f, out in ((ff, got), (plain, want)):
+        state, poses = f.step(f.init_pose(poses0, seed=1), actions, scans, u0=u0, noise=noise)
+        out += [state.particles.numpy(), poses.numpy()]
+    assert spy.fleet == 2 and spy.dedup == 0
+    assert q.fleet_launch_count == q.dedup_launch_count == q.key_launch_count == 0
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_single_filter_keeps_its_dedup_slots():
+    """The member count turns the slots off, nothing else: one filter with
+    the same config still resolves S = 4 and runs the dedup path."""
+    _, gm = _map_pair(MAP_SPECS[0])
+    pf = ParticleFilter(gm, MCLConfig(max_particles=64, raycast_method="lut_pallas",
+                                      pallas_dedup_slots=4, pallas_dedup_matmul=True),
+                        beam_angles=BEAMS)
+    assert pf.likelihood.dedup_slots == 4 and pf.likelihood.dedup_matmul
 
 
 def test_fleet_launch_needs_its_tables():

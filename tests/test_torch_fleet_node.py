@@ -286,6 +286,30 @@ def test_live_chunk_refused_as_jax_does(world):
         FleetNode(world["map"], fleet_size=F, config=MCLConfig(**cfg))
 
 
+def test_dedup_slots_build_the_fleet_form(world, monkeypatch):
+    """``pallas_dedup_slots`` on a fleet node: both packages build it, the
+    port's query resolves the slots to 0 as JAX's fleet does, and a
+    correction runs the fleet form of the likelihood, not the dedup path."""
+    from monte_carlo_localization_tpu_torch.ops import lut_query as tlut
+
+    jn, tn = pair(world, "lut_pallas", pallas_dedup_slots=4)
+    for node in (jn, tn):  # the first scan sets the beams and builds the query
+        node.initialize_pose(POSES)
+        feed(node, world, 0.0)
+    assert jn.filter.map.range_lut is not None  # JAX built its fleet query
+    q = tn.filter.likelihood
+    assert q.fleet and q.dedup_slots == 0
+    seen = []
+    plain = tlut.lut_log_weights_reference
+    monkeypatch.setattr(tlut, "lut_dedup_reference",
+                        lambda *a, **k: pytest.fail("a fleet reached the dedup path"))
+    monkeypatch.setattr(tlut, "lut_log_weights_reference",
+                        lambda qq, *a, **k: seen.append(qq.fleet) or plain(qq, *a, **k))
+    assert tn.update(now=0.0) is None
+    assert tn.update(now=0.05).shape == (F, 3)
+    assert seen == [True] and q.fleet_launch_count == q.dedup_launch_count == 0
+
+
 def _drive_live(node, runner_cls, scans):
     node.initialize_pose(POSES)
     for m in range(F):

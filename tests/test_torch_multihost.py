@@ -120,6 +120,27 @@ def test_multihost_api_single_process():
         mh.scatter_local(np.zeros((3, 3), np.float32))
 
 
+def test_multihost_fleet_with_dedup_slots_builds(monkeypatch):
+    """``pallas_dedup_slots`` on a fleet of four in one process: the query
+    resolves the slots to 0, as the JAX fleet does, and a step runs the
+    fleet form of the likelihood, not the dedup path."""
+    from monte_carlo_localization_tpu_torch.ops import lut_query as tlut
+
+    gm = map_from_occupancy(_occupancy(), **MAP_KW, device="cpu")
+    mh = MultiHostFleet(gm, F, MCLConfig(max_particles=N, raycast_method="lut_pallas",
+                                         pallas_dedup_slots=4), beam_angles=BEAMS)
+    q = mh.fleet.likelihood
+    assert q.fleet and q.dedup_slots == 0
+    monkeypatch.setattr(tlut, "lut_dedup_reference",
+                        lambda *a, **k: pytest.fail("a fleet reached the dedup path"))
+    poses0 = np.float32([[1.0, 1.2, 0.3], [1.5, 0.9, 0.1], [1.2, 1.4, -0.5], [1.1, 1.6, 2.0]])
+    scans = np.random.default_rng(3).uniform(0.3, 5.0, (F, 60)).astype(np.float32)
+    state, poses = mh.step(mh.init_pose(poses0, seed=1), mh.scatter_local(np.zeros((F, 3))),
+                           mh.scatter_local(scans))
+    assert mh.gather_poses(poses).shape == (F, 3)
+    assert q.fleet_launch_count == q.dedup_launch_count == 0
+
+
 def test_multihost_fleet_size_must_divide(fleet_runs):
     assert "must divide over 2 processes" in fleet_runs["outs"][0]["divide_error"]
 

@@ -178,6 +178,91 @@ def test_plain_philox_known_answers_and_rng_probe_statistics():
     assert np.isfinite(out).all()
 
 
+def test_cpu_runs_the_first_main_path_size_only():
+    """The card runs the gather and the normals at every count of the
+    main path; the CPU at config #1's 4,000 only, to stay cheap."""
+    assert tprobe.MAIN_PATH_N == (4_000, 100_000, 1_000_000)
+    assert tprobe._main_path_n(torch.device("cpu")) == (4_000,)
+    assert tprobe._main_path_n(torch.device("cuda")) == tprobe.MAIN_PATH_N
+
+
+def test_smem_probe_lists_the_main_path_gather():
+    """After the TPU probe's own call: the ancestor gather of 4,000
+    particles in (N, 4) float32 rows by N sorted indices with repeats,
+    its plain version equal to numpy's fancy index, 36 B a particle."""
+    calls = tprobe.probe_smem(Probes(), torch.device("cpu"))
+    assert [c.label for c in calls] == ["smem", "smem gather N=4000"]
+    assert calls[0].work == (4 * (16 + 2 * 16 * 128), 0, 0)
+    n = 4_000
+    rng = np.random.default_rng(tprobe.MAIN_PATH_SEED)
+    hbm_np = rng.normal(size=(n, 4)).astype(np.float32)
+    y0_np = np.sort(rng.integers(0, n, n)).astype(np.int32)
+    assert (np.diff(y0_np) == 0).any() and np.unique(y0_np).size < n  # repeats
+    main = calls[1]
+    assert main.kernel == "gather_rows" and main.work == (36 * n, 0, 0)
+    np.testing.assert_array_equal(main.plain().numpy(), hbm_np[y0_np])
+    np.testing.assert_array_equal(main.library().numpy(), hbm_np[y0_np])
+    assert main.max_abs_err == 0.0 and main.shape is None and main.ported is None
+
+
+def test_rng_probe_lists_the_main_path_noise():
+    """After the TPU probe's own call: the (N, 3) motion noise of 4,000
+    particles, 12,000 normals within the probe's mean and std bounds, the
+    Philox words 32-bit, 12 B and 210 float32 operations a particle."""
+    calls = tprobe.probe_rng(Probes(), torch.device("cpu"))
+    assert [c.label for c in calls] == ["rng", "rng motion noise N=4000"]
+    assert calls[0].work == (4 * 16384, 16384 * 70, 0)
+    n = 4_000
+    main = calls[1]
+    assert main.kernel == "philox_normals" and main.work == (12 * n, 210 * n, 0)
+    normals, words = main.plain()
+    assert normals.shape == (3 * n,) and words.shape == (3 * n // 2, 4)
+    assert abs(float(normals.mean())) < 0.05 and abs(float(normals.std()) - 1.0) < 0.05
+    assert int(words.min()) >= 0 and int(words.max()) <= 0xFFFFFFFF
+    assert torch.isfinite(normals).all()
+    # the first 16,384 normals of the stream are the TPU-shaped call's
+    head, _ = calls[0].plain()
+    assert torch.equal(normals, head[:3 * n])
+    assert main.max_abs_err == 0.0 and main.shape is None and main.ported is None
+
+
+def test_box_muller_terms_are_the_plain_normals_factors():
+    """The all-inputs table the card's normals are bounded against: at
+    every 24-bit u its r and cos are the plain Box-Muller's two factors,
+    so r[m1] cos[m2] is the plain normal of words m1 << 8, m2 << 8."""
+    from monte_carlo_localization_tpu_torch.ops.probes import (
+        box_muller_reference,
+        box_muller_terms_reference,
+    )
+
+    r, c = box_muller_terms_reference()
+    assert r.shape == c.shape == (1 << 24,)
+    m1 = torch.from_numpy(np.random.default_rng(2).integers(0, 1 << 24, 4096))
+    m2 = torch.from_numpy(np.random.default_rng(3).integers(0, 1 << 24, 4096))
+    m1[:2], m2[:2] = torch.tensor([0, (1 << 24) - 1]), torch.tensor([1 << 22, 0])
+    assert torch.equal(r[m1] * c[m2], box_muller_reference(m1 << 8, m2 << 8))
+    assert float(r.max()) == float(r[0]) and 7.4 < float(r[0]) < 7.5  # u1 = 0 -> 1e-12
+
+
+@pytest.mark.parametrize("probe, plain", [("smem", "gather_rows_reference"),
+                                          ("rng", "philox_normals_reference")])
+def test_main_path_calls_are_held_to_their_plain_versions(probe, plain, monkeypatch):
+    """A plain version that drifts on the main path's call alone (the
+    probe's own call still agrees) fails the probe."""
+    real = getattr(tprobe, plain)
+
+    def drifted(*args, **kwargs):
+        out = real(*args, **kwargs)
+        first = out[0] if isinstance(out, tuple) else out
+        if first.shape[0] != 4_000 * (3 if probe == "rng" else 1):
+            return out
+        return (out[0] + 0.5, *out[1:]) if isinstance(out, tuple) else out + 0.5
+
+    monkeypatch.setattr(tprobe, plain, drifted)
+    with pytest.raises(tprobe.ProbeFailure, match="N=4000"):
+        tprobe.PROBES[probe](Probes(), torch.device("cpu"))
+
+
 def test_probe_tool_runs_the_plain_versions_on_cpu(capsys):
     assert tprobe.main(["--device", "cpu"]) == 0
     lines = capsys.readouterr().out.splitlines()
