@@ -49,7 +49,10 @@ from monte_carlo_localization_tpu_torch.ops.raycast import cast_rays, lut_expect
 from monte_carlo_localization_tpu_torch.ops.resample import resample_indices
 from monte_carlo_localization_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device, upload
 from monte_carlo_localization_tpu_torch.utils.graphs import Programs, shape_of
-from monte_carlo_localization_tpu_torch.utils.timing import TimingStats, call_ms
+from monte_carlo_localization_tpu_torch.utils.timing import TRACER, TimingStats, call_ms
+
+_STEP = TRACER.name("filter.step")
+_STEP_MANY = TRACER.name("filter.step_many")
 
 
 @dataclass(frozen=True)
@@ -175,7 +178,11 @@ def correct(
     and ``noise`` (N(0, 1) motion noise shaped like the particles)
     replace the generator's draws when given. ``inject`` (proposal ->
     proposal) runs between motion and the likelihood.
+
+    ``TRACER.mark()`` marks the phases' boundaries: event nodes in the
+    first correction a graph captures, a flag check anywhere else.
     """
+    TRACER.mark()
     idx = resample_indices(
         log_weights, method=resample_method, generator=generator, u0=u0
     )
@@ -183,6 +190,7 @@ def correct(
         proposal = torch.gather(particles, 1, idx.long()[..., None].expand(-1, -1, 3))
     else:
         proposal = particles[idx]
+    TRACER.mark()
     proposal = motion_model(
         proposal,
         action,
@@ -195,11 +203,15 @@ def correct(
     )
     if inject is not None:
         proposal = inject(proposal)
+    TRACER.mark()
     log_w = likelihood_fn(proposal, obs_px)
+    TRACER.mark()
     # log(mean_i w_i) before the shift: linear space underflows at 1080 beams
     log_quality = torch.logsumexp(log_w, dim=-1) - math.log(log_w.shape[-1])
     log_w = log_w - torch.amax(log_w, dim=-1, keepdim=True)
-    return proposal, log_w, log_quality.to(torch.float32), expected_pose(proposal, log_w)
+    pose = expected_pose(proposal, log_w)
+    TRACER.mark()
+    return proposal, log_w, log_quality.to(torch.float32), pose
 
 
 def inject_uniform(
@@ -511,7 +523,17 @@ class ParticleFilter:
         this correction (None: the plain step, whose draws it leaves as
         they are); one graph of the injection step serves every fraction.
         Optional draws: ``u0`` (scalar), ``noise`` (N, 3), and with
-        injection ``mask_u`` (N,) and ``injected`` (N, 3)."""
+        injection ``mask_u`` (N,) and ``injected`` (N, 3). Recorded as
+        the ``TRACER`` span ``filter.step``."""
+        token = TRACER.open(_STEP)
+        try:
+            return self._step_call(state, action, observed_m, inject_fraction, u0, noise,
+                                   mask_u, injected)
+        finally:
+            TRACER.close(token)
+
+    def _step_call(self, state, action, observed_m, inject_fraction, u0, noise, mask_u,
+                   injected):
         self._require_beams()
         if inject_fraction is None and (mask_u is not None or injected is not None):
             raise ValueError("mask_u and injected need an inject_fraction")
@@ -543,7 +565,15 @@ class ParticleFilter:
         filter's ``lax.scan``): ``actions`` (K, 3), ``observed_m`` (K, R).
         Optional draws: ``u0`` (K,) and ``noise`` (K, N, 3). Returns
         (state, poses (K, 3)). With ``pallas_mega`` each correction is one
-        mega-step launch."""
+        mega-step launch. Recorded as the ``TRACER`` span
+        ``filter.step_many``."""
+        token = TRACER.open(_STEP_MANY)
+        try:
+            return self._step_many_call(state, actions, observed_m, u0, noise)
+        finally:
+            TRACER.close(token)
+
+    def _step_many_call(self, state, actions, observed_m, u0, noise):
         self._require_beams()
         k = shape_of(actions)[0]
         if shape_of(observed_m)[0] != k:

@@ -13,7 +13,9 @@ src/particle_filter.cpp:19-170 constructor, :720-846 timer_update,
   the latest twist, decaying exploration noise for the first 15 iterations
   without odometry (reference :734-772),
 * per-phase TimingStats and the every-200-iteration printout
-  (reference :814-827),
+  (reference :814-827), its phases the device times sampled from inside
+  the step graphs, and spans of the tick and the chained replay
+  (``utils/timing.py`` ``TRACER``),
 * delay-compensated anchor refresh after each correction (reference
   :784-807),
 * pose priority chain + lidar->base_link offset on outputs
@@ -53,8 +55,16 @@ from monte_carlo_localization_tpu_torch.utils.geometry import (
     apply_vehicle_offset,
     trajectory_rmse,
 )
-from monte_carlo_localization_tpu_torch.utils.timing import Stopwatch, TimingStats
+from monte_carlo_localization_tpu_torch.utils.timing import TRACER, TimingStats
 from monte_carlo_localization_tpu_torch.utils.validation import is_pose_valid
+
+_UPDATE = TRACER.name("node.update")
+_STEP = TRACER.name("filter.step")
+_POSE_WAIT = TRACER.name("node.pose_wait")
+_WAIT_POST = (_POSE_WAIT, TRACER.name("node.post"))
+_REPLAY_CHAINED = TRACER.name("node.replay_chained")
+_CHUNK_SYNC = TRACER.name("node.chunk_sync")
+_READBACK = TRACER.name("node.readback")
 
 
 @dataclass
@@ -294,6 +304,7 @@ class MCLNode:
     # ----- the update tick (reference timer_update :720-846) -----
     def update(self, now: float | None = None) -> np.ndarray | None:
         """Run one MCL correction if possible; returns the inferred pose."""
+        t_entry = time.perf_counter_ns()
         if self._pending_reinit is not None:
             self._apply_pending_reinit()
         now = time.monotonic() if now is None else now
@@ -328,13 +339,29 @@ class MCLNode:
 
         if self.config.async_correction and not self._in_replay:
             return self._update_async(action, now)
+        return self._update_sync(action, t_entry)
 
-        with Stopwatch(self.stats, "total_mcl_time"):
+    def _update_sync(self, action, t_entry: int) -> np.ndarray:
+        """A correcting tick that waits for its pose: the ``TRACER`` span
+        ``node.update`` from the tick's entry (``t_entry``; request: the
+        iteration) over ``filter.step``, ``node.pose_wait`` and
+        ``node.post``; its self time is the node's own host work.
+        ``total_mcl_time`` takes ``filter.step`` and ``node.pose_wait``, the
+        interval the anchor's delay compensation reads."""
+        TRACER.request = self.iters
+        token = TRACER.open(_UPDATE, t_entry)
+        try:
             self.state, pose_dev = self._step_filter(action)
+            t0 = time.perf_counter_ns()
             pose = pose_dev.cpu().numpy().astype(np.float64)  # waits for the step
-        self.stats.measurement_count += 1
-        self._post_correction(pose)
-        return pose
+            t1 = time.perf_counter_ns()
+            self.stats.total_mcl_time += (_STEP.last_ns + t1 - t0) * 1e-6
+            self.stats.measurement_count += 1
+            self._post_correction(pose)
+            TRACER.chain(_WAIT_POST, (t0, t1, time.perf_counter_ns()))
+            return pose
+        finally:
+            TRACER.close(token)
 
     def _update_async(self, action, now: float) -> np.ndarray | None:
         """Pipelined corrections: dispatch without blocking, harvest poses
@@ -553,6 +580,7 @@ class MCLNode:
                 f"[{pose[0]:.2f}, {pose[1]:.2f}, {pose[2]:.2f}]"
             )
         if self.iters % 200 == 0:
+            self.stats.fill_device_phases(TRACER)
             self.stats.print_stats(self.log)
             self.stats.reset()
 
@@ -762,8 +790,18 @@ class MCLNode:
         odometry twist between consecutive scans (``trace_actions``); the
         dual-rate tracker/pose-priority chain is NOT exercised — use
         :meth:`replay` to test the live loop, this method to evaluate
-        filter quality/throughput.
+        filter quality/throughput. Recorded as the ``TRACER`` span
+        ``node.replay_chained`` over each chunk's ``filter.step_many``
+        (request: the chunk's first scan index), ``node.chunk_sync`` and
+        ``node.readback``.
         """
+        token = TRACER.open(_REPLAY_CHAINED)
+        try:
+            return self._replay_chained(trace, chunk)
+        finally:
+            TRACER.close(token)
+
+    def _replay_chained(self, trace: Trace, chunk: int) -> ReplayResult:
         if len(trace.scan_t) == 0:
             raise ValueError("trace has no scans")
         self.on_scan(trace.scan_ranges[0], beam_angles=trace.beam_angles)
@@ -785,6 +823,7 @@ class MCLNode:
         wall0 = time.perf_counter()
         warm_wall = steady_end = None
         for c0 in range(0, full_end, chunk):
+            TRACER.request = c0
             state, p = self._step_many(
                 state, actions[c0 : c0 + chunk], scans[c0 : c0 + chunk]
             )
@@ -796,9 +835,12 @@ class MCLNode:
             _sync(pose_chunks[-1])
             steady_end = time.perf_counter()
         if full_end < k:
+            TRACER.request = full_end
             state, p = self._step_many(state, actions[full_end:], scans[full_end:])
             pose_chunks.append(p)
+        t0 = time.perf_counter_ns()
         poses_a = torch.cat(pose_chunks).cpu().numpy().astype(np.float64)
+        TRACER.record(_READBACK, t0, time.perf_counter_ns())
         wall = time.perf_counter() - wall0
         done = full_end - min(chunk, full_end)  # after the warmup chunk
         steady = (
@@ -829,5 +871,8 @@ class MCLNode:
 
 
 def _sync(t: torch.Tensor) -> None:
+    """Wait for the card: the ``TRACER`` span ``node.chunk_sync``."""
     if t.device.type == "cuda":
+        t0 = time.perf_counter_ns()
         torch.cuda.synchronize(t.device)
+        TRACER.record(_CHUNK_SYNC, t0, time.perf_counter_ns())

@@ -144,7 +144,7 @@ def run(particles=4000, beams=1080, chain=50, reps=5, map_name="Spielberg_map.ya
     updates/s), ``marginal_ms`` (phase -> ms per update inside the full
     step; None for the ``unroll`` sweep), the query (its launch counts),
     the corrections that ran it and ``capture`` (variant -> graph
-    warm-up and capture ms, pool bytes and replays; empty on the CPU).
+    warm-up and capture ms and pool bytes; empty on the CPU).
     ``unroll`` U > 0 runs :func:`unroll_variants` instead of the six."""
     device = resolve_device(device)
     n, r = particles, beams

@@ -50,6 +50,18 @@ On the CPU, inside :func:`disable_graphs` (the counterpart of
 ``jax.disable_jit()``), and while the current stream is already being
 captured (a program inside another graph is inlined, as ``jit`` inlines
 a jitted function) the function runs eagerly on the caller's tensors.
+Each call records its parts as ``TRACER`` spans (``utils/timing.py``)
+under the span its caller has open: ``graphs.key`` (the key and the
+cache lookup), ``graphs.load``, ``graphs.handoff_in``, ``graphs.launch``
+(``graph.replay()``), ``graphs.handoff_out`` (with the counters) and
+``graphs.clone``; a key's first call records ``graphs.capture`` instead.
+The capture holds :class:`~monte_carlo_localization_tpu_torch.utils.timing.DeviceMarks`:
+five timing events at the boundaries of the program's first correction,
+event nodes that every replay records again; once ``READ_EVERY``
+corrections have been replayed since the last reading, a call reads the
+previous replay's phases into the tracer before its own replay, if they
+have passed, and never waits for them.
+
 One rule more is the callers': a program whose body calls a collective
 of a group that stages through the host (gloo: ``Collectives.stages_on_host``,
 a card-to-host copy each call) is not handed to :class:`Programs` at all
@@ -65,6 +77,7 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
+from time import perf_counter_ns
 from typing import Callable
 
 import numpy as np
@@ -72,6 +85,12 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from monte_carlo_localization_tpu_torch.utils.device import upload
+from monte_carlo_localization_tpu_torch.utils.timing import (
+    DEVICE_PHASES,
+    READ_EVERY,
+    TRACER,
+    DeviceMarks,
+)
 
 # wrapper attributes a replay sets to what the capture left: the dedup
 # kernel's overflow flags, a device tensor each replay writes
@@ -82,6 +101,14 @@ COUNTED_ATTRS = ("calls", "bytes")
 
 _lock = threading.Lock()
 _disabled = 0
+
+# a graph call's parts (``TRACER`` spans under the filter's entry)
+_KEY = TRACER.name("graphs.key")
+_PARTS = (_KEY, *(TRACER.name(f"graphs.{part}")
+                  for part in ("load", "handoff_in", "launch", "handoff_out", "clone")))
+_CAPTURE = TRACER.name("graphs.capture")
+_READ_MARKS = TRACER.name("graphs.read_marks")
+_PHASES = tuple(TRACER.name(name) for name in DEVICE_PHASES)
 
 
 @contextlib.contextmanager
@@ -206,9 +233,10 @@ class GraphedProgram:
         for gen in self.generators:
             self.graph.register_generator_state(gen)
         op = _LastOp()
+        marks = DeviceMarks(TRACER)
         try:
             with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
-                with op:
+                with op, marks:
                     self.outputs = fn(self.buffers, own)
         except Exception as e:
             raise GraphCaptureError(
@@ -218,7 +246,12 @@ class GraphedProgram:
         self.capture_ms = (time.perf_counter() - t1) * 1e3
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
         counters.settle(warm, counters.snapshot())
-        self.replays = 0
+        # the device phases of the graph's first correction, where the
+        # program runs one (``correct()`` marks its boundaries)
+        self.marks = marks if marks.complete else None
+        self._marked = marks.corrections if self.marks is not None else 0
+        self._unread = 0  # marked corrections replayed since the last reading
+        self._stamps = [0] * (len(_PARTS) + 1)
 
     def _load(self, inputs: dict) -> None:
         """Copy the inputs into the buffers (their shapes are the key's)."""
@@ -231,23 +264,60 @@ class GraphedProgram:
             else:
                 upload(x, self.device, out=buf)
 
-    def __call__(self, inputs: dict, generator) -> dict:
+    def __call__(self, inputs: dict, generator, t_key: int) -> dict:
+        """Load ``inputs`` and :meth:`replay`, recording the call's parts
+        (``graphs.key`` from ``t_key``, the caller's ``perf_counter_ns``
+        before its cache lookup, then ``graphs.load``,
+        ``graphs.handoff_in``, ``graphs.launch``, ``graphs.handoff_out``
+        and ``graphs.clone``) under the span open around it."""
+        t = self._stamps
+        t[0], t[1] = t_key, perf_counter_ns()
+        if self._unread >= READ_EVERY:
+            read_ns = self._read_marks()
+            t[0] += read_ns  # the lookup, less the reading
+            t[1] += read_ns
         self._load(inputs)
-        return self.replay(generator)
+        t[2] = perf_counter_ns()
+        out = self.replay(generator)
+        TRACER.chain(_PARTS, t)
+        return out
 
     def replay(self, generator) -> dict:
         """One replay on the loaded buffers, drawing from ``generator`` (or
         a tuple of generators, one for each of the program's); the outputs
-        as fresh tensors."""
+        as fresh tensors. Stamps the ``perf_counter_ns`` after the
+        hand-in, the launch, the hand-back and the clones (the last four
+        of the call's parts)."""
+        t = self._stamps
+        self._unread += self._marked
         theirs = generators_of(generator)
         for own, their in zip(self.generators, theirs):
             own.set_state(their.get_state())
+        t[3] = perf_counter_ns()
         self.graph.replay()
+        t[4] = perf_counter_ns()
         for own, their in zip(self.generators, theirs):
             their.set_state(own.get_state())
         self.counters.replay()
-        self.replays += 1
-        return {name: t.clone() for name, t in self.outputs.items()}
+        t[5] = perf_counter_ns()
+        out = {name: x.clone() for name, x in self.outputs.items()}
+        t[6] = perf_counter_ns()
+        return out
+
+    def _read_marks(self) -> int:
+        """Before this call's replay: the device phases of the previous
+        replay into the tracer, once its last mark has passed (never
+        waiting for it). Returns the ns this took (``graphs.read_marks``
+        when it read)."""
+        t0 = perf_counter_ns()
+        if not self.marks.ready():
+            return perf_counter_ns() - t0
+        for series, ns in zip(_PHASES, self.marks.phases_ns()):
+            TRACER.value(series, ns)
+        self._unread = 0
+        t1 = perf_counter_ns()
+        TRACER.record(_READ_MARKS, t0, t1)
+        return t1 - t0
 
 
 def run_eager(fn: Callable, inputs: dict, generator, device: torch.device) -> dict:
@@ -276,23 +346,27 @@ class Programs:
         the tables)."""
         if not graphs_enabled(self.device):
             return run_eager(fn, inputs, generator, self.device)
+        t_key = perf_counter_ns()
         key = (*key, *((name, shape_of(x)) for name, x in sorted(inputs.items())))
         prog = self.cache.get(key)
         if prog is not None:
-            return prog(inputs, generator)
+            return prog(inputs, generator, t_key)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         prog = self.cache[key] = GraphedProgram(key, fn, inputs, self.device,
                                                 LaunchCounters(self.wrappers), self._pool, keep,
                                                 generator)
-        return prog.replay(generator)
+        out = prog.replay(generator)
+        TRACER.record(_CAPTURE, t_key, perf_counter_ns())
+        return out
 
     @property
     def pool_bytes(self) -> int:
         return sum(p.pool_bytes for p in self.cache.values())
 
     def stats(self) -> dict:
-        """Per key: warm-up and capture ms, pool bytes, replays."""
+        """Per key: warm-up and capture ms, pool bytes (``TRACER`` counts
+        the replays: ``graphs.launch``)."""
         return {str(k): dict(warmup_ms=p.warmup_ms, capture_ms=p.capture_ms,
-                             pool_bytes=p.pool_bytes, replays=p.replays)
+                             pool_bytes=p.pool_bytes)
                 for k, p in self.cache.items()}
