@@ -16,7 +16,8 @@ plain PyTorch version on the card (the LUT likelihood with and without
 the sub-bin lerp and on the shapes its lane layout makes edge cases,
 its normaliser and sub-bin tables, the unique-window kernel and its key
 kernel at 100k particles, the mega step on each side of its small-n
-choice), replays the config #1 golden
+choice, the systematic resampler's kernel at 4000, 64 x 4000 and its
+longest row), replays the config #1 golden
 trace through ``ParticleFilter`` on the classic step and on the mega step
 (``pallas_mega``), drives the mega step at 4000 x 1080 on the same map,
 replays the config #4 golden trace on basement_fixed (compact LUT) with and without ``pallas_subbin`` from 15 replay seeds, runs
@@ -866,6 +867,66 @@ def phase_kernel_vs_plain(device) -> dict:
     return dict(times=times, max_abs_err=worst)
 
 
+def resample_bound(f: int, n: int, m: int) -> dict:
+    """The systematic resampler from the softmax on (csrc/resample.cu):
+    f rows of n float32 weights and an offset read once, f x m int32
+    indices written; the doubling's double adds (n - s a round, s = 1,
+    2, 4, ... < n) and g's two float32 operations an element. The
+    searches' compares are not counted."""
+    adds = sum(n - (1 << k) for k in range(max(n - 1, 0).bit_length()))
+    return bound(4 * f * n + 4 * f + 4 * f * m, 2 * f * n, f * adds)
+
+
+def phase_resample(device) -> dict:
+    """The systematic resampler's kernel (``ops/resample.py``
+    ``SystematicKernel``) ``torch.equal`` to the PyTorch path on the same
+    softmax and u0, at the main path's 4000, config #5's 64 x 4000 and
+    the kernel's longest row: the kernel's device ms, the PyTorch path's
+    (``prefix_sum_doubling`` and ``systematic_invert_cdf_window``, as a
+    graph), wrapper ms and the bound; and the whole resampler from the
+    log weights (softmax, and the offset given) both ways, as graphs."""
+    import torch
+
+    from monte_carlo_localization_tpu_torch.ops.resample import (
+        SYSTEMATIC_KERNEL,
+        prefix_sum_doubling,
+        systematic_invert_cdf_window,
+        systematic_resample_indices,
+        weight_cdf,
+    )
+    from monte_carlo_localization_tpu_torch.utils.timing import graph_ms
+
+    t0 = time.perf_counter()
+    cap = SYSTEMATIC_KERNEL.max_row(device)
+    rng = np.random.default_rng(0)
+    calls = []
+    for f, n in ((1, N_PARTICLES), (CONFIG5_FLEET, N_PARTICLES), (1, cap)):
+        shape = (n,) if f == 1 else (f, n)
+        lw = torch.from_numpy(rng.normal(scale=2.0, size=shape).astype(np.float32)).to(device)
+        lw[..., : n // 7] = -1e4  # a run of off-map particles
+        u0 = torch.rand(shape[:-1], device=device)
+        w = torch.softmax(lw, -1)
+        launches = SYSTEMATIC_KERNEL.launch_count
+        got = SYSTEMATIC_KERNEL(w, u0, n)
+        want = systematic_invert_cdf_window(prefix_sum_doubling(w), u0, n, 0, n)
+        torch.cuda.synchronize()
+        check(SYSTEMATIC_KERNEL.launch_count == launches + 1, "resample: the kernel did not launch")
+        check(torch.equal(got, want), f"resample: kernel != PyTorch path at {shape}")
+        timed = device_ms(lambda: SYSTEMATIC_KERNEL(w, u0, n), "systematic_resample_kernel")
+        calls.append({
+            "label": f"{f} x {n}", "ms": timed["ms"], "time_source": timed["source"],
+            "wrapper_ms": event_ms(lambda: SYSTEMATIC_KERNEL(w, u0, n)),
+            "plain_ms": graph_ms(
+                lambda: systematic_invert_cdf_window(prefix_sum_doubling(w), u0, n, 0, n)),
+            "whole_kernel_ms": graph_ms(lambda: systematic_resample_indices(lw, u0=u0)),
+            "whole_torch_ms": graph_ms(
+                lambda: systematic_invert_cdf_window(weight_cdf(lw), u0, n, 0, n)),
+            **resample_bound(f, n, n),
+        })
+    emit("resample", t0, max_row=cap, launches=SYSTEMATIC_KERNEL.launch_count, calls=calls)
+    return dict(launches=SYSTEMATIC_KERNEL.launch_count, calls=calls, max_row=cap)
+
+
 def phase_norm_table(device) -> dict:
     """The normaliser table the kernels read (log_norm_kernel): against its
     plain version within TABLE_TOL, bit for bit against the analytic
@@ -1184,6 +1245,7 @@ def phase_config1(device) -> dict:
     import torch
 
     from monte_carlo_localization_tpu_torch import MCLConfig, ParticleFilter, load_map
+    from monte_carlo_localization_tpu_torch.ops.resample import SYSTEMATIC_KERNEL
     from monte_carlo_localization_tpu_torch.runtime import Trace, replay_chained
 
     t0 = time.perf_counter()
@@ -1196,8 +1258,12 @@ def phase_config1(device) -> dict:
     t_setup = time.perf_counter() - t0
     built = lut_built_on_card("config1_replay", pf.grid_map)
     pf.likelihood.launch_count = pf.likelihood.table_launch_count = 0
+    SYSTEMATIC_KERNEL.launch_count = 0
     res = replay_chained(pf, trace, chunk=64)
     launches, table_launches = pf.likelihood.launch_count, pf.likelihood.table_launch_count
+    resample_launches = SYSTEMATIC_KERNEL.launch_count
+    check(resample_launches == res.corrections,
+          f"{resample_launches} resampler launches for {res.corrections} corrections")
     check(table_launches == 1, f"{table_launches} fills of the normaliser table in one replay (want 1)")
     check(np.isfinite(res.poses).all(), "config #1 replay gave non-finite poses")
     check(launches == res.corrections == 500,
@@ -1206,12 +1272,12 @@ def phase_config1(device) -> dict:
     emit("config1_replay", t0, setup_s=t_setup, particles=N_PARTICLES,
          beams=int(pf.beam_angles.shape[0]), lut=("compact " if pf.grid_map.lut_row_map is not None else "dense ") + str(pf.grid_map.range_lut.dtype),
          **built, corrections=res.corrections, launches=launches, table_fills=table_launches,
-         rmse_xy_m=res.rmse_xy,
+         resample_launches=resample_launches, rmse_xy_m=res.rmse_xy,
          rmse_theta_rad=res.rmse_theta, chained_updates_per_s=res.updates_per_sec)
     del pf, gm
     torch.cuda.empty_cache()
     return dict(launches=launches, table_launches=table_launches, rmse_xy=res.rmse_xy,
-                rate=res.updates_per_sec)
+                rate=res.updates_per_sec, resample_launches=resample_launches)
 
 
 def lut_scan(pf, pose) -> np.ndarray:
@@ -1235,6 +1301,7 @@ def phase_headline(device) -> dict:
 
     from monte_carlo_localization_tpu_torch import MCLConfig, ParticleFilter, load_map
     from monte_carlo_localization_tpu_torch.ops.lut_query import lut_log_weights_reference
+    from monte_carlo_localization_tpu_torch.ops.resample import SYSTEMATIC_KERNEL
 
     t0 = time.perf_counter()
     gm = load_map(REPO / "maps" / "Spielberg_map.yaml", device=device)
@@ -1267,7 +1334,7 @@ def phase_headline(device) -> dict:
     state, _ = pf.step(state, actions[0], scan)
     torch.cuda.synchronize()
 
-    pf.likelihood.launch_count = 0
+    pf.likelihood.launch_count = SYSTEMATIC_KERNEL.launch_count = 0
     t3 = time.perf_counter()
     state, poses = pf.step_many(state, actions, scans)
     torch.cuda.synchronize()
@@ -1281,6 +1348,9 @@ def phase_headline(device) -> dict:
     t_steps = time.perf_counter() - t4
     launches = pf.likelihood.launch_count
     check(launches == chain + 30, f"{launches} kernel launches for {chain + 30} corrections")
+    resample_launches = SYSTEMATIC_KERNEL.launch_count
+    check(resample_launches == chain + 30,
+          f"{resample_launches} resampler launches for {chain + 30} corrections")
     all_poses = torch.cat([poses, torch.stack(step_poses)]).cpu().numpy()
     check(np.isfinite(all_poses).all(), "headline gave non-finite poses")
     drift = float(np.linalg.norm(all_poses[-1, :2] - pose[:2]))
@@ -1305,13 +1375,15 @@ def phase_headline(device) -> dict:
          lut_bytes=lut_bytes, map_load_s=t_map, set_beam_angles_s=t_lut,
          lut_build_s=built["lut_build_s"], lut_route=built["lut_route"],
          sweep_launches=built["sweep_launches"], launches=launches,
+         resample_launches=resample_launches,
          chained_updates_per_s=chain / t_chain, per_step_updates_per_s=30 / t_steps,
          drift_from_start_m=drift, max_abs_err=err, kernel_device_ms=kernel_ms,
          kernel_time_source=dev["source"], wrapper_ms=wrapper_ms, plain_ms=plain_ms, **bnd,
          peak_device_bytes=torch.cuda.max_memory_allocated(device))
     return dict(launches=launches, max_abs_err=err, ms=kernel_ms, wrapper_ms=wrapper_ms,
                 plain_ms=plain_ms, bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
-                sector_bound_ms=bnd["sector_bound_ms"], sector_bytes=bnd["sector_bytes"])
+                sector_bound_ms=bnd["sector_bound_ms"], sector_bytes=bnd["sector_bytes"],
+                resample_launches=resample_launches)
 
 
 MOTIONS = {"straight": [0.05, 0.0, 1.0, 0.37], "arc": [0.04, 0.03, 0.0, 0.81]}
@@ -1925,6 +1997,7 @@ def phase_config5(device, classic_kernels: float) -> dict:
     from monte_carlo_localization_tpu_torch import MCLConfig
     from monte_carlo_localization_tpu_torch.ops.lut_query import fleet_window_start
     from monte_carlo_localization_tpu_torch.ops.lut_query import lut_log_weights_reference
+    from monte_carlo_localization_tpu_torch.ops.resample import SYSTEMATIC_KERNEL
     from monte_carlo_localization_tpu_torch.parallel import FleetFilter
 
     t0 = time.perf_counter()
@@ -1949,7 +2022,7 @@ def phase_config5(device, classic_kernels: float) -> dict:
     actions_k = np.tile(action, (CONFIG5_CHAIN, 1, 1))
     scans_k = np.tile(scans, (CONFIG5_CHAIN, 1, 1))
     state = ff.init_pose(poses0, seed=1)
-    q.fleet_launch_count = q.launch_count = 0
+    q.fleet_launch_count = q.launch_count = SYSTEMATIC_KERNEL.launch_count = 0
 
     state, poses = ff.step_many(state, actions_k, scans_k)  # warm chain
     torch.cuda.synchronize()
@@ -1982,6 +2055,9 @@ def phase_config5(device, classic_kernels: float) -> dict:
     launches = q.fleet_launch_count
     check(launches == n_corr and q.launch_count == 0,
           f"{launches} fleet-kernel launches (and {q.launch_count} single) for {n_corr} corrections")
+    resample_launches = SYSTEMATIC_KERNEL.launch_count
+    check(resample_launches == n_corr,
+          f"{resample_launches} resampler launches ({f} rows each) for {n_corr} fleet corrections")
 
     # the fleet kernel against its plain version at this path's shape
     obs = ff.sensor.to_pixel_index(torch.as_tensor(scans, device=device)).float()
@@ -2014,7 +2090,7 @@ def phase_config5(device, classic_kernels: float) -> dict:
          member_cells=cells, set_beam_angles_s=t_lut, lut_build_s=built["lut_build_s"],
          lut_route=built["lut_route"], sweep_launches=built["sweep_launches"],
          corrections=n_corr,
-         fleet_launches=launches,
+         fleet_launches=launches, resample_launches=resample_launches,
          chained_fleet_steps_per_s=chained,
          chained_member_updates_per_s=[x * f for x in chained],
          per_step_fleet_steps_per_s=per_step,
@@ -2025,7 +2101,7 @@ def phase_config5(device, classic_kernels: float) -> dict:
          classic_config1_kernels_per_correction=classic_kernels)
     del ff, state, parts, maps
     torch.cuda.empty_cache()
-    return kernel
+    return {**kernel, "resample_launches": resample_launches}
 
 
 SHARDED_CHAIN = 10  # chained corrections holding bucketed against allgather
@@ -4061,7 +4137,7 @@ def main() -> int:
     csrc = REPO / "monte_carlo_localization_tpu_torch" / "csrc"
     if not all((csrc / f).exists() for f in ("lut_likelihood.cu", "lut_dedup.cu", "mega_step.cu",
                                              "probes.cu", "range_lut_sweep.cu",
-                                             "beam_model.cuh")):
+                                             "resample.cu", "beam_model.cuh")):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
@@ -4084,7 +4160,7 @@ def main() -> int:
     built = load_library()
     check(native.available(), "the native C++ LUT builder did not build (g++ with OpenMP)")
     check(set(built.libs) == {"lut_likelihood", "lut_dedup", "mega_step", "probes",
-                              "range_lut_sweep"},
+                              "range_lut_sweep", "resample"},
           f"built {sorted(built.libs)}")
     keep = ("== ", "Compiling entry", "registers", "smem", "spill")
     ptxas = [ln.strip() for ln in built.log.splitlines() if any(k in ln for k in keep)]
@@ -4102,6 +4178,7 @@ def main() -> int:
     lut_build = phase_lut_build(device)
     lut_plain = phase_kernel_vs_plain(device)
     table = phase_norm_table(device)
+    resample = phase_resample(device)
     dedup_plain = phase_dedup_vs_plain(device)
     mega_plain = phase_mega_vs_plain(device)
     config1 = phase_config1(device)
@@ -4281,6 +4358,25 @@ def main() -> int:
             "launches_by_phase": SWEEP_LAUNCHES,
         },
         *probe_entries(probes),
+        {
+            "name": "systematic_resample",
+            "route": "cuda",
+            "source": "monte_carlo_localization_tpu_torch/csrc/resample.cu",
+            "replaces": "none: XLA's work in monte_carlo_localization_tpu/ops/resample.py:16-91",
+            # the main path's: one a correction (a fleet's F rows in one)
+            "launches": (config1["resample_launches"] + head["resample_launches"]
+                         + config5["resample_launches"]),
+            "max_abs_err": 0,
+            **{k: resample["calls"][0][k] for k in ("ms", "time_source", "wrapper_ms", "plain_ms",
+                                                     "bound_ms", "bound_by")},
+            "library_ms": None,
+            "config1_launches": config1["resample_launches"],
+            "headline_launches": head["resample_launches"],
+            "config5_launches": config5["resample_launches"],
+            "comparison_launches": resample["launches"],
+            "max_row": resample["max_row"],
+            "other_calls": resample["calls"][1:],
+        },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -46,7 +46,7 @@ from monte_carlo_localization_tpu_torch.ops.lut_query import (
     suggest_theta_bins,
 )
 from monte_carlo_localization_tpu_torch.ops.raycast import cast_rays, lut_expected_px
-from monte_carlo_localization_tpu_torch.ops.resample import resample_indices
+from monte_carlo_localization_tpu_torch.ops.resample import SYSTEMATIC_KERNEL, resample_indices
 from monte_carlo_localization_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device, upload
 from monte_carlo_localization_tpu_torch.utils.graphs import Programs, shape_of
 from monte_carlo_localization_tpu_torch.utils.timing import TRACER, TimingStats, call_ms
@@ -412,7 +412,7 @@ class ParticleFilter:
         self.beam_angles: torch.Tensor | None = None
         self.likelihood: LUTQuery | None = None  # the fused query under lut_pallas
         self.mega = None  # a MegaStepper once beams are set, with pallas_mega
-        self.programs = Programs(self.device)
+        self.programs = Programs(self.device, [SYSTEMATIC_KERNEL])
         if beam_angles is not None:
             self.set_beam_angles(beam_angles)
 
@@ -425,7 +425,7 @@ class ParticleFilter:
             self._attach_fused(beams)
         self.beam_angles = torch.as_tensor(beams, device=self.device)
         # graphs read the LUT, the query and the beams by address
-        self.programs = Programs(self.device, [self.likelihood])
+        self.programs = Programs(self.device, [self.likelihood, SYSTEMATIC_KERNEL])
 
     def _attach_fused(self, beams: np.ndarray) -> None:
         cfg = self.config

@@ -186,6 +186,13 @@ def _bind(libs: dict[str, ctypes.CDLL]) -> None:
         fn.restype = i32
         fn.argtypes = argtypes
 
+    resample = libs["resample"]
+    resample.mcl_resample_max_row.restype = i32
+    resample.mcl_resample_max_row.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    resample.mcl_systematic_resample.restype = i32
+    # weights, rows, n, u0, u0_stride, m, out, stream
+    resample.mcl_systematic_resample.argtypes = [p, i32, i32, p, i32, i32, p, p]
+
     sweep = libs["range_lut_sweep"]
     for name in ("mcl_range_lut_sweep_u8", "mcl_range_lut_sweep_u16"):
         fn = getattr(sweep, name)

@@ -5,7 +5,12 @@ themselves, on one filter or distributed over shards (``:94-325``).
 Systematic resampling (the default) inverts the weight CDF scatter-side
 in O(N): source j's first output slot is ``floor(M*cdf[j-1] - u0) + 1``;
 scatter j there with ``amax`` and forward-fill with a cumulative max.
-Multinomial resampling draws N iid categorical samples (the reference's
+On a card, rows of float32 log weights that fit a block's shared memory
+(:meth:`SystematicKernel.max_row`) go instead to one hand-written kernel,
+``csrc/resample.cu`` (:class:`SystematicKernel`): the same CDF bits and
+the same indices, from the softmax on, one block a row. CPU tensors and
+longer rows take the PyTorch path, its plain version. Multinomial
+resampling draws N iid categorical samples (the reference's
 ``std::discrete_distribution``).
 
 The index functions take (N,) log weights, or (F, N) for a fleet: F
@@ -18,7 +23,11 @@ functions serve one filter, or one shard of it
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+_INT32_MAX = 2**31 - 1
 
 
 def _uniform_u0(log_weights, generator, u0):
@@ -113,6 +122,74 @@ def weight_cdf(log_weights: torch.Tensor) -> torch.Tensor:
     return prefix_sum_doubling(torch.softmax(log_weights, dim=-1))
 
 
+class SystematicKernel:
+    """``csrc/resample.cu``: systematic resampling of each row of a
+    softmax, one block a row and one launch for all rows, equal to
+    ``systematic_invert_cdf_window(prefix_sum_doubling(weights), u0, m, 0,
+    m)`` (its CDF bit for bit, then the first j of ``g[:-1]`` with ``g[j]
+    >= s`` for slot s). Each launch adds one to ``launch_count``; the
+    programs that call the resampler list it among their wrappers, so a
+    graph's replays add theirs (``utils/graphs.py`` ``LaunchCounters``)."""
+
+    def __init__(self):
+        self.launch_count = 0
+        self._max_row: dict[torch.device, int] = {}
+
+    def max_row(self, device: torch.device) -> int:
+        """The longest row the kernel takes on the card ``device``: its
+        opt-in shared memory a block over 16 B an element, at most 16 x
+        1024 (what a block's registers hold), asked once."""
+        cap = self._max_row.get(device)
+        if cap is None:
+            from monte_carlo_localization_tpu_torch.ops._cuda_build import load_library
+
+            built = load_library()
+            out = ctypes.c_int(0)
+            with torch.cuda.device(device):
+                err = built.libs["resample"].mcl_resample_max_row(ctypes.byref(out))
+            if err != 0:
+                raise RuntimeError(f"resample: CUDA error {err} ({built.error_string(err)})")
+            cap = self._max_row[device] = out.value
+        return cap
+
+    def __call__(self, weights: torch.Tensor, u0: torch.Tensor, num_samples: int) -> torch.Tensor:
+        """int32 source indices ``weights.shape[:-1] + (num_samples,)`` from
+        float32 ``weights`` (a softmax along the last axis) and ``u0``, one
+        offset for all rows or one a row; raises on anything else."""
+        from monte_carlo_localization_tpu_torch.ops._cuda_build import load_library
+
+        dev = weights.device
+        n = weights.shape[-1] if weights.dim() else 0
+        if dev.type != "cuda" or weights.dtype != torch.float32 or not weights.is_contiguous():
+            raise ValueError(f"resample kernel needs contiguous float32 CUDA weights, got "
+                             f"{weights.dtype} on {dev}")
+        if not 1 <= n <= self.max_row(dev):
+            raise ValueError(f"resample kernel takes rows of 1..{self.max_row(dev)}, not {n}")
+        if not 0 <= num_samples <= _INT32_MAX:
+            raise ValueError(f"num_samples {num_samples} outside 0..{_INT32_MAX}")
+        rows = weights.numel() // n
+        if not 1 <= rows <= _INT32_MAX:
+            raise ValueError(f"resample kernel takes 1..{_INT32_MAX} rows, not {rows}")
+        u0 = u0.reshape(-1).contiguous()
+        if u0.device != dev or u0.dtype != torch.float32 or u0.numel() not in (1, rows):
+            raise ValueError(f"u0 must be float32 on {dev} with 1 or {rows} values, got "
+                             f"{tuple(u0.shape)} {u0.dtype} on {u0.device}")
+        out = torch.empty(weights.shape[:-1] + (num_samples,), dtype=torch.int32, device=dev)
+        built = load_library()
+        with torch.cuda.device(dev):
+            err = built.libs["resample"].mcl_systematic_resample(
+                weights.data_ptr(), rows, n, u0.data_ptr(), int(u0.numel() > 1), num_samples,
+                out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"resample launch failed: CUDA error {err} "
+                               f"({built.error_string(err)})")
+        self.launch_count += 1
+        return out
+
+
+SYSTEMATIC_KERNEL = SystematicKernel()
+
+
 def systematic_resample_indices(
     log_weights: torch.Tensor,
     num_samples: int | None = None,
@@ -120,11 +197,16 @@ def systematic_resample_indices(
     u0: torch.Tensor | float | None = None,
 ) -> torch.Tensor:
     """Low-variance systematic resampling with one offset u0 ~ U[0, 1)
-    per row, drawn from ``generator`` unless given."""
+    per row, drawn from ``generator`` unless given: float32 rows on a card
+    that fit :data:`SYSTEMATIC_KERNEL` launch it on their softmax, every
+    other input takes the PyTorch path."""
     n = log_weights.shape[-1]
     m = n if num_samples is None else num_samples
-    cdf = weight_cdf(log_weights)
-    return systematic_invert_cdf_window(cdf, _uniform_u0(log_weights, generator, u0), m, 0, m)
+    u0 = _uniform_u0(log_weights, generator, u0)
+    if (log_weights.is_cuda and log_weights.dtype == torch.float32
+            and 0 < n <= SYSTEMATIC_KERNEL.max_row(log_weights.device)):
+        return SYSTEMATIC_KERNEL(torch.softmax(log_weights, dim=-1).contiguous(), u0, m)
+    return systematic_invert_cdf_window(weight_cdf(log_weights), u0, m, 0, m)
 
 
 def resample_indices(

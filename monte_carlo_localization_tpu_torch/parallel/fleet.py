@@ -66,7 +66,7 @@ from monte_carlo_localization_tpu_torch.filter.init import initialize_pose
 from monte_carlo_localization_tpu_torch.mapping.grid_map import OCC_OCCUPIED, GridMap
 from monte_carlo_localization_tpu_torch.models.motion import motion_model
 from monte_carlo_localization_tpu_torch.models.sensor import SensorModel
-from monte_carlo_localization_tpu_torch.ops.resample import resample_indices
+from monte_carlo_localization_tpu_torch.ops.resample import SYSTEMATIC_KERNEL, resample_indices
 from monte_carlo_localization_tpu_torch.parallel.collectives import Collectives, shard_seed
 from monte_carlo_localization_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device, upload
 from monte_carlo_localization_tpu_torch.utils.graphs import Programs, run_eager, shape_of
@@ -312,7 +312,7 @@ class FleetFilter:
         )
         self.beam_angles: torch.Tensor | None = None
         self.likelihood = None
-        self.programs = Programs(self.device, self._comms())
+        self.programs = Programs(self.device, [SYSTEMATIC_KERNEL, *self._comms()])
         if beam_angles is not None:
             self.set_beam_angles(beam_angles)
 
@@ -331,7 +331,7 @@ class FleetFilter:
             )
         self.beam_angles = torch.as_tensor(beams, device=self.device)
         # graphs read the LUT, the query and the beams by address
-        self.programs = Programs(self.device, [self.likelihood, *self._comms()])
+        self.programs = Programs(self.device, [self.likelihood, SYSTEMATIC_KERNEL, *self._comms()])
 
     def _comms(self) -> list:
         """The two axes' collectives, whose counters the programs keep."""

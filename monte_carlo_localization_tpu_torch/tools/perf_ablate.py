@@ -52,7 +52,7 @@ from monte_carlo_localization_tpu_torch.filter import (
 )
 from monte_carlo_localization_tpu_torch.models.motion import motion_model
 from monte_carlo_localization_tpu_torch.models.sensor import SensorModel
-from monte_carlo_localization_tpu_torch.ops.resample import resample_indices
+from monte_carlo_localization_tpu_torch.ops.resample import SYSTEMATIC_KERNEL, resample_indices
 from monte_carlo_localization_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device, upload
 from monte_carlo_localization_tpu_torch.utils.graphs import Programs
 
@@ -82,7 +82,7 @@ def make_steps(gm, query, sensor, do_resample, do_motion, do_likelihood, do_pose
     scans (K, R)) -> (state, poses (K, 3)), run as replays of a program
     of ``per_replay`` corrections (0: the whole chain in one); the
     function's ``programs`` hold its graphs."""
-    programs = Programs(gm.device, [query])
+    programs = Programs(gm.device, [query, SYSTEMATIC_KERNEL])
 
     def step(state: MCLState, action, obs):
         gen = state.generator

@@ -67,7 +67,9 @@ of a group that stages through the host (gloo: ``Collectives.stages_on_host``,
 a card-to-host copy each call) is not handed to :class:`Programs` at all
 but run by :func:`run_eager`, decided from the group's backend before any
 capture; a one-shard world and an NCCL group are captured. No capture
-error is caught to fall back to an eager run. One filter's programs
+error is caught to fall back to an eager run; the cyclic garbage
+collector is paused while a program is captured
+(:func:`collector_paused`). One filter's programs
 share a pool, so they replay on one stream at a time, as one filter's
 steps do.
 """
@@ -75,6 +77,7 @@ steps do.
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 import time
 from time import perf_counter_ns
@@ -101,6 +104,9 @@ COUNTED_ATTRS = ("calls", "bytes")
 
 _lock = threading.Lock()
 _disabled = 0
+# captures in progress, and whether the cyclic collector was on before them
+_collector_held = 0
+_collector_was_on = False
 
 # a graph call's parts (``TRACER`` spans under the filter's entry)
 _KEY = TRACER.name("graphs.key")
@@ -124,6 +130,28 @@ def disable_graphs():
     finally:
         with _lock:
             _disabled -= 1
+
+
+@contextlib.contextmanager
+def collector_paused():
+    """No cyclic garbage collection while inside (nestable, across
+    threads). A ``CUDAGraph`` freed by the collector runs
+    ``cudaGraphExecDestroy``, which invalidates a capture in progress on
+    the collecting thread; ``torch.cuda.graph`` no longer collects on
+    entry, so a dead filter's graphs may be collected at any allocation."""
+    global _collector_held, _collector_was_on
+    with _lock:
+        if _collector_held == 0:
+            _collector_was_on = gc.isenabled()
+            gc.disable()
+        _collector_held += 1
+    try:
+        yield
+    finally:
+        with _lock:
+            _collector_held -= 1
+            if _collector_held == 0 and _collector_was_on:
+                gc.enable()
 
 
 def graphs_enabled(device: torch.device | str) -> bool:
@@ -235,7 +263,8 @@ class GraphedProgram:
         op = _LastOp()
         marks = DeviceMarks(TRACER)
         try:
-            with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
+            with collector_paused(), torch.cuda.graph(self.graph, pool=pool,
+                                                      capture_error_mode="thread_local"):
                 with op, marks:
                     self.outputs = fn(self.buffers, own)
         except Exception as e:
@@ -328,8 +357,8 @@ def run_eager(fn: Callable, inputs: dict, generator, device: torch.device) -> di
 class Programs:
     """One filter's programs, keyed like ``jit``'s cache, sharing one
     graph pool. ``wrappers`` are the kernel wrappers and collectives whose
-    counters the programs keep (the LUT query, the mega step, a mesh
-    axis's ``Collectives``)."""
+    counters the programs keep (the LUT query, the mega step, the
+    resampler's kernel, a mesh axis's ``Collectives``)."""
 
     def __init__(self, device: torch.device | str, wrappers=()):
         self.device = torch.device(device)

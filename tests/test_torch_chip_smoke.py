@@ -449,3 +449,15 @@ def test_sass_counts_reads_each_named_kernel(monkeypatch):
     assert "probe_philox_normals_kernel" in normals and "gather_rows" in gather
     assert counts[normals] == {"total": 4, "IMAD.WIDE.U32": 1, "MUFU": 1, "BRA": 1}
     assert counts[gather] == {"total": 3, "LDG": 1, "STG": 1}
+
+
+@pytest.mark.parametrize("f, n, m, adds", [(1, 4000, 4000, 43_905), (64, 4000, 4000, 64 * 43_905),
+                                           (1, 1, 1, 0), (1, 2, 3, 1), (3, 33, 16, 3 * 135)])
+def test_resample_bound_counts_each_byte_once_and_the_doubling_s_adds(f, n, m, adds):
+    """Weights and offsets read, indices written; n - s double adds in
+    each round s = 1, 2, 4, ... < n of the doubling (n = 33: 32 + 31 +
+    29 + 25 + 17 + 1 = 135 over s = 1..32)."""
+    b = chip_smoke.resample_bound(f, n, m)
+    assert b["bytes"] == 4 * f * n + 4 * f + 4 * f * m
+    assert b["f64_ops"] == adds
+    assert b["f32_ops"] == 2 * f * n

@@ -7,19 +7,23 @@ copy of a host value; ``aten.scalar_tensor``, the wrapped Python number
 of ``torch.where(m, 0.0, t)``, is capture-safe; the sharded filter's
 bucketed chunk and the meshed fleets' corrections are recorded inside two
 spawned gloo processes), the launch-counter bookkeeping of a replay (the
-collectives' calls and bytes too), ``disable_graphs()`` nesting, and the
-eager run a CPU program is, with one generator or two.
+collectives' calls and bytes too), ``disable_graphs()`` nesting, the
+cyclic collector paused inside ``collector_paused()`` (nested) and as
+it was after, and the eager run a CPU program is, with one generator or
+two.
 
 On a card (skipped here; this file imports no jax, so it runs on a GPU
 machine alone: ``python -m pytest --noconftest -p no:cacheprovider -m
 cuda tests/test_torch_graphs.py``): each program ``torch.equal`` to its
 eager run, no aliasing between calls, capture from a ``LiveRunner``
-thread, a failed capture raising, and, on two or more cards, the sharded
+thread, a failed capture raising, a capture during which a dead
+filter's graphs would be collected, and, on two or more cards, the sharded
 filter's bucketed program over an NCCL group of two against its eager
 run.
 """
 
 import contextlib
+import gc
 import json
 import os
 import time
@@ -42,6 +46,7 @@ from monte_carlo_localization_tpu_torch.utils.graphs import (
     GraphCaptureError,
     LaunchCounters,
     Programs,
+    collector_paused,
 )
 
 N = 64
@@ -242,6 +247,21 @@ def test_disable_graphs_nests_and_restores(monkeypatch):
     assert graphs.graphs_enabled("cuda")
 
 
+@pytest.mark.parametrize("was_on", [True, False])
+def test_the_collector_is_paused_inside_and_restored_after(was_on):
+    on = gc.isenabled()
+    (gc.enable if was_on else gc.disable)()
+    try:
+        with collector_paused():
+            assert not gc.isenabled()
+            with collector_paused():
+                assert not gc.isenabled()
+            assert not gc.isenabled()
+        assert gc.isenabled() == was_on
+    finally:
+        (gc.enable if on else gc.disable)()
+
+
 def test_a_program_on_the_cpu_runs_eagerly_on_the_callers_inputs():
     progs = Programs("cpu")
     seen = []
@@ -404,6 +424,37 @@ def test_a_failed_capture_raises(cuda):
     with pytest.raises(GraphCaptureError, match="local_scalar_dense"):
         progs(("bad",), reads_the_device, dict(x=torch.ones(4, device=cuda)),
               torch.Generator(device=cuda))
+
+
+@pytest.mark.cuda
+def test_a_capture_survives_a_dead_filter_s_graphs(cuda):
+    """A filter whose captured graphs only a reference cycle keeps dies
+    during another program's capture, and the allocations that follow
+    would run a full collection: freeing a graph then would invalidate
+    the capture."""
+    gm = random_obstacle_world(seed=3, device=cuda)
+    dead = ParticleFilter(gm, MCLConfig(max_particles=N), beam_angles=BEAMS)
+    dead.step_many(dead.init_pose(POSE, seed=1), np.zeros((2, 3), np.float32),
+                   np.full((2, 60), 2.5, np.float32))
+    assert dead.programs.cache
+    dead.cycle = dead
+    holder = [dead]
+    del dead
+
+    def fn(b, gen):
+        y = b["x"] * 2
+        if torch.cuda.is_current_stream_capturing() and holder:
+            holder.clear()
+            # enough surviving objects that the oldest generation is collected
+            kept = [[i] for i in range(len(gc.get_objects()) // 2 + 100_000)]
+            assert kept
+        return dict(y=y + 1)
+
+    out = Programs(cuda)(("dead",), fn, dict(x=torch.ones(4, device=cuda)),
+                         torch.Generator(device=cuda))
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.equal(out["y"], torch.full((4,), 3.0, device=cuda))
 
 
 def _nccl_rank() -> None:
