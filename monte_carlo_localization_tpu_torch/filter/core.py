@@ -41,6 +41,7 @@ from monte_carlo_localization_tpu_torch.mapping.range_lut import lut_dtype
 from monte_carlo_localization_tpu_torch.models.motion import motion_model
 from monte_carlo_localization_tpu_torch.models.sensor import SensorModel
 from monte_carlo_localization_tpu_torch.ops.lut_query import (
+    LAUNCH_FORMS,
     LUTQuery,
     required_row_stride,
     suggest_theta_bins,
@@ -425,7 +426,7 @@ class ParticleFilter:
             self._attach_fused(beams)
         self.beam_angles = torch.as_tensor(beams, device=self.device)
         # graphs read the LUT, the query and the beams by address
-        self.programs = Programs(self.device, [self.likelihood, SYSTEMATIC_KERNEL])
+        self.programs = Programs(self.device, [self.likelihood, LAUNCH_FORMS, SYSTEMATIC_KERNEL])
 
     def _attach_fused(self, beams: np.ndarray) -> None:
         cfg = self.config

@@ -356,7 +356,7 @@ class GridMap:
         route = self._lut_route()
         t0 = time.perf_counter()
         occupied = self._host_occupied()
-        clearance, row_map, _ = self._compact_rows(occupied)
+        clearance, row_map, row_cells = self._compact_rows(occupied)
         if route == "native":
             lut = _upload(native_build_compact_range_lut(
                 occupied, t_bins, self.max_range_px, row_map, stride,
@@ -365,7 +365,7 @@ class GridMap:
         else:
             lut, _ = build_compact_range_lut_device(
                 self.occupied, clearance, t_bins, self.max_range_px, stride,
-                lut_dtype=lut_dtype(self.max_range_px),
+                lut_dtype=lut_dtype(self.max_range_px), rows=(row_map, row_cells),
             )
         return self._with_lut(
             route, t0,
@@ -496,7 +496,7 @@ class GridMap:
         at = rat = 0
         for i, (h, w) in enumerate(dims.tolist()):
             clearance, row_map_i, cells_i = self._compact_rows(occupied[i, :h, :w])
-            members.append((clearance, row_map_i))
+            members.append((clearance, row_map_i, cells_i))
             bases[i], rmap_bases[i] = at, rat
             at += (len(cells_i) + 1) * spe
             rat += h * w
@@ -515,14 +515,16 @@ class GridMap:
             lut = torch.full((at * subrow_entries,), self.max_range_px,
                              dtype=torch_lut_dtype(self.max_range_px), device=self.device)
             for i, (h, w) in enumerate(dims.tolist()):
+                clearance, row_map_i, cells_i = members[i]
                 build_compact_range_lut_device(
-                    self.occupied[i, :h, :w], members[i][0], t_bins, self.max_range_px,
+                    self.occupied[i, :h, :w], clearance, t_bins, self.max_range_px,
                     row_stride, out=lut, row_base=int(bases[i]) // spe, lut_dtype=dtype,
+                    rows=(row_map_i, cells_i),
                 )
         return self._with_lut(
             route, t0,
             range_lut=lut,
-            lut_row_map=_upload(np.concatenate([r for _, r in members]), self.device, np.int32),
+            lut_row_map=_upload(np.concatenate([m[1] for m in members]), self.device, np.int32),
             lut_theta_bins=t_bins,
             lut_row_stride=row_stride if row_stride != t_bins else 0,
             lut_member_base=_upload(bases, self.device, np.int32),

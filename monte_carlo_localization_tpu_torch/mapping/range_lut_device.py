@@ -176,6 +176,7 @@ def build_compact_range_lut_device(
     row_base: int = 0,
     lut_dtype=np.uint8,
     plain: bool = False,
+    rows: tuple[np.ndarray, np.ndarray] | None = None,
 ):
     """Row-compacted range LUT built on ``occupied``'s device (JAX
     ``build_compact_range_lut_jax``): returns (lut, row_map (H*W,)
@@ -186,14 +187,15 @@ def build_compact_range_lut_device(
     rows are never written) the block [row_base, row_base + K + 1) is
     written in place and ``out`` returned: every member of
     ``GridMap.with_member_compact_luts`` goes into one buffer. ``plain``
-    as in :func:`build_range_lut_device`."""
+    as in :func:`build_range_lut_device`. ``rows``: the
+    ``compact_row_map(clearance, max_range_px)`` a caller already has."""
     dtype = torch_lut_dtype(max_range_px, lut_dtype)
     itemsize = 1 if dtype == torch.uint8 else 2
     span = SPAN // itemsize  # entries of one 512 B subrow
     if row_stride % span != 0:
         raise ValueError(f"row_stride must be a multiple of {span}")
     occ = _occupied_tensor(occupied)
-    row_map, row_cells = compact_row_map(clearance, max_range_px)
+    row_map, row_cells = rows if rows is not None else compact_row_map(clearance, max_range_px)
     k_rows = len(row_cells)
     if out is None:
         out = torch.full(((k_rows + 1) * row_stride,), max_range_px, dtype=dtype,

@@ -30,6 +30,14 @@ The fleet form (``num_members`` F, ``per_member_maps``) serves F filters
 of N/F particles each in one launch: each member reads its own scan row
 and, over a batched map, its own map's origin, shape, row-map block and
 LUT block (``pallas_lut.py`` query :855-912).
+
+``lut_loglik_kernel`` comes in two forms (``beam_model.cuh``
+``group_lanes``): 16 lanes a particle for a scan of at most 64 beams
+that reads a normaliser table, else a warp a particle
+(:attr:`LUTQuery.group_lanes`). :data:`LAUNCH_FORMS` counts the
+process's launches of each, graph replays included, and ``TRACER``'s
+summary carries them as ``lut_loglik.small_group`` and
+``lut_loglik.warp``.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ import torch
 
 from monte_carlo_localization_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from monte_carlo_localization_tpu_torch.utils.geometry import div
+from monte_carlo_localization_tpu_torch.utils.timing import TRACER
 
 LANE = 128
 SUB = 512  # bytes of one TPU DMA subrow; fixes the LUT's row padding
@@ -60,6 +69,32 @@ SUBBIN_STEPS = 2
 MAX_SUBBIN_ENTRIES = SUBBIN_STEPS * (MAX_TABLE_ENTRIES - 1) + 1
 RSQRT_PI = 0.56418958354775628695  # 1 / sqrt(pi): beam_model.cuh kRsqrtPi
 INT32_MAX = 2**31 - 1
+# lanes a particle in lut_loglik_kernel (beam_model.cuh kWarp, kSmallGroup,
+# kSmallBeams): a small group for a tabled scan of <= SMALL_BEAMS beams
+WARP = 32
+SMALL_GROUP = 16
+SMALL_BEAMS = 64
+
+
+class LaunchForms:
+    """Launches of ``lut_loglik_kernel`` by form, over every query of the
+    process. Graphs list :data:`LAUNCH_FORMS` among their wrappers, so
+    their replays count."""
+
+    def __init__(self):
+        self.warp_launch_count = 0
+        self.small_group_launch_count = 0
+
+    def add(self, group_lanes: int) -> None:
+        if group_lanes == SMALL_GROUP:
+            self.small_group_launch_count += 1
+        else:
+            self.warp_launch_count += 1
+
+
+LAUNCH_FORMS = LaunchForms()
+TRACER.counter("lut_loglik.warp", lambda: LAUNCH_FORMS.warp_launch_count)
+TRACER.counter("lut_loglik.small_group", lambda: LAUNCH_FORMS.small_group_launch_count)
 
 
 def entries_per_subrow(itemsize: int) -> int:
@@ -166,7 +201,8 @@ class LUTQuery:
 
     On CUDA tensors each call launches ``csrc/lut_likelihood.cu`` (adding
     one to ``launch_count``, or to ``fleet_launch_count`` for a fleet
-    query; one kernel serves both) or, with dedup,
+    query; one kernel serves both; and one to :data:`LAUNCH_FORMS` for
+    its :attr:`group_lanes`) or, with dedup,
     ``csrc/lut_dedup.cu`` (``dedup_launch_count``; ``last_overflow``
     holds the device count of blocks with more than S windows). On CPU
     tensors it runs the plain versions.
@@ -483,6 +519,15 @@ class LUTQuery:
             self._subbin_tables[dev] = table
         return table
 
+    @property
+    def group_lanes(self) -> int:
+        """Lanes a particle in this query's ``lut_loglik_kernel`` launch:
+        :data:`SMALL_GROUP` where it reads a table (the normaliser's, or
+        with ``subbin`` the sub-bin one) over at most :data:`SMALL_BEAMS`
+        beams, else :data:`WARP`."""
+        entries = self.subbin_table_entries if self.subbin else self.table_entries
+        return SMALL_GROUP if self.num_beams <= SMALL_BEAMS and entries > 0 else WARP
+
     def kernel_table(self, device) -> tuple[torch.Tensor | None, int]:
         """(table, rows) the kernels take: the sub-bin table with
         ``subbin``, else the normaliser table; (None, 0) where analytic."""
@@ -533,6 +578,7 @@ class LUTQuery:
             self.fleet_launch_count += 1
         else:
             self.launch_count += 1
+        LAUNCH_FORMS.add(self.group_lanes)
         return out
 
     def _check_key_range(self, lut_flat) -> None:

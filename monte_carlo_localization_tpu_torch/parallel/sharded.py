@@ -65,6 +65,7 @@ from monte_carlo_localization_tpu_torch.filter.init import initialize_global
 from monte_carlo_localization_tpu_torch.mapping.grid_map import GridMap
 from monte_carlo_localization_tpu_torch.models.motion import motion_model
 from monte_carlo_localization_tpu_torch.models.sensor import SensorModel
+from monte_carlo_localization_tpu_torch.ops.lut_query import LAUNCH_FORMS
 from monte_carlo_localization_tpu_torch.ops.resample import (
     distributed_systematic_resample_rows,
     prefix_sum_doubling,
@@ -161,7 +162,7 @@ class ShardedParticleFilter:
             self.map, self.likelihood = build_lut_likelihood(self.map, beams, self.config)
         self.beam_angles = torch.as_tensor(beams, device=self.device)
         # graphs read the LUT, the query and the beams by address
-        self.programs = Programs(self.device, [self.likelihood, self.comm])
+        self.programs = Programs(self.device, [self.likelihood, LAUNCH_FORMS, self.comm])
 
     def _require_beams(self) -> None:
         if self.beam_angles is None:

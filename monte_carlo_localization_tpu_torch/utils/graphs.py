@@ -357,8 +357,8 @@ def run_eager(fn: Callable, inputs: dict, generator, device: torch.device) -> di
 class Programs:
     """One filter's programs, keyed like ``jit``'s cache, sharing one
     graph pool. ``wrappers`` are the kernel wrappers and collectives whose
-    counters the programs keep (the LUT query, the mega step, the
-    resampler's kernel, a mesh axis's ``Collectives``)."""
+    counters the programs keep (the LUT query and ``LAUNCH_FORMS``, the
+    mega step, the resampler's kernel, a mesh axis's ``Collectives``)."""
 
     def __init__(self, device: torch.device | str, wrappers=()):
         self.device = torch.device(device)

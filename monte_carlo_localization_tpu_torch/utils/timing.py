@@ -202,7 +202,9 @@ class Tracer:
     :meth:`chain` for leaves whose stamps they took.
 
     Always on: each name's count and ring of durations and self times
-    (:meth:`summary`); nothing is allocated a span. Only while a
+    (:meth:`summary`); nothing is allocated a span. A count that another
+    object keeps (a kernel wrapper's launches, which graph replays
+    advance) joins the summary through :meth:`counter`. Only while a
     ``torch.profiler`` session runs (a flag read) does a span also go into
     :attr:`timeline`, a bounded buffer of records with start and end in
     the epoch nanoseconds of the profiler's own events (one offset to
@@ -212,6 +214,7 @@ class Tracer:
 
     def __init__(self):
         self.series: dict[str, Series] = {}
+        self.counters: dict[str, Callable[[], int]] = {}
         # (name, start, end, span id, parent id, request, thread), epoch ns
         self.timeline: collections.deque = collections.deque(maxlen=TIMELINE)
         self.request = 0
@@ -230,6 +233,11 @@ class Tracer:
             if s is None:
                 s = self.series[name] = Series(name)
             return s
+
+    def counter(self, name: str, read: Callable[[], int]) -> None:
+        """``name``'s count is ``read()``, taken when the summary is (its
+        owner keeps it: :meth:`reset` leaves it)."""
+        self.counters[name] = read
 
     def reset(self) -> None:
         """Forget every count, ring and record (the series stay, so the
@@ -334,7 +342,7 @@ class Tracer:
 
     def summary(self) -> dict:
         """Per name with samples: count, p50 and p95 duration and p50 self
-        time (µs) over its ring."""
+        time (µs) over its ring; per :meth:`counter` above 0: its count."""
         out = {}
         for name, s in list(self.series.items()):
             if not s.count:
@@ -343,6 +351,10 @@ class Tracer:
             p50, p95 = np.percentile(dur, [50, 95]) / 1e3
             out[name] = dict(count=s.count, p50_us=float(p50), p95_us=float(p95),
                              self_p50_us=float(np.median(own)) / 1e3)
+        for name, read in list(self.counters.items()):
+            count = int(read())
+            if count:
+                out[name] = dict(count=count)
         return out
 
     def chrome_events(self, since_ns: int = 0, base_ns: int = 0) -> list[dict]:
