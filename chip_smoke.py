@@ -16,8 +16,8 @@ plain PyTorch version on the card (the LUT likelihood with and without
 the sub-bin lerp and on the shapes its lane layout makes edge cases,
 its normaliser and sub-bin tables, the unique-window kernel and its key
 kernel at 100k particles, the mega step on each side of its small-n
-choice, the systematic resampler's kernel at 4000, 64 x 4000 and its
-longest row), replays the config #1 golden
+choice, the systematic resampler's kernel and the motion kernel each at
+4000, 64 x 4000 and the resampler's longest row), replays the config #1 golden
 trace through ``ParticleFilter`` on the classic step and on the mega step
 (``pallas_mega``), drives the mega step at 4000 x 1080 on the same map,
 replays the config #4 golden trace on basement_fixed (compact LUT) with and without ``pallas_subbin`` from 15 replay seeds, runs
@@ -176,6 +176,10 @@ OPS_PER_LERP = 3  # the sub-bin lerp: subtract, multiply, add
 OPS_PER_PARTICLE_KEY = 14  # window key: K1's address math, the start, a shift
 OPS_PER_PARTICLE_K1 = 12  # address: 2 sub, 2 div, casts, compares, rint, fix-ups
 OPS_PER_PARTICLE_K6 = 60  # + motion (sin/cos, chord, noise, wrap) and moments
+# the motion kernel a particle: the row's (dt, v, omega) (13), the arc
+# branch (16: chord, midpoint, two sines, a cosine), the noise (6), the
+# wrap's sine, cosine and atan2 (3)
+OPS_PER_PARTICLE_MOTION = 38
 # config #5 (BASELINE.json, bench.py CONFIGS[5] / CONFIG_MAPS[5])
 CONFIG5_MAPS = ("map_1753950572.yaml", "icra_2_clean.yaml", "first_map.yaml", "new_map1.yaml")
 CONFIG5_FLEET = 64
@@ -927,6 +931,73 @@ def phase_resample(device) -> dict:
     return dict(launches=SYSTEMATIC_KERNEL.launch_count, calls=calls, max_row=cap)
 
 
+def motion_bound(f: int, n: int) -> dict:
+    """The motion kernel (csrc/motion.cu) on f rows of n particles:
+    particles, indices and noise read once a particle and the actions once
+    a row, the proposal written once; OPS_PER_PARTICLE_MOTION float32
+    operations a particle."""
+    return bound(12 * f * n + 4 * f * n + 12 * f * n + 12 * f + 12 * f * n,
+                 OPS_PER_PARTICLE_MOTION * f * n, 0)
+
+
+def phase_motion(device) -> dict:
+    """The motion kernel (``ops/motion.py`` ``MotionKernel``) ``torch.equal``
+    to the plain version (the rows' gather and ``motion_model_plain``) on
+    the same particles, indices, actions and noise, at the main path's
+    4000, config #5's 64 x 4000 (one action a member, a strided noise
+    slice) and the resampler kernel's longest row: the kernel's device ms,
+    the plain chain's (as a graph), wrapper ms and the bound; and the
+    whole motion phase from the indices (the noise drawn) both ways, as
+    graphs."""
+    import torch
+
+    from monte_carlo_localization_tpu_torch.models.motion import (
+        gather_rows,
+        motion_model,
+        motion_model_plain,
+    )
+    from monte_carlo_localization_tpu_torch.ops.motion import MOTION_KERNEL
+    from monte_carlo_localization_tpu_torch.ops.resample import SYSTEMATIC_KERNEL
+    from monte_carlo_localization_tpu_torch.utils.timing import graph_ms
+
+    t0 = time.perf_counter()
+    disp = (0.05, 0.025, 0.25)
+    rng = np.random.default_rng(0)
+    calls = []
+    for f, n in ((1, N_PARTICLES), (CONFIG5_FLEET, N_PARTICLES),
+                 (1, SYSTEMATIC_KERNEL.max_row(device))):
+        lead = (f,) if f > 1 else ()
+        p = np.stack([rng.uniform(-60, 60, lead + (n,)), rng.uniform(-60, 60, lead + (n,)),
+                      rng.uniform(-7, 7, lead + (n,))], axis=-1).astype(np.float32)
+        particles = torch.from_numpy(p).to(device)
+        idx = torch.from_numpy(rng.integers(0, n, lead + (n,)).astype(np.int32)).to(device)
+        acts = rng.uniform(-0.1, 0.1, lead + (3,)).astype(np.float32)
+        action = torch.from_numpy(acts).to(device)
+        noise = torch.randn(lead + (2 * n, 3), device=device)[..., n // 2:n // 2 + n, :]
+        launches = MOTION_KERNEL.launch_count
+        got = MOTION_KERNEL(particles, action, noise, disp, True, idx)
+        want = motion_model_plain(gather_rows(particles, idx), action, *disp, noise=noise)
+        torch.cuda.synchronize()
+        check(MOTION_KERNEL.launch_count == launches + 1, "motion: the kernel did not launch")
+        check(torch.equal(got, want), f"motion: kernel != plain version at {f} x {n}")
+        timed = device_ms(lambda: MOTION_KERNEL(particles, action, noise, disp, True, idx),
+                          "motion_kernel")
+        calls.append({
+            "label": f"{f} x {n}", "ms": timed["ms"], "time_source": timed["source"],
+            "wrapper_ms": event_ms(
+                lambda: MOTION_KERNEL(particles, action, noise, disp, True, idx)),
+            "plain_ms": graph_ms(lambda: motion_model_plain(
+                gather_rows(particles, idx), action, *disp, noise=noise)),
+            "whole_kernel_ms": graph_ms(
+                lambda: motion_model(particles, action, *disp, indices=idx)),
+            "whole_torch_ms": graph_ms(
+                lambda: motion_model_plain(gather_rows(particles, idx), action, *disp)),
+            **motion_bound(f, n),
+        })
+    emit("motion", t0, launches=MOTION_KERNEL.launch_count, calls=calls)
+    return dict(launches=MOTION_KERNEL.launch_count, calls=calls)
+
+
 def phase_norm_table(device) -> dict:
     """The normaliser table the kernels read (log_norm_kernel): against its
     plain version within TABLE_TOL, bit for bit against the analytic
@@ -1241,6 +1312,25 @@ def phase_division(device) -> None:
          differing_reciprocal_form=before, reciprocal_quotients_off=quotients)
 
 
+def zero_motion() -> None:
+    """Zero the motion kernel's counters before a main-path run."""
+    from monte_carlo_localization_tpu_torch.ops.motion import MOTION_KERNEL
+
+    MOTION_KERNEL.launch_count = MOTION_KERNEL.plain_launch_count = 0
+
+
+def motion_launches(corrections: int, where: str) -> int:
+    """The motion kernel's launches since :func:`zero_motion`, checked to
+    be one a correction with no call on the plain version."""
+    from monte_carlo_localization_tpu_torch.ops.motion import MOTION_KERNEL
+
+    launches, plain = MOTION_KERNEL.launch_count, MOTION_KERNEL.plain_launch_count
+    check(launches == corrections and plain == 0,
+          f"{where}: {launches} motion launches and {plain} plain calls for "
+          f"{corrections} corrections")
+    return launches
+
+
 def phase_config1(device) -> dict:
     import torch
 
@@ -1259,11 +1349,13 @@ def phase_config1(device) -> dict:
     built = lut_built_on_card("config1_replay", pf.grid_map)
     pf.likelihood.launch_count = pf.likelihood.table_launch_count = 0
     SYSTEMATIC_KERNEL.launch_count = 0
+    zero_motion()
     res = replay_chained(pf, trace, chunk=64)
     launches, table_launches = pf.likelihood.launch_count, pf.likelihood.table_launch_count
     resample_launches = SYSTEMATIC_KERNEL.launch_count
     check(resample_launches == res.corrections,
           f"{resample_launches} resampler launches for {res.corrections} corrections")
+    moves = motion_launches(res.corrections, "config #1")
     check(table_launches == 1, f"{table_launches} fills of the normaliser table in one replay (want 1)")
     check(np.isfinite(res.poses).all(), "config #1 replay gave non-finite poses")
     check(launches == res.corrections == 500,
@@ -1272,12 +1364,13 @@ def phase_config1(device) -> dict:
     emit("config1_replay", t0, setup_s=t_setup, particles=N_PARTICLES,
          beams=int(pf.beam_angles.shape[0]), lut=("compact " if pf.grid_map.lut_row_map is not None else "dense ") + str(pf.grid_map.range_lut.dtype),
          **built, corrections=res.corrections, launches=launches, table_fills=table_launches,
-         resample_launches=resample_launches, rmse_xy_m=res.rmse_xy,
+         resample_launches=resample_launches, motion_launches=moves, rmse_xy_m=res.rmse_xy,
          rmse_theta_rad=res.rmse_theta, chained_updates_per_s=res.updates_per_sec)
     del pf, gm
     torch.cuda.empty_cache()
     return dict(launches=launches, table_launches=table_launches, rmse_xy=res.rmse_xy,
-                rate=res.updates_per_sec, resample_launches=resample_launches)
+                rate=res.updates_per_sec, resample_launches=resample_launches,
+                motion_launches=moves)
 
 
 def lut_scan(pf, pose) -> np.ndarray:
@@ -1335,6 +1428,7 @@ def phase_headline(device) -> dict:
     torch.cuda.synchronize()
 
     pf.likelihood.launch_count = SYSTEMATIC_KERNEL.launch_count = 0
+    zero_motion()
     t3 = time.perf_counter()
     state, poses = pf.step_many(state, actions, scans)
     torch.cuda.synchronize()
@@ -1351,6 +1445,7 @@ def phase_headline(device) -> dict:
     resample_launches = SYSTEMATIC_KERNEL.launch_count
     check(resample_launches == chain + 30,
           f"{resample_launches} resampler launches for {chain + 30} corrections")
+    moves = motion_launches(chain + 30, "headline")
     all_poses = torch.cat([poses, torch.stack(step_poses)]).cpu().numpy()
     check(np.isfinite(all_poses).all(), "headline gave non-finite poses")
     drift = float(np.linalg.norm(all_poses[-1, :2] - pose[:2]))
@@ -1375,7 +1470,7 @@ def phase_headline(device) -> dict:
          lut_bytes=lut_bytes, map_load_s=t_map, set_beam_angles_s=t_lut,
          lut_build_s=built["lut_build_s"], lut_route=built["lut_route"],
          sweep_launches=built["sweep_launches"], launches=launches,
-         resample_launches=resample_launches,
+         resample_launches=resample_launches, motion_launches=moves,
          chained_updates_per_s=chain / t_chain, per_step_updates_per_s=30 / t_steps,
          drift_from_start_m=drift, max_abs_err=err, kernel_device_ms=kernel_ms,
          kernel_time_source=dev["source"], wrapper_ms=wrapper_ms, plain_ms=plain_ms, **bnd,
@@ -1383,7 +1478,7 @@ def phase_headline(device) -> dict:
     return dict(launches=launches, max_abs_err=err, ms=kernel_ms, wrapper_ms=wrapper_ms,
                 plain_ms=plain_ms, bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
                 sector_bound_ms=bnd["sector_bound_ms"], sector_bytes=bnd["sector_bytes"],
-                resample_launches=resample_launches)
+                resample_launches=resample_launches, motion_launches=moves)
 
 
 MOTIONS = {"straight": [0.05, 0.0, 1.0, 0.37], "arc": [0.04, 0.03, 0.0, 0.81]}
@@ -2023,6 +2118,7 @@ def phase_config5(device, classic_kernels: float) -> dict:
     scans_k = np.tile(scans, (CONFIG5_CHAIN, 1, 1))
     state = ff.init_pose(poses0, seed=1)
     q.fleet_launch_count = q.launch_count = SYSTEMATIC_KERNEL.launch_count = 0
+    zero_motion()
 
     state, poses = ff.step_many(state, actions_k, scans_k)  # warm chain
     torch.cuda.synchronize()
@@ -2058,6 +2154,7 @@ def phase_config5(device, classic_kernels: float) -> dict:
     resample_launches = SYSTEMATIC_KERNEL.launch_count
     check(resample_launches == n_corr,
           f"{resample_launches} resampler launches ({f} rows each) for {n_corr} fleet corrections")
+    moves = motion_launches(n_corr, "config #5")
 
     # the fleet kernel against its plain version at this path's shape
     obs = ff.sensor.to_pixel_index(torch.as_tensor(scans, device=device)).float()
@@ -2090,7 +2187,7 @@ def phase_config5(device, classic_kernels: float) -> dict:
          member_cells=cells, set_beam_angles_s=t_lut, lut_build_s=built["lut_build_s"],
          lut_route=built["lut_route"], sweep_launches=built["sweep_launches"],
          corrections=n_corr,
-         fleet_launches=launches, resample_launches=resample_launches,
+         fleet_launches=launches, resample_launches=resample_launches, motion_launches=moves,
          chained_fleet_steps_per_s=chained,
          chained_member_updates_per_s=[x * f for x in chained],
          per_step_fleet_steps_per_s=per_step,
@@ -2101,7 +2198,7 @@ def phase_config5(device, classic_kernels: float) -> dict:
          classic_config1_kernels_per_correction=classic_kernels)
     del ff, state, parts, maps
     torch.cuda.empty_cache()
-    return {**kernel, "resample_launches": resample_launches}
+    return {**kernel, "resample_launches": resample_launches, "motion_launches": moves}
 
 
 SHARDED_CHAIN = 10  # chained corrections holding bucketed against allgather
@@ -4137,7 +4234,7 @@ def main() -> int:
     csrc = REPO / "monte_carlo_localization_tpu_torch" / "csrc"
     if not all((csrc / f).exists() for f in ("lut_likelihood.cu", "lut_dedup.cu", "mega_step.cu",
                                              "probes.cu", "range_lut_sweep.cu",
-                                             "resample.cu", "beam_model.cuh")):
+                                             "resample.cu", "motion.cu", "beam_model.cuh")):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
@@ -4160,7 +4257,7 @@ def main() -> int:
     built = load_library()
     check(native.available(), "the native C++ LUT builder did not build (g++ with OpenMP)")
     check(set(built.libs) == {"lut_likelihood", "lut_dedup", "mega_step", "probes",
-                              "range_lut_sweep", "resample"},
+                              "range_lut_sweep", "resample", "motion"},
           f"built {sorted(built.libs)}")
     keep = ("== ", "Compiling entry", "registers", "smem", "spill")
     ptxas = [ln.strip() for ln in built.log.splitlines() if any(k in ln for k in keep)]
@@ -4179,6 +4276,7 @@ def main() -> int:
     lut_plain = phase_kernel_vs_plain(device)
     table = phase_norm_table(device)
     resample = phase_resample(device)
+    motion = phase_motion(device)
     dedup_plain = phase_dedup_vs_plain(device)
     mega_plain = phase_mega_vs_plain(device)
     config1 = phase_config1(device)
@@ -4376,6 +4474,24 @@ def main() -> int:
             "comparison_launches": resample["launches"],
             "max_row": resample["max_row"],
             "other_calls": resample["calls"][1:],
+        },
+        {
+            "name": "motion",
+            "route": "cuda",
+            "source": "monte_carlo_localization_tpu_torch/csrc/motion.cu",
+            "replaces": "none: XLA's work in monte_carlo_localization_tpu/models/motion.py",
+            # the main path's: one a correction (a fleet's F rows in one), no plain call
+            "launches": (config1["motion_launches"] + head["motion_launches"]
+                         + config5["motion_launches"]),
+            "max_abs_err": 0,
+            **{k: motion["calls"][0][k] for k in ("ms", "time_source", "wrapper_ms", "plain_ms",
+                                                   "bound_ms", "bound_by")},
+            "library_ms": None,
+            "config1_launches": config1["motion_launches"],
+            "headline_launches": head["motion_launches"],
+            "config5_launches": config5["motion_launches"],
+            "comparison_launches": motion["launches"],
+            "other_calls": motion["calls"][1:],
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

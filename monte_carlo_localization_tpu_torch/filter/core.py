@@ -46,6 +46,7 @@ from monte_carlo_localization_tpu_torch.ops.lut_query import (
     required_row_stride,
     suggest_theta_bins,
 )
+from monte_carlo_localization_tpu_torch.ops.motion import MOTION_KERNEL
 from monte_carlo_localization_tpu_torch.ops.raycast import cast_rays, lut_expected_px
 from monte_carlo_localization_tpu_torch.ops.resample import SYSTEMATIC_KERNEL, resample_indices
 from monte_carlo_localization_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device, upload
@@ -187,13 +188,10 @@ def correct(
     idx = resample_indices(
         log_weights, method=resample_method, generator=generator, u0=u0
     )
-    if particles.dim() == 3:
-        proposal = torch.gather(particles, 1, idx.long()[..., None].expand(-1, -1, 3))
-    else:
-        proposal = particles[idx]
     TRACER.mark()
+    # the resampled rows' gather is motion's: one launch with it on a card
     proposal = motion_model(
-        proposal,
+        particles,
         action,
         dispersion_x=motion_dispersion[0],
         dispersion_y=motion_dispersion[1],
@@ -201,6 +199,7 @@ def correct(
         exact_dt_heuristic=exact_dt_heuristic,
         generator=generator,
         noise=noise,
+        indices=idx,
     )
     if inject is not None:
         proposal = inject(proposal)
@@ -413,7 +412,7 @@ class ParticleFilter:
         self.beam_angles: torch.Tensor | None = None
         self.likelihood: LUTQuery | None = None  # the fused query under lut_pallas
         self.mega = None  # a MegaStepper once beams are set, with pallas_mega
-        self.programs = Programs(self.device, [SYSTEMATIC_KERNEL])
+        self.programs = Programs(self.device, [SYSTEMATIC_KERNEL, MOTION_KERNEL])
         if beam_angles is not None:
             self.set_beam_angles(beam_angles)
 
@@ -426,7 +425,8 @@ class ParticleFilter:
             self._attach_fused(beams)
         self.beam_angles = torch.as_tensor(beams, device=self.device)
         # graphs read the LUT, the query and the beams by address
-        self.programs = Programs(self.device, [self.likelihood, LAUNCH_FORMS, SYSTEMATIC_KERNEL])
+        self.programs = Programs(self.device, [self.likelihood, LAUNCH_FORMS, SYSTEMATIC_KERNEL,
+                                               MOTION_KERNEL])
 
     def _attach_fused(self, beams: np.ndarray) -> None:
         cfg = self.config

@@ -1,13 +1,26 @@
 """Stochastic arc motion model, as in the JAX package's
 ``models/motion.py``: the reference's dt/velocity reconstruction from the
 displacement action, exact arc integration per particle in the
-sin-half-angle chord form, and iid Gaussian noise per axis."""
+sin-half-angle chord form, and iid Gaussian noise per axis.
+
+On a card, motion is one launch of ``csrc/motion.cu`` (``ops/motion.py``
+:data:`MOTION_KERNEL`), bit for bit the PyTorch code below, which is its
+plain version and serves the CPU."""
 
 from __future__ import annotations
 
 import torch
 
+from monte_carlo_localization_tpu_torch.ops.motion import MOTION_KERNEL
 from monte_carlo_localization_tpu_torch.utils.geometry import div, normalize_angle
+
+
+def gather_rows(particles: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """Rows ``indices`` (M,) of particles (N, 3), or each member's rows
+    ``indices`` (F, M) of a fleet's (F, N, 3)."""
+    if particles.dim() == 3:
+        return torch.gather(particles, 1, indices.long()[..., None].expand(-1, -1, 3))
+    return particles[indices]
 
 
 def reconstruct_velocity(action: torch.Tensor):
@@ -34,15 +47,44 @@ def motion_model(
     exact_dt_heuristic: bool = True,
     generator: torch.Generator | None = None,
     noise: torch.Tensor | None = None,
+    indices: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Propagate particles (N, 3) by one action (3,), adding Gaussian noise;
     or a fleet's (F, N, 3) by per-member actions (F, 3).
 
-    ``noise`` is an optional draw of N(0, 1) shaped like ``particles``
-    (the tests feed the JAX package's own draws); without it the noise
-    comes from ``generator``. With ``exact_dt_heuristic=False`` the
-    displacements are taken from the action directly.
+    ``indices`` (M,) or (F, M), the resampler's source rows, moves
+    ``gather_rows(particles, indices)`` instead (fused into the kernel's
+    launch on a card, whose wrapper takes contiguous float32 particles
+    and raises ``ValueError`` on anything else). ``noise`` is an
+    optional draw of N(0, 1) shaped like the moved rows (the tests feed
+    the JAX package's own draws); without it the noise comes from
+    ``generator``. With
+    ``exact_dt_heuristic=False`` the displacements are taken from the
+    action directly.
     """
+    if particles.is_cuda:  # the kernel's wrapper refuses what it does not take
+        return MOTION_KERNEL(particles, action, noise,
+                             (dispersion_x, dispersion_y, dispersion_theta),
+                             exact_dt_heuristic, indices, generator)
+    MOTION_KERNEL.plain_launch_count += 1
+    if indices is not None:
+        particles = gather_rows(particles, indices)
+    return motion_model_plain(particles, action, dispersion_x, dispersion_y, dispersion_theta,
+                              exact_dt_heuristic, generator, noise)
+
+
+def motion_model_plain(
+    particles: torch.Tensor,
+    action: torch.Tensor,
+    dispersion_x: float = 0.05,
+    dispersion_y: float = 0.025,
+    dispersion_theta: float = 0.25,
+    exact_dt_heuristic: bool = True,
+    generator: torch.Generator | None = None,
+    noise: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """:func:`motion_model` of the rows as given, in PyTorch ops on any
+    device: the kernel's plain version."""
     x = particles[..., 0]
     y = particles[..., 1]
     theta = particles[..., 2]

@@ -193,6 +193,14 @@ def _bind(libs: dict[str, ctypes.CDLL]) -> None:
     # weights, rows, n, u0, u0_stride, m, out, stream
     resample.mcl_systematic_resample.argtypes = [p, i32, i32, p, i32, i32, p, p]
 
+    motion = libs["motion"]
+    motion.mcl_motion.restype = i32
+    # particles, rows, n_src, m, idx, idx_row, idx_col, action, act_row,
+    # act_col, noise, noise_row, noise_col, noise_axis, disp_x, disp_y,
+    # disp_th, exact_dt, out, stream
+    motion.mcl_motion.argtypes = [p, i64, i64, i64, p, i64, i64, p, i64, i64, p, i64, i64, i64,
+                                  ctypes.c_float, ctypes.c_float, ctypes.c_float, i32, p, p]
+
     sweep = libs["range_lut_sweep"]
     for name in ("mcl_range_lut_sweep_u8", "mcl_range_lut_sweep_u16"):
         fn = getattr(sweep, name)

@@ -67,6 +67,7 @@ from monte_carlo_localization_tpu_torch.mapping.grid_map import OCC_OCCUPIED, Gr
 from monte_carlo_localization_tpu_torch.models.motion import motion_model
 from monte_carlo_localization_tpu_torch.models.sensor import SensorModel
 from monte_carlo_localization_tpu_torch.ops.lut_query import LAUNCH_FORMS
+from monte_carlo_localization_tpu_torch.ops.motion import MOTION_KERNEL
 from monte_carlo_localization_tpu_torch.ops.resample import SYSTEMATIC_KERNEL, resample_indices
 from monte_carlo_localization_tpu_torch.parallel.collectives import Collectives, shard_seed
 from monte_carlo_localization_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device, upload
@@ -313,7 +314,7 @@ class FleetFilter:
         )
         self.beam_angles: torch.Tensor | None = None
         self.likelihood = None
-        self.programs = Programs(self.device, [SYSTEMATIC_KERNEL, *self._comms()])
+        self.programs = Programs(self.device, [SYSTEMATIC_KERNEL, MOTION_KERNEL, *self._comms()])
         if beam_angles is not None:
             self.set_beam_angles(beam_angles)
 
@@ -333,7 +334,7 @@ class FleetFilter:
         self.beam_angles = torch.as_tensor(beams, device=self.device)
         # graphs read the LUT, the query and the beams by address
         self.programs = Programs(self.device, [self.likelihood, LAUNCH_FORMS, SYSTEMATIC_KERNEL,
-                                               *self._comms()])
+                                               MOTION_KERNEL, *self._comms()])
 
     def _comms(self) -> list:
         """The two axes' collectives, whose counters the programs keep."""
@@ -467,15 +468,16 @@ class FleetFilter:
         cols = slice(self.local_particles.start, self.local_particles.stop)
         log_w_all = self._gather_columns(state.log_weights)
         idx = resample_indices(log_w_all, method=cfg.resample_method, generator=gen, u0=u0)
-        particles_all = self._gather_columns(state.particles)
-        proposal = torch.gather(particles_all, 1, idx[:, cols].long()[..., None].expand(-1, -1, 3))
+        # the gather's (F, n, 3) is a transposed view: the motion kernel reads it contiguous
+        particles_all = self._gather_columns(state.particles).contiguous()
         if noise is None:
             noise = torch.randn(particles_all.shape, generator=gen, device=self.device)
         proposal = motion_model(
-            proposal, actions,
+            particles_all, actions,
             dispersion_x=cfg.motion_dispersion_x, dispersion_y=cfg.motion_dispersion_y,
             dispersion_theta=cfg.motion_dispersion_theta,
             exact_dt_heuristic=cfg.exact_dt_heuristic, noise=noise[:, cols],
+            indices=idx[:, cols],
         )
         log_w = self._likelihood_fn(proposal, obs_px)
         mq = comm.pmax(torch.amax(log_w, dim=-1))

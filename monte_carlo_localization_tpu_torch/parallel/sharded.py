@@ -66,6 +66,7 @@ from monte_carlo_localization_tpu_torch.mapping.grid_map import GridMap
 from monte_carlo_localization_tpu_torch.models.motion import motion_model
 from monte_carlo_localization_tpu_torch.models.sensor import SensorModel
 from monte_carlo_localization_tpu_torch.ops.lut_query import LAUNCH_FORMS
+from monte_carlo_localization_tpu_torch.ops.motion import MOTION_KERNEL
 from monte_carlo_localization_tpu_torch.ops.resample import (
     distributed_systematic_resample_rows,
     prefix_sum_doubling,
@@ -150,7 +151,7 @@ class ShardedParticleFilter:
         self.likelihood = None  # this rank's LUTQuery under lut_pallas
         self.overflow_reads = 0  # host reads of a chunk's overflow flag: one sync each
         self.fallbacks = 0  # chunks the overflow ran again through the all-gather
-        self.programs = Programs(self.device, [self.comm])
+        self.programs = Programs(self.device, [MOTION_KERNEL, self.comm])
         if beam_angles is not None:
             self.set_beam_angles(beam_angles)
 
@@ -162,7 +163,8 @@ class ShardedParticleFilter:
             self.map, self.likelihood = build_lut_likelihood(self.map, beams, self.config)
         self.beam_angles = torch.as_tensor(beams, device=self.device)
         # graphs read the LUT, the query and the beams by address
-        self.programs = Programs(self.device, [self.likelihood, LAUNCH_FORMS, self.comm])
+        self.programs = Programs(self.device, [self.likelihood, LAUNCH_FORMS, MOTION_KERNEL,
+                                               self.comm])
 
     def _require_beams(self) -> None:
         if self.beam_angles is None:

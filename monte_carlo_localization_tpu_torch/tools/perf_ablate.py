@@ -53,6 +53,7 @@ from monte_carlo_localization_tpu_torch.filter import (
 from monte_carlo_localization_tpu_torch.models.motion import motion_model
 from monte_carlo_localization_tpu_torch.models.sensor import SensorModel
 from monte_carlo_localization_tpu_torch.ops.lut_query import LAUNCH_FORMS
+from monte_carlo_localization_tpu_torch.ops.motion import MOTION_KERNEL
 from monte_carlo_localization_tpu_torch.ops.resample import SYSTEMATIC_KERNEL, resample_indices
 from monte_carlo_localization_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device, upload
 from monte_carlo_localization_tpu_torch.utils.graphs import Programs
@@ -83,20 +84,22 @@ def make_steps(gm, query, sensor, do_resample, do_motion, do_likelihood, do_pose
     scans (K, R)) -> (state, poses (K, 3)), run as replays of a program
     of ``per_replay`` corrections (0: the whole chain in one); the
     function's ``programs`` hold its graphs."""
-    programs = Programs(gm.device, [query, LAUNCH_FORMS, SYSTEMATIC_KERNEL])
+    programs = Programs(gm.device, [query, LAUNCH_FORMS, SYSTEMATIC_KERNEL, MOTION_KERNEL])
 
     def step(state: MCLState, action, obs):
         gen = state.generator
+        idx, proposal = None, state.particles
         if do_resample:
             idx = resample_indices(state.log_weights, method="systematic", generator=gen)
-            proposal = state.particles[idx]
-        else:
-            proposal = state.particles
         if do_motion:
+            # the rows' gather is motion's, as in the filter's correction
             proposal = motion_model(
                 proposal, action, dispersion_x=DISPERSION[0], dispersion_y=DISPERSION[1],
                 dispersion_theta=DISPERSION[2], exact_dt_heuristic=True, generator=gen,
+                indices=idx,
             )
+        elif idx is not None:
+            proposal = proposal[idx]
         if do_likelihood:
             obs_px = sensor.to_pixel_index(obs).to(torch.float32)
             log_w = query(gm.range_lut, proposal, obs_px, row_map=gm.lut_row_map)

@@ -461,3 +461,14 @@ def test_resample_bound_counts_each_byte_once_and_the_doubling_s_adds(f, n, m, a
     assert b["bytes"] == 4 * f * n + 4 * f + 4 * f * m
     assert b["f64_ops"] == adds
     assert b["f32_ops"] == 2 * f * n
+
+
+@pytest.mark.parametrize("f, n", [(1, 4000), (64, 4000), (1, 14_528), (1, 1)])
+def test_motion_bound_counts_each_byte_once_and_the_operations(f, n):
+    """Particles, indices and noise read once a particle, the actions once
+    a row, the proposal written once; the kernel's operations a particle."""
+    b = chip_smoke.motion_bound(f, n)
+    assert b["bytes"] == 40 * f * n + 12 * f
+    assert b["f32_ops"] == chip_smoke.OPS_PER_PARTICLE_MOTION * f * n
+    assert b["f64_ops"] == 0
+    assert b["bound_by"] == "bytes"
