@@ -2582,7 +2582,7 @@ def _multihost_rank() -> None:
         return s, torch.stack(poses)
 
     held = hold_graph_to_eager(lambda: mh.init_pose(poses0, seed=1), steps, held_draws, [q], k,
-                               mh.fleet._comms())
+                               [mh.fleet._fleet_comm, mh.fleet._particle_comm])
     held["graphs"] = sum(key[0] == "fleet_step" for key in mh.fleet.programs.cache)
 
     def one_at_a_time():

@@ -68,7 +68,7 @@ class MegaStepper:
             ),
             **lut_query_kwargs(grid_map, cfg),
         )
-        self.programs = Programs(self.mega.device, [self.mega])
+        self.programs = Programs(self.mega.device)
 
     def step_many(self, state: MCLState, actions, observed_m, u0=None, noise=None):
         """K chained corrections: ``actions`` (K, 3), ``observed_m`` (K, R),

@@ -13,6 +13,9 @@ import torch
 
 from monte_carlo_localization_tpu_torch.ops.motion import MOTION_KERNEL
 from monte_carlo_localization_tpu_torch.utils.geometry import div, normalize_angle
+from monte_carlo_localization_tpu_torch.utils.timing import COUNTS
+
+_PLAIN = COUNTS.name("motion.plain")  # calls that take the plain version
 
 
 def gather_rows(particles: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
@@ -66,7 +69,7 @@ def motion_model(
         return MOTION_KERNEL(particles, action, noise,
                              (dispersion_x, dispersion_y, dispersion_theta),
                              exact_dt_heuristic, indices, generator)
-    MOTION_KERNEL.plain_launch_count += 1
+    COUNTS.add(_PLAIN)
     if indices is not None:
         particles = gather_rows(particles, indices)
     return motion_model_plain(particles, action, dispersion_x, dispersion_y, dispersion_theta,

@@ -10,6 +10,11 @@ minutes). No ``--use_fast_math``: the kernels' parity with their plain
 PyTorch versions relies on IEEE division, ``expf`` and ``logf``. Nothing
 here runs at import time; a machine without nvcc fails only when a kernel
 is launched.
+
+Every kernel wrapper calls its library through :func:`launch`, which
+passes the device's current stream, turns a CUDA error code into a
+``RuntimeError`` and counts the launch in ``utils/timing.py``
+:data:`COUNTS`, where a graph's capture records it for the replays.
 """
 
 from __future__ import annotations
@@ -23,6 +28,10 @@ import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
+
+import torch
+
+from monte_carlo_localization_tpu_torch.utils.timing import COUNTS, Count
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -241,3 +250,28 @@ def load_library() -> BuiltLibrary:
         _bind(libs)
         _LOADED = BuiltLibrary(libs, paths, seconds, log)
         return _LOADED
+
+
+def launch(stem: str, entry: str, device, *args, name: str, count: Count | None = None,
+           stream: bool = True) -> None:
+    """Call the C entry ``entry`` of the ``stem`` library with ``args`` on
+    ``device`` and, with ``stream``, that device's current stream as the
+    last argument: a kernel launch, which adds one to the count named
+    ``name`` and to the wrapper's own ``count``. Without ``stream`` it is a
+    query of the library (a launch plan, a cap), counted nowhere. Raises
+    ``RuntimeError`` on a nonzero CUDA error code or a library not built."""
+    built = load_library()
+    lib = built.libs.get(stem)
+    if lib is None:
+        raise RuntimeError(f"the {stem} kernel library was not built "
+                           f"(built: {sorted(built.libs)})")
+    fn = getattr(lib, entry)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream) if stream else fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} {'launch' if stream else 'query'} failed: CUDA error {err} "
+                           f"({built.error_string(err)})")
+    if stream:
+        COUNTS.add(COUNTS.name(name))
+        if count is not None:
+            COUNTS.add(count)

@@ -34,10 +34,10 @@ LUT block (``pallas_lut.py`` query :855-912).
 ``lut_loglik_kernel`` comes in two forms (``beam_model.cuh``
 ``group_lanes``): 16 lanes a particle for a scan of at most 64 beams
 that reads a normaliser table, else a warp a particle
-(:attr:`LUTQuery.group_lanes`). :data:`LAUNCH_FORMS` counts the
-process's launches of each, graph replays included, and ``TRACER``'s
-summary carries them as ``lut_loglik.small_group`` and
-``lut_loglik.warp``.
+(:attr:`LUTQuery.group_lanes`). Each form's launches over the process,
+graph replays included, are the counts named :attr:`LUTQuery.form`,
+``lut_loglik.small_group`` and ``lut_loglik.warp``, in ``TRACER``'s
+summary.
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ import torch
 
 from monte_carlo_localization_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from monte_carlo_localization_tpu_torch.utils.geometry import div
-from monte_carlo_localization_tpu_torch.utils.timing import TRACER
+from monte_carlo_localization_tpu_torch.utils.timing import COUNTS, Count
 
 LANE = 128
 SUB = 512  # bytes of one TPU DMA subrow; fixes the LUT's row padding
@@ -74,27 +74,6 @@ INT32_MAX = 2**31 - 1
 WARP = 32
 SMALL_GROUP = 16
 SMALL_BEAMS = 64
-
-
-class LaunchForms:
-    """Launches of ``lut_loglik_kernel`` by form, over every query of the
-    process. Graphs list :data:`LAUNCH_FORMS` among their wrappers, so
-    their replays count."""
-
-    def __init__(self):
-        self.warp_launch_count = 0
-        self.small_group_launch_count = 0
-
-    def add(self, group_lanes: int) -> None:
-        if group_lanes == SMALL_GROUP:
-            self.small_group_launch_count += 1
-        else:
-            self.warp_launch_count += 1
-
-
-LAUNCH_FORMS = LaunchForms()
-TRACER.counter("lut_loglik.warp", lambda: LAUNCH_FORMS.warp_launch_count)
-TRACER.counter("lut_loglik.small_group", lambda: LAUNCH_FORMS.small_group_launch_count)
 
 
 def entries_per_subrow(itemsize: int) -> int:
@@ -201,11 +180,13 @@ class LUTQuery:
 
     On CUDA tensors each call launches ``csrc/lut_likelihood.cu`` (adding
     one to ``launch_count``, or to ``fleet_launch_count`` for a fleet
-    query; one kernel serves both; and one to :data:`LAUNCH_FORMS` for
-    its :attr:`group_lanes`) or, with dedup,
+    query; one kernel serves both; and one to the count of its
+    :attr:`form`) or, with dedup,
     ``csrc/lut_dedup.cu`` (``dedup_launch_count``; ``last_overflow``
     holds the device count of blocks with more than S windows). On CPU
-    tensors it runs the plain versions.
+    tensors it runs the plain versions. The counts are ``utils/timing.py``
+    :class:`Count` objects, so a graph's replays add theirs; a caller may
+    reset one by setting it.
 
     Without ``subbin`` the kernels read the normaliser from
     :meth:`norm_table` (``table_entries`` = ceil(max_range_px) + 1 rows,
@@ -217,6 +198,13 @@ class LUTQuery:
     by ``subbin_norm_kernel`` (``subbin_table_launch_count``). The dedup
     plan's key kernel counts its launches in ``key_launch_count``.
     """
+
+    launch_count = Count.attr("_launches")
+    fleet_launch_count = Count.attr("_fleet_launches")
+    dedup_launch_count = Count.attr("_dedup_launches")
+    table_launch_count = Count.attr("_table_launches")
+    subbin_table_launch_count = Count.attr("_subbin_table_launches")
+    key_launch_count = Count.attr("_key_launches")
 
     def __init__(
         self,
@@ -342,12 +330,9 @@ class LUTQuery:
         # FleetTables of the one map by (device, N), never freed: a CUDA
         # graph of the step holds their addresses
         self._shared_tables: dict[tuple[torch.device, int], FleetTables] = {}
-        self.launch_count = 0
-        self.table_launch_count = 0
-        self.subbin_table_launch_count = 0
-        self.key_launch_count = 0
-        self.fleet_launch_count = 0
-        self.dedup_launch_count = 0
+        self._launches, self._fleet_launches, self._dedup_launches = Count(), Count(), Count()
+        self._table_launches, self._subbin_table_launches = Count(), Count()
+        self._key_launches = Count()
         self.last_overflow: torch.Tensor | None = None
         self.launched_slots = 0  # S of the last dedup launch, after the card's clamp
 
@@ -431,7 +416,7 @@ class LUTQuery:
         model's normaliser at ``d`` (float32 on a card, clipped to
         [0, ``max_range_px``]), or without ``d`` the query's table, row e at
         d = min(e, max_range_px)."""
-        from monte_carlo_localization_tpu_torch.ops._cuda_build import load_library
+        from monte_carlo_localization_tpu_torch.ops._cuda_build import launch
 
         if d is None:
             dev = resolve_device(self.device if device is None else device)
@@ -444,19 +429,10 @@ class LUTQuery:
                 raise ValueError("d must be a contiguous 1-D float32 tensor")
         if dev.type != "cuda":
             raise ValueError(f"kernel launch needs a CUDA device, got {dev}")
-        built = load_library()
         out = torch.empty((count, 2), dtype=torch.float32, device=dev)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = built.libs["lut_likelihood"].mcl_log_norm(
-                None if d is None else d.data_ptr(), count,
-                ctypes.addressof(self._consts), out.data_ptr(), stream,
-            )
-        if err != 0:
-            raise RuntimeError(
-                f"log_norm launch failed: CUDA error {err} ({built.error_string(err)})"
-            )
-        self.table_launch_count += 1
+        launch("lut_likelihood", "mcl_log_norm", dev, None if d is None else d.data_ptr(), count,
+               ctypes.addressof(self._consts), out.data_ptr(), name="log_norm.kernel",
+               count=self._table_launches)
         return out
 
     def norm_table(self, device: torch.device | str) -> torch.Tensor | None:
@@ -480,7 +456,7 @@ class LUTQuery:
         """Run ``subbin_norm_kernel`` (``csrc/lut_likelihood.cu``): the
         query's sub-bin table, (``subbin_table_entries``, 4) float32 on a
         card (:func:`subbin_norm_table` is its plain version)."""
-        from monte_carlo_localization_tpu_torch.ops._cuda_build import load_library
+        from monte_carlo_localization_tpu_torch.ops._cuda_build import launch
 
         dev = resolve_device(self.device if device is None else device)
         count = self.subbin_table_entries
@@ -489,17 +465,9 @@ class LUTQuery:
                              "not an integer of 1..1023)")
         if dev.type != "cuda":
             raise ValueError(f"kernel launch needs a CUDA device, got {dev}")
-        built = load_library()
         out = torch.empty((count, 4), dtype=torch.float32, device=dev)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = built.libs["lut_likelihood"].mcl_subbin_norm(
-                count, ctypes.addressof(self._consts), out.data_ptr(), stream)
-        if err != 0:
-            raise RuntimeError(
-                f"subbin_norm launch failed: CUDA error {err} ({built.error_string(err)})"
-            )
-        self.subbin_table_launch_count += 1
+        launch("lut_likelihood", "mcl_subbin_norm", dev, count, ctypes.addressof(self._consts),
+               out.data_ptr(), name="subbin_norm.kernel", count=self._subbin_table_launches)
         return out
 
     def subbin_table(self, device: torch.device | str) -> torch.Tensor | None:
@@ -528,6 +496,13 @@ class LUTQuery:
         entries = self.subbin_table_entries if self.subbin else self.table_entries
         return SMALL_GROUP if self.num_beams <= SMALL_BEAMS and entries > 0 else WARP
 
+    @property
+    def form(self) -> str:
+        """The count of this query's ``lut_loglik_kernel`` launches by form:
+        ``lut_loglik.small_group`` or ``lut_loglik.warp``
+        (:attr:`group_lanes`)."""
+        return "lut_loglik.small_group" if self.group_lanes == SMALL_GROUP else "lut_loglik.warp"
+
     def kernel_table(self, device) -> tuple[torch.Tensor | None, int]:
         """(table, rows) the kernels take: the sub-bin table with
         ``subbin``, else the normaliser table; (None, 0) where analytic."""
@@ -541,7 +516,7 @@ class LUTQuery:
         every particle in one launch; raises on any input it does not
         take. A fleet query passes its :meth:`fleet_tables`; one map is
         the fleet of one member on map 0."""
-        from monte_carlo_localization_tpu_torch.ops._cuda_build import load_library
+        from monte_carlo_localization_tpu_torch.ops._cuda_build import launch
 
         if self.fleet and tables is None:
             raise ValueError("a fleet launch needs its tables (LUTQuery.fleet_tables)")
@@ -549,36 +524,25 @@ class LUTQuery:
         dev = particles.device
         if tables is None:
             tables = self._one_map_tables(dev, particles.shape[0])
-        built = load_library()
-        lib = built.libs["lut_likelihood"]
-        fn = lib.mcl_lut_loglik_u8 if want_dtype == torch.uint8 else lib.mcl_lut_loglik_u16
+        entry = "mcl_lut_loglik_u8" if want_dtype == torch.uint8 else "mcl_lut_loglik_u16"
         out = torch.empty(particles.shape[0], dtype=torch.float32, device=dev)
         table, entries = self.kernel_table(dev)
 
         def ptr(t):
             return None if t is None else t.data_ptr()
 
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(
-                lut_flat.data_ptr(), self.row_stride, ptr(row_map), ptr(tables.row_map_bases),
-                particles.data_ptr(), self.num_members, tables.npm, tables.member_base,
-                ptr(tables.map_of), int(self.per_member_maps), tables.origin_x.data_ptr(),
-                tables.origin_y.data_ptr(), tables.dims.data_ptr(),
-                tables.lut_bases.data_ptr(), self.eps, obs_px.data_ptr(),
-                self.beam_offsets.data_ptr(), self.num_beams, self.base, self.t_bins,
-                int(self.subbin), ctypes.addressof(self._consts), ptr(table),
-                entries, out.data_ptr(), stream,
-            )
-        if err != 0:
-            raise RuntimeError(
-                f"lut_likelihood launch failed: CUDA error {err} ({built.error_string(err)})"
-            )
-        if self.fleet:
-            self.fleet_launch_count += 1
-        else:
-            self.launch_count += 1
-        LAUNCH_FORMS.add(self.group_lanes)
+        launch(
+            "lut_likelihood", entry, dev,
+            lut_flat.data_ptr(), self.row_stride, ptr(row_map), ptr(tables.row_map_bases),
+            particles.data_ptr(), self.num_members, tables.npm, tables.member_base,
+            ptr(tables.map_of), int(self.per_member_maps), tables.origin_x.data_ptr(),
+            tables.origin_y.data_ptr(), tables.dims.data_ptr(),
+            tables.lut_bases.data_ptr(), self.eps, obs_px.data_ptr(),
+            self.beam_offsets.data_ptr(), self.num_beams, self.base, self.t_bins,
+            int(self.subbin), ctypes.addressof(self._consts), ptr(table),
+            entries, out.data_ptr(),
+            name=self.form, count=self._fleet_launches if self.fleet else self._launches,
+        )
         return out
 
     def _check_key_range(self, lut_flat) -> None:
@@ -595,7 +559,7 @@ class LUTQuery:
         plan's address math: (keys (N,) int32, starts (N,) int64 (-1 off
         the map), fracs (N,) float32 with ``subbin`` else None, overflow
         (1,) int32 zeroed). :func:`window_keys` is its plain version."""
-        from monte_carlo_localization_tpu_torch.ops._cuda_build import load_library
+        from monte_carlo_localization_tpu_torch.ops._cuda_build import launch
 
         self._check_key_range(lut_flat)
         self._check_inputs(lut_flat, particles, None, row_map)
@@ -604,21 +568,14 @@ class LUTQuery:
         starts = torch.empty(n, dtype=torch.int64, device=dev)
         fracs = torch.empty(n, dtype=torch.float32, device=dev) if self.subbin else None
         overflow = torch.empty(1, dtype=torch.int32, device=dev)
-        built = load_library()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = built.libs["lut_dedup"].mcl_window_keys(
-                particles.data_ptr(), n, None if row_map is None else row_map.data_ptr(),
-                self.row_stride, self.eps, self.base, self.t_bins, self.height, self.width,
-                int(self.subbin), ctypes.addressof(self._consts), keys.data_ptr(),
-                starts.data_ptr(), None if fracs is None else fracs.data_ptr(),
-                overflow.data_ptr(), stream,
-            )
-        if err != 0:
-            raise RuntimeError(
-                f"window_key launch failed: CUDA error {err} ({built.error_string(err)})"
-            )
-        self.key_launch_count += 1
+        launch(
+            "lut_dedup", "mcl_window_keys", dev,
+            particles.data_ptr(), n, None if row_map is None else row_map.data_ptr(),
+            self.row_stride, self.eps, self.base, self.t_bins, self.height, self.width,
+            int(self.subbin), ctypes.addressof(self._consts), keys.data_ptr(),
+            starts.data_ptr(), None if fracs is None else fracs.data_ptr(),
+            overflow.data_ptr(), name="window_key.kernel", count=self._key_launches,
+        )
         return keys, starts, fracs, overflow
 
     def plan_dedup(self, lut_flat, particles, row_map=None):
@@ -633,7 +590,7 @@ class LUTQuery:
         """Run ``csrc/lut_dedup.cu`` (K4/K5) after :meth:`plan_dedup`;
         raises on any input it does not take. S is clamped to what fits
         the card's shared memory (``launched_slots``)."""
-        from monte_carlo_localization_tpu_torch.ops._cuda_build import load_library
+        from monte_carlo_localization_tpu_torch.ops._cuda_build import launch, load_library
 
         if self.dedup_slots <= 0:
             raise ValueError("launch_dedup needs dedup_slots > 0")
@@ -642,38 +599,31 @@ class LUTQuery:
         if lut_flat.data_ptr() % STAGE_ALIGN:
             raise ValueError(f"lut_flat must start on a {STAGE_ALIGN} B boundary")
         dev = particles.device
-        built = load_library()
-        lib = built.libs["lut_dedup"]
         itemsize = self.lut_dtype.itemsize
         table, entries = self.kernel_table(dev)
         with torch.cuda.device(dev):
-            fit = lib.mcl_lut_dedup_max_slots(self.num_beams, self.slot_entries, itemsize,
-                                              entries, int(self.subbin))
+            fit = load_library().libs["lut_dedup"].mcl_lut_dedup_max_slots(
+                self.num_beams, self.slot_entries, itemsize, entries, int(self.subbin))
         slots = min(self.dedup_slots, fit)
         if slots < 1:
             raise RuntimeError(
                 f"no dedup slot of {self.slot_entries * itemsize} B fits the card's shared memory"
             )
         keys, perm, starts, fracs, overflow = self.plan_dedup(lut_flat, particles, row_map)
-        fn = lib.mcl_lut_dedup_u8 if want_dtype == torch.uint8 else lib.mcl_lut_dedup_u16
         n = particles.shape[0]
         out = torch.empty(n, dtype=torch.float32, device=dev)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(
-                lut_flat.data_ptr(), starts.data_ptr(),
-                None if fracs is None else fracs.data_ptr(), keys.data_ptr(), perm.data_ptr(),
-                n, self.block, slots, self.slot_entries, self.eps, obs_px.data_ptr(),
-                self.beam_offsets.data_ptr(), self.num_beams, int(self.subbin),
-                ctypes.addressof(self._consts), None if table is None else table.data_ptr(),
-                entries, out.data_ptr(), overflow.data_ptr(), stream,
-            )
-        if err != 0:
-            raise RuntimeError(
-                f"lut_dedup launch failed: CUDA error {err} ({built.error_string(err)})"
-            )
-        self.dedup_launch_count += 1
-        self.last_overflow = overflow
+        launch(
+            "lut_dedup", "mcl_lut_dedup_u8" if want_dtype == torch.uint8 else "mcl_lut_dedup_u16",
+            dev, lut_flat.data_ptr(), starts.data_ptr(),
+            None if fracs is None else fracs.data_ptr(), keys.data_ptr(), perm.data_ptr(),
+            n, self.block, slots, self.slot_entries, self.eps, obs_px.data_ptr(),
+            self.beam_offsets.data_ptr(), self.num_beams, int(self.subbin),
+            ctypes.addressof(self._consts), None if table is None else table.data_ptr(),
+            entries, out.data_ptr(), overflow.data_ptr(),
+            name="lut_dedup.kernel", count=self._dedup_launches,
+        )
+        # each replay of a graph of this call writes these flags again
+        COUNTS.keep(self, "last_overflow", overflow)
         self.launched_slots = slots
         return out
 

@@ -30,6 +30,7 @@ from monte_carlo_localization_tpu_torch.ops.lut_query import (
     lut_log_weights_reference,
 )
 from monte_carlo_localization_tpu_torch.utils.device import DEFAULT_DEVICE
+from monte_carlo_localization_tpu_torch.utils.timing import Count
 
 NUM_SUMS = 8
 # debug_phases of pallas_mega.py: everything, stop before the epilogue,
@@ -49,6 +50,8 @@ class MegaStep:
     CDF itself in shared memory and no grid barrier is needed; past that
     the CDF is scanned across a cooperative grid.
     """
+
+    launch_count = Count.attr("_launches")
 
     def __init__(
         self,
@@ -73,7 +76,7 @@ class MegaStep:
         # zeroed workspaces by (device, bytes), never freed: a CUDA graph of
         # the step holds their addresses
         self._workspaces: dict[tuple[torch.device, int], torch.Tensor] = {}
-        self.launch_count = 0
+        self._launches = Count()
 
     def plan(self, n: int, device: torch.device | str | None = None) -> tuple[int, int, bool]:
         """(grid blocks, particles per block, small) the kernel launches
@@ -84,17 +87,13 @@ class MegaStep:
         dev = torch.device(self.device if device is None else device)
         key = (dev, int(n))
         if key not in self._plans:
-            from monte_carlo_localization_tpu_torch.ops._cuda_build import load_library
+            from monte_carlo_localization_tpu_torch.ops._cuda_build import launch
 
-            built = load_library()
-            lib = built.libs["mega_step"]
-            fn = lib.mcl_mega_plan_u8 if self.query.lut_dtype.itemsize == 1 else lib.mcl_mega_plan_u16
+            entry = f"mcl_mega_plan_u{8 * self.query.lut_dtype.itemsize}"
             grid, chunk, small = ctypes.c_int(0), ctypes.c_int64(0), ctypes.c_int(0)
-            with torch.cuda.device(dev):
-                err = fn(int(n), self.query.num_beams, self.query.table_entries,
-                         ctypes.byref(grid), ctypes.byref(chunk), ctypes.byref(small))
-            if err != 0:
-                raise RuntimeError(f"mega_step plan failed: CUDA error {err} ({built.error_string(err)})")
+            launch("mega_step", entry, dev, int(n), self.query.num_beams, self.query.table_entries,
+                   ctypes.byref(grid), ctypes.byref(chunk), ctypes.byref(small),
+                   name="mega_step plan", stream=False)
             self._plans[key] = (grid.value, chunk.value, bool(small.value))
         return self._plans[key]
 
@@ -117,7 +116,7 @@ class MegaStep:
     def launch(self, lut_flat, particles, log_weights, noise, obs_clipped, scalars,
                out_particles, out_log_weights, out_sums, debug_phases: str = "all"):
         """Run the CUDA kernel; raises on any input it does not take."""
-        from monte_carlo_localization_tpu_torch.ops._cuda_build import load_library
+        from monte_carlo_localization_tpu_torch.ops._cuda_build import launch, load_library
 
         dev = particles.device
         if dev.type != "cuda":
@@ -159,32 +158,25 @@ class MegaStep:
         if lut_flat.dim() != 1 or lut_flat.numel() < q.height * q.width * q.row_stride:
             raise ValueError("lut_flat must be the flat dense LUT, one row per map cell")
 
-        built = load_library()
-        lib = built.libs["mega_step"]
-        fn = lib.mcl_mega_step_u8 if want_dtype == torch.uint8 else lib.mcl_mega_step_u16
         grid, chunk, small = self.plan(n, dev)
-        ws_bytes = lib.mcl_mega_workspace_bytes(n, grid)
+        ws_bytes = load_library().libs["mega_step"].mcl_mega_workspace_bytes(n, grid)
         ws = self._workspaces.get((dev, ws_bytes))
         if ws is None:
             # zeroed: the kernel's ticket counts from 0 and resets itself
             ws = self._workspaces[(dev, ws_bytes)] = torch.zeros(
                 ws_bytes, dtype=torch.uint8, device=dev)
         table = q.norm_table(dev)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(
-                lut_flat.data_ptr(), q.row_stride, particles.data_ptr(),
-                log_weights.data_ptr(), noise.data_ptr(), n, obs_clipped.data_ptr(),
-                q.beam_offsets.data_ptr(), q.num_beams, q.base, q.t_bins, q.height,
-                q.width, ctypes.addressof(self._consts),
-                None if table is None else table.data_ptr(), q.table_entries,
-                scalars.data_ptr(), out_particles.data_ptr(), out_log_weights.data_ptr(),
-                out_sums.data_ptr(), ws.data_ptr(), grid, chunk, int(small),
-                PHASES[debug_phases], stream,
-            )
-        if err != 0:
-            raise RuntimeError(f"mega_step launch failed: CUDA error {err} ({built.error_string(err)})")
-        self.launch_count += 1
+        launch(
+            "mega_step", "mcl_mega_step_u8" if want_dtype == torch.uint8 else "mcl_mega_step_u16",
+            dev, lut_flat.data_ptr(), q.row_stride, particles.data_ptr(),
+            log_weights.data_ptr(), noise.data_ptr(), n, obs_clipped.data_ptr(),
+            q.beam_offsets.data_ptr(), q.num_beams, q.base, q.t_bins, q.height,
+            q.width, ctypes.addressof(self._consts),
+            None if table is None else table.data_ptr(), q.table_entries,
+            scalars.data_ptr(), out_particles.data_ptr(), out_log_weights.data_ptr(),
+            out_sums.data_ptr(), ws.data_ptr(), grid, chunk, int(small),
+            PHASES[debug_phases], name="mega_step.kernel", count=self._launches,
+        )
         return out_particles, out_log_weights, out_sums
 
 

@@ -2,19 +2,17 @@
 rows' gather and ``models/motion.py``'s arc motion and noise in one
 launch, one thread a particle and one launch for every row of a fleet.
 
-:data:`MOTION_KERNEL` counts its launches (``launch_count``) and the
-calls off a card, which take the plain PyTorch version
-(``plain_launch_count``);
-``TRACER.summary()`` shows them as ``motion.kernel`` and ``motion.plain``.
-The programs that run motion list it among their wrappers, so a graph's
-replays add theirs (``utils/graphs.py`` ``LaunchCounters``).
+:data:`MOTION_KERNEL` reads the counts named ``motion.kernel``, its
+launches (``launch_count``), and ``motion.plain``, the calls off a card,
+which take the plain PyTorch version (``plain_launch_count``);
+``TRACER.summary()`` shows both, and a graph's replays advance both.
 """
 
 from __future__ import annotations
 
 import torch
 
-from monte_carlo_localization_tpu_torch.utils.timing import TRACER
+from monte_carlo_localization_tpu_torch.utils.timing import COUNTS, Count
 
 
 class MotionKernel:
@@ -23,12 +21,14 @@ class MotionKernel:
     (3,) action or a fleet's (F, N, 3) with (3,) or (F, 3) actions, the
     noise read by its strides. Each launch adds one to ``launch_count``;
     ``plain_launch_count`` counts ``motion_model``'s calls off a card,
-    which take the plain version (its name ends so that a graph's
-    replays add theirs too)."""
+    which take the plain version."""
+
+    launch_count = Count.attr("_launches")
+    plain_launch_count = Count.attr("_plain")
 
     def __init__(self):
-        self.launch_count = 0
-        self.plain_launch_count = 0
+        self._launches = COUNTS.name("motion.kernel")
+        self._plain = COUNTS.name("motion.plain")
 
     def __call__(self, particles: torch.Tensor, action: torch.Tensor,
                  noise: torch.Tensor | None, dispersion: tuple[float, float, float],
@@ -73,7 +73,7 @@ class MotionKernel:
                              f"particles on {dev}")
         if noise is None:
             noise = torch.randn(shape, generator=generator, dtype=torch.float32, device=dev)
-        from monte_carlo_localization_tpu_torch.ops._cuda_build import load_library
+        from monte_carlo_localization_tpu_torch.ops._cuda_build import launch
 
         m = shape[-2]
         # per row, slot and axis; a shared (3,) action or a lone row has row stride 0
@@ -83,23 +83,13 @@ class MotionKernel:
         idx_row = indices.stride(0) if indices is not None and rank == 3 else 0
         idx_col = indices.stride(-1) if indices is not None else 0
         out = torch.empty(shape, dtype=torch.float32, device=dev)
-        built = load_library()
-        with torch.cuda.device(dev):
-            err = built.libs["motion"].mcl_motion(
-                particles.data_ptr(), rows, particles.shape[-2], m,
-                None if indices is None else indices.data_ptr(), idx_row, idx_col,
-                action.data_ptr(), act_row, act_col,
-                noise.data_ptr(), noise_row, noise.stride(-2), noise.stride(-1),
-                float(dispersion[0]), float(dispersion[1]), float(dispersion[2]),
-                int(bool(exact_dt_heuristic)), out.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"motion launch failed: CUDA error {err} "
-                               f"({built.error_string(err)})")
-        self.launch_count += 1
+        launch("motion", "mcl_motion", dev, particles.data_ptr(), rows, particles.shape[-2], m,
+               None if indices is None else indices.data_ptr(), idx_row, idx_col,
+               action.data_ptr(), act_row, act_col,
+               noise.data_ptr(), noise_row, noise.stride(-2), noise.stride(-1),
+               float(dispersion[0]), float(dispersion[1]), float(dispersion[2]),
+               int(bool(exact_dt_heuristic)), out.data_ptr(), name="motion.kernel")
         return out
 
 
 MOTION_KERNEL = MotionKernel()
-TRACER.counter("motion.kernel", lambda: MOTION_KERNEL.launch_count)
-TRACER.counter("motion.plain", lambda: MOTION_KERNEL.plain_launch_count)

@@ -19,7 +19,8 @@ kernel here computes what its probe computes, designed for the card:
   part its own kernel instantiation and launch shape.
 
 A :class:`Probes` object launches the kernel on CUDA tensors (adding one
-to its ``launch_count`` entry) and runs the plain version on CPU tensors.
+to its ``launch_count`` entry and to the count named ``probe.<kernel>``)
+and runs the plain version on CPU tensors.
 The gather and the normals as first ported from the TPU probes stay
 callable on the card (:meth:`Probes.gather_rows_as_ported`,
 :meth:`Probes.philox_normals_as_ported`), uncounted, as the yardstick of
@@ -33,6 +34,8 @@ import math
 
 import torch
 
+from monte_carlo_localization_tpu_torch.utils.timing import Count
+
 # what probe_scan_resample computes, by part (csrc/probes.cu)
 SCAN_PARTS = {"scan": 0, "lanes": 1, "roll": 2, "ge_sum": 3, "gather": 4, "col": 5,
               "front": 6, "full": 7}
@@ -44,20 +47,13 @@ PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 _MASK32 = 0xFFFFFFFF
 
 
-def _lib():
-    from monte_carlo_localization_tpu_torch.ops._cuda_build import load_library
+def _launch(entry: str, device, *args, count: Count | None = None, stream: bool = True) -> None:
+    """``mcl_probe_<entry>`` of ``csrc/probes.cu``, counted as ``probe.<entry>``
+    (``ops/_cuda_build.py`` :func:`launch`)."""
+    from monte_carlo_localization_tpu_torch.ops._cuda_build import launch
 
-    built = load_library()
-    return built, built.libs["probes"]
-
-
-def _check(built, err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({built.error_string(err)})")
-
-
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+    launch("probes", f"mcl_probe_{entry}", device, *args, name=f"probe.{entry}", count=count,
+           stream=stream)
 
 
 def _require(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
@@ -201,8 +197,13 @@ class Probes:
     the plain version on CPU tensors."""
 
     def __init__(self):
-        self.launch_count = dict(gather_rows=0, philox_normals=0, staged_writes=0,
-                                 scan_resample=0)
+        self._launches = {name: Count() for name in ("gather_rows", "philox_normals",
+                                                      "staged_writes", "scan_resample")}
+
+    @property
+    def launch_count(self) -> dict[str, int]:
+        """Each probe kernel's launches by this object."""
+        return {name: count.n for name, count in self._launches.items()}
 
     def gather_rows(self, hbm: torch.Tensor, y0: torch.Tensor) -> torch.Tensor:
         """``out[s] = hbm[y0[s]]``: hbm (rows, lanes) float32 with lanes a
@@ -210,17 +211,16 @@ class Probes:
         0 on the card)."""
         if hbm.device.type == "cpu":
             return gather_rows_reference(hbm, y0)
-        out = self._gather("mcl_probe_gather_rows", hbm, y0)
-        self.launch_count["gather_rows"] += 1
-        return out
+        return self._gather("gather_rows", hbm, y0, self._launches["gather_rows"])
 
     def gather_rows_as_ported(self, hbm: torch.Tensor, y0: torch.Tensor) -> torch.Tensor:
         """:meth:`gather_rows` as first ported (offsets staged in shared
         memory, rows by ``cp.async``, 16 slots a block): the card only,
         not counted."""
-        return self._gather("mcl_probe_gather_rows_staged", hbm, y0)
+        return self._gather("gather_rows_staged", hbm, y0)
 
-    def _gather(self, entry: str, hbm: torch.Tensor, y0: torch.Tensor) -> torch.Tensor:
+    def _gather(self, entry: str, hbm: torch.Tensor, y0: torch.Tensor,
+                count: Count | None = None) -> torch.Tensor:
         _require(hbm, torch.float32, "hbm")
         _require(y0, torch.int32, "y0")
         if hbm.dim() != 2 or hbm.shape[1] % 4 or hbm.data_ptr() % 16:
@@ -230,12 +230,9 @@ class Probes:
         if y0.shape[0] * (hbm.shape[1] // 4) > MAX_GATHER_CHUNKS:
             raise ValueError(f"{y0.shape[0]} rows of {hbm.shape[1]} lanes: at most "
                              f"{MAX_GATHER_CHUNKS} 16 B chunks a gather")
-        built, lib = _lib()
         out = torch.empty((y0.shape[0], hbm.shape[1]), dtype=torch.float32, device=hbm.device)
-        with torch.cuda.device(hbm.device):
-            err = getattr(lib, entry)(hbm.data_ptr(), hbm.shape[0], hbm.shape[1], y0.data_ptr(),
-                                      y0.shape[0], out.data_ptr(), _stream(hbm.device))
-        _check(built, err, entry)
+        _launch(entry, hbm.device, hbm.data_ptr(), hbm.shape[0], hbm.shape[1], y0.data_ptr(),
+                y0.shape[0], out.data_ptr(), count=count)
         return out
 
     def philox_normals(self, seed: tuple[int, int], count: int, device, with_bits: bool = False):
@@ -246,27 +243,24 @@ class Probes:
         if device.type == "cpu":
             normals, words = philox_normals_reference(seed, count, device)
             return (normals, words) if with_bits else normals
-        got = self._normals("mcl_probe_philox_normals", seed, count, device, with_bits)
-        self.launch_count["philox_normals"] += 1
-        return got
+        return self._normals("philox_normals", seed, count, device, with_bits,
+                             self._launches["philox_normals"])
 
     def philox_normals_as_ported(self, seed: tuple[int, int], count: int, device,
                                  with_bits: bool = False):
         """:meth:`philox_normals` as first ported (one pair a thread, two
         4 B stores): the card only, not counted."""
-        return self._normals("mcl_probe_philox_normals_pairs", seed, count, torch.device(device),
+        return self._normals("philox_normals_pairs", seed, count, torch.device(device),
                              with_bits)
 
-    def _normals(self, entry: str, seed, count: int, device: torch.device, with_bits: bool):
+    def _normals(self, entry: str, seed, count: int, device: torch.device, with_bits: bool,
+                 launches: Count | None = None):
         if count % 2:
             raise ValueError(f"count {count} must be even (normals come in pairs)")
-        built, lib = _lib()
         out = torch.empty(count, dtype=torch.float32, device=device)
         bits = torch.empty((count // 2, 4), dtype=torch.int32, device=device) if with_bits else None
-        with torch.cuda.device(device):
-            err = getattr(lib, entry)(seed[0] & _MASK32, seed[1] & _MASK32, count, out.data_ptr(),
-                                      None if bits is None else bits.data_ptr(), _stream(device))
-        _check(built, err, entry)
+        _launch(entry, device, seed[0] & _MASK32, seed[1] & _MASK32, count, out.data_ptr(),
+                None if bits is None else bits.data_ptr(), count=launches)
         return (out, bits) if with_bits else out
 
     def box_muller_terms(self, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -276,24 +270,19 @@ class Probes:
         device = torch.device(device)
         if device.type != "cuda":
             raise ValueError("the kernel's terms are computed on the card only")
-        built, lib = _lib()
         terms = torch.empty((2, 1 << 24), dtype=torch.float32, device=device)
-        with torch.cuda.device(device):
-            for which in (0, 1):
-                _check(built, lib.mcl_probe_box_muller_terms(which, terms[which].data_ptr(),
-                                                             _stream(device)),
-                       "box_muller_terms")
+        for which in (0, 1):
+            _launch("box_muller_terms", device, which, terms[which].data_ptr())
         return terms[0], terms[1]
 
     def stream_shape(self, kernel: str, items: int, lanes: int = 4) -> dict:
         """The launch of ``gather_rows`` over ``items`` rows of ``lanes``
         floats or of ``philox_normals`` over ``items`` normals: a grid sized
         to the work and the card, ``threads`` a block."""
-        built, lib = _lib()
         shape = (ctypes.c_int * 2)()
         which, n = (2, items) if kernel == "philox_normals" else (int(lanes != 4),
                                                                    items * (lanes // 4))
-        _check(built, lib.mcl_probe_stream_shape(which, n, shape), f"{kernel} shape")
+        _launch("stream_shape", None, which, n, shape, stream=False)
         return dict(grid=shape[0], threads=shape[1])
 
     def staged_writes(self, steps: int, per_step: int, a: float, b: float, c: float,
@@ -308,31 +297,23 @@ class Probes:
         device = torch.device(device)
         if device.type == "cpu":
             return staged_writes_reference(steps, per_step, a, b, c, add, device)
-        built, lib = _lib()
         out = torch.empty(steps * per_step, dtype=torch.float32, device=device)
-        with torch.cuda.device(device):
-            err = lib.mcl_probe_staged_writes(steps, per_step, a, b, c, add, out.data_ptr(),
-                                              _stream(device))
-        _check(built, err, "probe_staged_writes")
-        self.launch_count["staged_writes"] += 1
+        _launch("staged_writes", device, steps, per_step, a, b, c, add, out.data_ptr(),
+                count=self._launches["staged_writes"])
         return out
 
     def staged_shape(self, steps: int, per_step: int) -> dict:
         """The staged-writes launch at this size: one block of ``threads``
         with ``smem`` bytes of dynamic shared memory."""
-        built, lib = _lib()
         shape = (ctypes.c_int * 2)()
-        _check(built, lib.mcl_probe_staged_shape(steps, per_step, shape),
-               "probe_staged_writes shape")
+        _launch("staged_shape", None, steps, per_step, shape, stream=False)
         return dict(grid=1, threads=shape[0], smem=shape[1])
 
     def scan_shape(self, part: str, n: int) -> dict:
         """The launch of ``part`` over n elements: grid, threads a block,
         elements a thread, dynamic shared memory bytes."""
-        built, lib = _lib()
         shape = (ctypes.c_int * 4)()
-        _check(built, lib.mcl_probe_scan_shape(SCAN_PARTS[part], n, shape),
-               "probe_scan_resample shape")
+        _launch("scan_shape", None, SCAN_PARTS[part], n, shape, stream=False)
         return dict(grid=shape[0], threads=shape[1], per=shape[2], smem=shape[3])
 
     def scan_resample(self, part: str, w=None, g=None, parts=None, u0: float = 0.0,
@@ -364,7 +345,6 @@ class Probes:
                 raise ValueError(f"{name} shape {tuple(t.shape)} != {shape}")
         if not 0 < n <= MAX_SCAN or (part == "lanes" and n % lanes):
             raise ValueError(f"n = {n} elements; the kernel takes 1..{MAX_SCAN} (whole rows)")
-        built, lib = _lib()
         wide = part in ("ge_sum", "gather", "front", "full")
         out_a = torch.empty((n, 3) if wide else (n,), dtype=torch.float32, device=dev)
         out_b = torch.empty(n, dtype=torch.float32, device=dev) if part == "full" else None
@@ -372,13 +352,9 @@ class Probes:
         def ptr(t):
             return None if t is None else t.data_ptr()
 
-        with torch.cuda.device(dev):
-            err = lib.mcl_probe_scan_resample(
-                SCAN_PARTS[part], ptr(w) if needs_w else None, ptr(g) if needs_g else None,
-                ptr(parts) if needs_parts else None, n, lanes, u0, out_a.data_ptr(),
-                ptr(out_b), _stream(dev))
-        _check(built, err, "probe_scan_resample")
-        self.launch_count["scan_resample"] += 1
+        _launch("scan_resample", dev, SCAN_PARTS[part], ptr(w) if needs_w else None,
+                ptr(g) if needs_g else None, ptr(parts) if needs_parts else None, n, lanes, u0,
+                out_a.data_ptr(), ptr(out_b), count=self._launches["scan_resample"])
         return (out_a, out_b) if part == "full" else out_a
 
     def curand_philox_words(self, seed: tuple[int, int], calls: int, device) -> torch.Tensor:
@@ -389,10 +365,7 @@ class Probes:
         device = torch.device(device)
         if device.type != "cuda":
             raise ValueError("the curand oracle runs on the card only")
-        built, lib = _lib()
         words = torch.empty((calls, 4), dtype=torch.int32, device=device)
-        with torch.cuda.device(device):
-            err = lib.mcl_probe_curand_philox(seed[0] & 0xFFFFFFFF, seed[1] & 0xFFFFFFFF, calls,
-                                              words.data_ptr(), _stream(device))
-        _check(built, err, "curand oracle")
+        _launch("curand_philox", device, seed[0] & _MASK32, seed[1] & _MASK32, calls,
+                words.data_ptr())
         return words

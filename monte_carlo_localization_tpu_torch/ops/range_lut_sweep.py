@@ -16,8 +16,9 @@ and ``(px + 0.5)`` truncated to the LUT's type is stored at
 ...) when the group's direction is negative, backward otherwise.
 
 :data:`sweep` launches the kernel on CUDA tensors, adding one to its
-``launch_count``, and runs the plain version on CPU tensors. The kernel
-sweeps the group in blocks of one tile of adjacent physical bins
+``launch_count`` (the count named ``range_lut_sweep.kernel``), and runs
+the plain version on CPU tensors. The kernel sweeps the group in blocks
+of one tile of adjacent physical bins
 (:func:`tile_plan`: a 32 B piece of each LUT row) by one chunk of lines
 (:func:`chunk_lines`), keeping D saturated at ``max_range_px + 1`` so a
 chunk can start from a warm-up of that many lines; the host makes both
@@ -36,6 +37,8 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from monte_carlo_localization_tpu_torch.utils.timing import COUNTS, Count
 
 # a block's shared memory on an H100 (opt-in): two lines of D at `words`
 # 4 B words a cell with a zero cell at each end, and two lines of cell
@@ -199,8 +202,10 @@ class RangeLUTSweep:
     ``MAX_LINE_CELLS``, where D goes to a global scratch, if that scratch
     cannot be allocated."""
 
+    launch_count = Count.attr("_launches")
+
     def __init__(self):
-        self.launch_count = 0
+        self._launches = COUNTS.name("range_lut_sweep.kernel")
         self._occupancy: dict[tuple, int] = {}  # blocks an SM, by launch shape
 
     def __call__(self, occupied, rel, step_len, bins, forward: bool, row_major: bool,
@@ -229,29 +234,25 @@ class RangeLUTSweep:
         itemsize = out.element_size()
         if h * w >= 2**31:
             raise ValueError(f"a map of {h} x {w} cells exceeds the cell words' 2^31 rows")
-        from monte_carlo_localization_tpu_torch.ops._cuda_build import load_library
+        from monte_carlo_localization_tpu_torch.ops._cuda_build import launch
         from monte_carlo_localization_tpu_torch.utils.device import upload
 
         plan = self.plan(p_len, q_len, bins, itemsize, max_range_px, dev)
-        lib = load_library().libs["range_lut_sweep"]
-        fn = lib.mcl_range_lut_sweep_u16 if itemsize == 2 else lib.mcl_range_lut_sweep_u8
         cells = line_cells(occupied, row_map, row_major)
         vec_ok = (row_stride * itemsize) % 4 == 0 and out.data_ptr() % 4 == 0
         # two lines of D a resident block, freed to the stream's allocator
         # once the launch is queued
         scratch = (torch.empty(plan["scratch_bytes"] // 4, dtype=torch.int32, device=dev)
                    if plan["global_d"] else None)
-        err = fn(cells.data_ptr(), None if scratch is None else scratch.data_ptr(),
-                 rel.data_ptr(), step_len.data_ptr(),
-                 upload(plan["tile_table"], dev, torch.int32).data_ptr(), plan["tiles"],
-                 plan["blocks"], p_len, q_len, b, plan["words"].bit_length() - 1, plan["lines"],
-                 int(forward), int(row_map is not None), int(max_range_px) + 1,
-                 float(max_range_px), int(vec_ok), row_stride, row_base, plan["grid"],
-                 plan["threads"], out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"range_lut_sweep launch failed: CUDA error {err} "
-                               f"({load_library().error_string(err)})")
-        self.launch_count += 1
+        launch("range_lut_sweep",
+               "mcl_range_lut_sweep_u16" if itemsize == 2 else "mcl_range_lut_sweep_u8", dev,
+               cells.data_ptr(), None if scratch is None else scratch.data_ptr(),
+               rel.data_ptr(), step_len.data_ptr(),
+               upload(plan["tile_table"], dev, torch.int32).data_ptr(), plan["tiles"],
+               plan["blocks"], p_len, q_len, b, plan["words"].bit_length() - 1, plan["lines"],
+               int(forward), int(row_map is not None), int(max_range_px) + 1,
+               float(max_range_px), int(vec_ok), row_stride, row_base, plan["grid"],
+               plan["threads"], out.data_ptr(), name="range_lut_sweep.kernel")
 
     def plan(self, p_len: int, q_len: int, bins, itemsize: int, max_range_px: int,
              device: torch.device) -> dict:
@@ -270,22 +271,17 @@ class RangeLUTSweep:
         if sat >= 1 << (8 * itemsize):
             raise ValueError(f"max_range_px {max_range_px} does not fit the sweep's "
                              f"{8 * itemsize}-bit distances (at most {(1 << 8 * itemsize) - 2})")
-        from monte_carlo_localization_tpu_torch.ops._cuda_build import load_library
+        from monte_carlo_localization_tpu_torch.ops._cuda_build import launch
 
-        built = load_library()
-        lib = built.libs.get("range_lut_sweep")
-        if lib is None:
-            raise RuntimeError("the range_lut_sweep kernel library was not built "
-                               f"(built: {sorted(built.libs)})")
         tiles = tile_plan(np.asarray(bins), words * 4 // itemsize)
         threads = min(MAX_THREADS, -(-q_len * words // 32) * 32)
         key = (itemsize, threads, q_len, words, int(global_d))
         if key not in self._occupancy:
             n = ctypes.c_int(0)
-            err = lib.mcl_range_lut_sweep_occupancy(*key, ctypes.byref(n))
-            if err != 0 or n.value < 1:
-                raise RuntimeError(f"range_lut_sweep occupancy query failed: CUDA error {err} "
-                                   f"({built.error_string(err)}), {n.value} blocks an SM")
+            launch("range_lut_sweep", "mcl_range_lut_sweep_occupancy", device, *key,
+                   ctypes.byref(n), name="range_lut_sweep occupancy", stream=False)
+            if n.value < 1:
+                raise RuntimeError(f"range_lut_sweep occupancy query: {n.value} blocks an SM")
             self._occupancy[key] = n.value
         slots = torch.cuda.get_device_properties(device).multi_processor_count * self._occupancy[key]
         if global_d:

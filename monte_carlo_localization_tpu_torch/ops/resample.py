@@ -2,14 +2,15 @@
 ``ops/resample.py``: indices (``:16-91``), and the proposal rows
 themselves, on one filter or distributed over shards (``:94-325``).
 
-Systematic resampling (the default) inverts the weight CDF scatter-side
-in O(N): source j's first output slot is ``floor(M*cdf[j-1] - u0) + 1``;
-scatter j there with ``amax`` and forward-fill with a cumulative max.
-On a card, rows of float32 log weights that fit a block's shared memory
-(:meth:`SystematicKernel.max_row`) go instead to one hand-written kernel,
-``csrc/resample.cu`` (:class:`SystematicKernel`): the same CDF bits and
-the same indices, from the softmax on, one block a row. CPU tensors and
-longer rows take the PyTorch path, its plain version. Multinomial
+Systematic resampling (the default) inverts the weight CDF by the
+first-slot rule: with ``g = M*cdf - u0``, output slot s takes the first
+source j of ``g[:-1]`` with ``g[j] >= s`` (else N - 1), one binary
+search a slot. On a card, rows of float32 log weights that fit a block's
+shared memory (:meth:`SystematicKernel.max_row`) go instead to one
+hand-written kernel, ``csrc/resample.cu`` (:class:`SystematicKernel`):
+the same CDF bits and the same indices, from the softmax on, one block a
+row. CPU tensors and longer rows take the PyTorch path, its plain
+version. Multinomial
 resampling draws N iid categorical samples (the reference's
 ``std::discrete_distribution``).
 
@@ -26,6 +27,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from monte_carlo_localization_tpu_torch.utils.timing import COUNTS, Count
 
 _INT32_MAX = 2**31 - 1
 
@@ -59,39 +62,19 @@ def systematic_invert_cdf_window(
     ``[slot0, slot0 + window)``. Returns int32 ``(window,)`` source indices,
     or ``(F, window)`` for an (F, N) ``cdf`` and (F,) ``u0``.
 
-    With ``g[j] = num_samples*cdf[j] - u0`` source j owns the output slots
-    ``(g[j-1], g[j]]``. Each source is scattered into its first slot with
-    ``amax`` (a zero-count source and the covering source may share a
-    slot; the covering one has the larger j). Slots outside the window go
-    to a spare slot at index ``window`` that is then dropped: JAX's
-    ``mode="drop"`` skips them, while ``scatter_reduce_`` would raise.
-    Slot 0 is seeded with the source covering ``slot0`` and a cumulative
-    max fills the rest. Rows of a fleet scatter into one flat buffer at
-    offsets of ``window + 1``, so F rows take the launches of one.
+    With ``g[j] = num_samples*cdf[j] - u0`` (in ``cdf``'s dtype) source j
+    owns the output slots ``(g[j-1], g[j]]``, so slot s takes the first j
+    of ``g[:-1]`` with ``g[j] >= s``, clamped to N - 1 (an f32 CDF may end
+    below 1): one ``searchsorted`` in float64, where every slot index is
+    exact, over all F rows at once.
     """
     rows = cdf if cdf.dim() == 2 else cdf[None]
-    f, n = rows.shape
     dev = cdf.device
     g = num_samples * rows - torch.as_tensor(u0, device=dev).reshape(-1, 1)
-    first_slot = (
-        torch.cat(
-            [torch.zeros((f, 1), dtype=torch.int32, device=dev),
-             torch.floor(g[:, :-1]).to(torch.int32) + 1],
-            dim=1,
-        )
-        - slot0
-    )
-    inside = (first_slot >= 0) & (first_slot < window)
-    target = torch.where(inside, first_slot, window).to(torch.int64)
-    if f > 1:
-        target = target + (window + 1) * torch.arange(f, device=dev)[:, None]
-    src = torch.arange(n, dtype=torch.int32, device=dev).expand(f, n)
-    seeded = torch.zeros(f * (window + 1), dtype=torch.int32, device=dev)
-    seeded.scatter_reduce_(0, target.reshape(-1), src.reshape(-1), reduce="amax")
-    seeded = seeded.view(f, window + 1)[:, :window]
-    j0 = torch.sum((g < slot0).to(torch.int32), dim=1)
-    seeded[:, 0] = torch.maximum(seeded[:, 0], j0)
-    out = torch.clamp(torch.cummax(seeded, dim=1).values, 0, n - 1)
+    slots = torch.arange(slot0, slot0 + window, dtype=torch.float64, device=dev)
+    idx = torch.searchsorted(g[:, :-1].double().contiguous(),
+                             slots.expand(rows.shape[0], window).contiguous(), side="left")
+    out = torch.clamp(idx, max=rows.shape[1] - 1).to(torch.int32)
     return out if cdf.dim() == 2 else out[0]
 
 
@@ -127,12 +110,13 @@ class SystematicKernel:
     softmax, one block a row and one launch for all rows, equal to
     ``systematic_invert_cdf_window(prefix_sum_doubling(weights), u0, m, 0,
     m)`` (its CDF bit for bit, then the first j of ``g[:-1]`` with ``g[j]
-    >= s`` for slot s). Each launch adds one to ``launch_count``; the
-    programs that call the resampler list it among their wrappers, so a
-    graph's replays add theirs (``utils/graphs.py`` ``LaunchCounters``)."""
+    >= s`` for slot s). Each launch adds one to ``launch_count``, the count
+    named ``resample.kernel``, which a graph's replays advance too."""
+
+    launch_count = Count.attr("_launches")
 
     def __init__(self):
-        self.launch_count = 0
+        self._launches = COUNTS.name("resample.kernel")
         self._max_row: dict[torch.device, int] = {}
 
     def max_row(self, device: torch.device) -> int:
@@ -141,14 +125,11 @@ class SystematicKernel:
         1024 (what a block's registers hold), asked once."""
         cap = self._max_row.get(device)
         if cap is None:
-            from monte_carlo_localization_tpu_torch.ops._cuda_build import load_library
+            from monte_carlo_localization_tpu_torch.ops._cuda_build import launch
 
-            built = load_library()
             out = ctypes.c_int(0)
-            with torch.cuda.device(device):
-                err = built.libs["resample"].mcl_resample_max_row(ctypes.byref(out))
-            if err != 0:
-                raise RuntimeError(f"resample: CUDA error {err} ({built.error_string(err)})")
+            launch("resample", "mcl_resample_max_row", device, ctypes.byref(out),
+                   name="resample max_row", stream=False)
             cap = self._max_row[device] = out.value
         return cap
 
@@ -156,7 +137,7 @@ class SystematicKernel:
         """int32 source indices ``weights.shape[:-1] + (num_samples,)`` from
         float32 ``weights`` (a softmax along the last axis) and ``u0``, one
         offset for all rows or one a row; raises on anything else."""
-        from monte_carlo_localization_tpu_torch.ops._cuda_build import load_library
+        from monte_carlo_localization_tpu_torch.ops._cuda_build import launch
 
         dev = weights.device
         n = weights.shape[-1] if weights.dim() else 0
@@ -175,15 +156,9 @@ class SystematicKernel:
             raise ValueError(f"u0 must be float32 on {dev} with 1 or {rows} values, got "
                              f"{tuple(u0.shape)} {u0.dtype} on {u0.device}")
         out = torch.empty(weights.shape[:-1] + (num_samples,), dtype=torch.int32, device=dev)
-        built = load_library()
-        with torch.cuda.device(dev):
-            err = built.libs["resample"].mcl_systematic_resample(
-                weights.data_ptr(), rows, n, u0.data_ptr(), int(u0.numel() > 1), num_samples,
-                out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"resample launch failed: CUDA error {err} "
-                               f"({built.error_string(err)})")
-        self.launch_count += 1
+        launch("resample", "mcl_systematic_resample", dev, weights.data_ptr(), rows, n,
+               u0.data_ptr(), int(u0.numel() > 1), num_samples, out.data_ptr(),
+               name="resample.kernel")
         return out
 
 

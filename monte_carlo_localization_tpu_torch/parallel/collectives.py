@@ -28,6 +28,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from monte_carlo_localization_tpu_torch.utils.timing import COUNTS, Count
+
 
 def shard_seed(seed: int, shard: int) -> int:
     """A seed for shard ``shard``'s own stream of ``seed`` (JAX
@@ -50,8 +52,12 @@ def world_mesh(axis: str):
 
 class Collectives:
     """The collectives of one process group (or of a one-shard world when
-    ``group`` is None), with counters of the calls made and the bytes this
-    rank handed to them."""
+    ``group`` is None), with counts of the calls made and the bytes this
+    rank handed to them (``utils/timing.py`` :class:`Count` objects, which
+    a graph's replays advance)."""
+
+    calls = Count.attr("_calls")  # collective calls made by this rank
+    bytes = Count.attr("_bytes")  # bytes this rank contributed to them
 
     def __init__(self, group=None):
         self.group = group
@@ -61,8 +67,7 @@ class Collectives:
             self.size = dist.get_world_size(group)
             self.axis_index = dist.get_rank(group)
             self.backend = dist.get_backend(group)
-        self.calls = 0  # collective calls made by this rank
-        self.bytes = 0  # bytes this rank contributed to them
+        self._calls, self._bytes = Count(), Count()
         self.host_copies = 0  # card -> host copies of the gloo staging
 
     @classmethod
@@ -81,8 +86,8 @@ class Collectives:
         self.calls = self.bytes = self.host_copies = 0
 
     def _count(self, x: torch.Tensor) -> None:
-        self.calls += 1
-        self.bytes += x.numel() * x.element_size()
+        COUNTS.add(self._calls)
+        COUNTS.add(self._bytes, x.numel() * x.element_size())
 
     def _stage(self, x: torch.Tensor) -> torch.Tensor:
         """The tensor handed to the backend: a host copy under gloo."""

@@ -37,14 +37,17 @@ generator and its shard's motion generator): it is then called with a
 tuple of the caller's generators, gets a tuple of its own, registers
 each, and hands each state in and out around a replay.
 
-Python counters do not move on a replay, so :class:`LaunchCounters`
-records how far each kernel wrapper's ``*launch_count`` (and each
-``parallel/collectives.py`` ``Collectives``' ``calls`` and ``bytes``)
-moved during the capture and adds that on every replay; the first call
-leaves the counters as its eager warm-up left them (a normaliser table
-filled there counts once, as on the eager path). The dedup query's
-``last_overflow`` is set to what the capture left: the device tensor
-that each replay writes.
+Python counts do not move on a replay, so the capture runs inside
+``utils/timing.py`` ``COUNTS.recording()``: every count that the
+capturing thread adds meanwhile (each kernel launch, through
+``ops/_cuda_build.py`` ``launch``, and each ``Collectives``' calls and
+bytes) is recorded, not counted, and every later replay adds the
+recording, its amounts summed once. The first call leaves the
+counts as its eager warm-up left them (a normaliser table filled there
+counts once, as on the eager path). The dedup query's ``last_overflow``
+is set again to what the capture left: the device tensor that each
+replay writes. Launches that other threads make during a capture are
+counted as ever, and not recorded.
 
 On the CPU, inside :func:`disable_graphs` (the counterpart of
 ``jax.disable_jit()``), and while the current stream is already being
@@ -53,7 +56,7 @@ a jitted function) the function runs eagerly on the caller's tensors.
 Each call records its parts as ``TRACER`` spans (``utils/timing.py``)
 under the span its caller has open: ``graphs.key`` (the key and the
 cache lookup), ``graphs.load``, ``graphs.handoff_in``, ``graphs.launch``
-(``graph.replay()``), ``graphs.handoff_out`` (with the counters) and
+(``graph.replay()``), ``graphs.handoff_out`` (with the counts) and
 ``graphs.clone``; a key's first call records ``graphs.capture`` instead.
 The capture holds :class:`~monte_carlo_localization_tpu_torch.utils.timing.DeviceMarks`:
 five timing events at the boundaries of the program's first correction,
@@ -89,18 +92,12 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from monte_carlo_localization_tpu_torch.utils.device import upload
 from monte_carlo_localization_tpu_torch.utils.timing import (
+    COUNTS,
     DEVICE_PHASES,
     READ_EVERY,
     TRACER,
     DeviceMarks,
 )
-
-# wrapper attributes a replay sets to what the capture left: the dedup
-# kernel's overflow flags, a device tensor each replay writes
-REPLAYED_ATTRS = ("last_overflow",)
-# counters a replay advances besides the wrappers' ``*launch_count``: a
-# ``Collectives``' calls and the bytes this rank handed to them
-COUNTED_ATTRS = ("calls", "bytes")
 
 _lock = threading.Lock()
 _disabled = 0
@@ -166,42 +163,6 @@ class GraphCaptureError(RuntimeError):
     """A program's capture failed; the message names the last operation."""
 
 
-class LaunchCounters:
-    """The ``*launch_count`` integers and :data:`COUNTED_ATTRS` (and
-    :data:`REPLAYED_ATTRS`) of some kernel wrappers and collectives, for a
-    graph whose replays launch their kernels and collectives without
-    Python seeing it."""
-
-    def __init__(self, wrappers):
-        self.wrappers = [w for w in wrappers if w is not None]
-        self.deltas: dict[tuple[int, str], int] = {}
-        self.replayed: dict[tuple[int, str], object] = {}
-
-    def snapshot(self) -> dict[tuple[int, str], int]:
-        return {(i, name): value for i, w in enumerate(self.wrappers)
-                for name, value in vars(w).items()
-                if name.endswith("launch_count") or name in COUNTED_ATTRS}
-
-    def settle(self, warm: dict, captured: dict) -> None:
-        """After the capture: keep what the capture added as the per-replay
-        deltas and set the counters back to ``warm`` less one replay's
-        worth, so that the first replay leaves them at ``warm``, as the
-        eager warm-up did."""
-        self.deltas = {k: v - warm.get(k, 0) for k, v in captured.items()}
-        for (i, name), d in self.deltas.items():
-            setattr(self.wrappers[i], name, captured[(i, name)] - 2 * d)
-        self.replayed = {(i, a): getattr(w, a) for i, w in enumerate(self.wrappers)
-                         for a in REPLAYED_ATTRS if hasattr(w, a)}
-
-    def replay(self) -> None:
-        """Add one replay's launches; restore what the capture left."""
-        for (i, name), d in self.deltas.items():
-            w = self.wrappers[i]
-            setattr(w, name, getattr(w, name) + d)
-        for (i, a), value in self.replayed.items():
-            setattr(self.wrappers[i], a, value)
-
-
 class _LastOp(TorchDispatchMode):
     """Remembers the last tensor operation dispatched (a capture's
     culprit when it fails)."""
@@ -228,15 +189,15 @@ def shape_of(x) -> tuple:
 class GraphedProgram:
     """One captured program (see the module's notes): its static input
     buffers, the graph, the outputs the graph writes, its own generators
-    (as many as the caller hands it), its launch counters, and what it
+    (as many as the caller hands it), the counts its capture recorded
+    (``recorded``, a ``utils/timing.py`` ``Recording``), and what it
     cost: ``warmup_ms``, ``capture_ms`` and ``pool_bytes`` (device memory
     the capture added to the pool)."""
 
-    def __init__(self, key, fn: Callable, inputs: dict, device: torch.device,
-                 counters: LaunchCounters, pool, keep=(), generator=None):
+    def __init__(self, key, fn: Callable, inputs: dict, device: torch.device, pool, keep=(),
+                 generator=None):
         self.key = key
         self.device = device
-        self.counters = counters
         self.keep = keep  # what the graph reads by address: maps, LUTs, tables
         self.buffers = {name: torch.empty(shape_of(x), dtype=torch.float32, device=device)
                         for name, x in inputs.items()}
@@ -253,7 +214,6 @@ class GraphedProgram:
             fn(self.buffers, own)
         cur.wait_stream(side)
         torch.cuda.synchronize(device)
-        warm = counters.snapshot()
         t1 = time.perf_counter()
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(device)
@@ -263,8 +223,8 @@ class GraphedProgram:
         op = _LastOp()
         marks = DeviceMarks(TRACER)
         try:
-            with collector_paused(), torch.cuda.graph(self.graph, pool=pool,
-                                                      capture_error_mode="thread_local"):
+            with collector_paused(), COUNTS.recording() as self.recorded, \
+                    torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
                 with op, marks:
                     self.outputs = fn(self.buffers, own)
         except Exception as e:
@@ -274,7 +234,6 @@ class GraphedProgram:
         self.warmup_ms = (t1 - t0) * 1e3
         self.capture_ms = (time.perf_counter() - t1) * 1e3
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
-        counters.settle(warm, counters.snapshot())
         # the device phases of the graph's first correction, where the
         # program runs one (``correct()`` marks its boundaries)
         self.marks = marks if marks.complete else None
@@ -311,12 +270,13 @@ class GraphedProgram:
         TRACER.chain(_PARTS, t)
         return out
 
-    def replay(self, generator) -> dict:
+    def replay(self, generator, counted: bool = True) -> dict:
         """One replay on the loaded buffers, drawing from ``generator`` (or
-        a tuple of generators, one for each of the program's); the outputs
-        as fresh tensors. Stamps the ``perf_counter_ns`` after the
-        hand-in, the launch, the hand-back and the clones (the last four
-        of the call's parts)."""
+        a tuple of generators, one for each of the program's), adding the
+        recorded counts unless not ``counted``; the outputs as fresh
+        tensors. Stamps the ``perf_counter_ns`` after the hand-in, the
+        launch, the hand-back and the clones (the last four of the call's
+        parts)."""
         t = self._stamps
         self._unread += self._marked
         theirs = generators_of(generator)
@@ -327,7 +287,8 @@ class GraphedProgram:
         t[4] = perf_counter_ns()
         for own, their in zip(self.generators, theirs):
             their.set_state(own.get_state())
-        self.counters.replay()
+        if counted:
+            self.recorded.replay()
         t[5] = perf_counter_ns()
         out = {name: x.clone() for name, x in self.outputs.items()}
         t[6] = perf_counter_ns()
@@ -356,13 +317,10 @@ def run_eager(fn: Callable, inputs: dict, generator, device: torch.device) -> di
 
 class Programs:
     """One filter's programs, keyed like ``jit``'s cache, sharing one
-    graph pool. ``wrappers`` are the kernel wrappers and collectives whose
-    counters the programs keep (the LUT query and ``LAUNCH_FORMS``, the
-    mega step, the resampler's kernel, a mesh axis's ``Collectives``)."""
+    graph pool."""
 
-    def __init__(self, device: torch.device | str, wrappers=()):
+    def __init__(self, device: torch.device | str):
         self.device = torch.device(device)
-        self.wrappers = [w for w in wrappers if w is not None]
         self.cache: dict[tuple, GraphedProgram] = {}
         self._pool = None
 
@@ -382,10 +340,9 @@ class Programs:
             return prog(inputs, generator, t_key)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        prog = self.cache[key] = GraphedProgram(key, fn, inputs, self.device,
-                                                LaunchCounters(self.wrappers), self._pool, keep,
+        prog = self.cache[key] = GraphedProgram(key, fn, inputs, self.device, self._pool, keep,
                                                 generator)
-        out = prog.replay(generator)
+        out = prog.replay(generator, counted=False)  # the warm-up counted this run
         TRACER.record(_CAPTURE, t_key, perf_counter_ns())
         return out
 

@@ -12,6 +12,10 @@ runtime's accounting, as in the JAX package's ``utils/timing.py``.
   recorded where the work happens (the filter's entries, the graph call's
   parts, the node's phases) and, from inside each step graph, the device
   time of the correction's phases (:class:`DeviceMarks`).
+- :data:`COUNTS` (:class:`Counts`): every kernel launch count of the
+  process (each kernel's, each wrapper's own) and the collectives' calls
+  and bytes, each a :class:`Count`; a graph's capture records what its
+  thread adds (:meth:`Counts.recording`) and each replay adds it again.
 - :func:`call_ms`: milliseconds per call of ``fn`` on a device, CUDA
   events on a card and the host clock on the CPU.
 
@@ -29,8 +33,10 @@ runtime's accounting, as in the JAX package's ``utils/timing.py``.
 from __future__ import annotations
 
 import collections
+import contextlib
 import itertools
 import json
+import operator
 import os
 import statistics
 import threading
@@ -202,9 +208,9 @@ class Tracer:
     :meth:`chain` for leaves whose stamps they took.
 
     Always on: each name's count and ring of durations and self times
-    (:meth:`summary`); nothing is allocated a span. A count that another
-    object keeps (a kernel wrapper's launches, which graph replays
-    advance) joins the summary through :meth:`counter`. Only while a
+    (:meth:`summary`); nothing is allocated a span. The kernels' named
+    launch counts (:data:`COUNTS`, which graph replays advance) join the
+    summary. Only while a
     ``torch.profiler`` session runs (a flag read) does a span also go into
     :attr:`timeline`, a bounded buffer of records with start and end in
     the epoch nanoseconds of the profiler's own events (one offset to
@@ -214,7 +220,6 @@ class Tracer:
 
     def __init__(self):
         self.series: dict[str, Series] = {}
-        self.counters: dict[str, Callable[[], int]] = {}
         # (name, start, end, span id, parent id, request, thread), epoch ns
         self.timeline: collections.deque = collections.deque(maxlen=TIMELINE)
         self.request = 0
@@ -233,11 +238,6 @@ class Tracer:
             if s is None:
                 s = self.series[name] = Series(name)
             return s
-
-    def counter(self, name: str, read: Callable[[], int]) -> None:
-        """``name``'s count is ``read()``, taken when the summary is (its
-        owner keeps it: :meth:`reset` leaves it)."""
-        self.counters[name] = read
 
     def reset(self) -> None:
         """Forget every count, ring and record (the series stay, so the
@@ -342,7 +342,8 @@ class Tracer:
 
     def summary(self) -> dict:
         """Per name with samples: count, p50 and p95 duration and p50 self
-        time (µs) over its ring; per :meth:`counter` above 0: its count."""
+        time (µs) over its ring; per named count of :data:`COUNTS` above 0
+        (which :meth:`reset` leaves): its count."""
         out = {}
         for name, s in list(self.series.items()):
             if not s.count:
@@ -351,10 +352,9 @@ class Tracer:
             p50, p95 = np.percentile(dur, [50, 95]) / 1e3
             out[name] = dict(count=s.count, p50_us=float(p50), p95_us=float(p95),
                              self_p50_us=float(np.median(own)) / 1e3)
-        for name, read in list(self.counters.items()):
-            count = int(read())
-            if count:
-                out[name] = dict(count=count)
+        for name, count in list(COUNTS.named.items()):
+            if count.n:
+                out[name] = dict(count=count.n)
         return out
 
     def chrome_events(self, since_ns: int = 0, base_ns: int = 0) -> list[dict]:
@@ -371,6 +371,93 @@ class Tracer:
                                args=dict(request=request, span=sid, parent=parent,
                                          thread=thread)))
         return events
+
+
+class Count:
+    """One count (``n``): a kernel's launches, a wrapper's own, or a
+    collective's calls or bytes. It grows only through :meth:`Counts.add`,
+    so that a graph's capture records it; a caller may set ``n`` (a
+    reset)."""
+
+    __slots__ = ("n",)
+
+    def __init__(self):
+        self.n = 0
+
+    @staticmethod
+    def attr(name: str) -> property:
+        """A property over the :class:`Count` an instance holds in
+        ``name``: reads its ``n`` and, for a caller's reset, sets it."""
+        get = operator.attrgetter(name)
+        return property(lambda self: get(self).n,
+                        lambda self, value: setattr(get(self), "n", value))
+
+
+class Recording:
+    """What one thread added inside :meth:`Counts.recording`: amounts by
+    :class:`Count` (``increments``) and the attributes set by
+    :meth:`Counts.keep` (``kept``). :meth:`replay` applies both, with no
+    lookup by name."""
+
+    def __init__(self):
+        self.increments: dict[Count, int] = {}
+        self.kept: dict[tuple, tuple] = {}
+
+    def replay(self) -> None:
+        for count, n in self.increments.items():
+            count.n += n
+        for obj, name, value in self.kept.values():
+            setattr(obj, name, value)
+
+
+class Counts:
+    """Every count of the process (one instance, :data:`COUNTS`). A
+    kernel's launches are the :class:`Count` named for it (:meth:`name`,
+    shown by ``TRACER.summary()``); a wrapper keeps its own counts as
+    :class:`Count` objects, read through :meth:`Count.attr` properties.
+    A CUDA graph's replays launch kernels without Python seeing it, so
+    ``utils/graphs.py`` captures inside :meth:`recording` and adds the
+    :class:`Recording` on every replay."""
+
+    def __init__(self):
+        self.named: dict[str, Count] = {}
+        self._local = threading.local()
+
+    def name(self, name: str) -> Count:
+        """The count named ``name``, made on first use."""
+        count = self.named.get(name)
+        return count if count is not None else self.named.setdefault(name, Count())
+
+    def add(self, count: Count, n: int = 1) -> None:
+        """Add ``n`` to ``count``, or record it in this thread's recording."""
+        rec = getattr(self._local, "rec", None)
+        if rec is None:
+            count.n += n
+        else:
+            rec.increments[count] = rec.increments.get(count, 0) + n
+
+    def keep(self, obj, name: str, value) -> None:
+        """Set ``obj``'s attribute ``name`` to ``value``, and again on every
+        replay of this thread's recording (the dedup query's
+        ``last_overflow``: the device tensor each replay writes)."""
+        setattr(obj, name, value)
+        rec = getattr(self._local, "rec", None)
+        if rec is not None:
+            rec.kept[id(obj), name] = (obj, name, value)
+
+    @contextlib.contextmanager
+    def recording(self):
+        """Inside, what this thread adds goes into the :class:`Recording`
+        yielded, not into the counts; other threads count as ever. An
+        inner recording takes what is added inside it."""
+        outer, self._local.rec = getattr(self._local, "rec", None), Recording()
+        try:
+            yield self._local.rec
+        finally:
+            self._local.rec = outer
+
+
+COUNTS = Counts()
 
 
 class DeviceMarks:

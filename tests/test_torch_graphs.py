@@ -6,8 +6,13 @@ device read on the host, a data-dependent shape, or a host-to-device
 copy of a host value; ``aten.scalar_tensor``, the wrapped Python number
 of ``torch.where(m, 0.0, t)``, is capture-safe; the sharded filter's
 bucketed chunk and the meshed fleets' corrections are recorded inside two
-spawned gloo processes), the launch-counter bookkeeping of a replay (the
-collectives' calls and bytes too), ``disable_graphs()`` nesting, the
+spawned gloo processes), the counts a capture records and its replays
+add (``utils/timing.py`` ``COUNTS``: the first call as the warm-up left
+them, a caller's reset, two queries' own counts, the collectives' calls
+and bytes, the dedup query's overflow flags, another thread's launches,
+a program inlined in another), the one launch function
+(``ops/_cuda_build.py`` ``launch``) and that no other code raises on a
+CUDA error code, ``disable_graphs()`` nesting, the
 cyclic collector paused inside ``collector_paused()`` (nested) and as
 it was after, and the eager run a CPU program is, with one generator or
 two.
@@ -26,8 +31,10 @@ import contextlib
 import gc
 import json
 import os
+import threading
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -37,6 +44,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from monte_carlo_localization_tpu_torch import MCLConfig, ParticleFilter, disable_graphs
 from monte_carlo_localization_tpu_torch.mapping.synthetic import random_obstacle_world
+from monte_carlo_localization_tpu_torch.ops import _cuda_build
+from monte_carlo_localization_tpu_torch.ops._cuda_build import launch
+from monte_carlo_localization_tpu_torch.ops.lut_query import LUTQuery
 from monte_carlo_localization_tpu_torch.parallel import FleetFilter, ShardedParticleFilter
 from monte_carlo_localization_tpu_torch.parallel.collectives import Collectives, world_mesh
 from monte_carlo_localization_tpu_torch.parallel.multihost import spawn
@@ -44,10 +54,10 @@ from monte_carlo_localization_tpu_torch.utils import graphs
 from monte_carlo_localization_tpu_torch.utils.device import upload
 from monte_carlo_localization_tpu_torch.utils.graphs import (
     GraphCaptureError,
-    LaunchCounters,
     Programs,
     collector_paused,
 )
+from monte_carlo_localization_tpu_torch.utils.timing import COUNTS
 
 N = 64
 BEAMS = np.linspace(-2.35, 2.35, 60).astype(np.float32)
@@ -186,51 +196,205 @@ def test_a_correction_holds_no_operation_a_graph_cannot(world, path, request):
         assert bad == [], f"{path}: {bad}"
 
 
-class _Wrapper:
+class FakeLibrary:
+    """The kernel libraries as Python stand-ins: each C entry records its
+    arguments and returns ``err``."""
+
     def __init__(self):
-        self.launch_count = 5
-        self.table_launch_count = 0
-        self.last_overflow = None
-        self.other = 7
+        self.calls, self.err = [], 0
+
+    def __getattr__(self, entry):
+        if entry == "mcl_cuda_error_string":
+            return lambda code: b"an illegal memory access was encountered"
+
+        def call(*args):
+            self.calls.append((entry, args))
+            return self.err
+        return call
 
 
-def test_counters_replay_what_the_capture_launched():
-    w = _Wrapper()
-    c = LaunchCounters([w, None])
-    # the warm-up: three corrections and the table's one fill
-    w.launch_count += 3
-    w.table_launch_count += 1
-    warm = c.snapshot()
-    assert warm == {(0, "launch_count"): 8, (0, "table_launch_count"): 1}
-    # the capture: the three corrections again, the table cached
-    w.launch_count += 3
-    w.last_overflow = "flags of the captured step"
-    c.settle(warm, c.snapshot())
-    assert c.deltas == {(0, "launch_count"): 3, (0, "table_launch_count"): 0}
-    w.last_overflow = "flags of an eager call"
-    c.replay()  # the first call's replay: the counters as the warm-up left them
-    assert (w.launch_count, w.table_launch_count) == (8, 1)
-    assert w.last_overflow == "flags of the captured step"
-    w.launch_count = 0  # a caller resets its count
-    c.replay()
-    c.replay()
-    assert (w.launch_count, w.table_launch_count, w.other) == (6, 1, 7)
+@pytest.fixture
+def library(monkeypatch):
+    """``launch`` on the CPU: every library a :class:`FakeLibrary`, the
+    device a no-op and the current stream the handle 77."""
+    lib = FakeLibrary()
+    built = _cuda_build.BuiltLibrary({"lut_likelihood": lib, "probes": lib}, {}, 0.0, "")
+    monkeypatch.setattr(_cuda_build, "load_library", lambda: built)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=77))
+    return lib
 
 
-def test_counters_replay_the_collectives_calls_and_bytes():
-    comm = Collectives()
-    c = LaunchCounters([comm])
-    comm.calls, comm.bytes = 3, 48  # the warm-up: three psums of 16 bytes
-    warm = c.snapshot()
-    assert warm == {(0, "calls"): 3, (0, "bytes"): 48}
-    comm.calls, comm.bytes = 6, 96  # the capture
-    c.settle(warm, c.snapshot())
-    c.replay()  # the first call's replay
-    assert (comm.calls, comm.bytes) == (3, 48)
-    comm.reset_counts()
-    c.replay()
-    c.replay()
-    assert (comm.calls, comm.bytes, comm.host_copies) == (6, 96, 0)
+def _query() -> LUTQuery:
+    return LUTQuery(1416, BEAMS, height=8, width=8, resolution=0.05, origin_x=0.0,
+                    origin_y=0.0, max_range_px=40, row_stride=3072, z_hit=0.75, z_short=0.1,
+                    z_max=0.05, z_rand=0.1, sigma_hit=8.0, inv_squash=1 / 2.2, device="cpu")
+
+
+def _loglik(q: LUTQuery) -> None:
+    """One launch of the query's likelihood kernel, as ``LUTQuery.launch`` makes it."""
+    launch("lut_likelihood", "mcl_lut_loglik_u8", "cuda", name=q.form, count=q._launches)
+
+
+def _table(q: LUTQuery) -> None:
+    launch("lut_likelihood", "mcl_log_norm", "cuda", name="log_norm.kernel",
+           count=q._table_launches)
+
+
+def test_the_first_call_leaves_the_warm_up_s_counts_and_each_replay_adds_a_run(library):
+    """A program's first call: the eager warm-up counts (the normaliser
+    table filled there, once), the capture is recorded and not counted, and
+    the first replay stands for the warm-up's run; every later replay adds
+    one run."""
+    q = _query()
+    form = COUNTS.name(q.form)
+    _table(q)  # the warm-up: the table's one fill and three corrections
+    for _ in range(3):
+        _loglik(q)
+    warm = (q.launch_count, q.table_launch_count, form.n)
+    with COUNTS.recording() as rec:  # the capture: the table cached
+        for _ in range(3):
+            _loglik(q)
+    assert (q.launch_count, q.table_launch_count, form.n) == warm == (3, 1, form.n)
+    assert rec.increments == {q._launches: 3, form: 3}
+    rec.replay()
+    rec.replay()
+    assert (q.launch_count, q.table_launch_count, form.n) == (9, 1, warm[2] + 6)
+    assert len(library.calls) == 7  # the device saw each eager launch once
+
+
+def test_a_caller_s_reset_is_kept_by_later_replays(library):
+    q = _query()
+    _loglik(q)
+    with COUNTS.recording() as rec:
+        _loglik(q)
+        _loglik(q)
+    q.launch_count = 0  # a caller resets its count
+    rec.replay()
+    assert q.launch_count == 2
+    q.launch_count = 5
+    rec.replay()
+    assert q.launch_count == 7
+
+
+def test_two_queries_keep_their_own_counts(library):
+    a, b = _query(), _query()
+    with COUNTS.recording() as rec:
+        _loglik(a)
+        _loglik(b)
+        _loglik(b)
+    assert a.launch_count == b.launch_count == 0
+    for _ in range(3):
+        rec.replay()
+    assert (a.launch_count, b.launch_count) == (3, 6)
+    assert a.fleet_launch_count == b.fleet_launch_count == 0
+
+
+def test_a_replay_advances_the_collectives_calls_and_bytes():
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        comm = Collectives(dist.group.WORLD)
+        comm.psum(torch.ones(4))  # the warm-up: 16 bytes
+        with COUNTS.recording() as rec:  # the capture: a psum and an all-gather
+            comm.psum(torch.ones(4))
+            comm.all_gather(torch.ones(2, dtype=torch.float64))
+        assert (comm.calls, comm.bytes) == (1, 16)
+        comm.reset_counts()
+        rec.replay()
+        rec.replay()
+        assert (comm.calls, comm.bytes, comm.host_copies) == (4, 64, 0)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_a_replay_sets_the_captured_overflow_flags_again():
+    q = _query()
+    captured, eager = torch.zeros(1, dtype=torch.int32), torch.ones(1, dtype=torch.int32)
+    with COUNTS.recording() as rec:
+        COUNTS.keep(q, "last_overflow", torch.full((1,), 9, dtype=torch.int32))
+        COUNTS.keep(q, "last_overflow", captured)  # the last value a capture leaves
+    assert q.last_overflow is captured
+    q.last_overflow = eager  # an eager call of the same query
+    rec.replay()
+    assert q.last_overflow is captured and rec.increments == {}
+
+
+def test_another_thread_s_launches_are_counted_not_recorded(library):
+    """The live loop and the web view run threads of their own: what they
+    launch while a step is captured is theirs, not the step's."""
+    q, other = _query(), _query()
+    with COUNTS.recording() as rec:
+        _loglik(q)
+        thread = threading.Thread(target=_loglik, args=(other,))
+        thread.start()
+        thread.join()
+    assert (q.launch_count, other.launch_count) == (0, 1)
+    assert q._launches in rec.increments and other._launches not in rec.increments
+    rec.replay()
+    assert (q.launch_count, other.launch_count) == (1, 1)
+
+
+def test_a_program_inlined_in_another_counts_once(library):
+    """A program called inside another's capture runs inline: its launches
+    are the outer recording's, once; an inner recording takes its own."""
+    q, progs = _query(), Programs("cpu")
+
+    def inner(b, gen):
+        _loglik(q)
+        return dict(y=b["x"] + 1)
+
+    def outer(b, gen):
+        _loglik(q)
+        return progs(("inner",), inner, dict(x=b["x"]), gen)
+
+    with COUNTS.recording() as rec:
+        progs(("outer",), outer, dict(x=torch.zeros(2)), torch.Generator())
+        with COUNTS.recording() as own:
+            _table(q)
+    assert rec.increments[q._launches] == 2 and q._table_launches not in rec.increments
+    assert own.increments == {q._table_launches: 1, COUNTS.name("log_norm.kernel"): 1}
+    rec.replay()
+    assert (q.launch_count, q.table_launch_count) == (2, 0)
+
+
+@pytest.mark.parametrize("case", ["launch", "query", "error", "no_library"])
+def test_the_launch_function(library, case):
+    """Every kernel wrapper's one way to its library: the current stream
+    last, the kernel's named count and the wrapper's own; a query takes no
+    stream and counts nothing; a CUDA error code or a library not built
+    raises."""
+    q = _query()
+    named = COUNTS.name("probe.gather_rows")
+    before = named.n
+    if case == "launch":
+        launch("probes", "mcl_probe_gather_rows", "cuda", 1, 2, name="probe.gather_rows",
+               count=q._launches)
+        assert library.calls == [("mcl_probe_gather_rows", (1, 2, 77))]
+        assert (named.n, q.launch_count) == (before + 1, 1)
+    elif case == "query":
+        launch("probes", "mcl_probe_scan_shape", None, 3, name="probe.scan_shape", stream=False)
+        assert library.calls == [("mcl_probe_scan_shape", (3,))]
+        assert "probe.scan_shape" not in COUNTS.named
+    elif case == "error":
+        library.err = 700
+        with pytest.raises(RuntimeError, match=r"^probe.gather_rows launch failed: CUDA error "
+                                               r"700 \(an illegal memory access"):
+            launch("probes", "mcl_probe_gather_rows", "cuda", name="probe.gather_rows",
+                   count=q._launches)
+        assert (named.n, q.launch_count) == (before, 0)
+    else:
+        with pytest.raises(RuntimeError, match="motion kernel library was not built"):
+            launch("motion", "mcl_motion", "cuda", name="motion.kernel")
+
+
+def test_only_the_launch_function_raises_on_a_cuda_error_code():
+    """One place turns a kernel's error code into an exception: no wrapper
+    of the port checks one itself."""
+    pkg = Path(_cuda_build.__file__).resolve().parents[1]
+    raising = sorted(str(p.relative_to(pkg)) for p in pkg.rglob("*.py")
+                     if "error_string(" in p.read_text() or "CUDA error {" in p.read_text())
+    assert raising == ["ops/_cuda_build.py"]
 
 
 def test_disable_graphs_nests_and_restores(monkeypatch):

@@ -12,8 +12,9 @@ the 1080-beam scan (``angle_step: 1``) and 512 particles.
 - The reference's beam geometry against ``LUTQuery``'s.
 - The configuration, its limits, the cell and the trace as
   ``mcl_bench.spec`` loads them.
-- ``lut_loglik_kernel``'s launches by form (``LAUNCH_FORMS``): a
-  1080-beam query is the warp form, a tabled 60-beam one the 16-lane form.
+- ``lut_loglik_kernel``'s launches by form (``LUTQuery.form``, the count
+  each launch adds to): a 1080-beam query is the warp form, a tabled
+  60-beam one the 16-lane form; ``TRACER.summary()`` carries both.
 - ``likelihood_device_us.replay``'s reader of the counter
   ``device.likelihood``.
 - The compact LUT through ``GridMap.with_compact_range_lut`` computes its
@@ -47,16 +48,13 @@ from monte_carlo_localization_tpu_torch.mapping.range_lut_device import (
     build_compact_range_lut_device,
 )
 from monte_carlo_localization_tpu_torch.ops.lut_query import (
-    LAUNCH_FORMS,
     SMALL_GROUP,
     WARP,
-    LaunchForms,
     LUTQuery,
     required_row_stride,
     suggest_theta_bins,
 )
-from monte_carlo_localization_tpu_torch.utils.graphs import LaunchCounters
-from monte_carlo_localization_tpu_torch.utils.timing import TRACER
+from monte_carlo_localization_tpu_torch.utils.timing import COUNTS, TRACER
 
 CONFIG = "spielberg_headline_4000x1080"
 CELL = "headline_replay"
@@ -271,21 +269,19 @@ def _query(num_beams: int, max_range_px: int = 207, subbin: bool = False) -> LUT
 def test_launches_count_by_form(num_beams, max_range_px, subbin, lanes):
     q = _query(num_beams, max_range_px, subbin)
     assert q.group_lanes == lanes
-    forms = LaunchForms()
-    for _ in range(3):
-        forms.add(q.group_lanes)
-    want = (3, 0) if lanes == WARP else (0, 3)
-    assert (forms.warp_launch_count, forms.small_group_launch_count) == want
+    warp, small = COUNTS.name("lut_loglik.warp"), COUNTS.name("lut_loglik.small_group")
+    with COUNTS.recording() as rec:  # three launches' counts, as a capture records them
+        for _ in range(3):
+            COUNTS.add(COUNTS.name(q.form))
+    got = rec.increments
+    assert (got.get(warp, 0), got.get(small, 0)) == ((3, 0) if lanes == WARP else (0, 3))
 
 
 def test_graph_replays_and_the_tracer_carry_the_forms(crop_filter, monkeypatch):
     pf, _ = crop_filter
-    assert any(w is LAUNCH_FORMS for w in pf.programs.wrappers)
-    counters = LaunchCounters(pf.programs.wrappers)
-    i = next(i for i, w in enumerate(counters.wrappers) if w is LAUNCH_FORMS)
-    assert {(i, "warp_launch_count"), (i, "small_group_launch_count")} <= set(counters.snapshot())
-    monkeypatch.setattr(LAUNCH_FORMS, "warp_launch_count", 7)
-    monkeypatch.setattr(LAUNCH_FORMS, "small_group_launch_count", 0)
+    assert pf.likelihood.form == "lut_loglik.warp"
+    monkeypatch.setattr(COUNTS.name("lut_loglik.warp"), "n", 7)
+    monkeypatch.setattr(COUNTS.name("lut_loglik.small_group"), "n", 0)
     summary = TRACER.summary()
     assert summary["lut_loglik.warp"] == {"count": 7}
     assert "lut_loglik.small_group" not in summary  # a count of 0 is left out

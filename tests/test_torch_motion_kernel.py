@@ -6,8 +6,10 @@ On the CPU: the wrapper refuses what it does not take before any launch;
 ``correct()`` with the gather fused into motion equals motion of the
 gathered rows, for a single filter and a fleet, with given and drawn
 noise; CPU calls take the plain version and count as ``motion.plain``;
-every program that runs motion lists the kernel among the wrappers whose
-counters its graphs' replays advance. On a card (marked ``cuda``,
+every program that runs motion, its eager chain recorded as a capture
+records it (``utils/timing.py`` ``COUNTS.recording``), records one
+``motion.plain`` a correction, which a replay of the recording adds
+again. On a card (marked ``cuda``,
 skipped without one): the kernel is ``torch.equal`` to the plain
 version over every branch of the motion, at 1, 4000 and 14,528 rows and
 a fleet's 64 x 4000 with per-member actions and a strided noise slice;
@@ -40,8 +42,8 @@ from monte_carlo_localization_tpu_torch.parallel import FleetFilter, ShardedPart
 from monte_carlo_localization_tpu_torch.parallel import fleet as fleet_module
 from monte_carlo_localization_tpu_torch.parallel.multihost import spawn
 from monte_carlo_localization_tpu_torch.tools.perf_ablate import make_steps
-from monte_carlo_localization_tpu_torch.utils.graphs import LaunchCounters, Programs
-from monte_carlo_localization_tpu_torch.utils.timing import TRACER
+from monte_carlo_localization_tpu_torch.utils.graphs import Programs
+from monte_carlo_localization_tpu_torch.utils.timing import COUNTS, TRACER
 
 DISPERSION = (0.05, 0.025, 0.25)
 BEAMS = np.linspace(-2.35, 2.35, 60).astype(np.float32)
@@ -206,29 +208,52 @@ def test_cpu_calls_take_the_plain_version_and_count_as_plain():
     assert TRACER.summary()["motion.plain"]["count"] == summary + 3
 
 
-def _programs(gm, kind: str):
-    """The programs of one path that runs motion."""
-    beams = None if kind.endswith("no_beams") else BEAMS
-    if kind.startswith("fleet"):
-        return FleetFilter(gm, 2, MCLConfig(max_particles=64), beam_angles=beams).programs
-    if kind.startswith("sharded"):
-        return ShardedParticleFilter(gm, MCLConfig(max_particles=64), beam_angles=beams).programs
-    pf = ParticleFilter(gm, MCLConfig(max_particles=64), beam_angles=beams)
+def _chain(gm, kind: str, k: int):
+    """One path that runs motion, as a function that runs k corrections
+    through its programs: a single filter, a fleet of two, the sharded
+    filter on its one-shard world (each given its beams at construction,
+    or by ``set_beam_angles`` after it, which makes its programs anew), or
+    ``perf_ablate``'s chain."""
+    cfg = MCLConfig(max_particles=64)
+    cls = {"single": ParticleFilter, "sharded": ShardedParticleFilter,
+           "fleet": lambda gm, cfg, **kw: FleetFilter(gm, 2, cfg, **kw)}.get(kind.split("_")[0])
+    acts = np.tile(F32([0.05, 0.0, 0.02]), (k, 1))
+    scans = np.full((k, len(BEAMS)), 2.5, F32)
     if kind == "perf_ablate":
-        return make_steps(gm, pf.likelihood, pf.sensor, True, True, True, True).programs
-    return pf.programs
+        pf = ParticleFilter(gm, cfg, beam_angles=BEAMS)
+        steps = make_steps(pf.grid_map, pf.likelihood, pf.sensor, True, True, True, True)
+        state = pf.init_pose(POSE, seed=1)
+        return lambda: steps(state, torch.from_numpy(acts), torch.from_numpy(scans))
+    if kind.endswith("no_beams"):
+        pf = cls(gm, cfg)
+        pf.set_beam_angles(BEAMS)
+    else:
+        pf = cls(gm, cfg, beam_angles=BEAMS)
+    if kind.startswith("fleet"):
+        state = pf.init_pose(np.tile(POSE, (2, 1)), seed=1)
+        acts, scans = np.repeat(acts[:, None], 2, axis=1), np.repeat(scans[:, None], 2, axis=1)
+    elif kind.startswith("sharded"):
+        state = pf.init_global(seed=1)
+    else:
+        state = pf.init_pose(POSE, seed=1)
+    return lambda: pf.step_many(state, acts, scans)
 
 
 @pytest.mark.parametrize("kind", ["single_no_beams", "single", "fleet_no_beams", "fleet",
                                   "sharded_no_beams", "sharded", "perf_ablate"])
-def test_each_motion_program_counts_the_kernel_s_replays(world, kind):
-    """A graph's replays launch the kernel without Python seeing it: a
-    program adds them to both counts only if it lists the kernel."""
-    programs = _programs(world, kind)
-    assert any(w is MOTION_KERNEL for w in programs.wrappers)
-    counters = LaunchCounters(programs.wrappers)
-    i = next(i for i, w in enumerate(counters.wrappers) if w is MOTION_KERNEL)
-    assert {(i, "launch_count"), (i, "plain_launch_count")} <= set(counters.snapshot())
+def test_each_motion_program_records_its_plain_calls(world, kind):
+    """A graph's replays run motion without Python seeing it: the eager
+    chain, recorded as a capture records it, records one ``motion.plain``
+    a correction and counts none; a replay of the recording adds them."""
+    k = 3
+    run = _chain(world, kind, k)
+    plain = MOTION_KERNEL.plain_launch_count
+    with COUNTS.recording() as rec:
+        run()
+    assert MOTION_KERNEL.plain_launch_count == plain
+    assert rec.increments[COUNTS.name("motion.plain")] == k
+    rec.replay()
+    assert MOTION_KERNEL.plain_launch_count == plain + k
 
 
 def _fleet_2d_rank() -> None:
@@ -376,7 +401,7 @@ def test_a_graph_replay_equals_the_eager_call_and_counts(cuda, fleet):
     """Resample and motion as a program: each replay equals the eager
     call on the same inputs and generator state, and adds one launch."""
     n = 4000
-    programs = Programs(cuda, [MOTION_KERNEL])
+    programs = Programs(cuda)
     action = torch.tensor([ACTIONS["arc"]] * fleet if fleet else ACTIONS["arc"], device=cuda)
 
     def program(b, gen):

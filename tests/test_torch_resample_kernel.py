@@ -2,11 +2,13 @@
 ``SystematicKernel``) and the rule it implements.
 
 On the CPU: the per-slot rule the kernel computes (slot s takes the first
-j of ``g[:-1]`` with ``g[j] >= s``, clamped to N - 1) is ``torch.equal`` to
-``systematic_invert_cdf_window`` at ``slot0 = 0`` on the same CDF, over the
-edge cases below; CPU tensors take the PyTorch path (the kernel's
-``launch_count`` does not move), and every program that resamples lists
-the kernel among the wrappers whose counters its graphs' replays advance.
+j of ``g[:-1]`` with ``g[j] >= s``, clamped to N - 1), written out here,
+and ``systematic_invert_cdf_window``, its PyTorch path, are both
+``torch.equal`` to the scatter inversion (source j scattered into its
+first slot with ``amax``, a cumulative max after), the oracle kept here,
+on the same CDF over the edge cases below and windows of the slots from
+``slot0 = 0`` on and past it; CPU tensors take the PyTorch path (the
+kernel's ``launch_count`` does not move).
 On a card (marked ``cuda``, skipped without one): the kernel's indices are
 ``torch.equal`` to the PyTorch path on the same log weights and u0, a
 captured graph's replay equals the eager call, a program's replays count
@@ -29,8 +31,6 @@ from monte_carlo_localization_tpu_torch.ops.resample import (
     weight_cdf,
 )
 from monte_carlo_localization_tpu_torch.parallel import FleetFilter
-from monte_carlo_localization_tpu_torch.tools.perf_ablate import make_steps
-from monte_carlo_localization_tpu_torch.utils.graphs import LaunchCounters
 
 # the kernel's cap on an H100: 227 KB of opt-in shared memory over 16 B an element
 H100_MAX_ROW = 232_448 // 16
@@ -93,6 +93,29 @@ def _first_at_or_above(cdf: torch.Tensor, u0: torch.Tensor, m: int) -> torch.Ten
     return idx.clamp(max=rows.shape[1] - 1).to(torch.int32).reshape(cdf.shape[:-1] + (m,))
 
 
+def _scatter_inversion(cdf, u0, num_samples: int, slot0: int, window: int) -> torch.Tensor:
+    """The inversion as first written (the JAX package's form): each source
+    j scattered into its first slot ``floor(g[j-1]) + 1`` of the window
+    with ``amax``, slot 0 seeded with the source covering ``slot0``, then a
+    cumulative max; slots outside the window go to a dropped spare slot."""
+    rows = cdf if cdf.dim() == 2 else cdf[None]
+    f, n = rows.shape
+    g = num_samples * rows - torch.as_tensor(u0).reshape(-1, 1)
+    first_slot = torch.cat([torch.zeros((f, 1), dtype=torch.int32),
+                            torch.floor(g[:, :-1]).to(torch.int32) + 1], dim=1) - slot0
+    inside = (first_slot >= 0) & (first_slot < window)
+    target = torch.where(inside, first_slot, window).to(torch.int64)
+    target = target + (window + 1) * torch.arange(f)[:, None]
+    src = torch.arange(n, dtype=torch.int32).expand(f, n)
+    seeded = torch.zeros(f * (window + 1), dtype=torch.int32)
+    seeded.scatter_reduce_(0, target.reshape(-1), src.reshape(-1), reduce="amax")
+    seeded = seeded.view(f, window + 1)[:, :window]
+    j0 = torch.sum((g < slot0).to(torch.int32), dim=1)
+    seeded[:, 0] = torch.maximum(seeded[:, 0], j0)
+    out = torch.clamp(torch.cummax(seeded, dim=1).values, 0, n - 1)
+    return out if cdf.dim() == 2 else out[0]
+
+
 @pytest.mark.parametrize("kind, f, n, m, u0", _cases())
 def test_first_slot_rule_equals_the_scatter_inversion(kind, f, n, m, u0):
     torch.set_num_threads(1)
@@ -100,12 +123,16 @@ def test_first_slot_rule_equals_the_scatter_inversion(kind, f, n, m, u0):
     lw = _log_weights(kind, f, n, seed=n + f)
     cdf = weight_cdf(lw)
     u0s = torch.full((f,), u0, dtype=torch.float32)
-    want = systematic_invert_cdf_window(cdf, u0s, m, 0, m)
-    got = _first_at_or_above(cdf, u0s, m)
-    assert torch.equal(got, want)
-    if f == 1:
-        assert torch.equal(_first_at_or_above(cdf[0], u0s[0], m),
-                           systematic_invert_cdf_window(cdf[0], u0s[0], m, 0, m))
+    rule = _first_at_or_above(cdf, u0s, m)
+    # the whole range, a middle window, the last slot and all but the first
+    windows = {(0, m), (m // 3, max(1, m // 2)), (m - 1, 1), (min(1, m - 1), m - 1 or 1)}
+    for slot0, window in windows:
+        want = _scatter_inversion(cdf, u0s, m, slot0, window)
+        assert torch.equal(rule[:, slot0:slot0 + window], want)
+        assert torch.equal(systematic_invert_cdf_window(cdf, u0s, m, slot0, window), want)
+        if f == 1:
+            assert torch.equal(systematic_invert_cdf_window(cdf[0], u0s[0], m, slot0, window),
+                               want[0])
 
 
 def test_cpu_rows_take_the_torch_path():
@@ -117,36 +144,6 @@ def test_cpu_rows_take_the_torch_path():
     assert SYSTEMATIC_KERNEL.launch_count == before
     with pytest.raises(ValueError, match="CUDA"):
         SYSTEMATIC_KERNEL(torch.softmax(lw, -1), torch.zeros(()), 100)
-
-
-def _programs(gm, kind: str):
-    """The programs of one resampling path: a single filter or a fleet,
-    before and after its beams are set, or ``perf_ablate``'s chain."""
-    beams = None if kind.endswith("no_beams") else BEAMS
-    if kind.startswith("fleet"):
-        return FleetFilter(gm, 2, MCLConfig(max_particles=64), beam_angles=beams).programs
-    pf = ParticleFilter(gm, MCLConfig(max_particles=64), beam_angles=beams)
-    if kind == "perf_ablate":
-        return make_steps(gm, pf.likelihood, pf.sensor, True, True, True, True).programs
-    return pf.programs
-
-
-@pytest.fixture(scope="module")
-def world():
-    torch.set_num_threads(1)
-    return random_obstacle_world(seed=3, device="cpu")
-
-
-@pytest.mark.parametrize("kind", ["single_no_beams", "single", "fleet_no_beams", "fleet",
-                                  "perf_ablate"])
-def test_each_resampling_program_counts_the_kernel_s_replays(world, kind):
-    """A graph's replays launch the kernel without Python seeing it: a
-    program adds them to ``launch_count`` only if it lists the kernel."""
-    programs = _programs(world, kind)
-    assert any(w is SYSTEMATIC_KERNEL for w in programs.wrappers)
-    counters = LaunchCounters(programs.wrappers)
-    i = next(i for i, w in enumerate(counters.wrappers) if w is SYSTEMATIC_KERNEL)
-    assert (i, "launch_count") in counters.snapshot()
 
 
 # ----- on a card -----
