@@ -17,7 +17,9 @@ the sub-bin lerp and on the shapes its lane layout makes edge cases,
 its normaliser and sub-bin tables, the unique-window kernel and its key
 kernel at 100k particles, the mega step on each side of its small-n
 choice, the systematic resampler's kernel and the motion kernel each at
-4000, 64 x 4000 and the resampler's longest row), replays the config #1 golden
+4000, 64 x 4000 and the resampler's longest row, the normalization and
+pose kernel there and at 100,000 and 1,000,000 against the plain version
+and float64), replays the config #1 golden
 trace through ``ParticleFilter`` on the classic step and on the mega step
 (``pallas_mega``), drives the mega step at 4000 x 1080 on the same map,
 replays the config #4 golden trace on basement_fixed (compact LUT) with and without ``pallas_subbin`` from 15 replay seeds, runs
@@ -180,6 +182,12 @@ OPS_PER_PARTICLE_K6 = 60  # + motion (sin/cos, chord, noise, wrap) and moments
 # branch (16: chord, midpoint, two sines, a cosine), the noise (6), the
 # wrap's sine, cosine and atan2 (3)
 OPS_PER_PARTICLE_MOTION = 38
+# the normalization and pose kernel an element: float32 max, shift and
+# sincosf (~20: the reduction and two polynomials); float64 subtract,
+# exponential (~20: reduction, polynomial, scale) and five sums (one add,
+# four multiply-adds of two)
+OPS_PER_ELEMENT_NORMALIZE_F32 = 22
+OPS_PER_ELEMENT_NORMALIZE_F64 = 30
 # config #5 (BASELINE.json, bench.py CONFIGS[5] / CONFIG_MAPS[5])
 CONFIG5_MAPS = ("map_1753950572.yaml", "icra_2_clean.yaml", "first_map.yaml", "new_map1.yaml")
 CONFIG5_FLEET = 64
@@ -998,6 +1006,107 @@ def phase_motion(device) -> dict:
     return dict(launches=MOTION_KERNEL.launch_count, calls=calls)
 
 
+def normalize_pose_bound(f: int, n: int) -> dict:
+    """The normalization and pose (csrc/normalize_pose.cu) on f rows of n:
+    the log weights and particles read once, the shifted weights written
+    once, the log quality and the pose once a row; an element's float32
+    max, shift and sincosf (OPS_PER_ELEMENT_NORMALIZE_F32) and its
+    float64 exponential and five sums (OPS_PER_ELEMENT_NORMALIZE_F64)."""
+    return bound(4 * f * n + 12 * f * n + 4 * f * n + 16 * f,
+                 OPS_PER_ELEMENT_NORMALIZE_F32 * f * n, OPS_PER_ELEMENT_NORMALIZE_F64 * f * n)
+
+
+def float64_normalize_pose(particles, log_w):
+    """(log quality, pose) of the normalization's formulas in float64."""
+    import torch
+
+    p, lw = particles.double(), log_w.double()
+    m = torch.amax(lw, dim=-1, keepdim=True)
+    e = torch.exp(lw - m)
+    s = e.sum(-1)
+    pose = torch.stack([(e * p[..., 0]).sum(-1) / s, (e * p[..., 1]).sum(-1) / s,
+                        torch.atan2((e * torch.sin(p[..., 2])).sum(-1),
+                                    (e * torch.cos(p[..., 2])).sum(-1))], dim=-1)
+    return m[..., 0] + torch.log(s) - math.log(log_w.shape[-1]), pose
+
+
+def pose_error(pose, want):
+    """|pose - want| a component (the heading's wrapped), in float64."""
+    import torch
+
+    d = (pose.double() - want).abs()
+    d[..., 2] = (torch.remainder(d[..., 2] + math.pi, 2 * math.pi) - math.pi).abs()
+    return d
+
+
+def phase_normalize_pose(device) -> dict:
+    """The normalization and pose kernel (``ops/normalize_pose.py``
+    ``NormalizePoseKernel``) against the plain version (``filter/core.py``
+    ``normalize_pose``'s three lines) and a float64 computation of the
+    same formulas, at the main path's 4000, config #5's 64 x 4000, the
+    resampler kernel's longest row, 100,000 and 1,000,000 particles: the
+    shifted weights ``torch.equal`` to the plain version's, the pose no
+    farther from float64 than the plain version's + 1e-6 and the log
+    quality within 1e-5 of it past its float32 rounding; the kernel's
+    device ms, the wrapper's, the plain chain's (as a graph) and the
+    bound."""
+    import torch
+
+    from monte_carlo_localization_tpu_torch.filter.core import expected_pose
+    from monte_carlo_localization_tpu_torch.ops.normalize_pose import NORMALIZE_POSE_KERNEL
+    from monte_carlo_localization_tpu_torch.ops.resample import SYSTEMATIC_KERNEL
+    from monte_carlo_localization_tpu_torch.utils.timing import graph_ms
+
+    def plain(particles, log_w):
+        log_quality = torch.logsumexp(log_w, dim=-1) - math.log(log_w.shape[-1])
+        shifted = log_w - torch.amax(log_w, dim=-1, keepdim=True)
+        return shifted, log_quality, expected_pose(particles, shifted)
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    calls = []
+    for f, n in ((1, N_PARTICLES), (CONFIG5_FLEET, N_PARTICLES),
+                 (1, SYSTEMATIC_KERNEL.max_row(device)), (1, CONFIG4_PARTICLES),
+                 (1, 1_000_000)):
+        lead = (f,) if f > 1 else ()
+        p = np.stack([30 + rng.uniform(-60, 60, lead + (n,)),
+                      -20 + rng.uniform(-60, 60, lead + (n,)),
+                      rng.uniform(-np.pi, np.pi, lead + (n,))], axis=-1).astype(np.float32)
+        particles = torch.from_numpy(p).to(device)
+        lw = (-80.0 + rng.normal(scale=40.0, size=lead + (n,))).astype(np.float32)
+        lw[..., n // 3:n // 3 + n // 7] = -1e4  # a run of off-map particles
+        log_w = torch.from_numpy(lw).to(device)
+        launches = NORMALIZE_POSE_KERNEL.launch_count
+        shifted, quality, pose = NORMALIZE_POSE_KERNEL(particles, log_w)
+        want_shifted, plain_quality, plain_pose = plain(particles, log_w)
+        quality64, pose64 = float64_normalize_pose(particles, log_w)
+        torch.cuda.synchronize()
+        label = f"{f} x {n}"
+        check(NORMALIZE_POSE_KERNEL.launch_count == launches + 1,
+              "normalize_pose: the kernel did not launch")
+        check(torch.equal(shifted, want_shifted),
+              f"normalize_pose: shifted weights != the plain version's at {label}")
+        err, plain_err = pose_error(pose, pose64), pose_error(plain_pose, pose64)
+        check(bool((err <= plain_err + 1e-6).all()),
+              f"normalize_pose: pose farther from float64 than the plain version at {label}: "
+              f"{err.max().item()} against {plain_err.max().item()}")
+        quality_err = (quality.double() - quality64).abs()
+        check(bool((quality_err <= 1e-5 + quality64.abs() * 2.0**-24).all()),
+              f"normalize_pose: log quality {quality_err.max().item()} from float64 at {label}")
+        timed = device_ms(lambda: NORMALIZE_POSE_KERNEL(particles, log_w), "normalize_pose_kernel")
+        calls.append({
+            "label": label, "ms": timed["ms"], "time_source": timed["source"],
+            "wrapper_ms": event_ms(lambda: NORMALIZE_POSE_KERNEL(particles, log_w)),
+            "plain_ms": graph_ms(lambda: plain(particles, log_w)),
+            "pose_err_max": err.max().item(), "plain_pose_err_max": plain_err.max().item(),
+            "quality_err_max": quality_err.max().item(),
+            "plain_quality_err_max": (plain_quality.double() - quality64).abs().max().item(),
+            **normalize_pose_bound(f, n),
+        })
+    emit("normalize_pose", t0, launches=NORMALIZE_POSE_KERNEL.launch_count, calls=calls)
+    return dict(launches=NORMALIZE_POSE_KERNEL.launch_count, calls=calls)
+
+
 def phase_norm_table(device) -> dict:
     """The normaliser table the kernels read (log_norm_kernel): against its
     plain version within TABLE_TOL, bit for bit against the analytic
@@ -1313,10 +1422,13 @@ def phase_division(device) -> None:
 
 
 def zero_motion() -> None:
-    """Zero the motion kernel's counters before a main-path run."""
+    """Zero the motion and normalization kernels' counters before a
+    main-path run."""
     from monte_carlo_localization_tpu_torch.ops.motion import MOTION_KERNEL
+    from monte_carlo_localization_tpu_torch.ops.normalize_pose import NORMALIZE_POSE_KERNEL
 
     MOTION_KERNEL.launch_count = MOTION_KERNEL.plain_launch_count = 0
+    NORMALIZE_POSE_KERNEL.launch_count = NORMALIZE_POSE_KERNEL.plain_launch_count = 0
 
 
 def motion_launches(corrections: int, where: str) -> int:
@@ -1327,6 +1439,20 @@ def motion_launches(corrections: int, where: str) -> int:
     launches, plain = MOTION_KERNEL.launch_count, MOTION_KERNEL.plain_launch_count
     check(launches == corrections and plain == 0,
           f"{where}: {launches} motion launches and {plain} plain calls for "
+          f"{corrections} corrections")
+    return launches
+
+
+def normalize_launches(corrections: int, where: str) -> int:
+    """The normalization and pose kernel's launches since
+    :func:`zero_motion`, checked to be one a correction with no call on
+    the plain version."""
+    from monte_carlo_localization_tpu_torch.ops.normalize_pose import NORMALIZE_POSE_KERNEL
+
+    launches = NORMALIZE_POSE_KERNEL.launch_count
+    plain = NORMALIZE_POSE_KERNEL.plain_launch_count
+    check(launches == corrections and plain == 0,
+          f"{where}: {launches} normalize_pose launches and {plain} plain calls for "
           f"{corrections} corrections")
     return launches
 
@@ -1356,6 +1482,7 @@ def phase_config1(device) -> dict:
     check(resample_launches == res.corrections,
           f"{resample_launches} resampler launches for {res.corrections} corrections")
     moves = motion_launches(res.corrections, "config #1")
+    norms = normalize_launches(res.corrections, "config #1")
     check(table_launches == 1, f"{table_launches} fills of the normaliser table in one replay (want 1)")
     check(np.isfinite(res.poses).all(), "config #1 replay gave non-finite poses")
     check(launches == res.corrections == 500,
@@ -1364,13 +1491,14 @@ def phase_config1(device) -> dict:
     emit("config1_replay", t0, setup_s=t_setup, particles=N_PARTICLES,
          beams=int(pf.beam_angles.shape[0]), lut=("compact " if pf.grid_map.lut_row_map is not None else "dense ") + str(pf.grid_map.range_lut.dtype),
          **built, corrections=res.corrections, launches=launches, table_fills=table_launches,
-         resample_launches=resample_launches, motion_launches=moves, rmse_xy_m=res.rmse_xy,
+         resample_launches=resample_launches, motion_launches=moves,
+         normalize_launches=norms, rmse_xy_m=res.rmse_xy,
          rmse_theta_rad=res.rmse_theta, chained_updates_per_s=res.updates_per_sec)
     del pf, gm
     torch.cuda.empty_cache()
     return dict(launches=launches, table_launches=table_launches, rmse_xy=res.rmse_xy,
                 rate=res.updates_per_sec, resample_launches=resample_launches,
-                motion_launches=moves)
+                motion_launches=moves, normalize_launches=norms)
 
 
 def lut_scan(pf, pose) -> np.ndarray:
@@ -1446,6 +1574,7 @@ def phase_headline(device) -> dict:
     check(resample_launches == chain + 30,
           f"{resample_launches} resampler launches for {chain + 30} corrections")
     moves = motion_launches(chain + 30, "headline")
+    norms = normalize_launches(chain + 30, "headline")
     all_poses = torch.cat([poses, torch.stack(step_poses)]).cpu().numpy()
     check(np.isfinite(all_poses).all(), "headline gave non-finite poses")
     drift = float(np.linalg.norm(all_poses[-1, :2] - pose[:2]))
@@ -1471,14 +1600,15 @@ def phase_headline(device) -> dict:
          lut_build_s=built["lut_build_s"], lut_route=built["lut_route"],
          sweep_launches=built["sweep_launches"], launches=launches,
          resample_launches=resample_launches, motion_launches=moves,
-         chained_updates_per_s=chain / t_chain, per_step_updates_per_s=30 / t_steps,
+         normalize_launches=norms, chained_updates_per_s=chain / t_chain, per_step_updates_per_s=30 / t_steps,
          drift_from_start_m=drift, max_abs_err=err, kernel_device_ms=kernel_ms,
          kernel_time_source=dev["source"], wrapper_ms=wrapper_ms, plain_ms=plain_ms, **bnd,
          peak_device_bytes=torch.cuda.max_memory_allocated(device))
     return dict(launches=launches, max_abs_err=err, ms=kernel_ms, wrapper_ms=wrapper_ms,
                 plain_ms=plain_ms, bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
                 sector_bound_ms=bnd["sector_bound_ms"], sector_bytes=bnd["sector_bytes"],
-                resample_launches=resample_launches, motion_launches=moves)
+                resample_launches=resample_launches, motion_launches=moves,
+                normalize_launches=norms)
 
 
 MOTIONS = {"straight": [0.05, 0.0, 1.0, 0.37], "arc": [0.04, 0.03, 0.0, 0.81]}
@@ -2155,6 +2285,7 @@ def phase_config5(device, classic_kernels: float) -> dict:
     check(resample_launches == n_corr,
           f"{resample_launches} resampler launches ({f} rows each) for {n_corr} fleet corrections")
     moves = motion_launches(n_corr, "config #5")
+    norms = normalize_launches(n_corr, "config #5")
 
     # the fleet kernel against its plain version at this path's shape
     obs = ff.sensor.to_pixel_index(torch.as_tensor(scans, device=device)).float()
@@ -2188,6 +2319,7 @@ def phase_config5(device, classic_kernels: float) -> dict:
          lut_route=built["lut_route"], sweep_launches=built["sweep_launches"],
          corrections=n_corr,
          fleet_launches=launches, resample_launches=resample_launches, motion_launches=moves,
+         normalize_launches=norms,
          chained_fleet_steps_per_s=chained,
          chained_member_updates_per_s=[x * f for x in chained],
          per_step_fleet_steps_per_s=per_step,
@@ -2198,7 +2330,8 @@ def phase_config5(device, classic_kernels: float) -> dict:
          classic_config1_kernels_per_correction=classic_kernels)
     del ff, state, parts, maps
     torch.cuda.empty_cache()
-    return {**kernel, "resample_launches": resample_launches, "motion_launches": moves}
+    return {**kernel, "resample_launches": resample_launches, "motion_launches": moves,
+            "normalize_launches": norms}
 
 
 SHARDED_CHAIN = 10  # chained corrections holding bucketed against allgather
@@ -4234,7 +4367,8 @@ def main() -> int:
     csrc = REPO / "monte_carlo_localization_tpu_torch" / "csrc"
     if not all((csrc / f).exists() for f in ("lut_likelihood.cu", "lut_dedup.cu", "mega_step.cu",
                                              "probes.cu", "range_lut_sweep.cu",
-                                             "resample.cu", "motion.cu", "beam_model.cuh")):
+                                             "resample.cu", "motion.cu", "normalize_pose.cu",
+                                             "beam_model.cuh")):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
@@ -4257,7 +4391,7 @@ def main() -> int:
     built = load_library()
     check(native.available(), "the native C++ LUT builder did not build (g++ with OpenMP)")
     check(set(built.libs) == {"lut_likelihood", "lut_dedup", "mega_step", "probes",
-                              "range_lut_sweep", "resample", "motion"},
+                              "range_lut_sweep", "resample", "motion", "normalize_pose"},
           f"built {sorted(built.libs)}")
     keep = ("== ", "Compiling entry", "registers", "smem", "spill")
     ptxas = [ln.strip() for ln in built.log.splitlines() if any(k in ln for k in keep)]
@@ -4277,6 +4411,7 @@ def main() -> int:
     table = phase_norm_table(device)
     resample = phase_resample(device)
     motion = phase_motion(device)
+    normalize = phase_normalize_pose(device)
     dedup_plain = phase_dedup_vs_plain(device)
     mega_plain = phase_mega_vs_plain(device)
     config1 = phase_config1(device)
@@ -4492,6 +4627,24 @@ def main() -> int:
             "config5_launches": config5["motion_launches"],
             "comparison_launches": motion["launches"],
             "other_calls": motion["calls"][1:],
+        },
+        {
+            "name": "normalize_pose",
+            "route": "cuda",
+            "source": "monte_carlo_localization_tpu_torch/csrc/normalize_pose.cu",
+            "replaces": "none: XLA's work in monte_carlo_localization_tpu/filter/core.py",
+            # the main path's: one a correction (a fleet's F rows in one), no plain call
+            "launches": (config1["normalize_launches"] + head["normalize_launches"]
+                         + config5["normalize_launches"]),
+            "pose_err_max": max(c["pose_err_max"] for c in normalize["calls"]),
+            **{k: normalize["calls"][0][k] for k in ("ms", "time_source", "wrapper_ms",
+                                                      "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None,
+            "config1_launches": config1["normalize_launches"],
+            "headline_launches": head["normalize_launches"],
+            "config5_launches": config5["normalize_launches"],
+            "comparison_launches": normalize["launches"],
+            "other_calls": normalize["calls"][1:],
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -45,14 +45,16 @@ from monte_carlo_localization_tpu_torch.ops.lut_query import (
     required_row_stride,
     suggest_theta_bins,
 )
+from monte_carlo_localization_tpu_torch.ops.normalize_pose import NORMALIZE_POSE_KERNEL
 from monte_carlo_localization_tpu_torch.ops.raycast import cast_rays, lut_expected_px
 from monte_carlo_localization_tpu_torch.ops.resample import resample_indices
 from monte_carlo_localization_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device, upload
 from monte_carlo_localization_tpu_torch.utils.graphs import Programs, shape_of
-from monte_carlo_localization_tpu_torch.utils.timing import TRACER, TimingStats, call_ms
+from monte_carlo_localization_tpu_torch.utils.timing import COUNTS, TRACER, TimingStats, call_ms
 
 _STEP = TRACER.name("filter.step")
 _STEP_MANY = TRACER.name("filter.step_many")
+_NORMALIZE_PLAIN = COUNTS.name("normalize_pose.plain")  # calls that take the plain version
 
 
 @dataclass(frozen=True)
@@ -204,12 +206,26 @@ def correct(
     TRACER.mark()
     log_w = likelihood_fn(proposal, obs_px)
     TRACER.mark()
-    # log(mean_i w_i) before the shift: linear space underflows at 1080 beams
+    log_w, log_quality, pose = normalize_pose(proposal, log_w)
+    TRACER.mark()
+    return proposal, log_w, log_quality.to(torch.float32), pose
+
+
+def normalize_pose(proposal: torch.Tensor, log_w: torch.Tensor):
+    """The last phase of a correction: (log weights shifted by their max,
+    log quality, pose) from the likelihood ``log_w`` (..., N) of
+    ``proposal`` (..., N, 3). The log quality is log(mean_i w_i), taken
+    before the shift (linear space underflows at 1080 beams). On a card
+    one launch of ``ops/normalize_pose.py`` :data:`NORMALIZE_POSE_KERNEL`,
+    whose wrapper raises ``ValueError`` on what it cannot take; off a card
+    the plain version below, with :func:`expected_pose`."""
+    if log_w.is_cuda:
+        return NORMALIZE_POSE_KERNEL(proposal, log_w)
+    COUNTS.add(_NORMALIZE_PLAIN)
     log_quality = torch.logsumexp(log_w, dim=-1) - math.log(log_w.shape[-1])
     log_w = log_w - torch.amax(log_w, dim=-1, keepdim=True)
     pose = expected_pose(proposal, log_w)
-    TRACER.mark()
-    return proposal, log_w, log_quality.to(torch.float32), pose
+    return log_w, log_quality, pose
 
 
 def inject_uniform(

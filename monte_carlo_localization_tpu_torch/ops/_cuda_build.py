@@ -210,6 +210,13 @@ def _bind(libs: dict[str, ctypes.CDLL]) -> None:
     motion.mcl_motion.argtypes = [p, i64, i64, i64, p, i64, i64, p, i64, i64, p, i64, i64, i64,
                                   ctypes.c_float, ctypes.c_float, ctypes.c_float, i32, p, p]
 
+    norm = libs["normalize_pose"]
+    norm.mcl_normalize_pose_setup.restype = i32
+    norm.mcl_normalize_pose_setup.argtypes = []
+    norm.mcl_normalize_pose.restype = i32
+    # log_w, particles, rows, n, shifted, log_quality, pose, stream
+    norm.mcl_normalize_pose.argtypes = [p, p, i64, i64, p, p, p, p]
+
     sweep = libs["range_lut_sweep"]
     for name in ("mcl_range_lut_sweep_u8", "mcl_range_lut_sweep_u16"):
         fn = getattr(sweep, name)

@@ -16,7 +16,7 @@ could save. The variants are the JAX tool's six:
   no_kernel    a surrogate log weight with a data dependency on the cloud
 
 over the port's own step functions (``resample_indices``,
-``motion_model``, the fused ``LUTQuery``, ``expected_pose``). On a card
+``motion_model``, the fused ``LUTQuery``, ``normalize_pose``). On a card
 each variant's chain is one replay of a CUDA graph (``utils/graphs.py``,
 as the JAX tool ``jax.jit``-s a ``lax.scan``), so a marginal is device
 time and not the host's launch work; on the CPU the chain runs eagerly.
@@ -35,7 +35,6 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import math
 import sys
 import time
 
@@ -47,9 +46,9 @@ from monte_carlo_localization_tpu_torch.config import MCLConfig
 from monte_carlo_localization_tpu_torch.filter import (
     MCLState,
     build_lut_likelihood,
-    expected_pose,
     initialize_pose,
 )
+from monte_carlo_localization_tpu_torch.filter.core import normalize_pose
 from monte_carlo_localization_tpu_torch.models.motion import motion_model
 from monte_carlo_localization_tpu_torch.models.sensor import SensorModel
 from monte_carlo_localization_tpu_torch.ops.resample import resample_indices
@@ -105,9 +104,8 @@ def make_steps(gm, query, sensor, do_resample, do_motion, do_likelihood, do_pose
             # shape-preserving surrogate keeping a data dependency
             log_w = state.log_weights * 0.999 + proposal[:, 0] * 1e-6
         if do_pose:
-            log_q = torch.logsumexp(log_w, dim=-1) - math.log(log_w.shape[0])
-            log_w = log_w - torch.amax(log_w)
-            pose = expected_pose(proposal, log_w)
+            # the filter's own last phase: one launch on a card
+            log_w, log_q, pose = normalize_pose(proposal, log_w)
         else:
             log_q = log_w[0]
             pose = proposal[0]

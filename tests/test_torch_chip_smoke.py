@@ -472,3 +472,32 @@ def test_motion_bound_counts_each_byte_once_and_the_operations(f, n):
     assert b["f32_ops"] == chip_smoke.OPS_PER_PARTICLE_MOTION * f * n
     assert b["f64_ops"] == 0
     assert b["bound_by"] == "bytes"
+
+
+@pytest.mark.parametrize("f, n", [(1, 4000), (64, 4000), (1, 1_000_000), (1, 1)])
+def test_normalize_pose_bound_counts_each_byte_once_and_the_operations(f, n):
+    """Log weights and particles read once, the shifted weights written
+    once, the log quality and the pose once a row; the kernel's float32
+    and float64 operations an element."""
+    b = chip_smoke.normalize_pose_bound(f, n)
+    assert b["bytes"] == 20 * f * n + 16 * f
+    assert b["f32_ops"] == chip_smoke.OPS_PER_ELEMENT_NORMALIZE_F32 * f * n
+    assert b["f64_ops"] == chip_smoke.OPS_PER_ELEMENT_NORMALIZE_F64 * f * n
+    assert b["bound_by"] == "bytes"
+
+
+@pytest.mark.parametrize("launches, plain, ok", [(500, 0, True), (499, 0, False),
+                                                 (500, 1, False)])
+def test_normalize_launches_gate_one_kernel_launch_a_correction(launches, plain, ok):
+    from monte_carlo_localization_tpu_torch.ops.normalize_pose import NORMALIZE_POSE_KERNEL
+
+    chip_smoke.zero_motion()
+    NORMALIZE_POSE_KERNEL.launch_count, NORMALIZE_POSE_KERNEL.plain_launch_count = launches, plain
+    try:
+        if ok:
+            assert chip_smoke.normalize_launches(500, "config #1") == 500
+        else:
+            with pytest.raises(RuntimeError, match="normalize_pose launches"):
+                chip_smoke.normalize_launches(500, "config #1")
+    finally:
+        chip_smoke.zero_motion()
